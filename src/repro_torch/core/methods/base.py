@@ -1,0 +1,84 @@
+"""Iteration-scheme abstraction for the ECG engine.
+
+One ECG configuration = one :class:`MethodSpec` (the *scheme*: which
+reductions fire per iteration and what the loop carry holds) bound to one
+:class:`MethodContext` (the *plumbing*: the SpMBV operator, the reduction
+closures, the splitting).  ``repro_torch.core.ecg.make_ecg_runner`` builds
+the context once and delegates the ``init``/``step`` closures to the spec.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+
+def _chol_inv_apply(g: torch.Tensor, *mats: torch.Tensor):
+    """Given G = CᵀC, return [M C⁻¹ for M in mats] via triangular solves.
+
+    As the reference's ``jnp.linalg.cholesky``: G is symmetrised first, and a
+    G that is not positive definite yields NaNs (``cholesky_ex`` reports it
+    in ``info`` instead of raising), which the loop's breakdown guard turns
+    into ``breakdown=True``.
+    """
+    low, info = torch.linalg.cholesky_ex((g + g.mT) / 2)
+    c = torch.where(info == 0, low.mT, torch.full_like(low, float("nan")))  # G = CᵀC
+    # solve Y C = M for each M; on CUDA the solve returns a column-major
+    # result, and the kernels downstream read (n, t) row-major blocks
+    return [
+        torch.linalg.solve_triangular(c, m, upper=True, left=False).contiguous()
+        for m in mats
+    ]
+
+
+def _apply_vec(a_apply: Callable, v: torch.Tensor, t: int) -> torch.Tensor:
+    """Apply the SpMBV operator to a single vector as a width-1 block.
+
+    Used once, for the initial residual (Alg 3 line 1): a width-1 SpMV costs
+    t× fewer flops and bytes than embedding v in an (n, t) block.
+    """
+    del t  # kept in the signature for call-site clarity; width is always 1
+    return a_apply(v[:, None])[:, 0]
+
+
+@dataclasses.dataclass(frozen=True)
+class MethodContext:
+    """Everything a :class:`MethodSpec` needs to build its loop closures.
+
+    ``gram1``/``gram2``/``sqnorm`` are the reductions, ``tail`` the local
+    X/R/Z update, ``split_fn`` is T_{r,t}.
+    """
+
+    t: int
+    max_iters: int
+    a_apply: Callable
+    split_fn: Callable
+    gram1: Callable
+    gram2: Callable
+    sqnorm: Callable
+    tail: Callable
+
+
+class MethodSpec:
+    """One iteration scheme: loop closures + collective accounting."""
+
+    name: str = "?"
+
+    def build(self, ctx: MethodContext):
+        """Return ``(init, step)``: ``init(b, x0) -> carry`` and one raw,
+        unguarded ``step(carry) -> carry`` of this scheme."""
+        raise NotImplementedError
+
+    def iters_per_block(self, s: int = 1) -> int:
+        """SpMBV sweeps amortized by one ``step`` call."""
+        return 1
+
+    def psums_per_block(self, s: int = 1, reorth: bool = False) -> int:
+        """Allreduce-shaped reductions one ``step`` call issues (the
+        convergence-norm reduction is excluded)."""
+        return 2
+
+    def collectives_per_iteration(self, s: int = 1, reorth: bool = False) -> float:
+        return self.psums_per_block(s, reorth) / self.iters_per_block(s)

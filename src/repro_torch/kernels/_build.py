@@ -1,0 +1,122 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` process (all started
+together) into ``build/repro_torch_kernels/<hash>/lib<name>.so`` at the root
+of the checkout, and loaded with :mod:`ctypes`.  The hash covers the
+sources, the headers and the compiler flags, so an edited source builds
+anew and an unchanged one is reused.  The build happens at first use, never
+at import: the CPU tests import every module without ``nvcc``.
+
+Each library exports ``<name>_f32`` and ``<name>_f64`` (plain C functions
+that take device pointers and the stream as ``void*``, launch, and return
+``cudaGetLastError()``) and ``<name>_error_string``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: argument types of ``<name>_f32`` / ``<name>_f64``: pointers and the stream
+#: as c_void_p, so ctypes never cuts a 64-bit address to an int
+SIGNATURES = {
+    "bsr_spmbv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P],
+    "fused_gram": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _P],
+    "ecg_tail": [_P] * 11 + [_L, _I, _P],
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and under $CUDA_HOME/bin); the CUDA "
+        "kernels are built from source at first use"
+    )
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every kernel library that is not built yet, one ``nvcc`` per
+    source, all at once.  Returns {name: path of the shared library}."""
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    libs = {name: out / f"lib{name}.so" for name in SIGNATURES}
+    todo = {name: path for name, path in libs.items() if not path.exists()}
+    if todo:
+        nvcc = _nvcc()
+        procs = {}
+        for name, path in todo.items():
+            tmp = path.with_suffix(f".so.tmp{os.getpid()}")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"--- {name}.cu (exit {proc.returncode})\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, libs[name])
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return libs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built at first use)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all()[name]))
+            for suffix in ("f32", "f64"):
+                fn = getattr(lib, f"{name}_{suffix}")
+                fn.argtypes = SIGNATURES[name]
+                fn.restype = ctypes.c_int
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return lib
+
+
+def launch(name: str, dtype, *args) -> None:
+    """Call ``<name>_<f32|f64>`` and raise if the launch was refused."""
+    suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    lib = load(name)
+    code = getattr(lib, f"{name}_{suffix}")(*args)
+    if code != 0:
+        msg = getattr(lib, f"{name}_error_string")(code).decode()
+        raise RuntimeError(f"{name}_{suffix}: CUDA error {code}: {msg}")

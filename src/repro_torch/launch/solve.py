@@ -1,0 +1,129 @@
+"""ECG solve command line on the port's ECGSolver handle (sequential path).
+
+    PYTHONPATH=src python -m repro_torch.launch.solve --matrix dg \
+        --backend pallas --strategy sequential [--device cpu]
+
+The flags and the summary lines are the reference CLI's
+(``python -m repro.launch.solve``).  ``--backend pallas`` runs the Block-ELL
+SpMBV, fused Gram and fused tail CUDA kernels; ``--backend jnp`` plain torch
+ops.  ``--device`` (default ``cuda``) selects the card, or ``cpu`` for the
+kernels' plain versions.  Options whose machinery is not ported yet
+(``--devices``, ``--t auto``, tuning, ``--adaptive``, other methods,
+``--precondition``) stop with the ROADMAP.md item that brings them; note
+that ``--strategy tuned`` (the default) implies ``--tune model``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def _parse_t(value: str) -> int | str:
+    if value == "auto":
+        return "auto"
+    try:
+        t = int(value)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"--t must be a positive int or 'auto', got {value!r}")
+    if t < 1:
+        raise argparse.ArgumentTypeError(f"--t must be >= 1, got {t}")
+    return t
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--matrix", default="dg", choices=["dg", "fd", "random"])
+    ap.add_argument("--elements", type=int, default=16)
+    ap.add_argument("--block", type=int, default=16)
+    ap.add_argument("--t", type=_parse_t, default=8,
+                    help="enlarging factor ('auto' is not ported yet)")
+    ap.add_argument("--tol", type=float, default=1e-8)
+    ap.add_argument("--strategy", default="tuned",
+                    choices=["sequential", "standard", "2step", "3step", "optimal", "tuned"])
+    ap.add_argument("--devices", type=int, default=0,
+                    help="distributed run (not ported yet)")
+    ap.add_argument("--ppn", type=int, default=4)
+    ap.add_argument("--backend", default="jnp", choices=["jnp", "pallas"])
+    ap.add_argument("--overlap", action="store_true")
+    ap.add_argument("--ell-block", type=int, default=8, help="Block-ELL tile size")
+    ap.add_argument("--tune", default=None,
+                    choices=["model", "model:structural", "measure", "off"],
+                    help="autotuning (default: model when --strategy tuned or "
+                         "--t auto, else off; not ported yet)")
+    ap.add_argument("--adaptive", default=None,
+                    choices=["off", "rankrev", "reduce", "reduce+restart"])
+    ap.add_argument("--method", default="classic",
+                    choices=["classic", "pipelined", "sstep"])
+    ap.add_argument("--s", type=int, default=1)
+    ap.add_argument("--reorth", action="store_true")
+    ap.add_argument("--precondition", default="none",
+                    choices=["none", "block_jacobi", "chebyshev", "inexact"])
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.method != "sstep":
+        if args.s != 1:
+            ap.error(f"--s {args.s} only applies to --method sstep")
+        if args.reorth:
+            ap.error("--reorth only applies to --method sstep")
+    if args.devices:
+        ap.error("--devices: the distributed solver is not ported yet "
+                 "(ROADMAP.md queue 1 item 5)")
+    if args.tune is None:
+        args.tune = "model" if (args.strategy == "tuned" or args.t == "auto") else "off"
+
+    import numpy as np
+
+    from repro_torch.core.cg import _cg_solve
+    from repro_torch.core.methods import get_method
+    from repro_torch.kernels.dispatch import resolve_device
+    from repro_torch.solver import (
+        AdaptiveConfig, CommConfig, ECGSolver, KernelConfig, MethodConfig,
+        SolverConfig, TuneConfig,
+    )
+    from repro_torch.sparse import csr_spmv, dg_laplace_2d, fd_laplace_2d, random_spd
+
+    device = resolve_device(args.device)
+    a = {
+        "dg": lambda: dg_laplace_2d((args.elements, args.elements), block=args.block,
+                                    device=device),
+        "fd": lambda: fd_laplace_2d(args.elements * 4, device=device),
+        "random": lambda: random_spd(1024, density=0.02, device=device),
+    }[args.matrix]()
+    rng = np.random.default_rng(0)
+    b = rng.standard_normal(a.shape[0])
+    print(f"matrix: {a.shape[0]} rows, {a.nnz} nnz; t={args.t}")
+
+    strategy = args.strategy if args.strategy not in ("sequential", "tuned") else "standard"
+    config = SolverConfig(
+        t=args.t,
+        tol=args.tol,
+        max_iters=5000,
+        comm=CommConfig(strategy=strategy, overlap=args.overlap),
+        kernel=KernelConfig(backend=args.backend, ell_block=args.ell_block),
+        adaptive=AdaptiveConfig(policy=args.adaptive),
+        tune=TuneConfig(mode=args.tune),
+        method=MethodConfig(name=args.method, s=args.s, reorth=args.reorth),
+        precondition=args.precondition,
+    )
+    if config.precondition.active:
+        print(f"preconditioner: {config.precondition.kind}")
+    coll = get_method(args.method).collectives_per_iteration(args.s, args.reorth)
+    mtag = args.method
+    print(f"method: {mtag} ({coll:g} psums/iter)")
+
+    solver = ECGSolver.build(a, config=config, device=device)
+    t0 = time.time()
+    res = solver.solve(b)
+    print(f"sequential ECG[{mtag}/{args.backend}] t={res.t}: iters={res.n_iters} "
+          f"converged={res.converged} {time.time()-t0:.1f}s")
+    if res.breakdown:
+        print("  BREAKDOWN: solver stopped at the last finite iterate")
+    b_dev = solver.a.data.new_tensor(b)
+    res_cg = _cg_solve(lambda v: csr_spmv(solver.a, v), b_dev, tol=args.tol, max_iters=20000)
+    print(f"reference CG:  iters={res_cg.n_iters}")
+
+
+if __name__ == "__main__":
+    main()
