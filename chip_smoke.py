@@ -22,12 +22,35 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    n_iters times; the true residual ‖b − A·x‖ (plain CSR SpMV on the card)
    must be ≤ 10·tol.
 5. cross-check — a (64, 64)-element solve with ``backend="pallas"`` and
-   ``backend="jnp"``: same iteration count, x equal to 1e-8 (relative to
-   max|x|).
+   ``backend="jnp"``: iteration counts within one (the jnp product's
+   atomics change its rounding from run to run), x equal to 1e-8
+   (relative to max|x|).
+6. distributed build — the same operator on a ``VirtualMesh(2, 4)`` (all 8
+   ranks on the card), ``strategy="optimal"``, t = 8, ``backend="pallas"``:
+   partition, plan and Block-ELL conversion seconds.
+7. distributed kernel checks — ``halo_pack`` and ``halo_unpack`` on the
+   plan's widest phase (p = 8 ranks) at w = 8 and w = 1 in float64 and at
+   w = 8 in float32, which must equal their plain versions exactly (the
+   unpack's dump slot aside), and the batched ``fused_gram`` at
+   (8, rmax, 8); times as in phase 3, the library calls being advanced
+   indexing ``src[rank_ids, idx]`` and ``index_put_``; ``kernel_graph_ms``
+   is the kernel's time from a CUDA-graph replay, without the host's
+   launch overhead, which dominates at these shapes.
+8. distributed main path — the solve on the mesh, with the launch counts
+   and the mesh counters set to 0 just before it: ``halo_pack`` and
+   ``halo_unpack`` must launch len(plan.phases)·(n_iters + 1) times,
+   ``bsr_spmbv`` n_iters + 1, ``fused_gram`` and ``ecg_tail`` n_iters;
+   ``mesh.psum`` must run 3·n_iters + 1 times; the true residual of the
+   unsharded x must be ≤ 10·tol and n_iters within 1% of phase 4's.
+9. strategies — one distributed SpMBV for ``standard``, ``2step``,
+   ``3step`` and ``optimal`` with ``col_split=2``, each a ``with_config``
+   sibling on the same partition, against the sequential Block-ELL apply
+   (1e-12 relative).
+10. distributed cross-check — the (64, 64)-element problem on the (2, 4)
+    mesh with all four strategies: the four solves bit-identical; against
+    the sequential pallas solve, iteration counts within one and x equal to
+    1e-8 (relative to max|x|).
 
-The line before the last is ``{"kernels": [...]}`` (per kernel: route,
-source, the Pallas kernel it replaces, main-path launches, error and
-times); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -71,6 +94,31 @@ def time_ms(torch, fn) -> float:
     return statistics.median(per_call)
 
 
+def time_graph_ms(torch, fn) -> float:
+    """Device time per call: REPS calls captured in one CUDA graph, replayed
+    (median over BATCHES), so the host's launch overhead drops out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(REPS):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(BATCHES):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / REPS)
+    return statistics.median(per_call)
+
+
 def main() -> int:
     import torch
 
@@ -85,9 +133,12 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.block_update.ref import ecg_tail_ref
     from repro_torch.kernels.bsr_spmbv.ref import bsr_spmbv_ref
+    from repro_torch.core.node_aware import build_exchange_plan
     from repro_torch.kernels.fused_gram.ref import fused_gram_ref
-    from repro_torch.solver import ECGSolver, KernelConfig, SolverConfig
-    from repro_torch.sparse import csr_spmv, dg_laplace_2d
+    from repro_torch.kernels.halo_pack.ref import halo_pack_ref, halo_unpack_ref
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.solver import CommConfig, ECGSolver, KernelConfig, SolverConfig
+    from repro_torch.sparse import csr_spmv, dg_laplace_2d, partition_csr
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 yardsticks in full f32
@@ -243,14 +294,21 @@ def main() -> int:
          "ms_per_iter": solve_s * 1e3 / max(res.n_iters, 1), "launches": launches})
     if not res.converged:
         raise AssertionError(f"main path did not converge in {res.n_iters} iterations")
-    want = {"bsr_spmbv": res.n_iters + 1, "fused_gram": res.n_iters, "ecg_tail": res.n_iters}
+    want = {"bsr_spmbv": res.n_iters + 1, "fused_gram": res.n_iters, "ecg_tail": res.n_iters,
+            "halo_pack": 0, "halo_unpack": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if not true_res <= 10 * tol:
         raise AssertionError(f"true residual {true_res} > 10·tol {10 * tol}")
     if not torch.isfinite(res.x).all():
         raise AssertionError("non-finite solution")
-    del solver, blocks, indices, a, res
+    seq = {"n_iters": res.n_iters, "ms_per_iter": solve_s * 1e3 / max(res.n_iters, 1),
+           "solve_s": solve_s, "build_s": build_s}
+    seq_launches = launches
+    # the sequential Block-ELL apply of one random block, for phase 9
+    v_apply = np.random.default_rng(1).standard_normal((n, T))
+    w_seq = kernels.bsr_spmbv(blocks, indices, torch.as_tensor(v_apply, device=dev), n_rows=n).cpu().numpy()
+    del solver, blocks, indices, res
     torch.cuda.empty_cache()
 
     # -------------------------------------------------------- 5. cross-check
@@ -267,17 +325,193 @@ def main() -> int:
          "iters_jnp": out["jnp"].n_iters, "x_max_rel_diff": x_rel})
     if not (out["pallas"].converged and out["jnp"].converged):
         raise AssertionError("cross-check solves did not converge")
-    if out["pallas"].n_iters != out["jnp"].n_iters:
-        raise AssertionError("pallas and jnp backends took different iteration counts")
+    # The jnp backend's CSR product sums with atomics (index_add_) on the
+    # card, so its rounding changes from run to run; on this DG operator at
+    # 1e-8·‖b‖ that can move the last threshold crossing by one iteration
+    # (468 against 467 in one run; PERF.md §6).  x is held to 1e-8 below.
+    if abs(out["pallas"].n_iters - out["jnp"].n_iters) > 1:
+        raise AssertionError("pallas and jnp backends differ by more than one iteration")
     if not x_rel <= 1e-8:
         raise AssertionError(f"pallas and jnp solutions differ by {x_rel} (relative)")
+
+    # ------------------------------------------------- 6. distributed build
+    mesh = VirtualMesh(2, 4, device=dev)
+    t0 = time.perf_counter()
+    pm = partition_csr(a, mesh.p)
+    partition_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan_only = build_exchange_plan(pm, 2, 4, "optimal", t=T)
+    plan_s = time.perf_counter() - t0
+    dcfg = config.replace(strategy="optimal")
+    t0 = time.perf_counter()
+    dsolver = ECGSolver.build(a, mesh, dcfg, pm=pm)
+    torch.cuda.synchronize()
+    operator_s = time.perf_counter() - t0
+    op = dsolver.op
+    plan = op.plan
+    log({"phase": "build_distributed", "mesh": list(mesh.shape), "strategy": "optimal",
+         "partition_s": partition_s, "plan_s": plan_s,
+         "operator_s": operator_s, "rmax": op.rmax, "halo_size": plan.halo_size,
+         "stage_size": plan.stage_size, "col_split": plan.col_split,
+         "phase_widths": [ph.width for ph in plan.phases],
+         "rotations": sum(1 for st in plan.steps if st.offset),
+         "wire_bytes": plan.wire_bytes(8), "blocks": list(op.ell["blocks"].shape)})
+    if plan_only.col_split != plan.col_split or len(plan_only.steps) != len(plan.steps):
+        raise AssertionError("the handle's plan differs from build_exchange_plan's")
+
+    # ------------------------------------------ 7. distributed kernel checks
+    widest = max(range(len(plan.phases)), key=lambda i: plan.phases[i].width)
+    ph = plan.phases[widest]
+    g_idx, s_pos = op.gathers[widest], op.scatters[widest]
+    p_ranks, c = g_idx.shape
+    src_rows = op.rmax * plan.col_split if ph.src == "x" else plan.stage_size + 1
+    dst_rows = plan.halo_size + 1 if ph.dst == "halo" else plan.stage_size + 1
+    rank_ids = torch.arange(p_ranks, device=dev)[:, None].expand(p_ranks, c)
+    g_long, s_long = g_idx.long(), s_pos.long()
+
+    def run_halo_check(name, w, dtype):
+        es = torch.finfo(dtype).bits // 8
+        if name == "halo_pack":
+            src = randn(p_ranks, src_rows, w, dtype=dtype)
+            kernel = lambda: kernels.halo_pack(src, g_idx)
+            plain = lambda: halo_pack_ref(src, g_idx)
+            library = lambda: src[rank_ids, g_long]
+            got, want, keep = kernel(), plain(), slice(None)
+        else:
+            buf = randn(p_ranks, c, w, dtype=dtype)
+            dst = randn(p_ranks, dst_rows, w, dtype=dtype)
+            d_k, d_p, d_l = dst.clone(), dst.clone(), dst.clone()
+            kernel = lambda: kernels.halo_unpack(d_k, buf, s_pos)
+            plain = lambda: halo_unpack_ref(d_p, buf, s_pos)
+            library = lambda: d_l.index_put_((rank_ids, s_long), buf)
+            got, want = kernel(), plain()
+            keep = slice(0, dst_rows - 1)  # the dump slot takes any padding row
+            untouched = torch.ones(p_ranks, dst_rows, dtype=torch.bool, device=dev)
+            untouched.scatter_(1, s_long, False)
+            if not torch.equal(got[untouched], dst[untouched]):
+                raise AssertionError(f"{name} w={w}: a slot no position names was written")
+        torch.cuda.synchronize()
+        err = float((got[:, keep].double() - want[:, keep].double()).abs().max())
+        if err != 0.0:
+            raise AssertionError(f"{name} w={w} {dtype}: max_abs_err {err} != 0")
+        bytes_ = 2 * p_ranks * c * w * es + p_ranks * c * 4
+        row = {"name": name, "shape": [p_ranks, c, w], "rows": src_rows if name == "halo_pack" else dst_rows,
+               "dtype": str(dtype).removeprefix("torch."), "phase": f"{ph.axis}:{ph.src}->{ph.dst}",
+               "max_abs_err": err, "tol": 0.0, "kernel_ms": time_ms(torch, kernel),
+               # the kernel alone, without the host's launch overhead
+               "kernel_graph_ms": time_graph_ms(torch, kernel),
+               "plain_ms": time_ms(torch, plain), "library_ms": time_ms(torch, library),
+               "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        log(row)
+        return row
+
+    for name in ("halo_pack", "halo_unpack"):
+        checks[name] = run_halo_check(name, T // plan.col_split, torch.float64)  # the main path's
+        run_halo_check(name, 1, torch.float64)
+        run_halo_check(name, T // plan.col_split, torch.float32)
+
+    def check_gram_batched(t, dtype):
+        ops = tuple(randn(p_ranks, op.rmax, t, dtype=dtype) for _ in range(4))
+        pp, r, ap, apo = ops
+        kernel = lambda: kernels.fused_gram(*ops)
+        library = lambda: torch.cat([pp.mT @ r, ap.mT @ ap, apo.mT @ ap], dim=-1)
+        return (fused_gram_ref, ops, kernel, library,
+                fused_gram_ref(*(o.abs() for o in ops)), op.rmax,
+                (4 * p_ranks * op.rmax * t + 3 * p_ranks * t * t) * pp.element_size(),
+                6 * p_ranks * op.rmax * t * t, [p_ranks, op.rmax, t])
+
+    checks["fused_gram_batched"] = run_check("fused_gram_batched", check_gram_batched, T, torch.float64)
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------- 8. distributed main path
+    kernels.reset_launch_counts()
+    mesh.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dres = dsolver.solve(b)
+    torch.cuda.synchronize()
+    dsolve_s = time.perf_counter() - t0
+    dlaunches = kernels.launch_counts()
+    dcounters = {"psum": mesh.psum_calls, "ppermute": mesh.ppermute_calls,
+                 "ppermute_elements": mesh.ppermute_elements}
+    x_glob = torch.as_tensor(dsolver.unshard(dres.x), device=dev)
+    dtrue_res = float(torch.linalg.norm(b_dev - csr_spmv(a, x_glob)))
+    k = dres.n_iters
+    log({"phase": "distributed_main_path", "mesh": list(mesh.shape), "strategy": "optimal",
+         "n": n, "t": T, "dtype": "float64", "tol": tol, "converged": dres.converged,
+         "breakdown": dres.breakdown, "n_iters": k, "final_rn": float(dres.res_hist[k]),
+         "true_residual": dtrue_res, "solve_s": dsolve_s, "ms_per_iter": dsolve_s * 1e3 / max(k, 1),
+         "build_s": partition_s + operator_s, "sequential": seq, "launches": dlaunches,
+         "mesh_counters": dcounters})
+    if not dres.converged:
+        raise AssertionError(f"distributed main path did not converge in {k} iterations")
+    n_phases = len(plan.phases)
+    want = {"bsr_spmbv": k + 1, "fused_gram": k, "ecg_tail": k,
+            "halo_pack": n_phases * (k + 1), "halo_unpack": n_phases * (k + 1)}
+    if dlaunches != want:
+        raise AssertionError(f"distributed launch counts {dlaunches} != {want}")
+    if dcounters["psum"] != 3 * k + 1:
+        raise AssertionError(f"psum ran {dcounters['psum']} times, want 3·{k} + 1")
+    n_rot = sum(1 for st in plan.steps if st.offset)
+    if dcounters["ppermute"] != n_rot * (k + 1):
+        raise AssertionError(f"ppermute ran {dcounters['ppermute']} times, want {n_rot}·({k} + 1)")
+    if not dtrue_res <= 10 * tol:
+        raise AssertionError(f"distributed true residual {dtrue_res} > 10·tol {10 * tol}")
+    # equal in every run so far (2007 both); DG rounding may move it a little
+    if not abs(k - seq["n_iters"]) <= max(1, 0.01 * seq["n_iters"]):
+        raise AssertionError(f"distributed iterations {k} not within 1% of sequential {seq['n_iters']}")
+    del dres, x_glob
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------ 9. strategies
+    scale = float(np.abs(w_seq).max())
+    for strategy, cs in (("standard", None), ("2step", None), ("3step", None), ("optimal", 2)):
+        sib = dsolver.with_config(strategy=strategy, col_split=cs)
+        w = sib.unshard(sib.op.matvec_fn()(sib.op.shard_vector(v_apply)))
+        rel = float(np.abs(w - w_seq).max()) / scale
+        log({"phase": "strategy_apply", "strategy": strategy, "col_split": sib.op.plan.col_split,
+             "phases": len(sib.op.plan.phases), "rotations": sum(1 for st in sib.op.plan.steps if st.offset),
+             "wire_bytes": sib.op.plan.wire_bytes(8), "conv_reused": sib.stats.conv_reused,
+             "max_rel_diff": rel})
+        if not rel <= 1e-12:
+            raise AssertionError(f"{strategy} apply differs from the sequential one by {rel}")
+    del dsolver, sib, op, a
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------ 10. distributed cross-check
+    # The exchange moves data exactly and the per-rank products do not
+    # depend on the strategy, so the four strategies must agree bit for bit.
+    # Against the sequential solve the reductions sum in another order, and
+    # on this DG operator at 1e-8·‖b‖ that may move the last threshold
+    # crossing by one iteration (ROADMAP.md queue 3; PERF.md §6).
+    seq2 = ECGSolver.build(a2, config=cfg2.replace(backend="pallas"), device=dev).solve(b2)
+    x_seq = seq2.x.cpu().numpy()
+    first = None
+    for strategy in ("standard", "2step", "3step", "optimal"):
+        s2 = ECGSolver.build(a2, VirtualMesh(2, 4, device=dev), cfg2.replace(backend="pallas", strategy=strategy))
+        r2 = s2.solve(b2)
+        rel = float(np.abs(s2.unshard(r2.x) - x_seq).max() / np.abs(x_seq).max())
+        log({"phase": "distributed_cross_check", "strategy": strategy, "n": a2.shape[0],
+             "iters": r2.n_iters, "iters_sequential": seq2.n_iters, "x_max_rel_diff": rel})
+        first = first or r2
+        if not (r2.converged and r2.n_iters == first.n_iters and torch.equal(r2.x, first.x)):
+            raise AssertionError(f"{strategy}: differs from the standard exchange's solve")
+        if not abs(r2.n_iters - seq2.n_iters) <= 1:
+            raise AssertionError(f"{strategy}: {r2.n_iters} iterations against {seq2.n_iters} sequential")
+        if not rel <= 1e-8:
+            raise AssertionError(f"{strategy}: x differs from the sequential solve by {rel}")
 
     # ------------------------------------------------------------------ result
     sources = {
         "bsr_spmbv": ("src/repro_torch/kernels/csrc/bsr_spmbv.cu", "src/repro/kernels/bsr_spmbv/kernel.py:43"),
         "fused_gram": ("src/repro_torch/kernels/csrc/fused_gram.cu", "src/repro/kernels/fused_gram/kernel.py:43"),
         "ecg_tail": ("src/repro_torch/kernels/csrc/ecg_tail.cu", "src/repro/kernels/block_update/kernel.py:68"),
+        "halo_pack": ("src/repro_torch/kernels/csrc/halo_pack.cu", "src/repro/kernels/halo_pack/kernel.py:40"),
+        "halo_unpack": ("src/repro_torch/kernels/csrc/halo_pack.cu", "src/repro/kernels/halo_pack/kernel.py:63"),
     }
+    # launches: the sequential main path's (phase 4) for the kernels it runs,
+    # the distributed main path's (phase 8) for the halo kernels
+    launches = {**seq_launches, "halo_pack": dlaunches["halo_pack"], "halo_unpack": dlaunches["halo_unpack"]}
     log({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": checks[name]["max_abs_err"],

@@ -15,7 +15,9 @@ Communication-efficient Grigori–Tissot form, per iteration:
 Backend switch: ``backend="jnp"`` runs the Gram products and the tail as
 plain torch ops; ``backend="pallas"`` routes them through the hand-written
 CUDA kernels ``fused_gram`` and ``ecg_tail`` (their plain versions on CPU
-tensors).  The SpMBV is owned by the caller via ``a_apply``.  Every solve is
+tensors).  The SpMBV is owned by the caller via ``a_apply``, and the
+distributed handle hands in its own reductions through the hooks of
+:func:`make_ecg_runner`.  Every solve is
 breakdown-guarded: a non-finite iterate freezes the state at the last
 finite iteration and sets ``SolveResult.breakdown``.
 """
@@ -67,6 +69,12 @@ def make_ecg_runner(
     *,
     tol: float = 1e-8,
     max_iters: int = 1000,
+    allreduce: Callable[[torch.Tensor], torch.Tensor] = lambda x: x,
+    split: Callable[[torch.Tensor, int], torch.Tensor] | None = None,
+    gram1: Callable | None = None,
+    gram2: Callable | None = None,
+    sqnorm: Callable | None = None,
+    tail: Callable | None = None,
     backend: str = "jnp",
     method: str = "classic",
 ) -> ECGRunner:
@@ -74,18 +82,31 @@ def make_ecg_runner(
 
     ``a_apply`` maps (n, t) block vectors to (n, t) block vectors; the Gram
     products and the tail follow ``backend`` (see the module docstring).
-    The reference's hooks for distributed reductions and a custom splitting
-    come with the distributed slice (ROADMAP.md queue 1 item 5).
+    The hooks are the reference's: ``allreduce`` wraps the default
+    reductions (identity sequentially); ``gram1(z, az)``,
+    ``gram2(p, r, ap, ap_old)`` and ``sqnorm(v)`` replace them outright
+    (the distributed handle passes per-rank products followed by one
+    ``mesh.psum`` each); ``tail`` replaces the X/R/Z update; ``split(r, t)``
+    replaces T_{r,t} (default: :func:`split_residual`).
     """
     if backend not in ("jnp", "pallas"):
         raise ValueError(f"unknown backend {backend!r}")
     spec = get_method(method)
+    if gram1 is None:
+        gram1 = lambda z, az: allreduce(z.T @ az)
+    if gram2 is None:
+        if backend == "pallas":
+            gram2 = lambda p, r, ap, apo: allreduce(fused_gram(p, r, ap, apo))
+        else:
+            gram2 = lambda p, r, ap, apo: allreduce(_plain_gram2(p, r, ap, apo))
+    if sqnorm is None:
+        sqnorm = lambda v: allreduce(torch.dot(v, v))
+    if tail is None:
+        tail = ecg_tail if backend == "pallas" else _plain_tail
+    split_fn = split if split is not None else split_residual
     ctx = MethodContext(
-        t=t, max_iters=max_iters, a_apply=a_apply, split_fn=split_residual,
-        gram1=lambda z, az: z.T @ az,
-        gram2=fused_gram if backend == "pallas" else _plain_gram2,
-        sqnorm=lambda v: torch.dot(v, v),
-        tail=ecg_tail if backend == "pallas" else _plain_tail,
+        t=t, max_iters=max_iters, a_apply=a_apply, split_fn=split_fn,
+        gram1=gram1, gram2=gram2, sqnorm=sqnorm, tail=tail,
     )
     init, iterate = spec.build(ctx)
 

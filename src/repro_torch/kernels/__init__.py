@@ -16,9 +16,10 @@ from repro_torch.kernels.bsr_spmbv.ops import (
     make_block_ell_apply_from_arrays,
 )
 from repro_torch.kernels.fused_gram.ops import fused_gram
+from repro_torch.kernels.halo_pack.ops import halo_pack, halo_unpack
 
 #: the kernel ops, each with its ``launches`` counter
-KERNEL_OPS = (bsr_spmbv, fused_gram, ecg_tail)
+KERNEL_OPS = (bsr_spmbv, fused_gram, ecg_tail, halo_pack, halo_unpack)
 
 
 def launch_counts() -> dict[str, int]:
@@ -40,6 +41,8 @@ __all__ = [
     "csr_arrays_to_block_ell",
     "ecg_tail",
     "fused_gram",
+    "halo_pack",
+    "halo_unpack",
     "launch_counts",
     "make_block_ell_apply_from_arrays",
     "reset_launch_counts",

@@ -7,9 +7,11 @@ sources, the headers and the compiler flags, so an edited source builds
 anew and an unchanged one is reused.  The build happens at first use, never
 at import: the CPU tests import every module without ``nvcc``.
 
-Each library exports ``<name>_f32`` and ``<name>_f64`` (plain C functions
-that take device pointers and the stream as ``void*``, launch, and return
-``cudaGetLastError()``) and ``<name>_error_string``.
+Each kernel function ``<name>`` is exported as ``<name>_f32`` and
+``<name>_f64`` (plain C functions that take device pointers and the stream
+as ``void*``, launch, and return ``cudaGetLastError()``) by the library of
+its source, ``SOURCES[name]``, which also exports
+``<source>_error_string``.
 """
 
 from __future__ import annotations
@@ -36,12 +38,17 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: as c_void_p, so ctypes never cuts a 64-bit address to an int
 SIGNATURES = {
     "bsr_spmbv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P],
-    "fused_gram": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _P],
+    "fused_gram": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
     "ecg_tail": [_P] * 11 + [_L, _I, _P],
+    "halo_pack": [_P, _P, _P, _I, _L, _I, _I, _P],
+    "halo_unpack": [_P, _P, _P, _I, _L, _I, _I, _P],
 }
+#: the source, ``csrc/<source>.cu``, that exports each kernel function
+SOURCES = {name: name for name in SIGNATURES} | {"halo_unpack": "halo_pack"}
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[str, ctypes.CDLL] = {}  # by source
+_fns: dict[tuple[str, str], object] = {}  # (name, "f32" | "f64") -> C function
 
 
 def _nvcc() -> str:
@@ -68,10 +75,10 @@ def build_dir() -> Path:
 
 def build_all() -> dict[str, Path]:
     """Compile every kernel library that is not built yet, one ``nvcc`` per
-    source, all at once.  Returns {name: path of the shared library}."""
+    source, all at once.  Returns {source: path of the shared library}."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
-    libs = {name: out / f"lib{name}.so" for name in SIGNATURES}
+    libs = {src: out / f"lib{src}.so" for src in sorted(set(SOURCES.values()))}
     todo = {name: path for name, path in libs.items() if not path.exists()}
     if todo:
         nvcc = _nvcc()
@@ -95,28 +102,33 @@ def build_all() -> dict[str, Path]:
     return libs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (built at first use)."""
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>.cu`` (built at first use)."""
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(source)
         if lib is None:
-            lib = ctypes.CDLL(str(build_all()[name]))
-            for suffix in ("f32", "f64"):
-                fn = getattr(lib, f"{name}_{suffix}")
-                fn.argtypes = SIGNATURES[name]
-                fn.restype = ctypes.c_int
-            err = getattr(lib, f"{name}_error_string")
+            lib = ctypes.CDLL(str(build_all()[source]))
+            err = getattr(lib, f"{source}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            _libs[name] = lib
+            _libs[source] = lib
         return lib
+
+
+def _function(name: str, suffix: str):
+    fn = _fns.get((name, suffix))
+    if fn is None:
+        fn = getattr(load(SOURCES[name]), f"{name}_{suffix}")
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        _fns[(name, suffix)] = fn
+    return fn
 
 
 def launch(name: str, dtype, *args) -> None:
     """Call ``<name>_<f32|f64>`` and raise if the launch was refused."""
     suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
-    lib = load(name)
-    code = getattr(lib, f"{name}_{suffix}")(*args)
+    code = _function(name, suffix)(*args)
     if code != 0:
-        msg = getattr(lib, f"{name}_error_string")(code).decode()
+        msg = getattr(load(SOURCES[name]), f"{SOURCES[name]}_error_string")(code).decode()
         raise RuntimeError(f"{name}_{suffix}: CUDA error {code}: {msg}")

@@ -1,16 +1,21 @@
-"""ECG solve command line on the port's ECGSolver handle (sequential path).
+"""ECG solve command line on the port's ECGSolver handle.
 
     PYTHONPATH=src python -m repro_torch.launch.solve --matrix dg \
         --backend pallas --strategy sequential [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.solve --matrix fd --elements 6 \
+        --t 4 --devices 8 --ppn 4 --strategy 3step --backend pallas [--device cpu]
 
 The flags and the summary lines are the reference CLI's
 (``python -m repro.launch.solve``).  ``--backend pallas`` runs the Block-ELL
 SpMBV, fused Gram and fused tail CUDA kernels; ``--backend jnp`` plain torch
 ops.  ``--device`` (default ``cuda``) selects the card, or ``cpu`` for the
-kernels' plain versions.  Options whose machinery is not ported yet
-(``--devices``, ``--t auto``, tuning, ``--adaptive``, other methods,
-``--precondition``) stop with the ROADMAP.md item that brings them; note
-that ``--strategy tuned`` (the default) implies ``--tune model``.
+kernels' plain versions.  ``--devices N --ppn K`` runs the distributed
+node-aware solver on a ``VirtualMesh(N // K, K)``: all N ranks on that one
+device (no re-exec, unlike the reference's forced host devices).  Options
+whose machinery is not ported yet (``--t auto``, tuning, ``--overlap``,
+``--adaptive``, other methods, ``--precondition``) stop with the ROADMAP.md
+item that brings them; note that ``--strategy tuned`` (the default) implies
+``--tune model``.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ def main(argv=None):
     ap.add_argument("--strategy", default="tuned",
                     choices=["sequential", "standard", "2step", "3step", "optimal", "tuned"])
     ap.add_argument("--devices", type=int, default=0,
-                    help="distributed run (not ported yet)")
+                    help="distributed run over this many ranks of a virtual mesh")
     ap.add_argument("--ppn", type=int, default=4)
     ap.add_argument("--backend", default="jnp", choices=["jnp", "pallas"])
     ap.add_argument("--overlap", action="store_true")
@@ -67,17 +72,25 @@ def main(argv=None):
             ap.error(f"--s {args.s} only applies to --method sstep")
         if args.reorth:
             ap.error("--reorth only applies to --method sstep")
-    if args.devices:
-        ap.error("--devices: the distributed solver is not ported yet "
-                 "(ROADMAP.md queue 1 item 5)")
+    if args.devices and args.devices % args.ppn:
+        ap.error(f"--devices {args.devices} is not a multiple of --ppn {args.ppn}")
+    if args.devices and args.strategy == "tuned":
+        ap.error("--strategy tuned: autotuning the exchange is not ported yet "
+                 "(ROADMAP.md queue 1 item 9); pick standard, 2step, 3step or optimal")
+    if args.overlap and args.devices and args.strategy != "sequential":
+        ap.error("--overlap: the interior/boundary schedule is not ported yet "
+                 "(ROADMAP.md queue 1 item 5a)")
     if args.tune is None:
         args.tune = "model" if (args.strategy == "tuned" or args.t == "auto") else "off"
 
     import numpy as np
+    import torch
 
     from repro_torch.core.cg import _cg_solve
+    from repro_torch.core.machines import TPU_V5E_POD
     from repro_torch.core.methods import get_method
     from repro_torch.kernels.dispatch import resolve_device
+    from repro_torch.launch.mesh import VirtualMesh
     from repro_torch.solver import (
         AdaptiveConfig, CommConfig, ECGSolver, KernelConfig, MethodConfig,
         SolverConfig, TuneConfig,
@@ -95,12 +108,18 @@ def main(argv=None):
     b = rng.standard_normal(a.shape[0])
     print(f"matrix: {a.shape[0]} rows, {a.nnz} nnz; t={args.t}")
 
+    sequential = args.strategy == "sequential" or not args.devices
     strategy = args.strategy if args.strategy not in ("sequential", "tuned") else "standard"
     config = SolverConfig(
         t=args.t,
         tol=args.tol,
         max_iters=5000,
-        comm=CommConfig(strategy=strategy, overlap=args.overlap),
+        comm=CommConfig(
+            strategy=strategy,
+            overlap=args.overlap,
+            # the reference CLI's model parameters, so the plans are equal
+            machine=None if sequential else TPU_V5E_POD.with_ppn(args.ppn),
+        ),
         kernel=KernelConfig(backend=args.backend, ell_block=args.ell_block),
         adaptive=AdaptiveConfig(policy=args.adaptive),
         tune=TuneConfig(mode=args.tune),
@@ -113,16 +132,33 @@ def main(argv=None):
     mtag = args.method
     print(f"method: {mtag} ({coll:g} psums/iter)")
 
-    solver = ECGSolver.build(a, config=config, device=device)
+    if sequential:
+        solver = ECGSolver.build(a, config=config, device=device)
+        t0 = time.time()
+        res = solver.solve(b)
+        print(f"sequential ECG[{mtag}/{args.backend}] t={res.t}: iters={res.n_iters} "
+              f"converged={res.converged} {time.time()-t0:.1f}s")
+        if res.breakdown:
+            print("  BREAKDOWN: solver stopped at the last finite iterate")
+        b_dev = solver.a.data.new_tensor(b)
+        res_cg = _cg_solve(lambda v: csr_spmv(solver.a, v), b_dev, tol=args.tol, max_iters=20000)
+        print(f"reference CG:  iters={res_cg.n_iters}")
+        return
+
+    mesh = VirtualMesh(args.devices // args.ppn, args.ppn, device=device)
     t0 = time.time()
+    solver = ECGSolver.build(a, mesh, config)
     res = solver.solve(b)
-    print(f"sequential ECG[{mtag}/{args.backend}] t={res.t}: iters={res.n_iters} "
-          f"converged={res.converged} {time.time()-t0:.1f}s")
+    x = solver.a.data.new_tensor(solver.unshard(res.x))
+    b_dev = solver.a.data.new_tensor(b)
+    relres = float(torch.linalg.norm(b_dev - csr_spmv(solver.a, x)) / torch.linalg.norm(b_dev))
+    print(
+        f"distributed ECG[{mtag}/{strategy}/{args.backend}] t={res.t} on {mesh.p} devices: "
+        f"iters={res.n_iters} converged={res.converged} relres={relres:.2e} "
+        f"{time.time()-t0:.1f}s"
+    )
     if res.breakdown:
         print("  BREAKDOWN: solver stopped at the last finite iterate")
-    b_dev = solver.a.data.new_tensor(b)
-    res_cg = _cg_solve(lambda v: csr_spmv(solver.a, v), b_dev, tol=args.tol, max_iters=20000)
-    print(f"reference CG:  iters={res_cg.n_iters}")
 
 
 if __name__ == "__main__":

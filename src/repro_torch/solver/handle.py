@@ -1,16 +1,24 @@
-"""The build-once / solve-many ECG solver handle (sequential path).
+"""The build-once / solve-many ECG solver handle.
 
-Port of ``repro/solver/handle.py`` for ``mesh=None``:
+Port of ``repro/solver/handle.py``, sequential and distributed:
 
     from repro_torch.solver import ECGSolver, SolverConfig, KernelConfig
+    from repro_torch.launch.mesh import VirtualMesh
 
     solver = ECGSolver.build(a, config=SolverConfig(
         t=8, tol=1e-8, kernel=KernelConfig(backend="pallas")), device="cuda")
     res = solver.solve(b)
     more = solver.solve_many(bs)
 
+    dist = ECGSolver.build(a, VirtualMesh(2, 4), SolverConfig(
+        t=8, comm=CommConfig(strategy="optimal"), kernel="pallas"))
+    x = dist.unshard(dist.solve(b).x)
+
 ``build`` moves the operator to ``device`` and, with ``backend="pallas"``,
-converts it to Block-ELL once.  The reference compiles its solve loop once
+converts it to Block-ELL once.  With a mesh it also partitions the rows,
+builds the node-aware exchange plan and the per-rank operator
+(:mod:`repro_torch.sparse.spmbv`), and the reductions: per-rank products,
+each followed by one ``mesh.psum``.  The reference compiles its solve loop once
 per width; PyTorch runs eagerly, so the handle instead caches one runner per
 width and ``stats.traces`` counts runner constructions (flat across repeated
 solves).  Options whose machinery is not ported yet raise
@@ -20,15 +28,20 @@ solves).  Options whose machinery is not ported yet raise
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.core.ecg import finalize_result, make_ecg_runner
+from repro_torch.kernels.block_update.ops import ecg_tail
 from repro_torch.kernels.bsr_spmbv.ops import block_ell_arrays, make_block_ell_apply_from_arrays
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.kernels.fused_gram.ops import fused_gram
 from repro_torch.solver.config import SolverConfig
 from repro_torch.sparse.csr import csr_spmbv
+from repro_torch.sparse.partition import partition_csr
+from repro_torch.sparse.spmbv import _make_distributed_spmbv
 
 
 def _not_ported(what: str, item: str):
@@ -61,6 +74,10 @@ class ECGSolver:
 
     t:       the enlarging factor.
     device:  the torch device every solve runs on.
+    mesh:    the :class:`~repro_torch.launch.mesh.VirtualMesh` (None for a
+             sequential handle).
+    op:      the :class:`~repro_torch.sparse.spmbv.DistributedSpMBV`
+             operator (None for a sequential handle).
     stats:   :class:`SolverStats`.
     """
 
@@ -75,39 +92,62 @@ class ECGSolver:
         mesh=None,
         config: SolverConfig | dict | None = None,
         *,
+        pm=None,
         conversion=None,
-        device="cuda",
+        device=None,
     ) -> "ECGSolver":
         """Build a solver handle for matrix ``a``.
 
         a:          :class:`~repro_torch.sparse.csr.CSRMatrix` (SPD); it is
                     moved to ``device`` if it lies elsewhere.
-        mesh:       must be None (the distributed solver is not ported yet).
+        mesh:       a :class:`~repro_torch.launch.mesh.VirtualMesh` for the
+                    distributed node-aware solver, or None for the
+                    sequential solver.
         config:     a :class:`SolverConfig` (or dict of its fields).
-        conversion: optional CSR→Block-ELL artifacts to reuse
-                    (``backend="pallas"`` only): a dict with ``"arrays"``
+        pm:         optional precomputed partition to reuse (distributed).
+        conversion: optional CSR→Block-ELL artifacts to reuse (sequential
+                    ``backend="pallas"`` only): a dict with ``"arrays"``
                     (a previous handle's ``conversion["arrays"]``, from this
                     package or the reference — numpy arrays are accepted;
                     skips the conversion) and/or ``"meta"`` (the tile
                     analysis from ``block_ell_meta``; skips the analysis).
                     Mismatched artifacts (tile, shape or dtype) are ignored.
-        device:     ``"cuda"`` (default; raises when CUDA is missing) or
-                    ``"cpu"`` (the kernels' plain torch versions).
+                    With a mesh: a handle's ``conversion`` built on the same
+                    partition (``pm=``), whose Block-ELL arrays are reused.
+        device:     ``"cuda"`` (the default without a mesh; raises when CUDA
+                    is missing) or ``"cpu"`` (the kernels' plain torch
+                    versions).  With a mesh it defaults to, and must equal,
+                    the mesh's device.
         """
-        if mesh is not None:
-            _not_ported("the distributed solver (mesh=)", "queue 1 item 5")
+        if mesh is not None and not all(
+            hasattr(mesh, m) for m in ("ppermute", "psum", "local_ranks", "shape", "device")
+        ):
+            _not_ported(
+                f"a mesh of type {type(mesh).__name__}: the distributed solver runs on a "
+                "repro_torch.launch.mesh.VirtualMesh; a process-group mesh",
+                "queue 1 item 5b",
+            )
         self = cls.__new__(cls)
-        self.device = resolve_device(device)
+        if mesh is not None:
+            self.device = mesh.device
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device!r} differs from the mesh's {mesh.device}")
+        else:
+            self.device = resolve_device("cuda" if device is None else device)
         self.a = a.to(self.device)
+        self.mesh = mesh
         self.config = SolverConfig.coerce(config)
         self.stats = SolverStats()
+        self.op = None
+        self._pm = pm
         self._runners: dict = {}
+        self._onehot_cache: dict = {}
         self._conversion_in = conversion
         self.conversion = None
-        self._build_sequential()
+        self._build()
         return self
 
-    def _build_sequential(self):
+    def _build(self):
         cfg = self.config
         if isinstance(cfg.t, str):
             _not_ported('t="auto"', "queue 1 item 6")
@@ -125,10 +165,91 @@ class ECGSolver:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.stats.builds += 1
         self.t = cfg.t
-        if cfg.kernel.backend == "pallas":
+        self._gram1 = self._gram2 = self._sqnorm = self._tail = self._split_fn = None
+        if self.mesh is not None:
+            self._build_distributed()
+        elif cfg.kernel.backend == "pallas":
             self._build_ell_apply(cfg.kernel.ell_block)
         else:
             self._apply = lambda V: csr_spmbv(self.a, V)
+
+    def _build_distributed(self):
+        cfg = self.config
+        if self._pm is None:
+            self._pm = partition_csr(self.a, self.mesh.p)
+        # a sibling from with_config that changed only the exchange reuses
+        # its parent's Block-ELL arrays: they depend on the partition alone
+        parent = self._conversion_in or {}
+        ell = None
+        if parent.get("ell_block") == cfg.kernel.ell_block and cfg.kernel.backend == "pallas":
+            ell = parent.get("ell")
+        self.op = _make_distributed_spmbv(
+            self.a, self.mesh, cfg.comm.strategy, t=self.t,
+            machine=cfg.comm.machine, pm=self._pm, backend=cfg.kernel.backend,
+            overlap=cfg.comm.overlap, ell_block=cfg.kernel.ell_block,
+            col_split=cfg.comm.col_split, ell=ell,
+        )
+        self.stats.conv_reused = ell is not None
+        if self.op.ell:
+            self.conversion = dict(ell=self.op.ell, ell_block=cfg.kernel.ell_block)
+        self._apply = self.op.matvec_fn()
+        self._build_reducers()
+
+    def _build_reducers(self):
+        """The §3.1 reductions on the mesh — each a per-rank product followed
+        by one ``mesh.psum`` — and the padded-layout T_{r,t} splitting."""
+        op, mesh = self.op, self.mesh
+        p, rmax = mesh.local_ranks, op.rmax
+
+        def ranked(m):  # (p·rmax, t) padded layout -> (p, rmax, t) view
+            return m.reshape(p, rmax, -1)
+
+        # gram1 is a plain product, left to XLA by the reference: batched.
+        # A (p, t, rmax)·(p, rmax, t) batch gets one cuBLAS CTA per rank
+        # (1.19 ms at Example 2.1's full scale on the H100, PERF.md), so each
+        # rank's rows are split into chunks, summed in a fixed order after
+        chunks = math.gcd(rmax, 64)
+
+        def gram1(z, az):
+            t_ = z.shape[-1]
+            zc, azc = (m.reshape(p * chunks, rmax // chunks, t_) for m in (z, az))
+            local = torch.bmm(zc.mT, azc).reshape(p, chunks, t_, t_).sum(dim=1)
+            return mesh.psum(local)
+
+        self._gram1 = gram1
+        if self.config.kernel.backend == "pallas":
+            # one fused_gram launch yields the p local (t, 3t) payloads
+            self._gram2 = lambda pp, rr, ap, apo: mesh.psum(
+                fused_gram(ranked(pp), ranked(rr), ranked(ap), ranked(apo))
+            )
+            # row-wise with replicated (t, t) coefficients: one launch on
+            # the stacked (p·rmax, t) rows
+            self._tail = ecg_tail
+        else:
+            def gram2(pp, rr, ap, apo):
+                pp, rr, ap, apo = (ranked(m) for m in (pp, rr, ap, apo))
+                return mesh.psum(torch.cat([pp.mT @ rr, ap.mT @ ap, apo.mT @ ap], dim=-1))
+
+            self._gram2 = gram2
+        self._sqnorm = lambda v: mesh.psum(torch.linalg.vecdot(v.reshape(p, rmax), v.reshape(p, rmax)))
+
+        # T_{r,t} on the padded layout: subdomains follow *true* global row
+        # ids, so the splitting matches the sequential solver exactly
+        t = self.t
+        true_rows = op.true_row_of_slot()
+        sub = np.where(true_rows >= 0, (true_rows * t) // op.n, 0)
+        onehot = np.zeros((op.n_padded, t))
+        onehot[np.arange(op.n_padded), np.minimum(sub, t - 1)] = (true_rows >= 0).astype(float)
+        self._onehot_np = onehot
+        self._split_fn = lambda r, t_: r[:, None] * self._onehot(r.dtype)
+
+    def _onehot(self, dtype) -> torch.Tensor:
+        """Device-resident T_{r,t} one-hot for ``dtype`` (cached)."""
+        hit = self._onehot_cache.get(dtype)
+        if hit is None:
+            hit = torch.as_tensor(self._onehot_np, dtype=dtype, device=self.device)
+            self._onehot_cache[dtype] = hit
+        return hit
 
     def _build_ell_apply(self, ell_block):
         """Sequential Block-ELL apply, reusing supplied conversion artifacts.
@@ -180,6 +301,8 @@ class ECGSolver:
             cfg = self.config
             runner = make_ecg_runner(
                 self._apply, width, tol=cfg.tol, max_iters=cfg.max_iters,
+                split=self._split_fn, gram1=self._gram1, gram2=self._gram2,
+                sqnorm=self._sqnorm, tail=self._tail,
                 backend=cfg.kernel.backend, method=cfg.method.name,
             )
             self.stats.traces += 1
@@ -188,15 +311,20 @@ class ECGSolver:
 
     # -------------------------------------------------------------- solving
     def _device_vec(self, v, dtype=None) -> torch.Tensor:
+        if self.op is not None:
+            return self.op.shard_vector(v, dtype)
         v = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
         return v.to(device=self.device, dtype=dtype)
 
     def solve(self, b, x0=None):
         """Solve A x = b; returns a :class:`~repro_torch.core.cg.SolveResult`.
 
-        ``b``/``x0`` are (n,) vectors (numpy or torch).  The solve runs in
-        the promoted dtype of the operator and ``b``; ``res.x`` and
-        ``res.res_hist`` are tensors on the handle's device.
+        ``b``/``x0`` are global (n,) vectors (numpy or torch).  The solve
+        runs in the promoted dtype of the operator and ``b``; ``res.x`` and
+        ``res.res_hist`` are tensors on the handle's device.  On a
+        distributed handle ``b``/``x0`` are laid out onto the mesh here and
+        ``res.x`` is in the padded per-rank layout — use :meth:`unshard` for
+        the global vector.
         """
         cfg = self.config
         b_dev = self._device_vec(b)
@@ -223,11 +351,20 @@ class ECGSolver:
         _not_ported("solve_packed", "queue 1 item 10")
 
     def unshard(self, arr) -> np.ndarray:
-        """Global (n, ...) numpy array of a solve output (a sequential handle
-        has no padded layout, so this is a host copy)."""
+        """Padded per-rank layout -> global (n, ...) numpy array (a host
+        copy for a sequential handle, which has no padded layout)."""
+        if self.op is not None:
+            return self.op.unshard(arr)
         if isinstance(arr, torch.Tensor):
             return arr.detach().cpu().numpy()
         return np.asarray(arr)
+
+    @property
+    def partition(self):
+        """The row partition this handle was built on — pass it back to
+        ``ECGSolver.build(..., pm=)`` to share the partitioning cost across
+        handles of the same matrix (None for a sequential handle)."""
+        return self._pm
 
     # ----------------------------------------------------------- derivation
     def with_config(self, **overrides) -> "ECGSolver":
@@ -243,9 +380,12 @@ class ECGSolver:
         new_cfg = self.config.replace(**overrides)
         clone = ECGSolver.__new__(ECGSolver)
         clone.a, clone.config = self.a, new_cfg
-        clone.device = self.device
+        clone.device, clone.mesh = self.device, self.mesh
         clone.stats = SolverStats()
+        clone.op = None
+        clone._pm = self._pm
         clone._runners = {}
+        clone._onehot_cache = {}
         clone._conversion_in = self.conversion
         clone.conversion = None
         reuse_op = (
@@ -260,9 +400,17 @@ class ECGSolver:
             if new_cfg.method.name != "classic":
                 _not_ported(f"method {new_cfg.method.name!r}", "queue 1 item 7")
             clone.t = self.t
+            clone.op = self.op
             clone._apply = self._apply
+            clone._gram1, clone._gram2 = self._gram1, self._gram2
+            clone._sqnorm, clone._tail = self._sqnorm, self._tail
+            clone._split_fn = self._split_fn
+            if self.mesh is not None:
+                clone._onehot_np = self._onehot_np
+                clone._onehot_cache = self._onehot_cache
             clone.conversion = self.conversion
             clone.stats.op_reused = True
         else:
-            clone._build_sequential()
+            clone._build()
+        clone.stats.partition_reused = self.mesh is not None
         return clone

@@ -1,4 +1,5 @@
-"""Sparse-matrix substrate: containers and generators (port of ``repro.sparse``)."""
+"""Sparse-matrix substrate: containers, partitioning, generators (port of
+``repro.sparse``; the distributed SpMBV lives in ``repro_torch.sparse.spmbv``)."""
 
 from repro_torch.sparse.csr import BSRMatrix, CSRMatrix, csr_spmbv, csr_spmv, csr_to_bsr
 from repro_torch.sparse.matrices import (
@@ -8,6 +9,7 @@ from repro_torch.sparse.matrices import (
     fd_laplace_3d,
     random_spd,
 )
+from repro_torch.sparse.partition import PartitionedMatrix, RowPartition, partition_csr
 
 __all__ = [
     "CSRMatrix",
@@ -15,6 +17,9 @@ __all__ = [
     "csr_to_bsr",
     "csr_spmv",
     "csr_spmbv",
+    "RowPartition",
+    "PartitionedMatrix",
+    "partition_csr",
     "dg_laplace_2d",
     "fd_laplace_2d",
     "fd_laplace_3d",

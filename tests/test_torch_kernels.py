@@ -146,7 +146,11 @@ def test_cpu_tensors_never_count_launches():
     kernels.fused_gram(v, v, v, v)
     c = torch.eye(t, dtype=torch.float64)
     kernels.ecg_tail(v, v, v, v, v, c, c, c)
-    assert kernels.launch_counts() == {"bsr_spmbv": 0, "fused_gram": 0, "ecg_tail": 0}
+    idx = torch.zeros(2, 3, dtype=torch.int32)
+    buf = kernels.halo_pack(v.reshape(2, -1, t), idx)
+    kernels.halo_unpack(v.reshape(2, -1, t), buf, idx)
+    assert kernels.launch_counts() == {"bsr_spmbv": 0, "fused_gram": 0, "ecg_tail": 0,
+                                       "halo_pack": 0, "halo_unpack": 0}
 
 
 def test_mixed_devices_rejected():

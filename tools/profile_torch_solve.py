@@ -2,13 +2,16 @@
 """Where one iteration of the port's classic-ECG solve spends its time on the card.
 
     PYTHONPATH=src python tools/profile_torch_solve.py [--iters 50] [--elements 320 256]
+    PYTHONPATH=src python tools/profile_torch_solve.py --devices 8 --ppn 4 --strategy optimal
 
 Builds the main path of ``chip_smoke.py`` (``dg_laplace_2d(elements,
 block=16)``, t = 8, float64, ``backend="pallas"``) on the GPU, steps the
 solve loop ``--iters`` times on the host clock (wall ms per iteration), then
 again under ``torch.profiler`` and prints JSON lines: the card, wall and
 device-busy ms per iteration, the device's idle share, and device time per
-kernel name.  ``--trace PATH`` also writes the Chrome trace.
+kernel name.  ``--devices N --ppn K`` profiles the distributed solve on a
+``VirtualMesh(N // K, K)`` with exchange ``--strategy`` instead of the
+sequential one.  ``--trace PATH`` also writes the Chrome trace.
 """
 
 from __future__ import annotations
@@ -27,8 +30,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--elements", type=int, nargs=2, default=(320, 256))
+    ap.add_argument("--devices", type=int, default=0,
+                    help="ranks of a virtual mesh (0: the sequential solve)")
+    ap.add_argument("--ppn", type=int, default=4)
+    ap.add_argument("--strategy", default="optimal",
+                    choices=["standard", "2step", "3step", "optimal"])
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
+    if args.devices and args.devices % args.ppn:
+        ap.error(f"--devices {args.devices} is not a multiple of --ppn {args.ppn}")
 
     import numpy as np
     import torch
@@ -39,7 +49,8 @@ def main(argv=None) -> int:
         print("profile_torch_solve: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.solver import ECGSolver, KernelConfig, SolverConfig
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.solver import CommConfig, ECGSolver, KernelConfig, SolverConfig
     from repro_torch.sparse import dg_laplace_2d
 
     smi = subprocess.run(
@@ -48,10 +59,17 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     a = dg_laplace_2d(tuple(args.elements), block=16, device=dev)
-    b = torch.as_tensor(np.random.default_rng(0).standard_normal(a.shape[0]), device=dev)
-    solver = ECGSolver.build(a, config=SolverConfig(
+    b = np.random.default_rng(0).standard_normal(a.shape[0])
+    config = SolverConfig(
         t=8, tol=0.0, max_iters=10 + 2 * args.iters, kernel=KernelConfig(backend="pallas"),
-    ), device=dev)
+        comm=CommConfig(strategy=args.strategy),
+    )
+    if args.devices:
+        mesh = VirtualMesh(args.devices // args.ppn, args.ppn, device=dev)
+        solver = ECGSolver.build(a, mesh, config)
+    else:
+        solver = ECGSolver.build(a, config=config, device=dev)
+    b = solver._device_vec(b)  # the padded per-rank layout on a mesh
     runner = solver._runner(solver.t)
     carry = runner.init(b, torch.zeros_like(b))
     for _ in range(10):
@@ -84,7 +102,10 @@ def main(argv=None) -> int:
     busy_ms = sum(r[2] for r in rows)
     print(smi)
     print(json.dumps({
-        "n": a.shape[0], "t": 8, "iters": args.iters, "wall_ms_per_iter": wall_ms,
+        "n": a.shape[0], "t": 8, "iters": args.iters,
+        "mesh": list(mesh.shape) if args.devices else None,
+        "strategy": args.strategy if args.devices else "sequential",
+        "wall_ms_per_iter": wall_ms,
         "profiled_wall_ms_per_iter": prof_wall_ms, "device_busy_ms_per_iter": busy_ms,
         "device_idle_share": 1.0 - busy_ms / prof_wall_ms if prof_wall_ms else None,
     }))
