@@ -22,9 +22,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    n_iters times; the true residual ‖b − A·x‖ (plain CSR SpMV on the card)
    must be ≤ 10·tol.
 5. cross-check — a (64, 64)-element solve with ``backend="pallas"`` and
-   ``backend="jnp"``: iteration counts within one (the jnp product's
-   atomics change its rounding from run to run), x equal to 1e-8
-   (relative to max|x|).
+   twice with ``backend="jnp"``: the two jnp solves bit-identical (the CSR
+   product sums without atomics); pallas against jnp, iteration counts
+   within one (the two sum in different orders, and this DG operator at
+   1e-8·‖b‖ amplifies rounding), x equal to 1e-8 (relative to max|x|).
 6. distributed build — the same operator on a ``VirtualMesh(2, 4)`` (all 8
    ranks on the card), ``strategy="optimal"``, t = 8, ``backend="pallas"``:
    partition, plan and Block-ELL conversion seconds.
@@ -50,6 +51,37 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     mesh with all four strategies: the four solves bit-identical; against
     the sequential pallas solve, iteration counts within one and x equal to
     1e-8 (relative to max|x|).
+11. block-Jacobi build — the full-scale handle's ``with_config(precondition=
+    dict(kind="block_jacobi", block=16))`` sibling (the operator reused):
+    extract / factor / transfer seconds and the factors' bytes.
+12. ``block_trisolve`` checks — the kernel against its plain version (two
+    batched triangular solves) at the main path's shape (81 920 blocks of
+    16, t = 8, f64, the real factors), at t = 1, in f32, and at bs = 32 and
+    64 (random SPD blocks): error within 2·bs·eps·κ·max|y| (the forward
+    error bound of two triangular solves, κ the worst block's condition
+    number), times as in phase 3, the library call ``torch.cholesky_solve``;
+    and ``block_update`` (which no path launches, as in the reference) at
+    (n, 8) f64, t = 1 and f32, the library call two ``addmm``.
+13. preconditioned main path — the full-scale block-Jacobi solve with the
+    launch counts set to 0 just before it: ``block_trisolve`` and
+    ``bsr_spmbv`` n_iters + 1 launches (the start Z₀ = M⁻¹T(r₀)),
+    ``ecg_tail`` n_iters, ``fused_gram`` 0 (the preconditioned recurrence
+    reduces [PᵀR | APᵀW | AP_oldᵀW] with plain products, as the
+    reference's ``gram2p``); true residual ≤ 10·tol and fewer iterations
+    than phase 4.
+14. distributed preconditioned main path — the same solve on the (2, 4)
+    mesh (``optimal``): iterations within 1% of phase 13, one
+    ``block_trisolve`` launch per apply for all 8 ranks (n_iters + 1),
+    ``mesh.psum`` 3·n_iters + 1 (the preconditioner adds none), the
+    exchange counts of phase 8.
+15. Chebyshev — the (64, 64)-element problem sequential and with the four
+    strategies: ``bsr_spmbv`` degree·(n_iters + 1) launches per solve, the
+    four distributed solves bit-identical, against the sequential one
+    iterations within one and x to 1e-8.
+16. inexact — ``fd_laplace_2d(256)`` (65 536 rows; the DG operator does not
+    converge under it) at t = 1 (the flexible recurrence breaks down at
+    t = 4 and 8 there, in the reference too) sequential and on the mesh:
+    converged, true residual ≤ 10·tol, at least one flexible reseed.
 
 """
 
@@ -131,14 +163,15 @@ def main() -> int:
 
     from repro_torch import kernels
     from repro_torch.kernels import _build
-    from repro_torch.kernels.block_update.ref import ecg_tail_ref
+    from repro_torch.kernels.block_trisolve.ref import block_trisolve_ref
+    from repro_torch.kernels.block_update.ref import block_update_ref, ecg_tail_ref
     from repro_torch.kernels.bsr_spmbv.ref import bsr_spmbv_ref
     from repro_torch.core.node_aware import build_exchange_plan
     from repro_torch.kernels.fused_gram.ref import fused_gram_ref
     from repro_torch.kernels.halo_pack.ref import halo_pack_ref, halo_unpack_ref
     from repro_torch.launch.mesh import VirtualMesh
     from repro_torch.solver import CommConfig, ECGSolver, KernelConfig, SolverConfig
-    from repro_torch.sparse import csr_spmv, dg_laplace_2d, partition_csr
+    from repro_torch.sparse import csr_spmv, dg_laplace_2d, fd_laplace_2d, partition_csr
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 yardsticks in full f32
@@ -295,7 +328,7 @@ def main() -> int:
     if not res.converged:
         raise AssertionError(f"main path did not converge in {res.n_iters} iterations")
     want = {"bsr_spmbv": res.n_iters + 1, "fused_gram": res.n_iters, "ecg_tail": res.n_iters,
-            "halo_pack": 0, "halo_unpack": 0}
+            "halo_pack": 0, "halo_unpack": 0, "block_trisolve": 0, "block_update": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if not true_res <= 10 * tol:
@@ -308,7 +341,7 @@ def main() -> int:
     # the sequential Block-ELL apply of one random block, for phase 9
     v_apply = np.random.default_rng(1).standard_normal((n, T))
     w_seq = kernels.bsr_spmbv(blocks, indices, torch.as_tensor(v_apply, device=dev), n_rows=n).cpu().numpy()
-    del solver, blocks, indices, res
+    del blocks, indices, res  # the handle stays: phase 11 derives a sibling
     torch.cuda.empty_cache()
 
     # -------------------------------------------------------- 5. cross-check
@@ -319,14 +352,20 @@ def main() -> int:
     for backend in ("pallas", "jnp"):
         s2 = ECGSolver.build(a2, config=cfg2.replace(backend=backend), device=dev)
         out[backend] = s2.solve(b2)
+    again = s2.solve(b2)  # the jnp handle once more
+    jnp_repeat_equal = torch.equal(again.x, out["jnp"].x) and again.n_iters == out["jnp"].n_iters
     xp, xj = out["pallas"].x, out["jnp"].x
     x_rel = float((xp - xj).abs().max() / xj.abs().max())
     log({"phase": "cross_check", "n": a2.shape[0], "iters_pallas": out["pallas"].n_iters,
-         "iters_jnp": out["jnp"].n_iters, "x_max_rel_diff": x_rel})
+         "iters_jnp": out["jnp"].n_iters, "x_max_rel_diff": x_rel,
+         "jnp_repeat_bit_identical": jnp_repeat_equal})
     if not (out["pallas"].converged and out["jnp"].converged):
         raise AssertionError("cross-check solves did not converge")
-    # The jnp backend's CSR product sums with atomics (index_add_) on the
-    # card, so its rounding changes from run to run; on this DG operator at
+    # The jnp backend's CSR product sums each row in storage order without
+    # atomics, so two jnp solves agree bit for bit.
+    if not jnp_repeat_equal:
+        raise AssertionError("two jnp-backend solves of the same system differ")
+    # The two backends sum in different orders; on this DG operator at
     # 1e-8·‖b‖ that can move the last threshold crossing by one iteration
     # (468 against 467 in one run; PERF.md §6).  x is held to 1e-8 below.
     if abs(out["pallas"].n_iters - out["jnp"].n_iters) > 1:
@@ -447,7 +486,8 @@ def main() -> int:
         raise AssertionError(f"distributed main path did not converge in {k} iterations")
     n_phases = len(plan.phases)
     want = {"bsr_spmbv": k + 1, "fused_gram": k, "ecg_tail": k,
-            "halo_pack": n_phases * (k + 1), "halo_unpack": n_phases * (k + 1)}
+            "halo_pack": n_phases * (k + 1), "halo_unpack": n_phases * (k + 1),
+            "block_trisolve": 0, "block_update": 0}
     if dlaunches != want:
         raise AssertionError(f"distributed launch counts {dlaunches} != {want}")
     if dcounters["psum"] != 3 * k + 1:
@@ -475,7 +515,7 @@ def main() -> int:
              "max_rel_diff": rel})
         if not rel <= 1e-12:
             raise AssertionError(f"{strategy} apply differs from the sequential one by {rel}")
-    del dsolver, sib, op, a
+    del sib, op  # the handle and the operator stay for phases 11-14
     torch.cuda.empty_cache()
 
     # ------------------------------------------ 10. distributed cross-check
@@ -501,6 +541,221 @@ def main() -> int:
         if not rel <= 1e-8:
             raise AssertionError(f"{strategy}: x differs from the sequential solve by {rel}")
 
+    # ------------------------------------------------ 11. block-Jacobi build
+    prec_bj = dict(kind="block_jacobi", block=BLOCK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    psolver = solver.with_config(precondition=prec_bj)
+    torch.cuda.synchronize()
+    pbuild_s = time.perf_counter() - t0
+    bj = psolver._precond
+    factors = bj.factors
+    log({"phase": "build_block_jacobi", "block": BLOCK, "factors": list(factors.shape),
+         "factor_bytes": bj.factor_bytes, "op_reused": psolver.stats.op_reused,
+         "build_s": pbuild_s, **bj.build_s})
+    if not psolver.stats.op_reused or tuple(factors.shape) != (n // BLOCK, BLOCK, BLOCK):
+        raise AssertionError("the block-Jacobi sibling did not reuse the operator or has wrong factors")
+
+    # ------------------------------------------------ 12. block_trisolve checks
+    def spd_factors(nb, bs, dtype):
+        q = randn(nb, bs, bs, dtype=torch.float64)
+        low = torch.linalg.cholesky(q @ q.mT / (4 * bs) + torch.eye(bs, dtype=torch.float64, device=dev))
+        return low.to(dtype).contiguous()
+
+    def run_trisolve_check(l, t, dtype, what):
+        l = l.to(dtype).contiguous()
+        nb, bs, _ = l.shape
+        x = randn(nb * bs, t, dtype=dtype)
+        x3 = x.reshape(nb, bs, t)
+        kernel = lambda: kernels.block_trisolve(l, x)
+        plain = lambda: block_trisolve_ref(l, x3)
+        library = lambda: torch.cholesky_solve(x3, l)
+        got, want = kernel().reshape(nb, bs, t), plain()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"block_trisolve {what}: non-finite kernel output")
+        err = float((got.double() - want.double()).abs().max())
+        # forward error bound of two triangular solves: both results lie
+        # within bs·eps·κ(LLᵀ)·max|y| of the exact one (κ of the worst block,
+        # from the eigenvalues of LLᵀ on the host: batched eigensolvers on
+        # the card loop over blocks larger than 32)
+        lc = l.double().cpu()
+        ev = torch.linalg.eigvalsh(lc @ lc.mT)
+        kappa = float((ev[:, -1] / ev[:, 0]).max())
+        eps = torch.finfo(dtype).eps
+        tol = 2 * bs * eps * kappa * float(want.abs().max())
+        if not err <= tol:
+            raise AssertionError(f"block_trisolve {what}: max_abs_err {err} > tol {tol}")
+        es = l.element_size()
+        bytes_ = (l.numel() + 2 * x.numel()) * es
+        flops = 2 * nb * t * bs * bs
+        dname = str(dtype).removeprefix("torch.")
+        bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / PEAK_FLOPS[dname] * 1e3
+        row = {"name": "block_trisolve", "what": what, "shape": [nb, bs, t], "dtype": dname,
+               "max_abs_err": err, "tol": tol, "kappa_max": kappa,
+               "kernel_ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
+               "library_ms": time_ms(torch, library), "bound_ms": max(bytes_ms, flops_ms),
+               "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+        log(row)
+        return row
+
+    checks["block_trisolve"] = run_trisolve_check(factors, T, torch.float64, "main path")
+    run_trisolve_check(factors, 1, torch.float64, "t=1")
+    run_trisolve_check(factors, T, torch.float32, "float32")
+    for bs in (32, 64):
+        run_trisolve_check(spd_factors(n // bs, bs, torch.float64), T, torch.float64, f"bs={bs}")
+    torch.cuda.empty_cache()
+
+    def check_update(t, dtype):
+        ops = tuple(randn(n, t, dtype=dtype) for _ in range(4)) + (randn(t, t, dtype=dtype),)
+        x, r, p, ap, c = ops
+        kernel = lambda: kernels.block_update(*ops)
+        library = lambda: (torch.addmm(x, p, c), torch.addmm(r, ap, c, alpha=-1))
+        bound = (x.abs() + p.abs() @ c.abs(), r.abs() + ap.abs() @ c.abs())
+        return (block_update_ref, ops, kernel, library, bound, t + 1,
+                (6 * n * t + t * t) * x.element_size(), 4 * n * t * t, [n, t])
+
+    checks["block_update"] = run_check("block_update", check_update, T, torch.float64)
+    run_check("block_update", check_update, 1, torch.float64)
+    run_check("block_update", check_update, T, torch.float32)
+    torch.cuda.empty_cache()
+
+    # -------------------------------------- 13. preconditioned main path
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pres = psolver.solve(b)
+    torch.cuda.synchronize()
+    psolve_s = time.perf_counter() - t0
+    plaunches = kernels.launch_counts()
+    k = pres.n_iters
+    ptrue_res = float(torch.linalg.norm(b_dev - csr_spmv(a, pres.x)))
+    log({"phase": "block_jacobi_main_path", "n": n, "t": T, "block": BLOCK, "tol": tol,
+         "converged": pres.converged, "breakdown": pres.breakdown, "n_iters": k,
+         "final_rn": float(pres.res_hist[k]), "true_residual": ptrue_res,
+         "solve_s": psolve_s, "ms_per_iter": psolve_s * 1e3 / max(k, 1),
+         "unpreconditioned": seq, "launches": plaunches})
+    if not pres.converged:
+        raise AssertionError(f"block-Jacobi main path did not converge in {k} iterations")
+    want = {"bsr_spmbv": k + 1, "fused_gram": 0, "ecg_tail": k, "halo_pack": 0,
+            "halo_unpack": 0, "block_trisolve": k + 1, "block_update": 0}
+    if plaunches != want:
+        raise AssertionError(f"block-Jacobi launch counts {plaunches} != {want}")
+    if not ptrue_res <= 10 * tol:
+        raise AssertionError(f"block-Jacobi true residual {ptrue_res} > 10·tol {10 * tol}")
+    if not k < seq["n_iters"]:
+        raise AssertionError(f"block-Jacobi took {k} iterations, unpreconditioned {seq['n_iters']}")
+    pseq = {"n_iters": k, "ms_per_iter": psolve_s * 1e3 / max(k, 1), "solve_s": psolve_s}
+    del pres, psolver, solver
+    torch.cuda.empty_cache()
+
+    # -------------------------- 14. distributed preconditioned main path
+    t0 = time.perf_counter()
+    pdsolver = dsolver.with_config(precondition=prec_bj)
+    torch.cuda.synchronize()
+    pdbuild_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    mesh.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pdres = pdsolver.solve(b)
+    torch.cuda.synchronize()
+    pdsolve_s = time.perf_counter() - t0
+    pdlaunches = kernels.launch_counts()
+    pdcounters = {"psum": mesh.psum_calls, "ppermute": mesh.ppermute_calls}
+    k = pdres.n_iters
+    x_glob = torch.as_tensor(pdsolver.unshard(pdres.x), device=dev)
+    pdtrue_res = float(torch.linalg.norm(b_dev - csr_spmv(a, x_glob)))
+    log({"phase": "distributed_block_jacobi_main_path", "mesh": list(mesh.shape),
+         "strategy": "optimal", "block": BLOCK, "factors": list(pdsolver._precond.factors.shape),
+         "build_s": pdbuild_s, **pdsolver._precond.build_s, "converged": pdres.converged,
+         "n_iters": k, "true_residual": pdtrue_res, "solve_s": pdsolve_s,
+         "ms_per_iter": pdsolve_s * 1e3 / max(k, 1), "sequential": pseq,
+         "launches": pdlaunches, "mesh_counters": pdcounters})
+    if not pdres.converged:
+        raise AssertionError(f"distributed block-Jacobi did not converge in {k} iterations")
+    want = {"bsr_spmbv": k + 1, "fused_gram": 0, "ecg_tail": k,
+            "halo_pack": n_phases * (k + 1), "halo_unpack": n_phases * (k + 1),
+            "block_trisolve": k + 1, "block_update": 0}
+    if pdlaunches != want:
+        raise AssertionError(f"distributed block-Jacobi launch counts {pdlaunches} != {want}")
+    if pdcounters["psum"] != 3 * k + 1:
+        raise AssertionError(f"psum ran {pdcounters['psum']} times, want 3·{k} + 1")
+    if pdcounters["ppermute"] != n_rot * (k + 1):
+        raise AssertionError(f"ppermute ran {pdcounters['ppermute']} times, want {n_rot}·({k} + 1)")
+    if not pdtrue_res <= 10 * tol:
+        raise AssertionError(f"distributed block-Jacobi true residual {pdtrue_res} > 10·tol")
+    if not abs(k - pseq["n_iters"]) <= max(1, 0.01 * pseq["n_iters"]):
+        raise AssertionError(f"distributed block-Jacobi {k} iterations not within 1% of {pseq['n_iters']}")
+    del pdres, pdsolver, dsolver, x_glob, a
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- 15. Chebyshev
+    cheb_cfg = cfg2.replace(backend="pallas", precondition="chebyshev")
+    degree = cheb_cfg.precondition.degree
+
+    def cheb_solve(solver_):
+        kernels.reset_launch_counts()
+        r = solver_.solve(b2)
+        got = kernels.launch_counts()["bsr_spmbv"]
+        if got != degree * (r.n_iters + 1):
+            raise AssertionError(f"Chebyshev solve: bsr_spmbv {got} != {degree}·({r.n_iters} + 1)")
+        if not r.converged:
+            raise AssertionError("Chebyshev solve did not converge")
+        return r
+
+    cseq = cheb_solve(ECGSolver.build(a2, config=cheb_cfg, device=dev))
+    xc_seq = cseq.x.cpu().numpy()
+    log({"phase": "chebyshev", "n": a2.shape[0], "strategy": "sequential", "degree": degree,
+         "iters": cseq.n_iters, "iters_unpreconditioned": seq2.n_iters})
+    first = None
+    for strategy in ("standard", "2step", "3step", "optimal"):
+        cmesh = VirtualMesh(2, 4, device=dev)
+        s2 = ECGSolver.build(a2, cmesh, cheb_cfg.replace(strategy=strategy))
+        cmesh.reset_counters()
+        r2 = cheb_solve(s2)
+        rel = float(np.abs(s2.unshard(r2.x) - xc_seq).max() / np.abs(xc_seq).max())
+        log({"phase": "chebyshev", "n": a2.shape[0], "strategy": strategy, "iters": r2.n_iters,
+             "iters_sequential": cseq.n_iters, "psum": cmesh.psum_calls, "x_max_rel_diff": rel})
+        first = first or r2
+        if not (r2.n_iters == first.n_iters and torch.equal(r2.x, first.x)):
+            raise AssertionError(f"Chebyshev {strategy}: differs from the standard exchange's solve")
+        if cmesh.psum_calls != 3 * r2.n_iters + 1:
+            raise AssertionError(f"Chebyshev {strategy}: psum {cmesh.psum_calls} != 3·{r2.n_iters} + 1")
+        if not abs(r2.n_iters - cseq.n_iters) <= 1:
+            raise AssertionError(f"Chebyshev {strategy}: {r2.n_iters} iterations against {cseq.n_iters}")
+        if not rel <= 1e-8:
+            raise AssertionError(f"Chebyshev {strategy}: x differs from the sequential solve by {rel}")
+
+    # --------------------------------------------------------- 16. inexact
+    a3 = fd_laplace_2d(256, device=dev)
+    b3 = np.random.default_rng(0).standard_normal(a3.shape[0])
+    tol3 = 1e-8 * float(np.linalg.norm(b3))
+    # t = 1: at t = 4 and 8 the flexible classic recurrence breaks down on
+    # FD operators of this size (a Gram matrix that is not positive
+    # definite), in the reference as in the port; at t = 1 the Gram matrix
+    # is a positive number
+    inx_cfg = SolverConfig(t=1, tol=tol3, max_iters=2 * MAX_ITERS,
+                           kernel=KernelConfig(backend="pallas"), precondition="inexact")
+    b3_dev = torch.as_tensor(b3, device=dev)
+    for where in ("sequential", "optimal"):
+        if where == "sequential":
+            s3 = ECGSolver.build(a3, config=inx_cfg, device=dev)
+        else:
+            s3 = ECGSolver.build(a3, VirtualMesh(2, 4, device=dev), inx_cfg.replace(strategy=where))
+        t0 = time.perf_counter()
+        r3 = s3.solve(b3)
+        torch.cuda.synchronize()
+        x3 = torch.as_tensor(s3.unshard(r3.x), device=dev)
+        true3 = float(torch.linalg.norm(b3_dev - csr_spmv(a3, x3)))
+        log({"phase": "inexact", "n": a3.shape[0], "strategy": where, "converged": r3.converged,
+             "n_iters": r3.n_iters, "n_reseeds": r3.n_reseeds, "true_residual": true3, "tol": tol3,
+             "solve_s": time.perf_counter() - t0})
+        if not (r3.converged and true3 <= 10 * tol3 and r3.n_reseeds >= 1):
+            raise AssertionError(f"inexact {where}: converged={r3.converged}, true residual {true3}, "
+                                 f"{r3.n_reseeds} reseeds")
+
     # ------------------------------------------------------------------ result
     sources = {
         "bsr_spmbv": ("src/repro_torch/kernels/csrc/bsr_spmbv.cu", "src/repro/kernels/bsr_spmbv/kernel.py:43"),
@@ -508,10 +763,16 @@ def main() -> int:
         "ecg_tail": ("src/repro_torch/kernels/csrc/ecg_tail.cu", "src/repro/kernels/block_update/kernel.py:68"),
         "halo_pack": ("src/repro_torch/kernels/csrc/halo_pack.cu", "src/repro/kernels/halo_pack/kernel.py:40"),
         "halo_unpack": ("src/repro_torch/kernels/csrc/halo_pack.cu", "src/repro/kernels/halo_pack/kernel.py:63"),
+        "block_trisolve": ("src/repro_torch/kernels/csrc/block_trisolve.cu",
+                           "src/repro/kernels/block_trisolve/kernel.py:58"),
+        "block_update": ("src/repro_torch/kernels/csrc/ecg_tail.cu", "src/repro/kernels/block_update/kernel.py:32"),
     }
     # launches: the sequential main path's (phase 4) for the kernels it runs,
-    # the distributed main path's (phase 8) for the halo kernels
-    launches = {**seq_launches, "halo_pack": dlaunches["halo_pack"], "halo_unpack": dlaunches["halo_unpack"]}
+    # the distributed main path's (phase 8) for the halo kernels, the
+    # block-Jacobi main path's (phase 13) for block_trisolve; no path runs
+    # block_update
+    launches = {**seq_launches, "halo_pack": dlaunches["halo_pack"], "halo_unpack": dlaunches["halo_unpack"],
+                "block_trisolve": plaunches["block_trisolve"], "block_update": 0}
     log({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": checks[name]["max_abs_err"],

@@ -11,7 +11,15 @@ import dataclasses
 import math
 from typing import Callable
 
+import numpy as np
 import torch
+
+#: ``SolveResult.event_hist`` bitmask values.
+EV_RECOVERY = 1  # rank-revealing factorization dropped live directions
+EV_RESEED = 2    # flexible restart reseeded Z from the preconditioned residual
+
+#: event-bit -> human-readable code name
+EVENT_NAMES = {EV_RECOVERY: "recovery", EV_RESEED: "reseed"}
 
 
 @dataclasses.dataclass
@@ -24,7 +32,38 @@ class SolveResult:
     #                          (x, residual norm) froze at the last finite
     #                          iteration instead of NaNs
     t: int | None = None     # enlarging factor used (None for plain CG)
+    event_hist: np.ndarray | None = None  # (max_iters + 1,) int32 event
+    #                          bitmask per iteration (EV_RECOVERY,
+    #                          EV_RESEED), -1 past the recorded end; None
+    #                          when no tracked mechanism was active
     final_carry: dict | None = dataclasses.field(default=None, repr=False)
+
+    def _event_iters(self, bit: int) -> list[int]:
+        """Iterations whose event-bitmask entry carries ``bit`` (valid
+        entries only: the trace is -1-padded past the recorded end)."""
+        if self.event_hist is None:
+            return []
+        h = np.asarray(self.event_hist).tolist()
+        return [k for k in range(len(h)) if h[k] >= 0 and int(h[k]) & bit]
+
+    def recovery_events(self) -> list[int]:
+        """Iterations where the rank-revealing factorization dropped live
+        directions (none until adaptive policies are ported)."""
+        return self._event_iters(EV_RECOVERY)
+
+    def reseed_events(self) -> list[int]:
+        """Iterations where the flexible restart reseeded the direction
+        chain from the preconditioned residual (classic + an
+        iteration-varying preconditioner, every ``reseed``-th iteration)."""
+        return self._event_iters(EV_RESEED)
+
+    @property
+    def n_recoveries(self) -> int:
+        return len(self.recovery_events())
+
+    @property
+    def n_reseeds(self) -> int:
+        return len(self.reseed_events())
 
 
 def _guarded_while(cond_extra: Callable, body_fn: Callable, init: dict) -> dict:

@@ -77,6 +77,9 @@ def make_ecg_runner(
     tail: Callable | None = None,
     backend: str = "jnp",
     method: str = "classic",
+    precond: Callable | None = None,
+    gram2p: Callable | None = None,
+    precond_reseed: int | None = None,
 ) -> ECGRunner:
     """Build the ECG iteration machinery for one fixed configuration.
 
@@ -88,6 +91,14 @@ def make_ecg_runner(
     (the distributed handle passes per-rank products followed by one
     ``mesh.psum`` each); ``tail`` replaces the X/R/Z update; ``split(r, t)``
     replaces T_{r,t} (default: :func:`split_residual`).
+
+    ``precond`` is the preconditioner apply ``(V, k) -> M⁻¹ₖ V`` (see
+    :mod:`repro_torch.precondition`); ``gram2p`` the matching 5-operand
+    packed reduction ``[PᵀR | APᵀW | AP_oldᵀW]`` (default: three plain
+    products wrapped in ``allreduce``, as the reference: the ``fused_gram``
+    kernel's middle term is the symmetric APᵀAP, so it cannot serve);
+    ``precond_reseed`` the flexible-restart period of an iteration-varying
+    preconditioner.
     """
     if backend not in ("jnp", "pallas"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -99,6 +110,10 @@ def make_ecg_runner(
             gram2 = lambda p, r, ap, apo: allreduce(fused_gram(p, r, ap, apo))
         else:
             gram2 = lambda p, r, ap, apo: allreduce(_plain_gram2(p, r, ap, apo))
+    if gram2p is None:
+        gram2p = lambda p, r, ap, apo, w: allreduce(
+            torch.cat([p.T @ r, ap.T @ w, apo.T @ w], dim=1)
+        )
     if sqnorm is None:
         sqnorm = lambda v: allreduce(torch.dot(v, v))
     if tail is None:
@@ -107,6 +122,7 @@ def make_ecg_runner(
     ctx = MethodContext(
         t=t, max_iters=max_iters, a_apply=a_apply, split_fn=split_fn,
         gram1=gram1, gram2=gram2, sqnorm=sqnorm, tail=tail,
+        precond=precond, gram2p=gram2p, precond_reseed=precond_reseed,
     )
     init, iterate = spec.build(ctx)
 
@@ -133,5 +149,6 @@ def finalize_result(out: dict, *, x0, t: int, tol: float) -> SolveResult:
         converged=bool(out["rn"] <= tol) and not breakdown,
         breakdown=breakdown,
         t=t,
+        event_hist=out.get("evhist"),
         final_carry=out,
     )

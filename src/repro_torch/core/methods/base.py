@@ -49,6 +49,15 @@ class MethodContext:
 
     ``gram1``/``gram2``/``sqnorm`` are the reductions, ``tail`` the local
     X/R/Z update, ``split_fn`` is T_{r,t}.
+
+    ``precond`` is the preconditioner apply ``M⁻¹ₖ: (V, k) -> (n, t)`` (None
+    = unpreconditioned); when set, the scheme orthogonalizes the
+    preconditioned directions W = M⁻¹AP through ``gram2p``, the 5-operand
+    packed reduction ``[PᵀR | APᵀW | AP_oldᵀW]`` (still one reduction).
+    ``precond_reseed`` reseeds the direction chain from the preconditioned
+    residual every that-many iterations: the chain ``Z' = W − Pd −
+    P_old d_old`` never re-reads the residual, so an iteration-varying M⁻¹ₖ
+    needs this flexible restart (Notay, SISC 22(4), 2000).
     """
 
     t: int
@@ -59,6 +68,9 @@ class MethodContext:
     gram2: Callable
     sqnorm: Callable
     tail: Callable
+    precond: Callable | None = None
+    gram2p: Callable | None = None
+    precond_reseed: int | None = None
 
 
 class MethodSpec:

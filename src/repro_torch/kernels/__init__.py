@@ -6,7 +6,8 @@ CUDA tensors, plain version on CPU tensors, a ``launches`` counter) and
 ``<dir>/ref.py`` (the plain torch version).
 """
 
-from repro_torch.kernels.block_update.ops import ecg_tail
+from repro_torch.kernels.block_trisolve.ops import block_trisolve
+from repro_torch.kernels.block_update.ops import block_update, ecg_tail
 from repro_torch.kernels.bsr_spmbv.ops import (
     block_ell_arrays,
     block_ell_meta,
@@ -19,7 +20,8 @@ from repro_torch.kernels.fused_gram.ops import fused_gram
 from repro_torch.kernels.halo_pack.ops import halo_pack, halo_unpack
 
 #: the kernel ops, each with its ``launches`` counter
-KERNEL_OPS = (bsr_spmbv, fused_gram, ecg_tail, halo_pack, halo_unpack)
+KERNEL_OPS = (bsr_spmbv, fused_gram, ecg_tail, halo_pack, halo_unpack, block_trisolve,
+              block_update)
 
 
 def launch_counts() -> dict[str, int]:
@@ -36,6 +38,8 @@ __all__ = [
     "KERNEL_OPS",
     "block_ell_arrays",
     "block_ell_meta",
+    "block_trisolve",
+    "block_update",
     "bsr_spmbv",
     "count_block_ell_tiles",
     "csr_arrays_to_block_ell",

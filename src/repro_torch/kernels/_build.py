@@ -42,9 +42,13 @@ SIGNATURES = {
     "ecg_tail": [_P] * 11 + [_L, _I, _P],
     "halo_pack": [_P, _P, _P, _I, _L, _I, _I, _P],
     "halo_unpack": [_P, _P, _P, _I, _L, _I, _I, _P],
+    "block_trisolve": [_P, _P, _P, _L, _I, _I, _L, _L, _I, _P],
+    "block_update": [_P] * 7 + [_L, _I, _P],
 }
 #: the source, ``csrc/<source>.cu``, that exports each kernel function
-SOURCES = {name: name for name in SIGNATURES} | {"halo_unpack": "halo_pack"}
+SOURCES = {name: name for name in SIGNATURES} | {
+    "halo_unpack": "halo_pack", "block_update": "ecg_tail",
+}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}  # by source

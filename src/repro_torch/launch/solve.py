@@ -11,11 +11,12 @@ SpMBV, fused Gram and fused tail CUDA kernels; ``--backend jnp`` plain torch
 ops.  ``--device`` (default ``cuda``) selects the card, or ``cpu`` for the
 kernels' plain versions.  ``--devices N --ppn K`` runs the distributed
 node-aware solver on a ``VirtualMesh(N // K, K)``: all N ranks on that one
-device (no re-exec, unlike the reference's forced host devices).  Options
+device (no re-exec, unlike the reference's forced host devices).
+``--precondition block_jacobi|chebyshev|inexact`` runs the preconditioned
+solve (block-Jacobi through the ``block_trisolve`` CUDA kernel).  Options
 whose machinery is not ported yet (``--t auto``, tuning, ``--overlap``,
-``--adaptive``, other methods, ``--precondition``) stop with the ROADMAP.md
-item that brings them; note that ``--strategy tuned`` (the default) implies
-``--tune model``.
+``--adaptive``, other methods) stop with the ROADMAP.md item that brings
+them; note that ``--strategy tuned`` (the default) implies ``--tune model``.
 """
 
 from __future__ import annotations

@@ -7,9 +7,7 @@ argument to the solver API.  Like the other sub-configs it is a frozen
 dataclass, validates at construction, and coerces the convenient string
 spelling (``precondition="block_jacobi"``).
 
-Four kinds ship in the reference (see :mod:`repro.precondition` there; the
-port carries the configuration only, building and applying them is
-ROADMAP.md queue 1 item 8):
+Four kinds ship (built and applied by :mod:`repro_torch.precondition.build`):
 
 * ``"none"``         — identity; the solve is bit-identical to an
                        unpreconditioned build.

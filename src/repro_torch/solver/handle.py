@@ -38,6 +38,10 @@ from repro_torch.kernels.block_update.ops import ecg_tail
 from repro_torch.kernels.bsr_spmbv.ops import block_ell_arrays, make_block_ell_apply_from_arrays
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.fused_gram.ops import fused_gram
+from repro_torch.precondition import (
+    build_distributed_preconditioner,
+    build_sequential_preconditioner,
+)
 from repro_torch.solver.config import SolverConfig
 from repro_torch.sparse.csr import csr_spmbv
 from repro_torch.sparse.partition import partition_csr
@@ -155,8 +159,6 @@ class ECGSolver:
             _not_ported(f"tuning (tune mode {cfg.tune.mode!r})", "queue 1 item 9")
         if cfg.adaptive.policy is not None:
             _not_ported("an adaptive policy", "queue 1 item 6")
-        if cfg.precondition.active:
-            _not_ported(f"preconditioning ({cfg.precondition.kind!r})", "queue 1 item 8")
         if cfg.method.name != "classic":
             _not_ported(f"method {cfg.method.name!r}", "queue 1 item 7")
         if self.device.type == "cuda":
@@ -166,12 +168,14 @@ class ECGSolver:
         self.stats.builds += 1
         self.t = cfg.t
         self._gram1 = self._gram2 = self._sqnorm = self._tail = self._split_fn = None
+        self._gram2p = None
         if self.mesh is not None:
             self._build_distributed()
         elif cfg.kernel.backend == "pallas":
             self._build_ell_apply(cfg.kernel.ell_block)
         else:
             self._apply = lambda V: csr_spmbv(self.a, V)
+        self._precond = self._build_precond()
 
     def _build_distributed(self):
         cfg = self.config
@@ -204,19 +208,23 @@ class ECGSolver:
         def ranked(m):  # (p·rmax, t) padded layout -> (p, rmax, t) view
             return m.reshape(p, rmax, -1)
 
-        # gram1 is a plain product, left to XLA by the reference: batched.
-        # A (p, t, rmax)·(p, rmax, t) batch gets one cuBLAS CTA per rank
-        # (1.19 ms at Example 2.1's full scale on the H100, PERF.md), so each
-        # rank's rows are split into chunks, summed in a fixed order after
+        # gram1 and gram2p are plain products, left to XLA by the reference:
+        # batched.  A (p, t, rmax)·(p, rmax, t) batch gets one cuBLAS CTA per
+        # rank (1.19 ms at Example 2.1's full scale on the H100, PERF.md), so
+        # each rank's rows are split into chunks, summed in a fixed order after
         chunks = math.gcd(rmax, 64)
 
-        def gram1(z, az):
-            t_ = z.shape[-1]
-            zc, azc = (m.reshape(p * chunks, rmax // chunks, t_) for m in (z, az))
-            local = torch.bmm(zc.mT, azc).reshape(p, chunks, t_, t_).sum(dim=1)
-            return mesh.psum(local)
+        def local_product(u, v):  # (p·rmax, t) x2 -> (p, t, t) per-rank uᵀv
+            t_ = u.shape[-1]
+            uc, vc = (m.reshape(p * chunks, rmax // chunks, t_) for m in (u, v))
+            return torch.bmm(uc.mT, vc).reshape(p, chunks, t_, t_).sum(dim=1)
 
-        self._gram1 = gram1
+        self._gram1 = lambda z, az: mesh.psum(local_product(z, az))
+        # the preconditioned packed reduction [PᵀR | APᵀW | AP_oldᵀW]: three
+        # per-rank products, one psum
+        self._gram2p = lambda pp, rr, ap, apo, w: mesh.psum(torch.cat(
+            [local_product(pp, rr), local_product(ap, w), local_product(apo, w)], dim=-1
+        ))
         if self.config.kernel.backend == "pallas":
             # one fused_gram launch yields the p local (t, 3t) payloads
             self._gram2 = lambda pp, rr, ap, apo: mesh.psum(
@@ -242,6 +250,18 @@ class ECGSolver:
         onehot[np.arange(op.n_padded), np.minimum(sub, t - 1)] = (true_rows >= 0).astype(float)
         self._onehot_np = onehot
         self._split_fn = lambda r, t_: r[:, None] * self._onehot(r.dtype)
+
+    def _build_precond(self):
+        """Build the preconditioner apply for this handle's operator
+        (None when ``config.precondition`` is inactive)."""
+        cfg = self.config
+        if not cfg.precondition.active:
+            return None
+        if self.mesh is None:
+            return build_sequential_preconditioner(self.a, cfg.precondition, self._apply)
+        return build_distributed_preconditioner(
+            self.a, cfg.precondition, self.op, self.mesh, self._apply
+        )
 
     def _onehot(self, dtype) -> torch.Tensor:
         """Device-resident T_{r,t} one-hot for ``dtype`` (cached)."""
@@ -304,6 +324,10 @@ class ECGSolver:
                 split=self._split_fn, gram1=self._gram1, gram2=self._gram2,
                 sqnorm=self._sqnorm, tail=self._tail,
                 backend=cfg.kernel.backend, method=cfg.method.name,
+                precond=self._precond, gram2p=self._gram2p,
+                precond_reseed=(
+                    cfg.precondition.reseed if cfg.precondition.kind == "inexact" else None
+                ),
             )
             self.stats.traces += 1
             self._runners[width] = runner
@@ -374,7 +398,8 @@ class ECGSolver:
         Solve-level overrides (``tol``, ``max_iters``, ``method``) reuse the
         operator outright; operator-level overrides (backend, tile, t, ...)
         rebuild it, reusing the parent's conversion artifacts where they
-        still match.  Accepts the flat field spellings of
+        still match.  The preconditioner is reused with the operator unless
+        the precondition knobs changed, which rebuild it alone.  Accepts the flat field spellings of
         :meth:`SolverConfig.replace`.
         """
         new_cfg = self.config.replace(**overrides)
@@ -394,7 +419,6 @@ class ECGSolver:
             and new_cfg.kernel == self.config.kernel
             and new_cfg.tune == self.config.tune
             and new_cfg.adaptive == self.config.adaptive
-            and new_cfg.precondition == self.config.precondition
         )
         if reuse_op:
             if new_cfg.method.name != "classic":
@@ -404,12 +428,18 @@ class ECGSolver:
             clone._apply = self._apply
             clone._gram1, clone._gram2 = self._gram1, self._gram2
             clone._sqnorm, clone._tail = self._sqnorm, self._tail
+            clone._gram2p = self._gram2p
             clone._split_fn = self._split_fn
             if self.mesh is not None:
                 clone._onehot_np = self._onehot_np
                 clone._onehot_cache = self._onehot_cache
             clone.conversion = self.conversion
             clone.stats.op_reused = True
+            # the preconditioner depends only on (a, op, precondition cfg)
+            if new_cfg.precondition == self.config.precondition:
+                clone._precond = self._precond
+            else:
+                clone._precond = clone._build_precond()
         else:
             clone._build()
         clone.stats.partition_reused = self.mesh is not None

@@ -4,10 +4,12 @@
 from repro_torch.sparse.csr import BSRMatrix, CSRMatrix, csr_spmbv, csr_spmv, csr_to_bsr
 from repro_torch.sparse.matrices import (
     EXAMPLE_2_1,
+    aniso_laplace_2d,
     dg_laplace_2d,
     fd_laplace_2d,
     fd_laplace_3d,
     random_spd,
+    scaled_laplace_2d,
 )
 from repro_torch.sparse.partition import PartitionedMatrix, RowPartition, partition_csr
 
@@ -24,5 +26,7 @@ __all__ = [
     "fd_laplace_2d",
     "fd_laplace_3d",
     "random_spd",
+    "aniso_laplace_2d",
+    "scaled_laplace_2d",
     "EXAMPLE_2_1",
 ]

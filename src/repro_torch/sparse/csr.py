@@ -44,6 +44,11 @@ class CSRMatrix:
         return self.data.device
 
     @functools.cached_property
+    def offsets(self) -> torch.Tensor:
+        """``indptr`` as int64, the segment offsets of the row sums."""
+        return self.indptr.long()
+
+    @functools.cached_property
     def row_ids(self) -> torch.Tensor:
         """Per-nonzero row index (int32), expanded once and kept."""
         return _expand_rows(self.indptr, self.nnz)
@@ -95,20 +100,22 @@ def _expand_rows(indptr: torch.Tensor, nnz: int) -> torch.Tensor:
 
 
 def csr_spmv(a: CSRMatrix, v: torch.Tensor) -> torch.Tensor:
-    """w = A @ v for a single vector: gather, multiply, ``index_add_``."""
+    """w = A @ v for a single vector: gather, multiply, row sums."""
     return csr_spmbv(a, v[:, None])[:, 0]
 
 
 def csr_spmbv(a: CSRMatrix, v: torch.Tensor) -> torch.Tensor:
     """W = A @ V for a block vector V of shape (n, t).
 
-    One gather of t-wide rows per nonzero and a row reduction.  On a CUDA
-    tensor ``index_add_`` sums with atomics, so the result is not bitwise
-    reproducible there (it is on the CPU).
+    One gather of t-wide rows per nonzero, then a segment sum over each
+    row's nonzeros in storage order.  The sum uses no atomics (on CUDA one
+    thread owns an output and walks its row), so two calls on the same
+    inputs are bit-identical on the card as on the CPU.
     """
     prod = a.data[:, None] * v.index_select(0, a.indices)  # (nnz, t)
-    out = torch.zeros((a.n_rows, v.shape[1]), dtype=prod.dtype, device=v.device)
-    return out.index_add_(0, a.row_ids, prod)
+    # indptr is monotone by construction, so the op's own checks (a host
+    # sync per call on CUDA) are skipped
+    return torch.segment_reduce(prod, "sum", offsets=a.offsets, axis=0, unsafe=True)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -60,9 +60,10 @@ def _grid_laplacian_3d(nx: int, ny: int, nz: int):
     return _grid_laplacian((nx, ny, nz), 6.0)
 
 
-def _grid_laplacian(dims: tuple[int, ...], diag: float):
+def _grid_laplacian(dims: tuple[int, ...], diag: float, weights=None):
     """(2·d+1)-point Laplacian on a row-major grid: ``diag`` on the diagonal,
-    −1 to each in-grid neighbour."""
+    −weights[axis] (default 1) to each in-grid neighbour along that axis."""
+    weights = weights or (1.0,) * len(dims)
     n = int(np.prod(dims))
     idx = np.arange(n).reshape(dims)
     rows, cols, vals = [idx.ravel()], [idx.ravel()], [np.full(n, diag)]
@@ -77,7 +78,7 @@ def _grid_laplacian(dims: tuple[int, ...], diag: float):
             r = idx[tuple(lo)].ravel()
             rows.append(r)
             cols.append(idx[tuple(hi)].ravel())
-            vals.append(np.full(len(r), -1.0))
+            vals.append(np.full(len(r), -weights[axis]))
     return _coo_to_csr(
         np.concatenate(rows), np.concatenate(cols), np.concatenate(vals), n
     )
@@ -133,6 +134,38 @@ def dg_laplace_2d(
     indptr, cols, vals = _grid_laplacian_2d(nx, ny)
     indptr, cols, vals = _kron_block_csr(indptr, cols, vals, nx * ny, _spd_block(block))
     return _csr(indptr, cols, vals, nx * ny * block, dtype, device)
+
+
+def aniso_laplace_2d(nx: int, ny: int | None = None, eps: float = 0.01,
+                     dtype=torch.float64, device="cuda") -> CSRMatrix:
+    """Anisotropic 5-point Laplacian: −u_xx − eps·u_yy (Dirichlet, SPD).
+
+    ``eps`` ≪ 1 stretches the spectrum (κ grows like κ(isotropic)/eps): the
+    ill-conditioned operator on which a preconditioner pays for itself.
+    """
+    if not 0 < eps <= 1:
+        raise ValueError(f"eps must be in (0, 1], got {eps!r}")
+    ny = ny or nx
+    indptr, cols, vals = _grid_laplacian((nx, ny), 2.0 + 2.0 * eps, weights=(1.0, eps))
+    return _csr(indptr, cols, vals, nx * ny, dtype, device)
+
+
+def scaled_laplace_2d(nx: int, ny: int | None = None, decades: float = 4.0, seed: int = 0,
+                      dtype=torch.float64, device="cuda") -> CSRMatrix:
+    """Diagonally-scaled 5-point Laplacian: D^{1/2} L D^{1/2} with D drawn
+    log-uniformly over ``decades`` orders of magnitude (SPD by congruence):
+    the regime where (block-)Jacobi captures exactly the scaling that
+    inflates κ."""
+    if decades <= 0:
+        raise ValueError(f"decades must be > 0, got {decades!r}")
+    ny = ny or nx
+    n = nx * ny
+    indptr, cols, vals = _grid_laplacian_2d(nx, ny)
+    rng = np.random.default_rng(seed)
+    d_half = np.power(10.0, rng.uniform(-decades / 2, decades / 2, size=n))
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+    vals = vals * d_half[rows] * d_half[cols]
+    return _csr(indptr, cols, vals, n, dtype, device)
 
 
 def random_spd(n: int, density: float = 0.05, seed: int = 0, dtype=torch.float64,

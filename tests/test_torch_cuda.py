@@ -8,7 +8,11 @@ without the suite's conftest (it imports JAX for the reference tests):
 
 Tolerances: float64 rtol/atol 1e-12 (1e-11/1e-10 for the n-term Gram sums);
 float32 2e-5 (1e-4/1e-3 for the Gram sums) — only the summation order differs.
-The halo kernels move data only and must equal their plain versions exactly.
+``block_trisolve`` substitutes where the plain version calls LAPACK-style
+triangular solves: 1e-11 in float64, 1e-4 in float32, on factors of
+blocks with condition number below 10.  The halo kernels move data only and
+must equal their plain versions exactly, and two CSR products on the same
+inputs must be bit-identical (no atomics).
 """
 
 import numpy as np
@@ -17,12 +21,13 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import block_ell_arrays
-from repro_torch.kernels.block_update.ref import ecg_tail_ref
+from repro_torch.kernels.block_trisolve.ref import block_trisolve_ref
+from repro_torch.kernels.block_update.ref import block_update_ref, ecg_tail_ref
 from repro_torch.kernels.fused_gram.ref import fused_gram_ref
 from repro_torch.kernels.halo_pack.ref import halo_pack_ref, halo_unpack_ref
 from repro_torch.launch.mesh import VirtualMesh
 from repro_torch.solver import CommConfig, ECGSolver, SolverConfig
-from repro_torch.sparse import dg_laplace_2d, fd_laplace_2d, random_spd
+from repro_torch.sparse import csr_spmbv, dg_laplace_2d, fd_laplace_2d, random_spd
 
 pytestmark = pytest.mark.cuda
 
@@ -35,6 +40,11 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def _counts(**launched):
+    """launch_counts() with every kernel not named at 0."""
+    return dict.fromkeys(kernels.launch_counts(), 0) | launched
 
 
 def _tol(dtype, gram=False):
@@ -99,8 +109,7 @@ def test_launch_counters_and_input_checks(cuda):
     kernels.fused_gram(v, v, v, v)
     c = torch.eye(4, dtype=torch.float64, device=cuda)
     kernels.ecg_tail(v, v, v, v, v, c, c, c)
-    assert kernels.launch_counts() == {"bsr_spmbv": 1, "fused_gram": 1, "ecg_tail": 1,
-                                       "halo_pack": 0, "halo_unpack": 0}
+    assert kernels.launch_counts() == _counts(bsr_spmbv=1, fused_gram=1, ecg_tail=1)
     with pytest.raises(TypeError, match="int32"):
         kernels.bsr_spmbv(blocks, indices.long(), v)
     with pytest.raises(TypeError):
@@ -110,8 +119,7 @@ def test_launch_counters_and_input_checks(cuda):
     with pytest.raises(ValueError, match="t <= 16"):
         w = torch.randn(64, 17, dtype=torch.float64, device=cuda)
         kernels.fused_gram(w, w, w, w)
-    assert kernels.launch_counts() == {"bsr_spmbv": 1, "fused_gram": 1, "ecg_tail": 1,
-                                       "halo_pack": 0, "halo_unpack": 0}
+    assert kernels.launch_counts() == _counts(bsr_spmbv=1, fused_gram=1, ecg_tail=1)
 
 
 @pytest.mark.parametrize("t", [1, 4, 8])
@@ -125,8 +133,8 @@ def test_solve_on_card_matches_cpu(cuda, t):
     counts = kernels.launch_counts()
     cpu = ECGSolver.build(a, config=cfg, device="cpu").solve(b)
     assert gpu.converged and gpu.n_iters == cpu.n_iters
-    assert counts == {"bsr_spmbv": gpu.n_iters + 1, "fused_gram": gpu.n_iters,
-                      "ecg_tail": gpu.n_iters, "halo_pack": 0, "halo_unpack": 0}
+    assert counts == _counts(bsr_spmbv=gpu.n_iters + 1, fused_gram=gpu.n_iters,
+                             ecg_tail=gpu.n_iters)
     x_g, x_c = gpu.x.cpu(), cpu.x
     assert float((x_g - x_c).abs().max()) <= 1e-8 * float(x_c.abs().max())
 
@@ -201,8 +209,121 @@ def test_distributed_solve_on_card_matches_cpu(cuda, strategy):
     k = gpu.n_iters
     assert gpu.converged and k == cpu.n_iters
     phases = len(solver.op.plan.phases)
-    assert counts == {"bsr_spmbv": k + 1, "fused_gram": k, "ecg_tail": k,
-                      "halo_pack": phases * (k + 1), "halo_unpack": phases * (k + 1)}
+    assert counts == _counts(bsr_spmbv=k + 1, fused_gram=k, ecg_tail=k,
+                             halo_pack=phases * (k + 1), halo_unpack=phases * (k + 1))
     assert mesh.psum_calls == 3 * k + 1
     x_g, x_c = solver.unshard(gpu.x), solver.unshard(cpu.x)
     assert np.abs(x_g - x_c).max() <= 1e-8 * np.abs(x_c).max()
+
+
+def _factors(nb, bs, dtype, seed=0):
+    """Lower Cholesky factors of well-conditioned SPD blocks (κ < 10)."""
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(nb, bs, bs, generator=gen, dtype=torch.float64)
+    low = torch.linalg.cholesky(q @ q.mT / (4 * bs) + torch.eye(bs, dtype=torch.float64))
+    return low.to(dtype).contiguous()  # batched cholesky returns column-major blocks
+
+
+def _trisolve_tol(dtype):
+    return dict(rtol=1e-11, atol=1e-11) if dtype == torch.float64 else dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t", [1, 3, 8, 16])
+@pytest.mark.parametrize("bs", [4, 5, 8, 16, 32, 64])
+def test_block_trisolve_matches_plain(cuda, bs, t, dtype):
+    nb = 300
+    l = _factors(nb, bs, dtype)
+    x = torch.randn(nb, bs, t, dtype=dtype)
+    got = kernels.block_trisolve(l.to(cuda), x.to(cuda))
+    torch.testing.assert_close(got.cpu(), block_trisolve_ref(l, x), **_trisolve_tol(dtype))
+    # row layout: 3 ranks of rmax rows, the last block of each ragged
+    ranks, nb_rank = 3, nb // 3
+    for rmax in (nb_rank * bs, nb_rank * bs - bs // 2 - 1):
+        rows = torch.randn(ranks * rmax, t, dtype=dtype)
+        got = kernels.block_trisolve(l.to(cuda), rows.to(cuda), ranks=ranks)
+        want = kernels.block_trisolve(l, rows, ranks=ranks)
+        assert got.shape == (ranks * rmax, t)
+        torch.testing.assert_close(got.cpu(), want, **_trisolve_tol(dtype))
+        assert torch.equal(kernels.block_trisolve(l.to(cuda), rows.to(cuda), ranks=ranks), got)
+
+
+def test_block_trisolve_counts_and_checks(cuda):
+    kernels.reset_launch_counts()
+    l = _factors(8, 4, torch.float64).to(cuda)
+    x = torch.randn(32, 2, dtype=torch.float64, device=cuda)
+    kernels.block_trisolve(l, x, ranks=2)
+    kernels.block_trisolve(l.float(), x)  # factors cast to x's dtype
+    assert kernels.block_trisolve.launches == 2
+    with pytest.raises(ValueError, match="bs <= 64"):
+        kernels.block_trisolve(_factors(2, 65, torch.float64).to(cuda), torch.zeros(130, 1, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError, match="exceed"):
+        kernels.block_trisolve(l, torch.zeros(40, 2, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.block_trisolve(l.mT, x)
+    assert kernels.block_trisolve.launches == 2
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t", WIDTHS)
+@pytest.mark.parametrize("n", [1, 530, 70001])
+def test_block_update_matches_plain_and_leaves_inputs(cuda, n, t, dtype):
+    rows = [torch.randn(n, t, dtype=dtype, device=cuda) for _ in range(4)]
+    c = torch.randn(t, 3 * t, dtype=dtype, device=cuda)[:, :t]  # a column slice
+    before = [m.clone() for m in rows]
+    kernels.reset_launch_counts()
+    got = kernels.block_update(*rows, c)
+    assert kernels.launch_counts() == _counts(block_update=1)
+    want = block_update_ref(*(m.cpu() for m in rows), c.cpu())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, **_tol(dtype))
+    for m, m0 in zip(rows, before):
+        assert torch.equal(m, m0)
+
+
+@pytest.mark.parametrize("t", [1, 8])
+def test_csr_product_is_bit_identical_run_to_run(cuda, t):
+    a = dg_laplace_2d((24, 24), block=16, device=cuda)
+    v = torch.randn(a.shape[0], t, dtype=torch.float64, device=cuda)
+    w1, w2 = csr_spmbv(a, v), csr_spmbv(a, v)
+    assert torch.equal(w1, w2)
+    want = csr_spmbv(a.to("cpu"), v.cpu())
+    torch.testing.assert_close(w1.cpu(), want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("kind", ["block_jacobi", "chebyshev", "inexact"])
+@pytest.mark.parametrize("mesh_shape", [None, (2, 4)])
+def test_preconditioned_solve_on_card_matches_cpu(cuda, kind, mesh_shape):
+    a = fd_laplace_2d(24, device="cpu")
+    b = np.random.default_rng(0).standard_normal(a.shape[0])
+    prec = dict(kind="block_jacobi", block=16) if kind == "block_jacobi" else kind
+    cfg = SolverConfig(t=4, tol=1e-8 * np.linalg.norm(b), max_iters=2000, kernel="pallas",
+                       precondition=prec)
+
+    def build(device):
+        if mesh_shape is None:
+            return ECGSolver.build(a, config=cfg, device=device)
+        return ECGSolver.build(a, VirtualMesh(*mesh_shape, device=device), cfg)
+
+    solver = build(cuda)
+    kernels.reset_launch_counts()
+    gpu = solver.solve(b)
+    counts = kernels.launch_counts()
+    cpu = build("cpu").solve(b)
+    k = gpu.n_iters
+    assert gpu.converged and cpu.converged
+    assert counts["fused_gram"] == 0 and counts["ecg_tail"] == k
+    assert counts["block_trisolve"] == (k + 1 if kind == "block_jacobi" else 0)
+    x_g, x_c = solver.unshard(gpu.x), solver.unshard(cpu.x)
+    if kind != "inexact":
+        assert k == cpu.n_iters
+        assert np.abs(x_g - x_c).max() <= 1e-8 * np.abs(x_c).max()
+    else:
+        # the iteration-varying apply and its reseeds amplify the summation
+        # order's rounding, so the card's iteration count may differ from
+        # the CPU's by a few percent (chip_smoke.py's sequential and
+        # distributed inexact solves part by more); both solves reach
+        # 1e-8·‖b‖, so x agrees to κ(A)·1e-8 (κ ≈ 240)
+        assert abs(k - cpu.n_iters) <= 0.1 * cpu.n_iters
+        assert gpu.reseed_events() == list(range(8, k + 1, 8))
+        assert np.abs(x_g - x_c).max() <= 1e-5 * np.abs(x_c).max()

@@ -17,7 +17,12 @@ from seeds with numpy on both sides.  Compared:
     queue 3 says why DG solves stop early);
 (c) the port's distributed solve against its sequential solve;
 (d) the mesh counters that stand in for the reference's lowered
-    collective counts (``tests/dist_worker.py``).
+    collective counts (``tests/dist_worker.py``);
+(e) preconditioned solves (block-Jacobi at block 8, which does not divide
+    the ranks' 22 rows, Chebyshev and inexact) on ``fd_laplace_2d(13)`` to
+    1e-8·‖b‖, held as in (b), with equal reseed iterations; a
+    preconditioner adds no psum, and only Chebyshev and inexact add
+    exchanges (their extra SpMBVs).
 """
 
 import os
@@ -32,6 +37,9 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 STRATEGIES = ["standard", "2step", "3step", "optimal"]
 SOLVES = [(s, "pallas") for s in STRATEGIES] + [("3step", "jnp")]
+PRECONDS = {"block_jacobi": dict(kind="block_jacobi", block=8), "chebyshev": "chebyshev",
+            "inexact": "inexact"}
+PREC_SOLVES = [(kind, "pallas") for kind in PRECONDS] + [("block_jacobi", "jnp")]
 T_APPLY, T_SOLVE = 3, 4
 MAX_ITERS = 500
 
@@ -91,6 +99,17 @@ def _reference_results(out_path):
             out[key + "/n_iters"] = np.asarray(res.n_iters)
             out[key + "/res_hist"] = np.asarray(res.res_hist)
             out[key + "/x"] = solver.unshard(res.x)
+        for kind, backend in PREC_SOLVES if name == "fd" else []:
+            cfg = SolverConfig(t=T_SOLVE, tol=_tol(name, b), max_iters=MAX_ITERS,
+                               comm=CommConfig(strategy="optimal", machine=BLUE_WATERS),
+                               kernel=backend, precondition=PRECONDS[kind])
+            solver = ECGSolver.build(a, mesh, cfg)
+            res = solver.solve(b)
+            key = f"precond/{kind}/{backend}"
+            out[key + "/n_iters"] = np.asarray(res.n_iters)
+            out[key + "/res_hist"] = np.asarray(res.res_hist)
+            out[key + "/x"] = solver.unshard(res.x)
+            out[key + "/reseeds"] = np.asarray(res.reseed_events(), np.int64)
     np.savez(out_path, **out)
 
 
@@ -133,10 +152,11 @@ def _config(name, b, strategy, backend, **comm):
                         kernel=backend)
 
 
-def _assert_hist_close(got, want):
-    """1e-9 relative per entry; entries within 1e-15·‖r₀‖ (a few ulps of the
-    initial residual norm, the rounding floor of every later entry) pass too."""
-    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-15 * want[0])
+def _assert_hist_close(got, want, floor=1e-15):
+    """1e-9 relative per entry; entries within floor·‖r₀‖ (by default a few
+    ulps of the initial residual norm, the rounding floor of every later
+    entry) pass too."""
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=floor * want[0])
 
 
 @pytest.mark.parametrize("backend", ["jnp", "pallas"])
@@ -211,6 +231,44 @@ def test_dg_solve_matches_reference(reference, operators):
     _assert_hist_close(res.res_hist.numpy()[: k + 1], reference[key + "/res_hist"][: k + 1])
     want = reference[key + "/x"]
     assert np.abs(solver.unshard(res.x) - want).max() <= 1e-9 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("kind,backend", PREC_SOLVES, ids=[f"{k}-{b}" for k, b in PREC_SOLVES])
+def test_preconditioned_solve_matches_reference(reference, operators, kind, backend):
+    from repro_torch import kernels
+    from repro_torch.solver import ECGSolver, SolverConfig
+
+    a = operators["fd"]
+    b = _rhs(a.shape[0])
+    mesh = _mesh()
+    solver = ECGSolver.build(a, mesh, _config("fd", b, "optimal", backend).replace(
+        precondition=PRECONDS[kind]))
+    assert solver.op.rmax == 22  # block 8 leaves each rank a ragged last block
+    mesh.reset_counters()
+    kernels.reset_launch_counts()
+    res = solver.solve(b)
+    key = f"precond/{kind}/{backend}"
+    k = int(reference[key + "/n_iters"])
+    assert res.converged and res.n_iters == k
+    # the iteration-varying inexact apply and its reseeds carry the
+    # summation-order rounding further: its last entries (~1e-8·‖r₀‖)
+    # agree to ~1e-14·‖r₀‖, 10 ulps of ‖r₀‖
+    _assert_hist_close(res.res_hist.numpy()[: k + 1], reference[key + "/res_hist"][: k + 1],
+                       floor=2e-14 if kind == "inexact" else 1e-15)
+    want = reference[key + "/x"]
+    assert np.abs(solver.unshard(res.x) - want).max() <= 1e-9 * np.abs(want).max()
+    assert res.reseed_events() == reference[key + "/reseeds"].tolist()
+    # (d)/(e) the preconditioner adds no psum; exchanges: one per SpMBV
+    assert mesh.psum_calls == 3 * k + 1
+    n_perm = sum(1 for s in solver.op.plan.steps if s.offset)
+    spmbvs = k + 1  # the loop's and the width-1 initial residual's
+    if kind == "chebyshev":
+        spmbvs += (k + 1) * (solver.config.precondition.degree - 1)  # start + one apply per iteration
+    elif kind == "inexact":
+        applies = k + 1 + res.n_reseeds
+        spmbvs += applies * (solver.config.precondition.sweeps - 1)
+    assert mesh.ppermute_calls == n_perm * spmbvs
+    assert kernels.launch_counts() == dict.fromkeys(kernels.launch_counts(), 0)  # CPU tensors
 
 
 @pytest.mark.parametrize("col_split", [2, 4])

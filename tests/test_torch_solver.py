@@ -125,7 +125,9 @@ def test_build_from_reference_conversion():
     (dict(t="auto"), "queue 1 item 6"),
     (dict(tune="model"), "queue 1 item 9"),
     (dict(adaptive="reduce"), "queue 1 item 6"),
-    (dict(precondition="block_jacobi"), "queue 1 item 8"),
+    # preconditioning runs (tests/test_torch_precondition.py); composed
+    # with a method not ported yet it still raises
+    (dict(method="sstep", precondition="block_jacobi"), "queue 1 item 7"),
     (dict(method="pipelined"), "queue 1 item 7"),
     (dict(method="sstep"), "queue 1 item 7"),
 ])

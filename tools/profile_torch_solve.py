@@ -3,6 +3,7 @@
 
     PYTHONPATH=src python tools/profile_torch_solve.py [--iters 50] [--elements 320 256]
     PYTHONPATH=src python tools/profile_torch_solve.py --devices 8 --ppn 4 --strategy optimal
+    PYTHONPATH=src python tools/profile_torch_solve.py --precondition block_jacobi [--block 16]
 
 Builds the main path of ``chip_smoke.py`` (``dg_laplace_2d(elements,
 block=16)``, t = 8, float64, ``backend="pallas"``) on the GPU, steps the
@@ -11,7 +12,9 @@ again under ``torch.profiler`` and prints JSON lines: the card, wall and
 device-busy ms per iteration, the device's idle share, and device time per
 kernel name.  ``--devices N --ppn K`` profiles the distributed solve on a
 ``VirtualMesh(N // K, K)`` with exchange ``--strategy`` instead of the
-sequential one.  ``--trace PATH`` also writes the Chrome trace.
+sequential one.  ``--precondition KIND`` profiles the preconditioned
+iteration (``--block`` sets the block-Jacobi block size).  ``--trace PATH``
+also writes the Chrome trace.
 """
 
 from __future__ import annotations
@@ -35,6 +38,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ppn", type=int, default=4)
     ap.add_argument("--strategy", default="optimal",
                     choices=["standard", "2step", "3step", "optimal"])
+    ap.add_argument("--precondition", default="none",
+                    choices=["none", "block_jacobi", "chebyshev", "inexact"])
+    ap.add_argument("--block", type=int, default=16, help="block-Jacobi block size")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
     if args.devices and args.devices % args.ppn:
@@ -63,6 +69,8 @@ def main(argv=None) -> int:
     config = SolverConfig(
         t=8, tol=0.0, max_iters=10 + 2 * args.iters, kernel=KernelConfig(backend="pallas"),
         comm=CommConfig(strategy=args.strategy),
+        precondition=(dict(kind="block_jacobi", block=args.block)
+                      if args.precondition == "block_jacobi" else args.precondition),
     )
     if args.devices:
         mesh = VirtualMesh(args.devices // args.ppn, args.ppn, device=dev)
@@ -105,6 +113,7 @@ def main(argv=None) -> int:
         "n": a.shape[0], "t": 8, "iters": args.iters,
         "mesh": list(mesh.shape) if args.devices else None,
         "strategy": args.strategy if args.devices else "sequential",
+        "precondition": args.precondition,
         "wall_ms_per_iter": wall_ms,
         "profiled_wall_ms_per_iter": prof_wall_ms, "device_busy_ms_per_iter": busy_ms,
         "device_idle_share": 1.0 - busy_ms / prof_wall_ms if prof_wall_ms else None,
