@@ -6,16 +6,21 @@
 Phases, each of which raises on failure (exit code != 0, no result line):
 
 1. setup — the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, and the build of every CUDA kernel from ``src/repro_torch``.
+   versions, and the build of every CUDA kernel from ``src/repro_torch``,
+   with each kernel's registers, static shared memory and spill bytes as
+   ``nvcc -Xptxas -v`` reported them (one ``ptxas`` line each).
 2. main-path build — Example 2.1 at full scale (``dg_laplace_2d((320, 256),
    block=16)``: 1 310 720 rows, ~104.5M nonzeros) and an ``ECGSolver`` with
    t = 8, tol = 1e-8·‖b‖, ``backend="pallas"`` on the card.
 3. kernel checks — each kernel against its plain torch version at the main
-   path's shapes (f64, t = 8) and at t = 1 and in f32; one JSON line each
-   with its error, the tolerance, and CUDA-event times of the kernel, the
-   plain version and one PyTorch library call of the same function (a
-   yardstick only; the port never calls it), beside the least time the card
-   could take (bytes over 3.35 TB/s or flops over the peak rate).
+   path's shapes (f64, t = 8) and at t = 1 and in f32, ``bsr_spmbv`` and
+   ``fused_gram`` also at t = 16; one JSON line each with the kernel path
+   its wrapper chose (where it has two), its error, the tolerance, and
+   CUDA-event times of the kernel, the plain version and one PyTorch library
+   call of the same function (a yardstick only; the port never calls it),
+   beside the least time the card could take (bytes over 3.35 TB/s or flops
+   over the peak rate).  Two calls of ``bsr_spmbv`` and ``fused_gram`` at
+   the main path's shapes must be bit-identical.
 4. main path — the solve, with every kernel's launch count set to 0 just
    before it and read just after: ``bsr_spmbv`` must launch n_iters + 1
    times (the width-1 initial residual), ``fused_gram`` and ``ecg_tail``
@@ -33,8 +38,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    plan's widest phase (p = 8 ranks) at w = 8 and w = 1 in float64 and at
    w = 8 in float32, which must equal their plain versions exactly (the
    unpack's dump slot aside), and the batched ``fused_gram`` at
-   (8, rmax, 8); times as in phase 3, the library calls being advanced
-   indexing ``src[rank_ids, idx]`` and ``index_put_``; ``kernel_graph_ms``
+   (8, rmax, 8), bit-identical over two calls; times as in phase 3, the
+   library calls being advanced indexing ``src[rank_ids, idx]`` and
+   ``index_put_``; ``kernel_graph_ms``
    is the kernel's time from a CUDA-graph replay, without the host's
    launch overhead, which dominates at these shapes.
 8. distributed main path — the solve on the mesh, with the launch counts
@@ -151,6 +157,16 @@ def time_graph_ms(torch, fn) -> float:
     return statistics.median(per_call)
 
 
+def demangle(names: list[str]) -> list[str]:
+    """C++ symbol names as ``c++filt`` prints them (as given without it)."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, check=True, timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return names
+    return out if len(out) == len(names) else names
+
+
 def main() -> int:
     import torch
 
@@ -165,8 +181,10 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.block_trisolve.ref import block_trisolve_ref
     from repro_torch.kernels.block_update.ref import block_update_ref, ecg_tail_ref
+    from repro_torch.kernels.bsr_spmbv.ops import spmbv_plan
     from repro_torch.kernels.bsr_spmbv.ref import bsr_spmbv_ref
     from repro_torch.core.node_aware import build_exchange_plan
+    from repro_torch.kernels.fused_gram.ops import gram_plan
     from repro_torch.kernels.fused_gram.ref import fused_gram_ref
     from repro_torch.kernels.halo_pack.ref import halo_pack_ref, halo_unpack_ref
     from repro_torch.launch.mesh import VirtualMesh
@@ -189,6 +207,10 @@ def main() -> int:
         _build.load(name)
     log({"phase": "build_kernels", "seconds": time.perf_counter() - t0,
          "libraries": sorted(str(p.relative_to(ROOT)) for p in libs.values())})
+    usage = _build.ptxas_usage()
+    names = demangle([row["kernel"] for row in usage])
+    for row, name in zip(usage, names):
+        log({"phase": "ptxas", **row, "kernel": name})
 
     # ------------------------------------------------------ 2. main-path build
     t0 = time.perf_counter()
@@ -223,7 +245,10 @@ def main() -> int:
         return csr_by_dtype[dtype]
 
     # Each check returns (plain function, its operands, the kernel call, one
-    # library call, Σ|terms| per output, terms per output, bytes, flops, shape).
+    # library call, Σ|terms| per output, terms per output, bytes, flops, shape,
+    # the kernel path the wrapper's plan chose or None).
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
     def check_bsr(t, dtype):
         blk = blocks.to(dtype)
         v = randn(n, t, dtype=dtype)
@@ -232,10 +257,12 @@ def main() -> int:
         csr = library_csr(dtype)
         library = lambda: torch.sparse.mm(csr, v)
         es = blk.element_size()
+        nbr, _, br, bc = blk.shape
         return (plain, (blk, v), kernel, library, plain(blk.abs(), v.abs()),
                 blk.shape[1] * blk.shape[3],
                 blk.numel() * es + indices.numel() * 4 + 2 * n * t * es,
-                2 * blk.numel() * t, list(blk.shape) + [t])
+                2 * blk.numel() * t, list(blk.shape) + [t],
+                spmbv_plan(nbr, br, bc, t, n, dtype, sms).path)
 
     def check_gram(t, dtype):
         ops = tuple(randn(n, t, dtype=dtype) for _ in range(4))
@@ -244,7 +271,8 @@ def main() -> int:
         library = lambda: torch.cat([p.T @ r, ap.T @ ap, apo.T @ ap], dim=1)
         return (fused_gram_ref, ops, kernel, library,
                 fused_gram_ref(*(o.abs() for o in ops)), n,
-                (4 * n * t + 3 * t * t) * p.element_size(), 6 * n * t * t, [n, t])
+                (4 * n * t + 3 * t * t) * p.element_size(), 6 * n * t * t, [n, t],
+                gram_plan(1, n, t, dtype, sms).path)
 
     def check_tail(t, dtype):
         ops = tuple(randn(n, t, dtype=dtype) for _ in range(5)) + tuple(
@@ -257,7 +285,7 @@ def main() -> int:
         bound = (x.abs() + p.abs() @ c.abs(), r.abs() + ap.abs() @ c.abs(),
                  ap.abs() + p.abs() @ d.abs() + po.abs() @ do.abs())
         return (ecg_tail_ref, ops, kernel, library, bound, 2 * t + 1,
-                (8 * n * t + 3 * t * t) * x.element_size(), 8 * n * t * t, [n, t])
+                (8 * n * t + 3 * t * t) * x.element_size(), 8 * n * t * t, [n, t], None)
 
     def tup(x):
         return x if isinstance(x, tuple) else (x,)
@@ -266,7 +294,7 @@ def main() -> int:
         return max(float((x.double() - y.double()).abs().max()) for x, y in zip(xs, ys))
 
     def run_check(name, make, t, dtype):
-        plain_fn, ops, kernel, library, bound, k_sum, bytes_, flops, shape = make(t, dtype)
+        plain_fn, ops, kernel, library, bound, k_sum, bytes_, flops, shape, path = make(t, dtype)
         plain = lambda: plain_fn(*ops)
         got, want = tup(kernel()), tup(plain())
         torch.cuda.synchronize()
@@ -281,7 +309,7 @@ def main() -> int:
         if not err <= tol:
             raise AssertionError(f"{name} t={t} {dtype}: max_abs_err {err} > tol {tol}")
         dname = str(dtype).removeprefix("torch.")
-        row = {"name": name, "shape": shape, "dtype": dname, "max_abs_err": err, "tol": tol}
+        row = {"name": name, "shape": shape, "dtype": dname, "path": path, "max_abs_err": err, "tol": tol}
         if dtype == torch.float32:
             # the n-term bound above is loose in float32, so the kernel is
             # also held to the plain version's own accuracy against a
@@ -302,11 +330,24 @@ def main() -> int:
         log(row)
         return row
 
+    def repeat_check(name, make, t):
+        # the kernels sum in a fixed order without atomics: two calls on the
+        # same inputs must agree bit for bit
+        made = make(t, torch.float64)
+        kernel, shape = made[2], made[8]
+        same = torch.equal(kernel(), kernel())
+        log({"phase": "repeat_check", "name": name, "shape": shape, "bit_identical": same})
+        if not same:
+            raise AssertionError(f"{name}: two calls on the same inputs differ")
+
     checks = {}
     for name, make in (("bsr_spmbv", check_bsr), ("fused_gram", check_gram), ("ecg_tail", check_tail)):
         checks[name] = run_check(name, make, T, torch.float64)  # the main path's shape
         run_check(name, make, 1, torch.float64)
         run_check(name, make, T, torch.float32)
+        if name != "ecg_tail":
+            run_check(name, make, 16, torch.float64)
+            repeat_check(name, make, T)
     csr_by_dtype.clear()
     torch.cuda.empty_cache()
 
@@ -457,9 +498,11 @@ def main() -> int:
         return (fused_gram_ref, ops, kernel, library,
                 fused_gram_ref(*(o.abs() for o in ops)), op.rmax,
                 (4 * p_ranks * op.rmax * t + 3 * p_ranks * t * t) * pp.element_size(),
-                6 * p_ranks * op.rmax * t * t, [p_ranks, op.rmax, t])
+                6 * p_ranks * op.rmax * t * t, [p_ranks, op.rmax, t],
+                gram_plan(p_ranks, op.rmax, t, dtype, sms).path)
 
     checks["fused_gram_batched"] = run_check("fused_gram_batched", check_gram_batched, T, torch.float64)
+    repeat_check("fused_gram_batched", check_gram_batched, T)
     torch.cuda.empty_cache()
 
     # --------------------------------------------- 8. distributed main path
@@ -614,7 +657,7 @@ def main() -> int:
         library = lambda: (torch.addmm(x, p, c), torch.addmm(r, ap, c, alpha=-1))
         bound = (x.abs() + p.abs() @ c.abs(), r.abs() + ap.abs() @ c.abs())
         return (block_update_ref, ops, kernel, library, bound, t + 1,
-                (6 * n * t + t * t) * x.element_size(), 4 * n * t * t, [n, t])
+                (6 * n * t + t * t) * x.element_size(), 4 * n * t * t, [n, t], None)
 
     checks["block_update"] = run_check("block_update", check_update, T, torch.float64)
     run_check("block_update", check_update, 1, torch.float64)

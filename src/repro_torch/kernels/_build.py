@@ -7,6 +7,10 @@ sources, the headers and the compiler flags, so an edited source builds
 anew and an unchanged one is reused.  The build happens at first use, never
 at import: the CPU tests import every module without ``nvcc``.
 
+Each ``nvcc`` runs with ``-Xptxas -v``; its output is kept beside the library
+as ``lib<source>.log``, and :func:`ptxas_usage` reads each kernel's
+registers, shared memory and spills from it.
+
 Each kernel function ``<name>`` is exported as ``<name>_f32`` and
 ``<name>_f64`` (plain C functions that take device pointers and the stream
 as ``void*``, launch, and return ``cudaGetLastError()``) by the library of
@@ -19,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,14 +35,14 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: argument types of ``<name>_f32`` / ``<name>_f64``: pointers and the stream
 #: as c_void_p, so ctypes never cuts a 64-bit address to an int
 SIGNATURES = {
-    "bsr_spmbv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P],
+    "bsr_spmbv": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _L, _L, _I, _I, _P],
     "fused_gram": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
     "ecg_tail": [_P] * 11 + [_L, _I, _P],
     "halo_pack": [_P, _P, _P, _I, _L, _I, _I, _P],
@@ -96,6 +101,7 @@ def build_all() -> dict[str, Path]:
         failed = []
         for name, (tmp, proc) in procs.items():
             log, _ = proc.communicate()
+            libs[name].with_suffix(".log").write_text(log)
             if proc.returncode != 0:
                 failed.append(f"--- {name}.cu (exit {proc.returncode})\n{log}")
                 tmp.unlink(missing_ok=True)
@@ -104,6 +110,34 @@ def build_all() -> dict[str, Path]:
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return libs
+
+
+_PTXAS = re.compile(
+    r"Compiling entry function '(?P<fn>[^']+)'"
+    r"|(?P<stores>\d+) bytes spill stores, (?P<loads>\d+) bytes spill loads"
+    r"|Used (?P<regs>\d+) registers(?:, used \d+ barriers)?(?:, (?P<smem>\d+) bytes smem)?"
+)
+
+
+def parse_ptxas(log: str, source: str) -> list[dict]:
+    """One row per kernel of an ``nvcc -Xptxas -v`` log: its mangled name,
+    registers, static shared memory and spill bytes."""
+    rows, row = [], None
+    for m in _PTXAS.finditer(log):
+        if m["fn"]:
+            row = {"source": source, "kernel": m["fn"]}
+            rows.append(row)
+        elif row is not None and m["stores"]:
+            row.update(spill_stores=int(m["stores"]), spill_loads=int(m["loads"]))
+        elif row is not None and m["regs"]:
+            row.update(registers=int(m["regs"]), smem_bytes=int(m["smem"] or 0))
+    return rows
+
+
+def ptxas_usage() -> list[dict]:
+    """:func:`parse_ptxas` of every source's log in the current build."""
+    return [row for log in sorted(build_dir().glob("lib*.log"))
+            for row in parse_ptxas(log.read_text(), log.stem.removeprefix("lib"))]
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -17,7 +17,7 @@ conversion that puts the kernel on the solver's path:
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, NamedTuple
 
 import numpy as np
 import torch
@@ -29,9 +29,48 @@ from repro_torch.kernels.dispatch import use_kernel
 if TYPE_CHECKING:
     from repro_torch.sparse.csr import CSRMatrix
 
-#: largest block width the kernel takes (one thread per output of a block row)
+#: largest block width the kernel takes
 MAX_T = 16
-_SMEM_BYTES = 48 * 1024  # static shared-memory budget of one CTA
+#: tile rows and columns the float64 tensor-core path takes (br = 8·MT,
+#: bc = 4·S in ``csrc/bsr_spmbv.cu``)
+MMA_BR, MMA_BC = (8, 16), (4, 8, 16)
+_MMA_WARPS = 4         # warps per CTA, one block row each (kMmaWarps)
+_MMA_CTAS_PER_SM = 4   # the kernel's __launch_bounds__ minimum
+_FMA_THREADS = 256     # one output row each (kFmaThreads)
+_FMA_CTAS_PER_SM = 8
+
+
+class SpmbvPlan(NamedTuple):
+    """Launch geometry of one ``bsr_spmbv`` call."""
+
+    path: str     # "mma" (f64 tensor cores) or "fma" (register-tiled FMAs)
+    grid: int     # CTAs of the persistent grid
+    threads: int  # threads per CTA
+    rows: int     # work items the grid strides over: block rows (mma, one
+                  # warp each) or output rows (fma, one thread each)
+
+
+def spmbv_plan(nbr: int, br: int, bc: int, t: int, n_w: int, dtype, sms: int,
+               aligned: bool = True) -> SpmbvPlan:
+    """Which kernel path a shape takes and its grid, for a card with ``sms``
+    multiprocessors.  float64 tiles of (br, bc) in ``MMA_BR`` x ``MMA_BC``
+    whose data is 16-byte aligned take the tensor-core path; everything else
+    (float32, other tiles) the FMA path.  Raises on what neither takes."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"bsr_spmbv: kernel takes float32/float64, got {dtype}")
+    if not 1 <= t <= MAX_T:
+        raise ValueError(f"bsr_spmbv: kernel takes 1 <= t <= {MAX_T}, got t={t}")
+    if min(br, bc) < 1:
+        raise ValueError(f"bsr_spmbv: empty ({br}, {bc}) tiles")
+    if not 0 <= n_w <= nbr * br:
+        raise ValueError(f"bsr_spmbv: n_rows={n_w} outside [0, {nbr * br}]")
+    if dtype == torch.float64 and br in MMA_BR and bc in MMA_BC and aligned:
+        rows = min(nbr, -(-n_w // br))
+        grid = min(-(-rows // _MMA_WARPS), sms * _MMA_CTAS_PER_SM)
+        return SpmbvPlan("mma", max(grid, 1), 32 * _MMA_WARPS, rows)
+    rows = n_w
+    grid = min(-(-rows // _FMA_THREADS), sms * _FMA_CTAS_PER_SM)
+    return SpmbvPlan("fma", max(grid, 1), _FMA_THREADS, rows)
 
 
 def _host(x) -> np.ndarray:
@@ -201,29 +240,23 @@ def _bsr_spmbv_cuda(blocks, indices, v, n_rows):
         raise ValueError(f"bsr_spmbv: V must be (rows, t), got {tuple(v.shape)}")
     t = v.shape[1]
     dtype = blocks.dtype
-    if dtype not in (torch.float32, torch.float64) or v.dtype != dtype:
-        raise TypeError(f"bsr_spmbv: blocks and V must share float32/float64, got {dtype}/{v.dtype}")
+    if v.dtype != dtype:
+        raise TypeError(f"bsr_spmbv: blocks and V must share a dtype, got {dtype}/{v.dtype}")
     if indices.dtype != torch.int32:
         raise TypeError(f"bsr_spmbv: indices must be int32, got {indices.dtype}")
     if tuple(indices.shape) != (nbr, kmax):
         raise ValueError(f"bsr_spmbv: indices shape {tuple(indices.shape)} != {(nbr, kmax)}")
     if not (blocks.is_contiguous() and indices.is_contiguous() and v.is_contiguous()):
         raise ValueError("bsr_spmbv: operands must be contiguous")
-    if not 1 <= t <= MAX_T or br * t > 256:
-        raise ValueError(f"bsr_spmbv: kernel takes 1 <= t <= {MAX_T} and br*t <= 256, got t={t}, br={br}")
-    if not 0 <= n_rows <= nbr * br:
-        raise ValueError(f"bsr_spmbv: n_rows={n_rows} outside [0, {nbr * br}]")
-    tile_bytes = (br * bc + bc * t) * blocks.element_size()
-    rows_per_cta = min(256 // (br * t), _SMEM_BYTES // tile_bytes)
-    if rows_per_cta < 1:
-        raise ValueError(f"bsr_spmbv: a ({br}, {bc}) tile at t={t} exceeds shared memory")
+    sms = torch.cuda.get_device_properties(v.device).multi_processor_count
+    plan = spmbv_plan(nbr, br, bc, t, n_rows, dtype, sms, aligned=blocks.data_ptr() % 16 == 0)
     w = torch.empty((n_rows, t), dtype=dtype, device=v.device)
     if n_rows == 0:
         return w
     _build.launch(
         "bsr_spmbv", dtype, blocks.data_ptr(), indices.data_ptr(), v.data_ptr(),
-        w.data_ptr(), nbr, kmax, br, bc, t, v.shape[0], n_rows, rows_per_cta,
-        torch.cuda.current_stream(v.device).cuda_stream,
+        w.data_ptr(), nbr, kmax, br, bc, t, v.shape[0], n_rows, int(plan.path == "mma"),
+        plan.grid, torch.cuda.current_stream(v.device).cuda_stream,
     )
     bsr_spmbv.launches += 1
     return w

@@ -14,129 +14,226 @@
 // What bounds it on the H100: bytes.  It reads 4·n·t values and does
 // 6·n·t² flops (t ≤ 16), far below the compute line; at Example 2.1's full
 // scale (n = 1 310 720, t = 8, f64) the floor is the 336 MB read, ~0.10 ms.
+// A kernel reaches it only with enough loads in flight and no on-chip
+// traffic per multiply-add; a design that stages rows in shared memory
+// behind barriers and reads two shared values per multiply-add does not.
 //
 // Design: the Pallas kernel carries the (t, 3t) sum across its sequential
 // grid in VMEM.  Hopper's CTAs run in no order, so the sum is split in two
-// passes.  Pass 1: a (parts, ranks) grid; each CTA owns a contiguous row
-// range of one rank (a range never crosses a rank boundary), stages
-// 32-row chunks of the four operands in shared memory (coalesced loads, each
-// input value read from device memory once) and accumulates its (t, 3t)
-// partial in registers — one to three outputs per thread — which it writes to
-// a scratch row.  Pass 2: one CTA per rank sums that rank's partials in part
-// order.  Both sums run in a fixed order and use no atomics, so the result is
-// deterministic.
+// launches, both in a fixed order and without atomics, so the result is
+// bit-identical from call to call.  Pass 1 is a (parts, ranks) grid of
+// CTAs, about four per SM in all (``kernels/fused_gram/ops.py``
+// ``gram_plan``); CTA (x, y) owns a contiguous row range of rank y, whose
+// values start at element y·n·t of each operand (an offset of the base
+// pointers, once per CTA: there is no separate single-rank kernel).
+//
+// * mma path (float64): the products run on the f64 tensor cores,
+//   mma.sync.m8n8k4, with the rows as the depth.  For XᵀY over four rows
+//   lane (g = lane/4, q = lane%4) holds A = Xᵀ[g][q] = X[row + q][g] and
+//   B = Y[row + q][g]: the same address, a coalesced 256-byte warp-load at
+//   t = 8.  So per four rows a lane loads one value each of P, R, AP and
+//   AP_old and issues three mmas (PᵀR, APᵀAP with one register as A and B,
+//   AP_oldᵀAP); t ≤ 16 takes a 2x2 set of 8x8 tiles per product and t < 8
+//   loads zeros.  Each warp of a 4-warp CTA loads U four-row steps (32
+//   rows) before their mmas and walks the CTA's rows by 4 warps·32.
+// * fma path (float32, since the f32 tensor-core mma would round to TF32):
+//   each thread owns a 4x4 tile of one product, loads 4 + 4 row values into
+//   registers per row and does 16 multiply-adds with them; groups of
+//   threads take the rows in turn.  It accumulates in float64 (the f64
+//   multiply-adds cost nothing against the bytes), so its long per-thread
+//   sums stay within the plain float32 product's accuracy.
+//
+// Each CTA sums its warps' (or groups') accumulators in a fixed order
+// through shared memory and writes one float64 partial per output.  Pass 2
+// sums each output's `parts` partials (one per pass-1 CTA of the rank,
+// stored contiguously): one warp per output, lanes over the partials in
+// order, then a fixed warp-shuffle tree.
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kChunk = 32;    // rows staged in shared memory per step
-constexpr int kMaxSlots = 3;  // outputs per thread: 3·t² ≤ 3·256 for t ≤ 16
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kFmaThreads = 256;
+constexpr int kReduceWarps = 8;
 
-// kRanked = false is the single-rank call: its offsets fold to 0 and the
-// code is that of the unranked kernel (the ranked code ran about a third
-// slower at ranks = 1 on the H100; PERF.md §6).
-template <typename T, bool kRanked>
-__global__ void __launch_bounds__(repro::kThreads) fused_gram_partial(
-    const T* __restrict__ p, const T* __restrict__ r, const T* __restrict__ ap,
-    const T* __restrict__ apo, T* __restrict__ partials, long long n, int t,
-    long long rows_per_part) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sp = reinterpret_cast<T*>(smem_raw);
-  T* sr = sp + kChunk * t;
-  T* sap = sr + kChunk * t;
-  T* sapo = sap + kChunk * t;
-  const int width = 3 * t;
-  const int n_out = t * width;
+// partial of output o of CTA (part, rank): partials[(rank·n_out + o)·parts + part]
+__device__ __forceinline__ long long partial_at(int o, int n_out) {
+  return (static_cast<long long>(blockIdx.y) * n_out + o) * gridDim.x + blockIdx.x;
+}
 
-  T acc[kMaxSlots];
-  int xa[kMaxSlots], yb[kMaxSlots], sel[kMaxSlots];
-  for (int m = 0; m < kMaxSlots; ++m) {
-    acc[m] = T(0);
-    const int o = threadIdx.x + m * blockDim.x;
-    const int a = o / width;
-    const int rem = o - a * width;
-    sel[m] = o < n_out ? rem / t : -1;
-    xa[m] = a;
-    yb[m] = rem % t;
-  }
-
-  // CTA (x, y) owns rows [begin, end) of rank y, whose values start at
-  // element y·n·t of each operand
-  const long long first = kRanked ? static_cast<long long>(blockIdx.y) * n * t : 0;
+// MT = 1 for t ≤ 8, 2 for t ≤ 16 (an MT x MT set of 8x8 tiles per product)
+template <int MT>
+__global__ void __launch_bounds__(kMmaThreads) fused_gram_mma(
+    const double* __restrict__ p, const double* __restrict__ r,
+    const double* __restrict__ ap, const double* __restrict__ apo,
+    double* __restrict__ partials, long long n, int t, long long rows_per_part) {
+  constexpr int U = 8 / MT;            // four-row steps loaded before their mmas
+  constexpr int E = 3 * MT * MT * 2;   // accumulator values per lane
+  __shared__ double red[kMmaWarps][E][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const long long first = static_cast<long long>(blockIdx.y) * n * t;
+  p += first;
+  r += first;
+  ap += first;
+  apo += first;
   const long long begin = static_cast<long long>(blockIdx.x) * rows_per_part;
   const long long end = min(n, begin + rows_per_part);
-  for (long long base = begin; base < end; base += kChunk) {
-    const int rows = static_cast<int>(min(static_cast<long long>(kChunk), end - base));
-    __syncthreads();  // the previous chunk's reads of shared memory are done
-    for (int idx = threadIdx.x; idx < rows * t; idx += blockDim.x) {
-      const long long g = first + base * t + idx;
-      sp[idx] = p[g];
-      sr[idx] = r[g];
-      sap[idx] = ap[g];
-      sapo[idx] = apo[g];
-    }
-    __syncthreads();
-    for (int m = 0; m < kMaxSlots; ++m) {
-      if (sel[m] < 0) continue;
-      const T* x = sel[m] == 0 ? sp : (sel[m] == 1 ? sap : sapo);
-      const T* y = sel[m] == 0 ? sr : sap;
-      T s = acc[m];
-      for (int q = 0; q < rows; ++q) s += x[q * t + xa[m]] * y[q * t + yb[m]];
-      acc[m] = s;
-    }
-  }
-  for (int m = 0; m < kMaxSlots; ++m) {
-    if (sel[m] < 0) continue;
-    const int o = threadIdx.x + m * blockDim.x;
-    const long long part = kRanked ? static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x
-                                   : static_cast<long long>(blockIdx.x);
-    partials[part * n_out + o] = acc[m];
-  }
-}
 
-template <typename T, bool kRanked>
-__global__ void __launch_bounds__(repro::kThreads) fused_gram_reduce(
-    const T* __restrict__ partials, T* __restrict__ out, int parts, int n_out) {
-  if (kRanked) {
-    partials += static_cast<long long>(blockIdx.x) * parts * n_out;
-    out += static_cast<long long>(blockIdx.x) * n_out;
+  double acc[3][MT][MT][2] = {};
+  for (long long base = begin + warp * 4 * U; base < end; base += kMmaWarps * 4 * U) {
+    double xp[U][MT], xr[U][MT], xa[U][MT], xo[U][MT];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long row = base + 4 * u + q;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int col = 8 * m + g;
+        const bool ok = row < end && col < t;
+        const long long i = row * t + col;
+        xp[u][m] = ok ? __ldg(p + i) : 0.0;
+        xr[u][m] = ok ? __ldg(r + i) : 0.0;
+        xa[u][m] = ok ? __ldg(ap + i) : 0.0;
+        xo[u][m] = ok ? __ldg(apo + i) : 0.0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < MT; ++ni) {
+          repro::mma_f64(acc[0][mi][ni], xp[u][mi], xr[u][ni]);
+          repro::mma_f64(acc[1][mi][ni], xa[u][mi], xa[u][ni]);
+          repro::mma_f64(acc[2][mi][ni], xo[u][mi], xa[u][ni]);
+        }
   }
-  for (int o = threadIdx.x; o < n_out; o += blockDim.x) {
-    T s = T(0);
-    for (int q = 0; q < parts; ++q) s += partials[static_cast<long long>(q) * n_out + o];
-    out[o] = s;
-  }
-}
 
-template <typename T, bool kRanked>
-int launch_as(const void* p, const void* r, const void* ap, const void* apo,
-              void* partials, void* out, int ranks, long long n, int t, int parts,
-              long long rows_per_part, cudaStream_t s) {
-  const size_t smem = 4 * static_cast<size_t>(kChunk) * t * sizeof(T);
-  fused_gram_partial<T, kRanked><<<dim3(parts, ranks), repro::kThreads, smem, s>>>(
-      static_cast<const T*>(p), static_cast<const T*>(r),
-      static_cast<const T*>(ap), static_cast<const T*>(apo),
-      static_cast<T*>(partials), n, t, rows_per_part);
-  const int status = repro::launch_status();
-  if (status != 0) return status;
-  fused_gram_reduce<T, kRanked><<<ranks, repro::kThreads, 0, s>>>(
-      static_cast<const T*>(partials), static_cast<T*>(out), parts, 3 * t * t);
-  return repro::launch_status();
+  // the CTA's partial: the warps' fragments summed in warp order
+#pragma unroll
+  for (int s = 0; s < 3; ++s)
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < MT; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) red[warp][((s * MT + mi) * MT + ni) * 2 + h][lane] = acc[s][mi][ni][h];
+  __syncthreads();
+  const int n_out = 3 * t * t;
+  for (int i = threadIdx.x; i < E * 32; i += kMmaThreads) {
+    const int e = i >> 5, l = i & 31;
+    double sum = red[0][e][l];
+#pragma unroll
+    for (int wi = 1; wi < kMmaWarps; ++wi) sum += red[wi][e][l];
+    const int h = e & 1, ni = (e >> 1) % MT, mi = (e >> 1) / MT % MT, s = (e >> 1) / (MT * MT);
+    const int a = 8 * mi + (l >> 2), b = 8 * ni + 2 * (l & 3) + h;
+    if (a < t && b < t) partials[partial_at(a * 3 * t + s * t + b, n_out)] = sum;
+  }
 }
 
 template <typename T>
-int launch(const void* p, const void* r, const void* ap, const void* apo,
-           void* partials, void* out, int ranks, long long n, int t, int parts,
-           long long rows_per_part, void* stream) {
+__global__ void __launch_bounds__(kFmaThreads) fused_gram_fma(
+    const T* __restrict__ p, const T* __restrict__ r, const T* __restrict__ ap,
+    const T* __restrict__ apo, double* __restrict__ partials, long long n, int t,
+    long long rows_per_part) {
+  constexpr int kRows = 4;  // rows loaded before their multiply-adds
+  __shared__ double red[kFmaThreads][16];
+  const int ta = (t + 3) / 4, tiles = 3 * ta * ta, groups = kFmaThreads / tiles;
+  const int grp = threadIdx.x / tiles, tile = threadIdx.x % tiles;
+  const int s = tile / (ta * ta), a0 = tile / ta % ta * 4, b0 = tile % ta * 4;
+  const long long first = static_cast<long long>(blockIdx.y) * n * t;
+  const T* x = (s == 0 ? p : (s == 1 ? ap : apo)) + first;
+  const T* y = (s == 0 ? r : ap) + first;
+  const long long begin = static_cast<long long>(blockIdx.x) * rows_per_part;
+  const long long end = min(n, begin + rows_per_part);
+
+  double acc[4][4] = {};
+  if (grp < groups) {
+    for (long long row0 = begin + grp; row0 < end; row0 += kRows * groups) {
+      T xv[kRows][4], yv[kRows][4];
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        const long long row = row0 + k * groups;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          xv[k][i] = row < end && a0 + i < t ? __ldg(x + row * t + a0 + i) : T(0);
+          yv[k][i] = row < end && b0 + i < t ? __ldg(y + row * t + b0 + i) : T(0);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kRows; ++k)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] += static_cast<double>(xv[k][i]) * static_cast<double>(yv[k][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[threadIdx.x][i * 4 + j] = acc[i][j];
+  __syncthreads();
+  // the CTA's partial: the groups' tiles summed in group order
+  const int n_out = 3 * t * t;
+  for (int o = threadIdx.x; o < n_out; o += kFmaThreads) {
+    const int a = o / (3 * t), so = o % (3 * t) / t, b = o % t;
+    const int tl = (so * ta + a / 4) * ta + b / 4, e = (a % 4) * 4 + b % 4;
+    double sum = red[tl][e];
+    for (int gi = 1; gi < groups; ++gi) sum += red[gi * tiles + tl][e];
+    partials[partial_at(o, n_out)] = sum;
+  }
+}
+
+// out[rank, o] = Σ_part partials[rank, o, part], one warp per output
+template <typename T>
+__global__ void __launch_bounds__(32 * kReduceWarps) fused_gram_reduce(
+    const double* __restrict__ partials, T* __restrict__ out, int parts, int n_out) {
+  const int lane = threadIdx.x & 31;
+  const int o = blockIdx.x * kReduceWarps + (threadIdx.x >> 5);
+  if (o >= n_out) return;  // the whole warp
+  const long long at = static_cast<long long>(blockIdx.y) * n_out + o;
+  const double* src = partials + at * parts;
+  double sum = 0.0;
+  for (int k = lane; k < parts; k += 32) sum += src[k];
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, d);
+  if (lane == 0) out[at] = static_cast<T>(sum);
+}
+
+// float64 takes the mma pass 1, float32 the fma one
+template <typename T>
+int launch(const void* p, const void* r, const void* ap, const void* apo, void* partials,
+           void* out, int ranks, long long n, int t, int parts, long long rows_per_part,
+           void* stream) {
+  if (t < 1 || t > 16) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return ranks == 1
-             ? launch_as<T, false>(p, r, ap, apo, partials, out, 1, n, t, parts, rows_per_part, s)
-             : launch_as<T, true>(p, r, ap, apo, partials, out, ranks, n, t, parts, rows_per_part, s);
+  const dim3 grid(parts, ranks);
+  const T *tp = static_cast<const T*>(p), *tr = static_cast<const T*>(r);
+  const T *tap = static_cast<const T*>(ap), *tapo = static_cast<const T*>(apo);
+  double* part = static_cast<double*>(partials);
+  if constexpr (std::is_same_v<T, double>) {
+    auto* kernel = t <= 8 ? fused_gram_mma<1> : fused_gram_mma<2>;
+    kernel<<<grid, kMmaThreads, 0, s>>>(tp, tr, tap, tapo, part, n, t, rows_per_part);
+  } else {
+    fused_gram_fma<T><<<grid, kFmaThreads, 0, s>>>(tp, tr, tap, tapo, part, n, t, rows_per_part);
+  }
+  const int status = repro::launch_status();
+  if (status != 0) return status;
+  const int n_out = 3 * t * t;
+  fused_gram_reduce<T><<<dim3(repro::cdiv(n_out, kReduceWarps), ranks), 32 * kReduceWarps, 0, s>>>(
+      part, static_cast<T*>(out), parts, n_out);
+  return repro::launch_status();
 }
 
 }  // namespace
 
+// parts pass-1 CTAs per rank, each owning rows_per_part rows; partials holds
+// ranks·3t²·parts float64 values.  Both from the wrapper's plan.
 REPRO_EXPORT int fused_gram_f32(const void* p, const void* r, const void* ap,
                                 const void* apo, void* partials, void* out,
                                 int ranks, long long n, int t, int parts,

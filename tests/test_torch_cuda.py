@@ -72,6 +72,68 @@ def test_bsr_spmbv_matches_plain(cuda, t, dtype):
             torch.testing.assert_close(got.cpu(), want, **_tol(dtype))
 
 
+#: tiles of the float64 tensor-core path (MMA_BR x MMA_BC) and tiles it does
+#: not take, which run on the FMA path in both dtypes
+SPMBV_TILES = [(8, 8), (8, 4), (8, 16), (16, 4), (16, 8), (16, 16), (4, 8), (5, 3), (12, 8)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t", [1, 3, 5, 8, 12, 16])
+@pytest.mark.parametrize("tile", SPMBV_TILES)
+def test_bsr_spmbv_paths_match_plain_and_are_deterministic(cuda, tile, t, dtype):
+    from repro_torch.kernels.bsr_spmbv.ops import spmbv_plan
+
+    a = dg_laplace_2d((5, 4), block=8, device="cpu")
+    n = a.shape[0]
+    blocks, indices, _, _, _ = block_ell_arrays(a, *tile)
+    blocks = blocks.to(dtype)
+    nbr, _, br, _ = blocks.shape
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    want_path = "mma" if dtype == torch.float64 and tile[0] in (8, 16) and tile[1] in (4, 8, 16) else "fma"
+    assert spmbv_plan(nbr, br, tile[1], t, n, dtype, sms).path == want_path
+    v = torch.randn(n, t, dtype=dtype)
+    bd, idd = blocks.to(cuda), indices.to(cuda)
+    # V short of nbc·bc (rows past its end read as zero), and an output cut
+    # below nbr·br (n_rows) as well as the full padded one
+    for rows_v, n_rows in ((n, n), (n - 7, None), (n - 3, n - 11)):
+        vv = v[:rows_v].contiguous()
+        want = kernels.bsr_spmbv(blocks, indices, vv, n_rows=n_rows)
+        got = kernels.bsr_spmbv(bd, idd, vv.to(cuda), n_rows=n_rows)
+        assert got.shape == want.shape
+        torch.testing.assert_close(got.cpu(), want, **_tol(dtype))
+        assert torch.equal(kernels.bsr_spmbv(bd, idd, vv.to(cuda), n_rows=n_rows), got)
+
+
+@pytest.mark.parametrize("t", [1, 8, 16])
+def test_bsr_spmbv_ranked_layout_of_the_virtual_mesh(cuda, t):
+    # the distributed apply runs one launch over the p stacked local products
+    a = dg_laplace_2d((8, 8), block=4, device="cpu")
+    cfg = SolverConfig(t=t, tol=1e-8, max_iters=10, kernel="pallas", comm=CommConfig(strategy="optimal"))
+    ops = {dev: ECGSolver.build(a, VirtualMesh(2, 4, device=dev), cfg).op for dev in ("cpu", cuda)}
+    v = np.random.default_rng(3).standard_normal((a.shape[0], t))
+    kernels.reset_launch_counts()
+    got = [ops[cuda].matvec_fn()(ops[cuda].shard_vector(v)) for _ in range(2)]
+    assert kernels.launch_counts()["bsr_spmbv"] == 2
+    want = ops["cpu"].matvec_fn()(ops["cpu"].shard_vector(v))
+    torch.testing.assert_close(got[0].cpu(), want, **_tol(torch.float64))
+    assert torch.equal(got[0], got[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ranks", [1, 3, 8])
+@pytest.mark.parametrize("t", [1, 3, 8, 12, 16])
+@pytest.mark.parametrize("n", [1, 3, 37, 70001])
+def test_fused_gram_paths_match_plain_and_are_deterministic(cuda, n, t, ranks, dtype):
+    shape = (n, t) if ranks == 1 else (ranks, n, t)
+    mats = [torch.randn(*shape, dtype=dtype, device=cuda) for _ in range(4)]
+    got = kernels.fused_gram(*mats)
+    assert got.shape == shape[:-2] + (t, 3 * t)
+    torch.testing.assert_close(got.cpu(), fused_gram_ref(*(m.cpu() for m in mats)), **_tol(dtype, gram=True))
+    assert torch.equal(kernels.fused_gram(*mats), got)  # fixed summation order
+    if ranks == 1:  # the ranked layout sums in the same order
+        assert torch.equal(kernels.fused_gram(*(m[None] for m in mats))[0], got)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("t", WIDTHS)
 @pytest.mark.parametrize("n", [1, 37, 3001, 70001])

@@ -1,0 +1,264 @@
+"""Launch geometry of the ``bsr_spmbv`` and ``fused_gram`` CUDA kernels, on the CPU.
+
+The wrappers take their grid, path and scratch sizes from the pure
+functions ``spmbv_plan`` and ``gram_plan``.  These tests replay each
+kernel's loops over the plan in Python (which rows a warp, thread or CTA
+visits) and check that every row is visited exactly once, that no CTA or
+part is left without work, that the scratch sizes are right, that the
+Python constants mirror the CUDA sources, and that the shapes neither path
+takes raise in the wrapper before anything is launched.
+"""
+
+import importlib
+import re
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.kernels import _build
+
+bops = importlib.import_module("repro_torch.kernels.bsr_spmbv.ops")
+gops = importlib.import_module("repro_torch.kernels.fused_gram.ops")
+
+CSRC = Path(_build.CSRC)
+F32, F64 = torch.float32, torch.float64
+
+
+def _cuda_constant(source: str, name: str) -> int:
+    m = re.search(rf"constexpr int {name} = (\d+);", (CSRC / source).read_text())
+    assert m, f"{name} not found in {source}"
+    return int(m.group(1))
+
+
+# ------------------------------------------------------------------ bsr_spmbv
+SPMBV_SHAPES = [
+    # (nbr, br, bc, t, n_w): Example 2.1's sequential and width-1 calls, the
+    # virtual mesh's stacked call, a short output, tiny and ragged shapes
+    (163_840, 8, 8, 8, 1_310_720),
+    (163_840, 8, 8, 1, 1_310_720),
+    (20_480 * 8, 8, 8, 8, 163_840 * 8),
+    (1000, 8, 8, 16, 7993),
+    (1, 8, 8, 3, 5),
+    (37, 16, 4, 12, 37 * 16),
+    (37, 16, 16, 16, 590),
+    (50, 4, 8, 5, 200),
+    (50, 5, 3, 8, 249),
+    (3, 12, 8, 1, 1),
+]
+
+
+@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("nbr,br,bc,t,n_w", SPMBV_SHAPES)
+@pytest.mark.parametrize("sms", [132, 1])
+def test_spmbv_plan_covers_every_output_row_once(nbr, br, bc, t, n_w, dtype, sms):
+    plan = bops.spmbv_plan(nbr, br, bc, t, n_w, dtype, sms)
+    if plan.path == "mma":
+        # one warp per block row; a block row is needed while it holds an
+        # output row below n_w
+        per_cta, cap = plan.threads // 32, bops._MMA_CTAS_PER_SM
+        assert plan.rows == min(nbr, -(-n_w // br))
+        assert plan.rows * br >= n_w and (plan.rows - 1) * br < n_w
+    else:
+        per_cta, cap = plan.threads, bops._FMA_CTAS_PER_SM
+        assert plan.rows == n_w
+    assert 1 <= plan.grid <= sms * cap
+    workers = plan.grid * per_cta
+    # the kernel's persistent loop: worker w takes items w, w + workers, ...
+    visits = torch.zeros(plan.rows, dtype=torch.int64)
+    for w in range(min(workers, plan.rows)):
+        visits[w::workers] += 1
+    assert bool((visits == 1).all())
+    assert (plan.grid - 1) * per_cta < max(plan.rows, 1)  # no CTA without work
+
+
+@pytest.mark.parametrize("br,bc,dtype,aligned,path", [
+    (8, 8, F64, True, "mma"), (8, 4, F64, True, "mma"), (8, 16, F64, True, "mma"),
+    (16, 4, F64, True, "mma"), (16, 8, F64, True, "mma"), (16, 16, F64, True, "mma"),
+    (8, 8, F32, True, "fma"), (16, 16, F32, True, "fma"),
+    (4, 8, F64, True, "fma"), (5, 3, F64, True, "fma"), (12, 8, F64, True, "fma"),
+    (24, 8, F64, True, "fma"), (8, 12, F64, True, "fma"), (8, 8, F64, False, "fma"),
+])
+def test_spmbv_plan_path_by_dtype_tile_and_alignment(br, bc, dtype, aligned, path):
+    assert bops.spmbv_plan(64, br, bc, 8, 64 * br, dtype, 132, aligned=aligned).path == path
+    assert (path == "mma") == (dtype == F64 and br in bops.MMA_BR and bc in bops.MMA_BC and aligned)
+
+
+@pytest.mark.parametrize("kwargs,error", [
+    (dict(t=0), ValueError), (dict(t=17), ValueError), (dict(n_w=8 * 64 + 1), ValueError),
+    (dict(n_w=-1), ValueError), (dict(br=0), ValueError), (dict(dtype=torch.float16), TypeError),
+    (dict(dtype=torch.int32), TypeError),
+])
+def test_spmbv_plan_raises_on_what_neither_path_takes(kwargs, error):
+    args = dict(nbr=64, br=8, bc=8, t=8, n_w=8 * 64, dtype=F64, sms=132) | kwargs
+    with pytest.raises(error):
+        bops.spmbv_plan(**args)
+
+
+def _ell(nbr=4, kmax=3, br=8, bc=8, dtype=F64):
+    blocks = torch.zeros(nbr, kmax, br, bc, dtype=dtype)
+    return blocks, torch.zeros(nbr, kmax, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("v_1d", ValueError, "rows, t"),
+    ("v_dtype", TypeError, "share a dtype"),
+    ("idx_int64", TypeError, "int32"),
+    ("idx_shape", ValueError, "indices shape"),
+    ("not_contiguous", ValueError, "contiguous"),
+])
+def test_spmbv_wrapper_checks_before_launching(case, error, match):
+    blocks, idx = _ell()
+    v = torch.zeros(32, 8, dtype=F64)
+    if case == "v_1d":
+        v = v[:, 0]
+    elif case == "v_dtype":
+        v = v.float()
+    elif case == "idx_int64":
+        idx = idx.long()
+    elif case == "idx_shape":
+        idx = idx[:, :2].contiguous()
+    else:
+        v = torch.zeros(8, 32, dtype=F64).T
+    with pytest.raises(error, match=match):
+        bops._bsr_spmbv_cuda(blocks, idx, v, 32)
+
+
+def test_spmbv_constants_mirror_the_cuda_source():
+    assert _cuda_constant("bsr_spmbv.cu", "kMmaWarps") == bops._MMA_WARPS
+    assert _cuda_constant("bsr_spmbv.cu", "kFmaThreads") == bops._FMA_THREADS
+    src = (CSRC / "bsr_spmbv.cu").read_text()
+    assert f"__launch_bounds__(kMmaThreads, {bops._MMA_CTAS_PER_SM})" in src
+    for br in bops.MMA_BR:
+        assert f"case {br}: return launch_mma_s<{br // 8}>(a);" in src
+    for bc in bops.MMA_BC:
+        assert f"case {bc}: return launch_mma_nt<MT, {bc // 4}>(a);" in src
+
+
+# ----------------------------------------------------------------- fused_gram
+def _mma_rows(begin, end, t, threads):
+    """Rows pass 1's mma loop visits in one CTA (base, then 4-row steps u)."""
+    u_steps = 8 if t <= 8 else 4
+    warps = threads // 32
+    rows = []
+    for w in range(warps):
+        for base in range(begin + w * 4 * u_steps, end, warps * 4 * u_steps):
+            rows += [r for r in range(base, base + 4 * u_steps) if r < end]
+    return rows
+
+
+def _fma_rows(begin, end, t, threads, k_rows=4):
+    """Rows pass 1's fma loop visits for one tile of one CTA (all groups)."""
+    ta = -(-t // 4)
+    groups = threads // (3 * ta * ta)
+    rows = []
+    for grp in range(groups):
+        for row0 in range(begin + grp, end, k_rows * groups):
+            rows += [row0 + k * groups for k in range(k_rows) if row0 + k * groups < end]
+    return rows
+
+
+@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("ranks", [1, 3, 8])
+@pytest.mark.parametrize("t", [1, 3, 8, 12, 16])
+@pytest.mark.parametrize("n", [0, 1, 3, 37, 70001])
+def test_gram_plan_parts_cover_every_row_once(n, t, ranks, dtype):
+    plan = gops.gram_plan(ranks, n, t, dtype, 132)
+    assert plan.path == ("mma" if dtype == F64 else "fma")
+    assert plan.threads == (gops._MMA_THREADS if dtype == F64 else gops._FMA_THREADS)
+    assert plan.rows_per_part % gops.rows_per_step(t, plan.path) == 0
+    assert plan.parts >= 1
+    if n:
+        assert (plan.parts - 1) * plan.rows_per_part < n <= plan.parts * plan.rows_per_part  # none empty
+    walk = _mma_rows if plan.path == "mma" else _fma_rows
+    visited = []
+    for part in range(plan.parts):
+        begin = part * plan.rows_per_part
+        visited += walk(begin, min(n, begin + plan.rows_per_part), t, plan.threads)
+    assert sorted(visited) == list(range(n))
+    assert plan.partials == ranks * 3 * t * t * plan.parts
+
+
+@pytest.mark.parametrize("sms", [1, 114, 132])
+@pytest.mark.parametrize("ranks,n,t", [(1, 1_310_720, 8), (8, 163_840, 8), (1, 1_310_720, 1),
+                                       (1, 1_310_720, 16), (8, 163_840, 16)])
+def test_gram_plan_fills_the_card_at_the_main_path_shapes(sms, ranks, n, t):
+    for dtype in (F32, F64):
+        plan = gops.gram_plan(ranks, n, t, dtype, sms)
+        per_rank = -(-sms * gops._CTAS_PER_SM // ranks)
+        assert plan.parts <= per_rank
+        # rounding each part up to whole loop rounds leaves at most one
+        # round per part unused
+        step = gops.rows_per_step(t, plan.path)
+        assert plan.parts * plan.rows_per_part < n + plan.parts * step
+        assert plan.partials * 8 < 64 * 2**20  # float64 scratch stays small
+
+
+@pytest.mark.parametrize("kwargs,error", [
+    (dict(t=0), ValueError), (dict(t=17), ValueError), (dict(ranks=0), ValueError),
+    (dict(n=-1), ValueError), (dict(dtype=torch.float16), TypeError),
+])
+def test_gram_plan_raises_on_what_the_kernel_does_not_take(kwargs, error):
+    args = dict(ranks=1, n=100, t=8, dtype=F64, sms=132) | kwargs
+    with pytest.raises(error):
+        gops.gram_plan(**args)
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("shape", ValueError, "share one"),
+    ("dim", ValueError, "share one"),
+    ("dtype", TypeError, "share a dtype"),
+    ("not_contiguous", ValueError, "contiguous"),
+])
+def test_gram_wrapper_checks_before_launching(case, error, match):
+    ops = [torch.zeros(40, 4, dtype=F64) for _ in range(4)]
+    if case == "shape":
+        ops[2] = torch.zeros(41, 4, dtype=F64)
+    elif case == "dim":
+        ops = [o[None, None] for o in ops]
+    elif case == "dtype":
+        ops[3] = ops[3].float()
+    else:
+        ops[1] = torch.zeros(4, 40, dtype=F64).T
+    with pytest.raises(error, match=match):
+        gops._fused_gram_cuda(*ops)
+
+
+def test_gram_constants_mirror_the_cuda_source():
+    assert 32 * _cuda_constant("fused_gram.cu", "kMmaWarps") == gops._MMA_THREADS
+    assert _cuda_constant("fused_gram.cu", "kFmaThreads") == gops._FMA_THREADS
+    assert _cuda_constant("fused_gram.cu", "kRows") == gops._FMA_ROWS
+    assert "constexpr int U = 8 / MT;" in (CSRC / "fused_gram.cu").read_text()
+
+
+# ---------------------------------------------------------------- the build
+@pytest.mark.parametrize("name", ["bsr_spmbv", "fused_gram"])
+def test_ctypes_signature_matches_the_c_entry_point(name):
+    src = (CSRC / f"{_build.SOURCES[name]}.cu").read_text()
+    for suffix in ("f32", "f64"):
+        m = re.search(rf"REPRO_EXPORT int {name}_{suffix}\(([^)]*)\)", src)
+        assert m, f"{name}_{suffix} not exported"
+        params = [p.strip() for p in m.group(1).split(",")]
+        kinds = [_build._P if "*" in p else (_build._L if "long long" in p else _build._I)
+                 for p in params]
+        assert kinds == _build.SIGNATURES[name]
+
+
+def test_parse_ptxas_reads_registers_shared_memory_and_spills():
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'
+ptxas info    : Function properties for _Z1av
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 114 registers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'
+ptxas info    : Function properties for _Z1bv
+    16 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 6144 bytes smem, 400 bytes cmem[0]
+"""
+    assert _build.parse_ptxas(log, "x") == [
+        {"source": "x", "kernel": "_Z1av", "spill_stores": 0, "spill_loads": 0,
+         "registers": 114, "smem_bytes": 0},
+        {"source": "x", "kernel": "_Z1bv", "spill_stores": 16, "spill_loads": 12,
+         "registers": 128, "smem_bytes": 6144},
+    ]
+    assert "-Xptxas" in _build.NVCC_FLAGS
