@@ -36,13 +36,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    partition, plan and Block-ELL conversion seconds.
 7. distributed kernel checks — ``halo_pack`` and ``halo_unpack`` on the
    plan's widest phase (p = 8 ranks) at w = 8 and w = 1 in float64 and at
-   w = 8 in float32, which must equal their plain versions exactly (the
-   unpack's dump slot aside), and the batched ``fused_gram`` at
-   (8, rmax, 8), bit-identical over two calls; times as in phase 3, the
-   library calls being advanced indexing ``src[rank_ids, idx]`` and
-   ``index_put_``; ``kernel_graph_ms``
-   is the kernel's time from a CUDA-graph replay, without the host's
-   launch overhead, which dominates at these shapes.
+   w = 8 in float32 (the pack also into a given buffer), which must equal
+   their plain versions exactly (the unpack's dump slot aside), and the
+   batched ``fused_gram`` at (8, rmax, 8), bit-identical over two calls;
+   times as in phase 3, the library calls being advanced indexing
+   ``src[rank_ids, idx]`` and ``index_put_``: ``kernel_ms`` is the public
+   op's eager time, ``kernel_graph_ms`` its time from a CUDA-graph replay,
+   without the host's launch overhead.  One ``exchange`` line times a whole
+   exchange of the main path's width, eager against its CUDA graph, with
+   the host's launch calls of each (``torch.profiler``); the replay must
+   equal the eager exchange bit for bit, and over a few replays the halo
+   kernels the profiler sees on the device must equal the counts the
+   replays added and len(plan.phases) per replay.
 8. distributed main path — the solve on the mesh, with the launch counts
    and the mesh counters set to 0 just before it: ``halo_pack`` and
    ``halo_unpack`` must launch len(plan.phases)·(n_iters + 1) times,
@@ -52,7 +57,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 9. strategies — one distributed SpMBV for ``standard``, ``2step``,
    ``3step`` and ``optimal`` with ``col_split=2``, each a ``with_config``
    sibling on the same partition, against the sequential Block-ELL apply
-   (1e-12 relative).
+   (1e-12 relative); the same apply twice more, through the exchange's
+   CUDA graph (captured at the second apply), must equal the first, eager
+   one bit for bit.
 10. distributed cross-check — the (64, 64)-element problem on the (2, 4)
     mesh with all four strategies: the four solves bit-identical; against
     the sequential pallas solve, iteration counts within one and x equal to
@@ -157,6 +164,25 @@ def time_graph_ms(torch, fn) -> float:
     return statistics.median(per_call)
 
 
+def device_kernel_counts(torch, fn, names) -> dict[str, int]:
+    """{name: the device kernels whose symbol contains ``name``} in one call
+    of ``fn``, as ``torch.profiler`` records them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(names, 0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for name in names:
+                if name in e.key:
+                    counts[name] += e.count
+    return counts
+
+
 def demangle(names: list[str]) -> list[str]:
     """C++ symbol names as ``c++filt`` prints them (as given without it)."""
     try:
@@ -186,10 +212,14 @@ def main() -> int:
     from repro_torch.core.node_aware import build_exchange_plan
     from repro_torch.kernels.fused_gram.ops import gram_plan
     from repro_torch.kernels.fused_gram.ref import fused_gram_ref
+    from repro_torch.kernels.halo_pack.ops import halo_plan
     from repro_torch.kernels.halo_pack.ref import halo_pack_ref, halo_unpack_ref
     from repro_torch.launch.mesh import VirtualMesh
     from repro_torch.solver import CommConfig, ECGSolver, KernelConfig, SolverConfig
     from repro_torch.sparse import csr_spmv, dg_laplace_2d, fd_laplace_2d, partition_csr
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    from profile_torch_solve import host_launches
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 yardsticks in full f32
@@ -453,10 +483,12 @@ def main() -> int:
         es = torch.finfo(dtype).bits // 8
         if name == "halo_pack":
             src = randn(p_ranks, src_rows, w, dtype=dtype)
+            out = torch.empty(p_ranks, c, w, dtype=dtype, device=dev)
             kernel = lambda: kernels.halo_pack(src, g_idx)
             plain = lambda: halo_pack_ref(src, g_idx)
             library = lambda: src[rank_ids, g_long]
-            got, want, keep = kernel(), plain(), slice(None)
+            got, want, keep = [kernel(), kernels.halo_pack(src, g_idx, out=out)], plain(), slice(None)
+            aligned = (src.data_ptr() | got[0].data_ptr()) % 16 == 0
         else:
             buf = randn(p_ranks, c, w, dtype=dtype)
             dst = randn(p_ranks, dst_rows, w, dtype=dtype)
@@ -464,19 +496,21 @@ def main() -> int:
             kernel = lambda: kernels.halo_unpack(d_k, buf, s_pos)
             plain = lambda: halo_unpack_ref(d_p, buf, s_pos)
             library = lambda: d_l.index_put_((rank_ids, s_long), buf)
-            got, want = kernel(), plain()
+            got, want = [kernel()], plain()
+            aligned = (d_k.data_ptr() | buf.data_ptr()) % 16 == 0
             keep = slice(0, dst_rows - 1)  # the dump slot takes any padding row
             untouched = torch.ones(p_ranks, dst_rows, dtype=torch.bool, device=dev)
             untouched.scatter_(1, s_long, False)
-            if not torch.equal(got[untouched], dst[untouched]):
+            if not torch.equal(got[0][untouched], dst[untouched]):
                 raise AssertionError(f"{name} w={w}: a slot no position names was written")
         torch.cuda.synchronize()
-        err = float((got[:, keep].double() - want[:, keep].double()).abs().max())
+        err = max(float((g[:, keep].double() - want[:, keep].double()).abs().max()) for g in got)
         if err != 0.0:
             raise AssertionError(f"{name} w={w} {dtype}: max_abs_err {err} != 0")
         bytes_ = 2 * p_ranks * c * w * es + p_ranks * c * 4
         row = {"name": name, "shape": [p_ranks, c, w], "rows": src_rows if name == "halo_pack" else dst_rows,
                "dtype": str(dtype).removeprefix("torch."), "phase": f"{ph.axis}:{ph.src}->{ph.dst}",
+               "path": halo_plan(p_ranks, c, w, dtype, aligned, sms).path,
                "max_abs_err": err, "tol": 0.0, "kernel_ms": time_ms(torch, kernel),
                # the kernel alone, without the host's launch overhead
                "kernel_graph_ms": time_graph_ms(torch, kernel),
@@ -489,6 +523,37 @@ def main() -> int:
         checks[name] = run_halo_check(name, T // plan.col_split, torch.float64)  # the main path's
         run_halo_check(name, 1, torch.float64)
         run_halo_check(name, T // plan.col_split, torch.float32)
+
+    # one whole exchange at the main path's width: eager, then its CUDA graph
+    ex = op.exchange(plan, T, torch.float64)
+    v3 = randn(p_ranks, op.rmax, T, dtype=torch.float64)
+    ex.run(v3)
+    ex.run(v3)  # captured here unless an earlier apply did
+    ex.exchange()
+    eager = ex.xfull.clone()
+    ex.replay()
+    if not torch.equal(ex.xfull, eager):
+        raise AssertionError("the exchange's CUDA graph differs from the eager exchange")
+    # the counts a replay adds are bookkeeping: hold them against the kernels
+    # the device ran in a few replays, as torch.profiler sees them
+    kernels.reset_launch_counts()
+    replays = 5
+    on_device = device_kernel_counts(torch, lambda: [ex.replay() for _ in range(replays)],
+                                     ("halo_pack_kernel", "halo_unpack_kernel"))
+    counted = kernels.launch_counts()
+    for name in ("halo_pack", "halo_unpack"):
+        if not on_device[f"{name}_kernel"] == counted[name] == replays * len(plan.phases):
+            raise AssertionError(f"{replays} replays: {name} counted {counted[name]}, the device "
+                                 f"ran {on_device[f'{name}_kernel']}, the plan says "
+                                 f"{replays * len(plan.phases)}")
+    log({"phase": "exchange", "strategy": "optimal", "t": T, "phases": len(plan.phases),
+         "rotations": sum(1 for st in plan.steps if st.offset), "graph_equals_eager": True,
+         "eager_ms": time_ms(torch, ex.exchange), "graph_ms": time_ms(torch, ex.replay),
+         "host_launches_eager": host_launches(torch, ex.exchange),
+         "host_launches_graph": host_launches(torch, ex.replay),
+         "replays": replays, "device_kernels": on_device,
+         "counted": {k: counted[k] for k in ("halo_pack", "halo_unpack")}})
+    del ex, v3, eager
 
     def check_gram_batched(t, dtype):
         ops = tuple(randn(p_ranks, op.rmax, t, dtype=dtype) for _ in range(4))
@@ -550,14 +615,20 @@ def main() -> int:
     scale = float(np.abs(w_seq).max())
     for strategy, cs in (("standard", None), ("2step", None), ("3step", None), ("optimal", 2)):
         sib = dsolver.with_config(strategy=strategy, col_split=cs)
-        w = sib.unshard(sib.op.matvec_fn()(sib.op.shard_vector(v_apply)))
+        apply, v_sh = sib.op.matvec_fn(), sib.op.shard_vector(v_apply)
+        w_dev = apply(v_sh)  # the first apply of this width: the eager exchange
+        graph_equal = all(torch.equal(apply(v_sh), w_dev) for _ in range(2))  # capture, replay
+        w = sib.unshard(w_dev)
         rel = float(np.abs(w - w_seq).max()) / scale
         log({"phase": "strategy_apply", "strategy": strategy, "col_split": sib.op.plan.col_split,
              "phases": len(sib.op.plan.phases), "rotations": sum(1 for st in sib.op.plan.steps if st.offset),
              "wire_bytes": sib.op.plan.wire_bytes(8), "conv_reused": sib.stats.conv_reused,
-             "max_rel_diff": rel})
+             "max_rel_diff": rel, "graph_equals_eager": graph_equal})
         if not rel <= 1e-12:
             raise AssertionError(f"{strategy} apply differs from the sequential one by {rel}")
+        if not graph_equal:
+            raise AssertionError(f"{strategy}: the apply through the exchange's CUDA graph "
+                                 "differs from the eager one")
     del sib, op  # the handle and the operator stay for phases 11-14
     torch.cuda.empty_cache()
 

@@ -10,10 +10,11 @@ from __future__ import annotations
 import torch
 
 
-def halo_pack_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[r, i] = src[r, idx[r, i]] — src (p, m, w), idx (p, c) -> (p, c, w)."""
+def halo_pack_ref(src: torch.Tensor, idx: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """out[r, i] = src[r, idx[r, i]] — src (p, m, w), idx (p, c) -> (p, c, w),
+    into ``out`` when it is given."""
     w = src.shape[-1]
-    return torch.gather(src, 1, idx.long()[..., None].expand(-1, -1, w))
+    return torch.gather(src, 1, idx.long()[..., None].expand(-1, -1, w), out=out)
 
 
 def halo_unpack_ref(dst: torch.Tensor, buf: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:

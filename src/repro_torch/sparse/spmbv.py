@@ -16,7 +16,11 @@ launch serves all p ranks:
   ``halo_pack`` launch (a fused gather into a contiguous send buffer for
   every rank), one ``mesh.ppermute`` per nonzero rotation offset, and ONE
   ``halo_unpack`` launch (a fused, in-place scatter into the halo/stage
-  slots);
+  slots).  Each width keeps its exchange in a
+  :class:`~repro_torch.sparse.exchange.HaloExchange` over static buffers,
+  replayed as one CUDA graph on the card, so an apply costs the host the
+  copy of V's rows into the ``[own ‖ halo ‖ pad]`` operand, one graph
+  launch and the local product;
 * ``backend="pallas"`` runs the p local Block-ELL products as ONE
   ``bsr_spmbv`` launch: the stacked tiles are flattened to
   (p·nbr, kmax, br, bc), rank r's block-column ids are offset by
@@ -31,8 +35,8 @@ process-group mesh (one rank per process, ROADMAP.md queue 1 item 5b)
 keeps its own rank's slice of each.
 
 Col-split plans (wide-halo payload splitting, nodal-optimal strategy) are
-transparent here: the executor reshapes ``(rmax, t) -> (rmax·cs, t/cs)``
-around the exchange rounds and reassembles whole halo rows afterwards.
+transparent here: the exchange views the own rows ``(rmax, t)`` as
+``(rmax·cs, t/cs)`` segments and reassembles whole halo rows afterwards.
 
 Not ported yet: ``overlap=True`` (the interior/boundary schedule, ROADMAP.md
 queue 1 item 5a) and tuning (item 9).
@@ -51,8 +55,8 @@ from repro_torch.kernels.bsr_spmbv.ops import (
     count_block_ell_tiles,
     csr_arrays_to_block_ell,
 )
-from repro_torch.kernels.halo_pack.ops import halo_pack, halo_unpack
 from repro_torch.sparse.csr import CSRMatrix, csr_spmbv
+from repro_torch.sparse.exchange import HaloExchange
 from repro_torch.sparse.partition import (
     PartitionedMatrix,
     partition_csr,
@@ -89,6 +93,9 @@ class DistributedSpMBV:
     csr: CSRMatrix | None = None
     # per-width device index arrays, filled on demand by width re-slices
     _width_arrays: dict = dataclasses.field(default_factory=dict)
+    # one HaloExchange (static buffers, CUDA graph) per
+    # (plan width, col split, applied width, dtype)
+    _exchanges: dict = dataclasses.field(default_factory=dict)
     # the tiles cast to another working dtype (a float32 operator solved
     # with a float64 right-hand side runs in float64, as the reference)
     _blocks_by_dtype: dict = dataclasses.field(default_factory=dict)
@@ -139,63 +146,39 @@ class DistributedSpMBV:
         return m
 
     # ------------------------------------------------------------ exchange
-    def _exchange(self, v3: torch.Tensor, plan: ExchangePlan, gathers, scatters) -> torch.Tensor:
-        """Packed halo exchange of all ranks.  v3: (p, rmax, t) own rows;
-        returns the halo blocks in row units, (p, plan.halo_rows, t).
+    @property
+    def m_pad(self) -> int:
+        """Rows of one rank's [own ‖ halo ‖ pad] operand."""
+        return self.ell["m_pad"] if self.backend == "pallas" else self.rmax + self.plan.halo_rows
 
-        One ``halo_pack`` + ``halo_unpack`` pair per *phase*, one ppermute
-        per nonzero rotation offset on a slice of the packed buffer.
-        Col-split plans index (row, column-segment) slots: the rows are
-        reshaped ``(rmax, t) -> (rmax·cs, t/cs)`` around the rounds, with t
-        padded up to a multiple of cs when the applied width differs from
-        the plan's (the width-1 initial residual)."""
-        p, _, t = v3.shape
-        cs = plan.col_split
-        if cs > 1:
-            tp = -(-t // cs) * cs
-            if tp != t:
-                v3 = torch.nn.functional.pad(v3, (0, tp - t))
-            xs = v3.reshape(p, self.rmax * cs, tp // cs)
-        else:
-            xs = v3
-        w = xs.shape[-1]
-        halo = xs.new_zeros((p, plan.halo_size + 1, w))
-        stage = xs.new_zeros((p, plan.stage_size + 1, w))
-        for phase, g_idx, s_pos in zip(plan.phases, gathers, scatters):
-            buf = halo_pack(xs if phase.src == "x" else stage, g_idx)  # (p, width, w)
-            if any(phase.offsets):
-                parts = []
-                for i, off in enumerate(phase.offsets):
-                    seg = buf[:, phase.bounds[i] : phase.bounds[i + 1]]
-                    if off:
-                        seg = self.mesh.ppermute(seg, phase.axis, off)
-                    parts.append(seg)
-                buf = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0].contiguous()
-            halo_unpack(halo if phase.dst == "halo" else stage, buf, s_pos)
-        halo = halo[:, : plan.halo_size]
-        if cs > 1:
-            halo = halo.reshape(p, plan.halo_rows, -1)[:, :, :t]
-        return halo
+    def exchange(self, plan: ExchangePlan, t: int, dtype) -> HaloExchange:
+        """The exchange of ``plan`` (``self.plan`` or one of its width
+        re-slices) applied to ``t`` columns of ``dtype`` (built at first use)."""
+        key = (plan.t, plan.col_split, t, dtype)
+        ex = self._exchanges.get(key)
+        if ex is None:
+            if plan is self.plan or plan.phases is self.plan.phases:
+                gathers, scatters = self.gathers, self.scatters
+            else:
+                gathers, scatters = self.exchange_arrays(plan)
+            ex = HaloExchange(self.mesh, plan, gathers, scatters, self.rmax, self.m_pad, t, dtype)
+            self._exchanges[key] = ex
+        return ex
 
     # ----------------------------------------------------- local products
-    def _local_spmbv(self, v3: torch.Tensor, halo: torch.Tensor) -> torch.Tensor:
-        """The p local [own ‖ halo] products; returns (p, rmax, t)."""
-        p, rmax, t = v3.shape
+    def _local_spmbv(self, xfull: torch.Tensor) -> torch.Tensor:
+        """The p local [own ‖ halo] products of ``xfull`` (p, m_pad, t);
+        returns (p, rmax, t)."""
+        p, m_pad, t = xfull.shape
         if self.backend == "pallas":
-            m_pad = self.ell["m_pad"]
-            parts = [v3, halo]
-            if m_pad > rmax + halo.shape[1]:
-                parts.append(v3.new_zeros((p, m_pad - rmax - halo.shape[1], t)))
-            xfull = torch.cat(parts, dim=1).reshape(p * m_pad, t)
             blocks = self.ell["blocks"]
             if blocks.dtype != xfull.dtype:
                 blocks = self._blocks_by_dtype.get(xfull.dtype)
                 if blocks is None:
                     blocks = self._blocks_by_dtype[xfull.dtype] = self.ell["blocks"].to(xfull.dtype)
-            w = bsr_spmbv(blocks, self.ell["indices"], xfull)  # (p·nbr·br, t)
-            return w.reshape(p, -1, t)[:, :rmax]
-        xfull = torch.cat([v3, halo], dim=1).reshape(-1, t)
-        return csr_spmbv(self.csr, xfull).reshape(p, rmax, t)
+            w = bsr_spmbv(blocks, self.ell["indices"], xfull.view(p * m_pad, t))  # (p·nbr·br, t)
+            return w.reshape(p, -1, t)[:, : self.rmax]
+        return csr_spmbv(self.csr, xfull.view(p * m_pad, t)).reshape(p, self.rmax, t)
 
     # ------------------------------------------------- width-sliced arrays
     def exchange_arrays(self, plan: ExchangePlan):
@@ -216,16 +199,11 @@ class DistributedSpMBV:
         ``plan.at_width(t_active)``; the block vectors passed to the
         returned function must then carry ``t_active`` columns."""
         plan = self.plan if t_active is None else self.plan.at_width(t_active)
-        if plan is self.plan or plan.phases is self.plan.phases:
-            gathers, scatters = self.gathers, self.scatters
-        else:
-            gathers, scatters = self.exchange_arrays(plan)
 
         def apply(v: torch.Tensor) -> torch.Tensor:
-            shape = v.shape
             v3 = v.reshape(self.mesh.local_ranks, self.rmax, -1)
-            halo = self._exchange(v3, plan, gathers, scatters)
-            return self._local_spmbv(v3, halo).reshape(shape)
+            xfull = self.exchange(plan, v3.shape[2], v3.dtype).run(v3)
+            return self._local_spmbv(xfull).reshape(v.shape)
 
         return apply
 

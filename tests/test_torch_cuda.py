@@ -213,8 +213,8 @@ def _halo_case(p, m, c, w, dtype, device, seed=0):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("w", [1, 2, 3, 4, 8])
-@pytest.mark.parametrize("p,m,c", [(1, 40, 17), (8, 1100, 700), (8, 9000, 8192)])
+@pytest.mark.parametrize("w", WIDTHS)
+@pytest.mark.parametrize("p,m,c", [(1, 40, 17), (3, 500, 333), (8, 1100, 700), (8, 9000, 8192)])
 def test_halo_pack_and_unpack_equal_plain(cuda, p, m, c, w, dtype):
     src, idx, pos, buf = _halo_case(p, m, c, w, dtype, cuda)
     assert torch.equal(kernels.halo_pack(src, idx).cpu(), halo_pack_ref(src.cpu(), idx.cpu()))
@@ -228,6 +228,84 @@ def test_halo_pack_and_unpack_equal_plain(cuda, p, m, c, w, dtype):
     untouched = ~named
     untouched[:, m - 1] = False
     assert torch.equal(dst.cpu()[untouched], src.cpu()[untouched])
+
+
+def _offset_view(x, shift):
+    """A contiguous copy of ``x`` that starts ``shift`` elements into its storage."""
+    flat = torch.empty(x.numel() + shift, dtype=x.dtype, device=x.device)
+    view = flat[shift:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("w", [2, 4, 8, 16])
+@pytest.mark.parametrize("p", [1, 3, 8])
+def test_halo_kernels_on_offset_views_choose_their_path(cuda, p, w, dtype):
+    from repro_torch.kernels.halo_pack.ops import halo_plan
+
+    m, c = 301, 257
+    src, idx, pos, buf = _halo_case(p, m, c, w, dtype, cuda, seed=1)
+    want_pack = halo_pack_ref(src.cpu(), idx.cpu())
+    want_unpack = halo_unpack_ref(src.cpu().clone(), buf.cpu(), pos.cpu())
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    paths = set()
+    for shift in (0, 1, 2, 3):
+        s_off = _offset_view(src, shift)
+        out = _offset_view(torch.zeros_like(buf), shift)
+        aligned = (s_off.data_ptr() | out.data_ptr()) % 16 == 0
+        paths.add(halo_plan(p, c, w, dtype, aligned, sms).path)
+        assert kernels.halo_pack(s_off, idx, out=out) is out
+        assert torch.equal(out.cpu(), want_pack)
+        assert torch.equal(kernels.halo_pack(s_off, idx).cpu(), want_pack)
+        dst = _offset_view(src, shift)
+        kernels.halo_unpack(dst, _offset_view(buf, shift), pos)
+        assert torch.equal(dst[:, : m - 1].cpu(), want_unpack[:, : m - 1])
+    # the shifts cover the scalar path, and the vector path where rows allow it
+    es = torch.finfo(dtype).bits // 8
+    assert paths == ({"vec", "scalar"} if (w * es) % 16 == 0 else {"scalar"})
+
+
+@pytest.mark.parametrize("strategy,col_split", [("standard", None), ("2step", None), ("3step", None),
+                                                ("optimal", None), ("optimal", 2)])
+def test_exchange_graph_replay_equals_the_eager_exchange(cuda, strategy, col_split):
+    a = dg_laplace_2d((12, 10), block=4, device="cpu")
+    cfg = SolverConfig(t=8, tol=1e-8, max_iters=10, kernel="pallas",
+                       comm=CommConfig(strategy=strategy, col_split=col_split))
+    mesh = VirtualMesh(2, 4, device=cuda)
+    op = ECGSolver.build(a, mesh, cfg).op
+    rng = np.random.default_rng(4)
+    for t in (8, 1):
+        ex = op.exchange(op.plan, t, torch.float64)
+        vs = [op.shard_vector(rng.standard_normal((a.shape[0], t))).reshape(8, op.rmax, t)
+              for _ in range(4)]
+        eager = []
+        for v in vs:
+            ex.own.copy_(v)
+            ex.exchange()
+            eager.append(ex.xfull.clone())
+        kernels.reset_launch_counts()
+        mesh.reset_counters()
+        ex.exchange()
+        one = (kernels.launch_counts(), mesh.ppermute_calls, mesh.ppermute_elements)
+        kernels.reset_launch_counts()
+        mesh.reset_counters()
+        got = [ex.run(v).clone() for v in vs]  # eager (first run), capture + replay, replays
+        assert ex.graph is not None and ex.runs == 4
+        assert all(torch.equal(g, e) for g, e in zip(got, eager))
+        n = len(vs)
+        counts = kernels.launch_counts()
+        assert counts == {k: n * v for k, v in one[0].items()}
+        assert (mesh.ppermute_calls, mesh.ppermute_elements) == (n * one[1], n * one[2])
+        assert counts["halo_pack"] == n * len(op.plan.phases) and mesh.psum_calls == 0
+    # the apply through the graph equals the CPU operator's
+    cpu_op = ECGSolver.build(a, VirtualMesh(2, 4, device="cpu"), cfg).op
+    v = rng.standard_normal((a.shape[0], 8))
+    apply = op.matvec_fn()
+    got = [apply(op.shard_vector(v)) for _ in range(3)]
+    assert all(torch.equal(g, got[0]) for g in got)
+    torch.testing.assert_close(got[0].cpu(), cpu_op.matvec_fn()(cpu_op.shard_vector(v)),
+                               **_tol(torch.float64))
 
 
 def test_halo_kernels_count_and_check(cuda):

@@ -290,6 +290,168 @@ def test_col_split_apply_and_width_one_exchange(operators, col_split):
         assert np.abs(w - dense @ v).max() <= 1e-12 * np.abs(dense @ v).max()
 
 
+@pytest.mark.parametrize("t", [T_APPLY, 1])
+@pytest.mark.parametrize("strategy,col_split", [(s, None) for s in STRATEGIES] + [("optimal", 2)])
+def test_exchange_halo_equals_reference(operators, strategy, col_split, t):
+    """The halo rows the exchange leaves in the static [own ‖ halo ‖ pad]
+    operand equal the reference's host replay of the same plan exactly
+    (zero past each rank's halo); own rows are V's, pad rows stay zero."""
+    import repro.core.node_aware as ref_na
+    import repro.sparse as ref_sparse
+    import repro.sparse.partition as ref_part
+    from repro.core.machines import BLUE_WATERS as REF_BLUE_WATERS
+
+    from repro_torch.core.machines import BLUE_WATERS
+    from repro_torch.sparse.spmbv import _make_distributed_spmbv
+
+    ra = _ref_operators(ref_sparse)["dg"]
+    ref_pm = ref_part.partition_csr(ra, 8)
+    ref_plan = ref_na.build_exchange_plan(ref_pm, 2, 4, strategy, t=T_APPLY if col_split is None else 8,
+                                          machine=REF_BLUE_WATERS, col_split=col_split)
+    a = operators["dg"]
+    op = _make_distributed_spmbv(a, _mesh(), strategy, t=T_APPLY if col_split is None else 8,
+                                 machine=BLUE_WATERS, backend="pallas", col_split=col_split)
+    assert op.plan.col_split == ref_plan.col_split == (col_split or op.plan.col_split)
+    v = _block(a.shape[0], t)
+    v3 = op.shard_vector(v).reshape(8, op.rmax, t)
+    ex = op.exchange(op.plan, t, torch.float64)
+    for _ in range(2):  # the buffers are static: a second run sees no stale halo
+        xfull = ex.run(v3).clone()
+        want = ref_na.simulate_plan(ref_plan, ref_pm, v)
+        for d in range(8):
+            h = len(ref_pm.halo_sources[d])
+            assert np.array_equal(xfull[d, op.rmax : op.rmax + h].numpy(), want[d])
+            assert not xfull[d, op.rmax + h : op.rmax + op.plan.halo_rows].any()
+        assert torch.equal(xfull[:, : op.rmax], v3)
+        assert not xfull[:, op.rmax + op.plan.halo_rows :].any()
+        v = -2.0 * v
+        v3 = op.shard_vector(v).reshape(8, op.rmax, t)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+@pytest.mark.parametrize("strategy,col_split", [(s, None) for s in STRATEGIES] + [("optimal", 2)])
+def test_static_workspace_apply_equals_a_fresh_operator(operators, strategy, col_split, backend):
+    """Two different right-hand sides in a row through one operator's static
+    buffers, each against an operator that never applied before."""
+    from repro_torch.core.machines import BLUE_WATERS
+    from repro_torch.sparse.spmbv import _make_distributed_spmbv
+
+    a = operators["dg"]
+
+    def build():
+        return _make_distributed_spmbv(a, _mesh(), strategy, t=8, machine=BLUE_WATERS,
+                                       backend=backend, col_split=col_split)
+
+    op = build()
+    for t, seed in ((8, 1), (8, 2), (1, 3), (8, 4), (1, 5)):
+        v = np.random.default_rng(seed).standard_normal((a.shape[0], t))
+        got = op.matvec_fn()(op.shard_vector(v))
+        fresh = build()
+        assert torch.equal(got, fresh.matvec_fn()(fresh.shard_vector(v)))
+    assert sorted(k[2] for k in op._exchanges) == [1, 8]  # one exchange per applied width
+    sub = op.matvec_fn(t_active=2)
+    for seed in (6, 7):
+        v = np.random.default_rng(seed).standard_normal((a.shape[0], 2))
+        fresh = build()
+        assert torch.equal(sub(op.shard_vector(v)), fresh.matvec_fn(t_active=2)(fresh.shard_vector(v)))
+
+
+def test_replayed_counts_are_the_captured_deltas():
+    """The bookkeeping of a captured exchange: count_deltas records what one
+    run adds to each counter and restores them; add_counts adds it back."""
+    from types import SimpleNamespace
+
+    from repro_torch.sparse.exchange import add_counts, count_deltas
+
+    a, b = SimpleNamespace(launches=5), SimpleNamespace(calls=0, elements=7)
+    counters = [(a, "launches"), (b, "calls"), (b, "elements")]
+
+    def one_run():
+        a.launches += 4
+        b.calls += 9
+        b.elements += 72
+
+    deltas = count_deltas(counters, one_run)
+    assert deltas == [4, 9, 72]
+    assert (a.launches, b.calls, b.elements) == (5, 0, 7)  # the capture counts nothing
+    for _ in range(3):
+        add_counts(counters, deltas)
+    assert (a.launches, b.calls, b.elements) == (5 + 12, 27, 7 + 216)
+
+    def failing():
+        a.launches += 1
+        raise RuntimeError("capture failed")
+
+    with pytest.raises(RuntimeError, match="capture failed"):
+        count_deltas(counters, failing)
+    assert a.launches == 17  # restored
+
+
+def test_exchange_counts_on_the_mesh_as_before(operators):
+    """A CPU exchange runs eagerly every time: one ppermute per rotation and
+    apply, as the eager executor always counted."""
+    from repro_torch.core.machines import BLUE_WATERS
+    from repro_torch.sparse.spmbv import _make_distributed_spmbv
+
+    mesh = _mesh()
+    op = _make_distributed_spmbv(operators["fd"], mesh, "optimal", t=4, machine=BLUE_WATERS,
+                                 backend="pallas")
+    v = op.shard_vector(_block(operators["fd"].shape[0], 4))
+    apply = op.matvec_fn()
+    mesh.reset_counters()
+    for _ in range(3):
+        apply(v)
+    n_rot = sum(1 for s in op.plan.steps if s.offset)
+    assert mesh.ppermute_calls == 3 * n_rot and mesh.psum_calls == 0
+    ex = op.exchange(op.plan, 4, torch.float64)
+    assert ex.graph is None and ex.runs == 3
+
+
+@pytest.mark.parametrize("strategy,col_split", [(s, None) for s in STRATEGIES] + [("optimal", 2)])
+def test_exchange_plan_counts_equal_an_eager_exchange(operators, strategy, col_split):
+    """What a capture must count (HaloExchange.deltas, from the plan) is what
+    one eager exchange adds: on the CPU the mesh's counters move as on the
+    card, and the kernel counts are one pack and one unpack per phase."""
+    from repro_torch.core.machines import BLUE_WATERS
+    from repro_torch.kernels import KERNEL_OPS
+    from repro_torch.sparse.exchange import count_deltas
+    from repro_torch.sparse.spmbv import _make_distributed_spmbv
+
+    op = _make_distributed_spmbv(operators["dg"], _mesh(), strategy, t=8, machine=BLUE_WATERS,
+                                 backend="pallas", col_split=col_split)
+    k = len(KERNEL_OPS)
+    for t in (8, 1):
+        ex = op.exchange(op.plan, t, torch.float64)
+        ex.own.copy_(torch.ones_like(ex.own))
+        eager = count_deltas(ex.counters, ex.exchange)
+        assert eager[:k] == [0] * k  # CPU operands launch nothing
+        assert eager[k:] == ex.deltas[k:]
+        n_rot = sum(1 for s in op.plan.steps if s.offset)
+        assert ex.deltas[k:k + 2] == [0, n_rot]
+        n_phases = len(op.plan.phases)
+        assert {op_.__name__: d for op_, d in zip(KERNEL_OPS, ex.deltas[:k]) if d} == {
+            "halo_pack": n_phases, "halo_unpack": n_phases}
+
+
+def test_exchange_refuses_operands_it_was_not_built_for(operators):
+    """The exchange copies V into its static buffer: V of another device,
+    dtype or shape is refused, not quietly converted."""
+    from repro_torch.core.machines import BLUE_WATERS
+    from repro_torch.sparse.spmbv import _make_distributed_spmbv
+
+    op = _make_distributed_spmbv(operators["fd"], _mesh(), "optimal", t=4, machine=BLUE_WATERS,
+                                 backend="pallas")
+    ex = op.exchange(op.plan, 4, torch.float64)
+    good = torch.zeros(8, op.rmax, 4, dtype=torch.float64)
+    for bad in (good.to("meta"), good.float(), good[:, :, :3]):
+        with pytest.raises(ValueError, match="exchange of"):
+            ex.run(bad)
+    with pytest.raises(ValueError, match="exchange of"):
+        op.matvec_fn()(op.shard_vector(_block(operators["fd"].shape[0], 4)).to("meta"))
+    assert ex.runs == 0
+    assert ex.run(good) is ex.xfull and ex.runs == 1
+
+
 def test_layouts_and_partition_reuse(operators):
     from repro_torch.solver import ECGSolver
 

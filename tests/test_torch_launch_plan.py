@@ -232,7 +232,7 @@ def test_gram_constants_mirror_the_cuda_source():
 
 
 # ---------------------------------------------------------------- the build
-@pytest.mark.parametrize("name", ["bsr_spmbv", "fused_gram"])
+@pytest.mark.parametrize("name", ["bsr_spmbv", "fused_gram", "halo_pack", "halo_unpack"])
 def test_ctypes_signature_matches_the_c_entry_point(name):
     src = (CSRC / f"{_build.SOURCES[name]}.cu").read_text()
     for suffix in ("f32", "f64"):

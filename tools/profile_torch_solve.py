@@ -10,7 +10,11 @@ block=16)``, t = 8, float64, ``backend="pallas"``) on the GPU, steps the
 solve loop ``--iters`` times on the host clock (wall ms per iteration), then
 again under ``torch.profiler`` and prints JSON lines: the card, wall and
 device-busy ms per iteration, the device's idle share, and device time per
-kernel name.  ``--devices N --ppn K`` profiles the distributed solve on a
+kernel name, and the host's launch calls per iteration
+(``cudaLaunchKernel``, ``cudaGraphLaunch`` and the other calls in
+``LAUNCH_APIS``, as the profiler's runtime-API events count them; one
+replayed exchange graph is one ``cudaGraphLaunch``).  ``--devices N --ppn
+K`` profiles the distributed solve on a
 ``VirtualMesh(N // K, K)`` with exchange ``--strategy`` instead of the
 sequential one.  ``--precondition KIND`` profiles the preconditioned
 iteration (``--block`` sets the block-Jacobi block size).  ``--trace PATH``
@@ -27,6 +31,28 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+#: the CUDA runtime- and driver-API calls with which the host puts work on a stream
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+               "cudaGraphLaunch", "cuGraphLaunch", "cudaMemsetAsync", "cudaMemcpyAsync")
+
+
+def launch_calls(averages) -> dict[str, int]:
+    """{API name: calls} of the launch calls among ``prof.key_averages()``."""
+    return {e.key: e.count for e in averages if e.key in LAUNCH_APIS}
+
+
+def host_launches(torch, fn) -> dict[str, int]:
+    """The launch calls the host makes in one call of ``fn`` (after one
+    call to warm up), by API name, with their ``total``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls = launch_calls(prof.key_averages())
+    return {"total": sum(calls.values()), **calls}
 
 
 def main(argv=None) -> int:
@@ -102,10 +128,12 @@ def main(argv=None) -> int:
     def dev_us(e):
         return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
 
+    averages = prof.key_averages()
     rows = [
         (e.key, e.count / args.iters, dev_us(e) / 1e3 / args.iters)
-        for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+        for e in averages if e.device_type == DeviceType.CUDA
     ]
+    calls = launch_calls(averages)
     rows.sort(key=lambda r: -r[2])
     busy_ms = sum(r[2] for r in rows)
     print(smi)
@@ -117,6 +145,9 @@ def main(argv=None) -> int:
         "wall_ms_per_iter": wall_ms,
         "profiled_wall_ms_per_iter": prof_wall_ms, "device_busy_ms_per_iter": busy_ms,
         "device_idle_share": 1.0 - busy_ms / prof_wall_ms if prof_wall_ms else None,
+        "host_launches_per_iter": sum(calls.values()) / args.iters,
+        "host_launch_calls_per_iter": {k: v / args.iters for k, v in sorted(calls.items())},
+        "device_ops_per_iter": sum(r[1] for r in rows),
     }))
     for name, calls, ms in rows:
         print(json.dumps({"kernel": name[:120], "calls_per_iter": calls, "device_ms_per_iter": ms}))
