@@ -21,11 +21,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    beside the least time the card could take (bytes over 3.35 TB/s or flops
    over the peak rate).  Two calls of ``bsr_spmbv`` and ``fused_gram`` at
    the main path's shapes must be bit-identical.
+   ``chol_apply`` (P = Z·C⁻¹ and AP = AZ·C⁻¹ in one launch) on the factor
+   C of a real gram1 ZᵀAZ of this operator, at (n, 8) float64, at t = 1 and
+   in float32: within 2·t·eps·κ(C)·max|y| (the forward error bound of a
+   t-term substitution) of the ``solve_triangular`` plain version, whose
+   two calls are the library yardstick; a NaN factor must give NaN blocks.
 4. main path — the solve, with every kernel's launch count set to 0 just
    before it and read just after: ``bsr_spmbv`` must launch n_iters + 1
-   times (the width-1 initial residual), ``fused_gram`` and ``ecg_tail``
-   n_iters times; the true residual ‖b − A·x‖ (plain CSR SpMV on the card)
-   must be ≤ 10·tol.
+   times (the width-1 initial residual), ``fused_gram``, ``ecg_tail`` and
+   ``chol_apply`` n_iters times; the true residual ‖b − A·x‖ (plain CSR
+   SpMV on the card) must be ≤ 10·tol.
 5. cross-check — a (64, 64)-element solve with ``backend="pallas"`` and
    twice with ``backend="jnp"``: the two jnp solves bit-identical (the CSR
    product sums without atomics); pallas against jnp, iteration counts
@@ -37,8 +42,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 7. distributed kernel checks — ``halo_pack`` and ``halo_unpack`` on the
    plan's widest phase (p = 8 ranks) at w = 8 and w = 1 in float64 and at
    w = 8 in float32 (the pack also into a given buffer), which must equal
-   their plain versions exactly (the unpack's dump slot aside), and the
-   batched ``fused_gram`` at (8, rmax, 8), bit-identical over two calls;
+   their plain versions exactly (the unpack's dump slot aside), the
+   batched ``fused_gram`` at (8, rmax, 8), bit-identical over two calls,
+   and ``chol_apply`` on the stacked (8·rmax, 8) rows;
    times as in phase 3, the library calls being advanced indexing
    ``src[rank_ids, idx]`` and ``index_put_``: ``kernel_ms`` is the public
    op's eager time, ``kernel_graph_ms`` its time from a CUDA-graph replay,
@@ -51,7 +57,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 8. distributed main path — the solve on the mesh, with the launch counts
    and the mesh counters set to 0 just before it: ``halo_pack`` and
    ``halo_unpack`` must launch len(plan.phases)·(n_iters + 1) times,
-   ``bsr_spmbv`` n_iters + 1, ``fused_gram`` and ``ecg_tail`` n_iters;
+   ``bsr_spmbv`` n_iters + 1, ``fused_gram``, ``ecg_tail`` and
+   ``chol_apply`` n_iters;
    ``mesh.psum`` must run 3·n_iters + 1 times; the true residual of the
    unsharded x must be ≤ 10·tol and n_iters within 1% of phase 4's.
 9. strategies — one distributed SpMBV for ``standard``, ``2step``,
@@ -72,21 +79,25 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     16, t = 8, f64, the real factors), at t = 1, in f32, and at bs = 32 and
     64 (random SPD blocks): error within 2·bs·eps·κ·max|y| (the forward
     error bound of two triangular solves, κ the worst block's condition
-    number), times as in phase 3, the library call ``torch.cholesky_solve``;
+    number), times as in phase 3 (the plain version and the library call
+    ``torch.cholesky_solve`` at every size);
     and ``block_update`` (which no path launches, as in the reference) at
     (n, 8) f64, t = 1 and f32, the library call two ``addmm``.
-13. preconditioned main path — the full-scale block-Jacobi solve with the
-    launch counts set to 0 just before it: ``block_trisolve`` and
-    ``bsr_spmbv`` n_iters + 1 launches (the start Z₀ = M⁻¹T(r₀)),
-    ``ecg_tail`` n_iters, ``fused_gram`` 0 (the preconditioned recurrence
-    reduces [PᵀR | APᵀW | AP_oldᵀW] with plain products, as the
-    reference's ``gram2p``); true residual ≤ 10·tol and fewer iterations
-    than phase 4.
-14. distributed preconditioned main path — the same solve on the (2, 4)
-    mesh (``optimal``): iterations within 1% of phase 13, one
+13. preconditioned main path — the full-scale block-Jacobi solve at block
+    16 and at the default block, 32 (``PreconditionConfig.block``; 40 960
+    factors of 32×32), each with the launch counts set to 0 just before it:
+    ``block_trisolve`` and ``bsr_spmbv`` n_iters + 1 launches (the start
+    Z₀ = M⁻¹T(r₀)), ``ecg_tail`` and ``chol_apply`` n_iters, ``fused_gram``
+    0 (the preconditioned recurrence reduces [PᵀR | APᵀW | AP_oldᵀW] with
+    plain products, as the reference's ``gram2p``); true residual ≤ 10·tol
+    and fewer iterations than phase 4.
+14. distributed preconditioned main path — the same two solves on the
+    (2, 4) mesh (``optimal``), held to the same gates and besides:
+    iterations within 1% of phase 13's at the same block, one
     ``block_trisolve`` launch per apply for all 8 ranks (n_iters + 1),
     ``mesh.psum`` 3·n_iters + 1 (the preconditioner adds none), the
-    exchange counts of phase 8.
+    exchange counts of phase 8.  One helper, ``bj_solve``, runs all four
+    solves and holds every gate.
 15. Chebyshev — the (64, 64)-element problem sequential and with the four
     strategies: ``bsr_spmbv`` degree·(n_iters + 1) launches per solve, the
     four distributed solves bit-identical, against the sequential one
@@ -209,6 +220,7 @@ def main() -> int:
     from repro_torch.kernels.block_update.ref import block_update_ref, ecg_tail_ref
     from repro_torch.kernels.bsr_spmbv.ops import spmbv_plan
     from repro_torch.kernels.bsr_spmbv.ref import bsr_spmbv_ref
+    from repro_torch.kernels.chol_apply.ref import chol_apply_dense, chol_apply_ref
     from repro_torch.core.node_aware import build_exchange_plan
     from repro_torch.kernels.fused_gram.ops import gram_plan
     from repro_torch.kernels.fused_gram.ref import fused_gram_ref
@@ -381,6 +393,50 @@ def main() -> int:
     csr_by_dtype.clear()
     torch.cuda.empty_cache()
 
+    def run_chol_check(z, az, what):
+        """``chol_apply`` against ``solve_triangular`` on the upper factor C
+        of a gram1, G = ZᵀAZ, formed as the main path forms it."""
+        dtype, (rows, t) = z.dtype, z.shape
+        g = z.double().mT @ az.double()
+        c = torch.linalg.cholesky((g + g.mT) / 2).mT.contiguous().to(dtype)
+        kernel = lambda: kernels.chol_apply(c, z, az)
+        got, want = kernel(), chol_apply_ref(c, z, az)
+        torch.cuda.synchronize()
+        kappa = float(torch.linalg.cond(c.double()))
+        eps = torch.finfo(dtype).eps
+        err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+        # forward error bound of a t-term substitution against C
+        tol = 2 * t * eps * kappa * max(float(w.abs().max()) for w in want)
+        if not (all(bool(torch.isfinite(g).all()) for g in got) and err <= tol):
+            raise AssertionError(f"chol_apply {what}: max_abs_err {err} > tol {tol}")
+        nan_c = torch.full_like(c, float("nan"))
+        if not all(bool(torch.isnan(y).all()) for y in kernels.chol_apply(nan_c, z, az)):
+            raise AssertionError(f"chol_apply {what}: a NaN factor did not give NaN blocks")
+        bytes_ = 4 * rows * t * z.element_size() + t * t * c.element_size()
+        flops = 2 * rows * t * t  # two blocks, t(t-1)/2 multiply-adds and t divisions a row
+        dname = str(dtype).removeprefix("torch.")
+        bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / PEAK_FLOPS[dname] * 1e3
+        row = {"name": "chol_apply", "what": what, "shape": [rows, t], "dtype": dname,
+               "kappa": kappa, "max_abs_err": err, "tol": tol, "nan_factor_gives_nan": True,
+               "kernel_ms": time_ms(torch, kernel),
+               "plain_ms": time_ms(torch, lambda: chol_apply_dense(c, z, az)),
+               "library_ms": time_ms(torch, lambda: chol_apply_ref(c, z, az)),
+               "bound_ms": max(bytes_ms, flops_ms),
+               "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+        log(row)
+        return row
+
+    def chol_operands(t, dtype):
+        z = randn(n, t, dtype=torch.float64)
+        az = kernels.bsr_spmbv(blocks, indices, z, n_rows=n)
+        return z.to(dtype), az.to(dtype)
+
+    checks["chol_apply"] = run_chol_check(*chol_operands(T, torch.float64), "main path")
+    run_chol_check(*chol_operands(1, torch.float64), "t=1")
+    run_chol_check(*chol_operands(T, torch.float32), "float32")
+    torch.cuda.empty_cache()
+
     # ----------------------------------------------------------- 4. main path
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
@@ -399,7 +455,8 @@ def main() -> int:
     if not res.converged:
         raise AssertionError(f"main path did not converge in {res.n_iters} iterations")
     want = {"bsr_spmbv": res.n_iters + 1, "fused_gram": res.n_iters, "ecg_tail": res.n_iters,
-            "halo_pack": 0, "halo_unpack": 0, "block_trisolve": 0, "block_update": 0}
+            "halo_pack": 0, "halo_unpack": 0, "block_trisolve": 0, "block_update": 0,
+            "chol_apply": res.n_iters}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if not true_res <= 10 * tol:
@@ -568,6 +625,9 @@ def main() -> int:
 
     checks["fused_gram_batched"] = run_check("fused_gram_batched", check_gram_batched, T, torch.float64)
     repeat_check("fused_gram_batched", check_gram_batched, T)
+    zr = randn(p_ranks * op.rmax, T, dtype=torch.float64)
+    run_chol_check(zr, op.matvec_fn()(zr), "distributed (p·rmax, t)")
+    del zr
     torch.cuda.empty_cache()
 
     # --------------------------------------------- 8. distributed main path
@@ -595,7 +655,7 @@ def main() -> int:
     n_phases = len(plan.phases)
     want = {"bsr_spmbv": k + 1, "fused_gram": k, "ecg_tail": k,
             "halo_pack": n_phases * (k + 1), "halo_unpack": n_phases * (k + 1),
-            "block_trisolve": 0, "block_update": 0}
+            "block_trisolve": 0, "block_update": 0, "chol_apply": k}
     if dlaunches != want:
         raise AssertionError(f"distributed launch counts {dlaunches} != {want}")
     if dcounters["psum"] != 3 * k + 1:
@@ -735,74 +795,79 @@ def main() -> int:
     run_check("block_update", check_update, T, torch.float32)
     torch.cuda.empty_cache()
 
-    # -------------------------------------- 13. preconditioned main path
-    kernels.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pres = psolver.solve(b)
-    torch.cuda.synchronize()
-    psolve_s = time.perf_counter() - t0
-    plaunches = kernels.launch_counts()
-    k = pres.n_iters
-    ptrue_res = float(torch.linalg.norm(b_dev - csr_spmv(a, pres.x)))
-    log({"phase": "block_jacobi_main_path", "n": n, "t": T, "block": BLOCK, "tol": tol,
-         "converged": pres.converged, "breakdown": pres.breakdown, "n_iters": k,
-         "final_rn": float(pres.res_hist[k]), "true_residual": ptrue_res,
-         "solve_s": psolve_s, "ms_per_iter": psolve_s * 1e3 / max(k, 1),
-         "unpreconditioned": seq, "launches": plaunches})
-    if not pres.converged:
-        raise AssertionError(f"block-Jacobi main path did not converge in {k} iterations")
-    want = {"bsr_spmbv": k + 1, "fused_gram": 0, "ecg_tail": k, "halo_pack": 0,
-            "halo_unpack": 0, "block_trisolve": k + 1, "block_update": 0}
-    if plaunches != want:
-        raise AssertionError(f"block-Jacobi launch counts {plaunches} != {want}")
-    if not ptrue_res <= 10 * tol:
-        raise AssertionError(f"block-Jacobi true residual {ptrue_res} > 10·tol {10 * tol}")
-    if not k < seq["n_iters"]:
-        raise AssertionError(f"block-Jacobi took {k} iterations, unpreconditioned {seq['n_iters']}")
-    pseq = {"n_iters": k, "ms_per_iter": psolve_s * 1e3 / max(k, 1), "solve_s": psolve_s}
-    del pres, psolver, solver
+    # ---------------------- 13./14. preconditioned main path, sequential and distributed
+    def bj_solve(handle, phase, block, mesh_=None, sequential=None, **extra):
+        """One block-Jacobi solve at full scale with the launch counts (and
+        the mesh's counters) set to 0 just before it, held to every gate of
+        the preconditioned main path: converged, the launch counts, true
+        residual ≤ 10·tol, fewer iterations than the unpreconditioned solve
+        (phase 4), and on the mesh the psum/ppermute counts and the
+        iterations within 1% of the sequential solve at the same block."""
+        kernels.reset_launch_counts()
+        if mesh_ is not None:
+            mesh_.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = handle.solve(b)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        got, k_ = kernels.launch_counts(), r.n_iters
+        x_ = torch.as_tensor(handle.unshard(r.x), device=dev) if mesh_ is not None else r.x
+        true_ = float(torch.linalg.norm(b_dev - csr_spmv(a, x_)))
+        row = {"phase": phase, "n": n, "t": T, "block": block, "tol": tol,
+               "factors": list(handle._precond.factors.shape), **extra,
+               "converged": r.converged, "breakdown": r.breakdown, "n_iters": k_,
+               "final_rn": float(r.res_hist[k_]), "true_residual": true_, "solve_s": solve_s,
+               "ms_per_iter": solve_s * 1e3 / max(k_, 1), "unpreconditioned": seq, "launches": got}
+        if mesh_ is not None:
+            counters = {"psum": mesh_.psum_calls, "ppermute": mesh_.ppermute_calls}
+            row |= {"mesh": list(mesh_.shape), "strategy": "optimal", "sequential": sequential,
+                    "mesh_counters": counters}
+        log(row)
+        want_ = {"bsr_spmbv": k_ + 1, "fused_gram": 0, "ecg_tail": k_, "halo_pack": 0,
+                 "halo_unpack": 0, "block_trisolve": k_ + 1, "block_update": 0, "chol_apply": k_}
+        if mesh_ is not None:
+            want_ |= {"halo_pack": n_phases * (k_ + 1), "halo_unpack": n_phases * (k_ + 1)}
+        if not r.converged:
+            raise AssertionError(f"{phase} did not converge in {k_} iterations")
+        if got != want_:
+            raise AssertionError(f"{phase}: launch counts {got} != {want_}")
+        if not true_ <= 10 * tol:
+            raise AssertionError(f"{phase}: true residual {true_} > 10·tol {10 * tol}")
+        if not k_ < seq["n_iters"]:
+            raise AssertionError(f"{phase}: {k_} iterations, unpreconditioned {seq['n_iters']}")
+        if mesh_ is not None:
+            if counters["psum"] != 3 * k_ + 1:
+                raise AssertionError(f"{phase}: psum ran {counters['psum']} times, want 3·{k_} + 1")
+            if counters["ppermute"] != n_rot * (k_ + 1):
+                raise AssertionError(f"{phase}: ppermute ran {counters['ppermute']} times, "
+                                     f"want {n_rot}·({k_} + 1)")
+            if not abs(k_ - sequential["n_iters"]) <= max(1, 0.01 * sequential["n_iters"]):
+                raise AssertionError(f"{phase}: {k_} iterations not within 1% of {sequential['n_iters']}")
+        return {"n_iters": k_, "ms_per_iter": solve_s * 1e3 / max(k_, 1), "solve_s": solve_s,
+                "launches": got}
+
+    # 13. sequentially, at block 16 (phase 11's handle) and at the default
+    # block, 32 (PreconditionConfig.block)
+    prec_bj32 = dict(kind="block_jacobi", block=32)
+    pseq = {BLOCK: bj_solve(psolver, "block_jacobi_main_path", BLOCK)}
+    del psolver
+    torch.cuda.empty_cache()
+    pseq[32] = bj_solve(solver.with_config(precondition=prec_bj32), "block_jacobi_32_main_path", 32)
+    del solver
     torch.cuda.empty_cache()
 
-    # -------------------------- 14. distributed preconditioned main path
-    t0 = time.perf_counter()
-    pdsolver = dsolver.with_config(precondition=prec_bj)
-    torch.cuda.synchronize()
-    pdbuild_s = time.perf_counter() - t0
-    kernels.reset_launch_counts()
-    mesh.reset_counters()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pdres = pdsolver.solve(b)
-    torch.cuda.synchronize()
-    pdsolve_s = time.perf_counter() - t0
-    pdlaunches = kernels.launch_counts()
-    pdcounters = {"psum": mesh.psum_calls, "ppermute": mesh.ppermute_calls}
-    k = pdres.n_iters
-    x_glob = torch.as_tensor(pdsolver.unshard(pdres.x), device=dev)
-    pdtrue_res = float(torch.linalg.norm(b_dev - csr_spmv(a, x_glob)))
-    log({"phase": "distributed_block_jacobi_main_path", "mesh": list(mesh.shape),
-         "strategy": "optimal", "block": BLOCK, "factors": list(pdsolver._precond.factors.shape),
-         "build_s": pdbuild_s, **pdsolver._precond.build_s, "converged": pdres.converged,
-         "n_iters": k, "true_residual": pdtrue_res, "solve_s": pdsolve_s,
-         "ms_per_iter": pdsolve_s * 1e3 / max(k, 1), "sequential": pseq,
-         "launches": pdlaunches, "mesh_counters": pdcounters})
-    if not pdres.converged:
-        raise AssertionError(f"distributed block-Jacobi did not converge in {k} iterations")
-    want = {"bsr_spmbv": k + 1, "fused_gram": 0, "ecg_tail": k,
-            "halo_pack": n_phases * (k + 1), "halo_unpack": n_phases * (k + 1),
-            "block_trisolve": k + 1, "block_update": 0}
-    if pdlaunches != want:
-        raise AssertionError(f"distributed block-Jacobi launch counts {pdlaunches} != {want}")
-    if pdcounters["psum"] != 3 * k + 1:
-        raise AssertionError(f"psum ran {pdcounters['psum']} times, want 3·{k} + 1")
-    if pdcounters["ppermute"] != n_rot * (k + 1):
-        raise AssertionError(f"ppermute ran {pdcounters['ppermute']} times, want {n_rot}·({k} + 1)")
-    if not pdtrue_res <= 10 * tol:
-        raise AssertionError(f"distributed block-Jacobi true residual {pdtrue_res} > 10·tol")
-    if not abs(k - pseq["n_iters"]) <= max(1, 0.01 * pseq["n_iters"]):
-        raise AssertionError(f"distributed block-Jacobi {k} iterations not within 1% of {pseq['n_iters']}")
-    del pdres, pdsolver, dsolver, x_glob, a
+    # 14. on the (2, 4) mesh (``optimal``), at both blocks
+    for block, prec, phase in ((BLOCK, prec_bj, "distributed_block_jacobi_main_path"),
+                               (32, prec_bj32, "distributed_block_jacobi_32_main_path")):
+        t0 = time.perf_counter()
+        handle = dsolver.with_config(precondition=prec)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        bj_solve(handle, phase, block, mesh, pseq[block], build_s=build_s, **handle._precond.build_s)
+        del handle
+        torch.cuda.empty_cache()
+    del dsolver, a
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------- 15. Chebyshev
@@ -880,13 +945,15 @@ def main() -> int:
         "block_trisolve": ("src/repro_torch/kernels/csrc/block_trisolve.cu",
                            "src/repro/kernels/block_trisolve/kernel.py:58"),
         "block_update": ("src/repro_torch/kernels/csrc/ecg_tail.cu", "src/repro/kernels/block_update/kernel.py:32"),
+        "chol_apply": ("src/repro_torch/kernels/csrc/chol_apply.cu",
+                       "src/repro/core/methods/base.py:38 (no Pallas kernel: the reference's TRSMs)"),
     }
-    # launches: the sequential main path's (phase 4) for the kernels it runs,
-    # the distributed main path's (phase 8) for the halo kernels, the
-    # block-Jacobi main path's (phase 13) for block_trisolve; no path runs
-    # block_update
+    # launches: the sequential main path's (phase 4) for the kernels it runs
+    # (chol_apply among them), the distributed main path's (phase 8) for the
+    # halo kernels, the block-Jacobi main path's (phase 13) for
+    # block_trisolve; no path runs block_update
     launches = {**seq_launches, "halo_pack": dlaunches["halo_pack"], "halo_unpack": dlaunches["halo_unpack"],
-                "block_trisolve": plaunches["block_trisolve"], "block_update": 0}
+                "block_trisolve": pseq[BLOCK]["launches"]["block_trisolve"], "block_update": 0}
     log({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": checks[name]["max_abs_err"],

@@ -14,23 +14,22 @@ from typing import Callable
 
 import torch
 
+from repro_torch.kernels.chol_apply.ops import chol_apply
+
 
 def _chol_inv_apply(g: torch.Tensor, *mats: torch.Tensor):
-    """Given G = CᵀC, return [M C⁻¹ for M in mats] via triangular solves.
+    """Given G = CᵀC, return [M C⁻¹ for M in mats].
 
     As the reference's ``jnp.linalg.cholesky``: G is symmetrised first, and a
     G that is not positive definite yields NaNs (``cholesky_ex`` reports it
     in ``info`` instead of raising), which the loop's breakdown guard turns
-    into ``breakdown=True``.
+    into ``breakdown=True``.  Y·C = M is solved by the ``chol_apply`` op, two
+    blocks per call: one row-pass kernel launch on CUDA tensors, triangular
+    solves on CPU tensors.
     """
     low, info = torch.linalg.cholesky_ex((g + g.mT) / 2)
-    c = torch.where(info == 0, low.mT, torch.full_like(low, float("nan")))  # G = CᵀC
-    # solve Y C = M for each M; on CUDA the solve returns a column-major
-    # result, and the kernels downstream read (n, t) row-major blocks
-    return [
-        torch.linalg.solve_triangular(c, m, upper=True, left=False).contiguous()
-        for m in mats
-    ]
+    c = torch.where(info == 0, low.mT, torch.full_like(low, float("nan"))).contiguous()  # G = CᵀC
+    return [y for i in range(0, len(mats), 2) for y in chol_apply(c, *mats[i:i + 2])]
 
 
 def _apply_vec(a_apply: Callable, v: torch.Tensor, t: int) -> torch.Tensor:

@@ -47,7 +47,8 @@ SIGNATURES = {
     "ecg_tail": [_P] * 11 + [_L, _I, _P],
     "halo_pack": [_P, _P, _P, _I, _L, _I, _I, _P],
     "halo_unpack": [_P, _P, _P, _I, _L, _I, _I, _P],
-    "block_trisolve": [_P, _P, _P, _L, _I, _I, _L, _L, _I, _P],
+    "block_trisolve": [_P, _P, _P, _L, _I, _I, _L, _L, _P],
+    "chol_apply": [_P] * 5 + [_L, _I, _P],
     "block_update": [_P] * 7 + [_L, _I, _P],
 }
 #: the source, ``csrc/<source>.cu``, that exports each kernel function

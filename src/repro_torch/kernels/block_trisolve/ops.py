@@ -11,20 +11,77 @@ blocks of its own) pads or copies x.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.block_trisolve.ref import block_trisolve_ref
 from repro_torch.kernels.dispatch import use_kernel
 
-#: largest block and width the kernel takes (a register array of the block's
-#: column per thread; one thread per (block, column))
+#: largest block and width the kernel takes (a lane owns one row of a
+#: block, two at bs > 32, and holds its rows' t values in registers)
 MAX_BS, MAX_T = 64, 16
-# a CTA takes as many blocks as fit 64 threads and 32 KB of staged tiles:
-# on the H100 that beat 256 threads / 64 KB at bs = 16, 32 and 64 (small
-# CTAs overlap one CTA's staging with another's substitutions; PERF.md)
-_MAX_THREADS = 64
-_SMEM_BYTES = 32 * 1024
+_SMEM_SM = 233_472     # shared memory of an SM, 228 KB (kSmemSm) ...
+_SMEM_CTA = 1024       # ... of which each CTA holds 1 KB for the system (kSmemCta)
+_RECIP = 64            # reciprocals of a warp's diagonals (kRecip)
+
+
+def _max_warps(rows: int) -> int:
+    """Warps (one-warp CTAs) per SM at most (max_warps): 16 where a lane
+    owns one row, 8 where it owns two."""
+    return 16 if rows == 1 else 8
+
+
+class TrisolvePlan(NamedTuple):
+    """Launch geometry of one ``block_trisolve`` call, as the C launcher
+    chooses it."""
+
+    rows: int       # rows a lane owns: 2 at bs > 32, else 1
+    seg: int        # lanes per block: bs rounded up to 8, 16 or 32
+    per_warp: int   # blocks a warp solves at once, 32 // seg
+    cols: int       # right-hand sides the kernel is built for: t rounded up to 1, 2, 4, 8 or 16
+    ls: int         # elements per staged row of L: a multiple of vec (16 bytes), ls / vec odd
+    tp: int         # elements per staged tile: bs·ls, rounded up to seg modulo 32
+                    # where a warp takes several blocks (no bank conflict)
+    stage: int      # elements of one stage: per_warp tiles
+    warp_smem: int  # bytes of a warp's two stages and its _RECIP reciprocals
+    warps: int      # warps per SM, each a CTA of its own
+    tasks: int      # warp tasks, cdiv(nb, per_warp)
+    grid: int       # CTAs, one warp each: at most warps per SM × SMs (a grid stride covers the rest)
+    smem: int       # shared memory the grid's CTAs take on one SM, bytes
+
+
+def _check(bs: int, t: int, dtype) -> None:
+    """Raise on what the kernel does not take."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"block_trisolve: kernel takes float32/float64, got {dtype}")
+    if not 1 <= bs <= MAX_BS or not 1 <= t <= MAX_T:
+        raise ValueError(f"block_trisolve: kernel takes 1 <= bs <= {MAX_BS} and 1 <= t <= {MAX_T}, "
+                         f"got bs={bs}, t={t}")
+
+
+def trisolve_plan(nb: int, bs: int, t: int, dtype, sms: int) -> TrisolvePlan:
+    """The geometry ``csrc/block_trisolve.cu`` launches for ``nb`` blocks of
+    ``bs`` rows and ``t`` right-hand sides on a card with ``sms``
+    multiprocessors (for the tests and for reports; the C launcher owns the
+    choice).  Raises where the launcher refuses the call."""
+    _check(bs, t, dtype)
+    es = 8 if dtype == torch.float64 else 4
+    vec = 16 // es
+    rows = 2 if bs > 32 else 1
+    seg = 8 if bs <= 8 else 16 if bs <= 16 else 32
+    per_warp = 32 // seg
+    cols = next(c for c in (1, 2, 4, 8, 16) if t <= c)
+    ls = vec * (-(-bs // vec) | 1)
+    tp = bs * ls + ((seg - bs * ls) % 32 if per_warp > 1 else 0)
+    stage = per_warp * tp
+    warp_smem = (2 * stage + _RECIP) * es
+    warps = max(1, min(_max_warps(rows), _SMEM_SM // (warp_smem + _SMEM_CTA)))
+    tasks = -(-nb // per_warp)
+    grid = min(sms * warps, tasks)
+    return TrisolvePlan(rows, seg, per_warp, cols, ls, tp, stage, warp_smem, warps, tasks, grid,
+                        warps * (warp_smem + _SMEM_CTA))
 
 
 def block_trisolve(l: torch.Tensor, x: torch.Tensor, ranks: int = 1) -> torch.Tensor:
@@ -85,22 +142,15 @@ def _block_trisolve_cuda(l, rows, nb_rank, rmax):
     nb, bs, _ = l.shape
     t = rows.shape[1]
     dtype = rows.dtype
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"block_trisolve: kernel takes float32/float64, got {dtype}")
-    if not 1 <= bs <= MAX_BS or not 1 <= t <= MAX_T:
-        raise ValueError(f"block_trisolve: kernel takes 1 <= bs <= {MAX_BS} and 1 <= t <= {MAX_T}, "
-                         f"got bs={bs}, t={t}")
+    _check(bs, t, dtype)
     if not (l.is_contiguous() and rows.is_contiguous()):
         raise ValueError("block_trisolve: operands must be contiguous")
-    tile_bytes = (bs * bs + 16 // l.element_size()) * l.element_size()
-    blocks_per_cta = max(1, min(_MAX_THREADS // t, _SMEM_BYTES // tile_bytes))
     y = torch.empty_like(rows)
     if nb == 0 or rows.shape[0] == 0:
         return y
     _build.launch(
         "block_trisolve", dtype, l.data_ptr(), rows.data_ptr(), y.data_ptr(),
-        nb, bs, t, nb_rank, rmax, blocks_per_cta,
-        torch.cuda.current_stream(rows.device).cuda_stream,
+        nb, bs, t, nb_rank, rmax, torch.cuda.current_stream(rows.device).cuda_stream,
     )
     block_trisolve.launches += 1
     return y

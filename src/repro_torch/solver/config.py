@@ -533,7 +533,7 @@ def _precondition_dict(pc: PreconditionConfig) -> dict:
 
 
 def _tselection_dict(select) -> dict:
-    return _not_ported("select", "queue 1 item 6")
+    return _not_ported("select", "queue 1 item 6b")
 
 
 def _not_ported(field: str, item: str):
@@ -548,7 +548,7 @@ def solverconfig_from_dict(d: dict) -> SolverConfig:
 
     comm = dict(d["comm"])
     if comm.get("machine") is not None:
-        _not_ported("machine", "queue 1 item 5")
+        _not_ported("machine", "queue 1 item 5c")
     kernel = dict(d["kernel"])
     kernel["ell_block"] = tuple(kernel["ell_block"])
     tune = dict(d["tune"])
@@ -558,7 +558,7 @@ def solverconfig_from_dict(d: dict) -> SolverConfig:
     if adaptive.get("policy") is not None:
         adaptive["policy"] = ReductionPolicy(**adaptive["policy"])
     if adaptive.get("select") is not None:
-        _not_ported("select", "queue 1 item 6")
+        _not_ported("select", "queue 1 item 6b")
     adaptive["t_candidates"] = tuple(adaptive["t_candidates"])
     precondition = dict(d.get("precondition") or {})
     if precondition.get("eig_bounds") is not None:

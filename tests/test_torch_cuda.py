@@ -10,7 +10,9 @@ Tolerances: float64 rtol/atol 1e-12 (1e-11/1e-10 for the n-term Gram sums);
 float32 2e-5 (1e-4/1e-3 for the Gram sums) — only the summation order differs.
 ``block_trisolve`` substitutes where the plain version calls LAPACK-style
 triangular solves: 1e-11 in float64, 1e-4 in float32, on factors of
-blocks with condition number below 10.  The halo kernels move data only and
+blocks with condition number below 10.  ``chol_apply`` substitutes where its
+plain version calls ``solve_triangular``: within 2·t·eps·κ(C)·max|y| (the
+forward error bound of a t-term substitution).  The halo kernels move data only and
 must equal their plain versions exactly, and two CSR products on the same
 inputs must be bit-identical (no atomics).
 """
@@ -23,6 +25,7 @@ from repro_torch import kernels
 from repro_torch.kernels import block_ell_arrays
 from repro_torch.kernels.block_trisolve.ref import block_trisolve_ref
 from repro_torch.kernels.block_update.ref import block_update_ref, ecg_tail_ref
+from repro_torch.kernels.chol_apply.ref import chol_apply_dense, chol_apply_ref
 from repro_torch.kernels.fused_gram.ref import fused_gram_ref
 from repro_torch.kernels.halo_pack.ref import halo_pack_ref, halo_unpack_ref
 from repro_torch.launch.mesh import VirtualMesh
@@ -196,7 +199,7 @@ def test_solve_on_card_matches_cpu(cuda, t):
     cpu = ECGSolver.build(a, config=cfg, device="cpu").solve(b)
     assert gpu.converged and gpu.n_iters == cpu.n_iters
     assert counts == _counts(bsr_spmbv=gpu.n_iters + 1, fused_gram=gpu.n_iters,
-                             ecg_tail=gpu.n_iters)
+                             ecg_tail=gpu.n_iters, chol_apply=gpu.n_iters)
     x_g, x_c = gpu.x.cpu(), cpu.x
     assert float((x_g - x_c).abs().max()) <= 1e-8 * float(x_c.abs().max())
 
@@ -350,7 +353,8 @@ def test_distributed_solve_on_card_matches_cpu(cuda, strategy):
     assert gpu.converged and k == cpu.n_iters
     phases = len(solver.op.plan.phases)
     assert counts == _counts(bsr_spmbv=k + 1, fused_gram=k, ecg_tail=k,
-                             halo_pack=phases * (k + 1), halo_unpack=phases * (k + 1))
+                             halo_pack=phases * (k + 1), halo_unpack=phases * (k + 1),
+                             chol_apply=k)
     assert mesh.psum_calls == 3 * k + 1
     x_g, x_c = solver.unshard(gpu.x), solver.unshard(cpu.x)
     assert np.abs(x_g - x_c).max() <= 1e-8 * np.abs(x_c).max()
@@ -404,6 +408,90 @@ def test_block_trisolve_counts_and_checks(cuda):
     assert kernels.block_trisolve.launches == 2
 
 
+@pytest.mark.parametrize("bs", [1, 2, 7, 17, 33, 48])
+def test_block_trisolve_odd_blocks_and_row_pairs(cuda, bs):
+    """Blocks of one row, blocks that fill part of a warp's segment, two
+    rows a lane (bs > 32), odd widths (t below the width the kernel is built
+    for) and a ragged last task."""
+    for t, dtype in ((5, torch.float64), (3, torch.float32), (16, torch.float64)):
+        nb = 2 * 33 + 1
+        l = _factors(nb, bs, dtype, seed=bs)
+        x = torch.randn(nb, bs, t, dtype=dtype)
+        got = kernels.block_trisolve(l.to(cuda), x.to(cuda))
+        torch.testing.assert_close(got.cpu(), block_trisolve_ref(l, x), **_trisolve_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bs", [16, 32, 64])
+def test_block_trisolve_unaligned_operands(cuda, bs, dtype):
+    """Factors and rows at base addresses that are not 16-byte aligned take
+    the value-by-value copies and row loads, and give the same result."""
+    nb, t = 70, 8
+    l = _factors(nb, bs, dtype, seed=3)
+    x = torch.randn(nb * bs, t, dtype=dtype)
+    want = block_trisolve_ref(l, x.reshape(nb, bs, t)).reshape(nb * bs, t)
+    l_off = torch.zeros(l.numel() + 1, dtype=dtype, device=cuda)[1:]
+    l_off.copy_(l.reshape(-1).to(cuda))
+    x_off = torch.zeros(x.numel() + 1, dtype=dtype, device=cuda)[1:]
+    x_off.copy_(x.reshape(-1).to(cuda))
+    got = kernels.block_trisolve(l_off.view(nb, bs, bs), x_off.view(nb * bs, t))
+    torch.testing.assert_close(got.cpu(), want, **_trisolve_tol(dtype))
+    aligned = kernels.block_trisolve(l.to(cuda), x.to(cuda))
+    torch.testing.assert_close(got, aligned, **_trisolve_tol(dtype))
+
+
+def _upper(t, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(t, t, generator=gen, dtype=torch.float64)
+    return torch.linalg.cholesky(q @ q.T / t + torch.eye(t, dtype=torch.float64)).T.to(dtype).contiguous()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t", [1, 2, 3, 4, 5, 8, 12, 16])
+@pytest.mark.parametrize("rows", [1, 530, 70001])
+def test_chol_apply_matches_plain(cuda, rows, t, dtype):
+    c = _upper(t, dtype, seed=t)
+    mats = [torch.randn(rows, t, dtype=dtype) for _ in range(2)]
+    kappa = float(torch.linalg.cond(c.double()))
+    eps = torch.finfo(dtype).eps
+    for n_mats in (1, 2):
+        kernels.reset_launch_counts()
+        got = kernels.chol_apply(c.to(cuda), *(m.to(cuda) for m in mats[:n_mats]))
+        assert kernels.launch_counts() == _counts(chol_apply=1)
+        want = chol_apply_ref(c, *mats[:n_mats])
+        dense = chol_apply_dense(c, *mats[:n_mats])
+        for g, w, d in zip(got, want, dense):
+            assert g.shape == (rows, t) and g.dtype == dtype and g.is_contiguous()
+            tol = 2 * t * eps * kappa * float(w.abs().max())
+            assert float((g.cpu().double() - w.double()).abs().max()) <= tol
+            # the kernel's own order of operations: only FMA contraction differs
+            assert float((g.cpu().double() - d.double()).abs().max()) <= tol
+    # deterministic
+    ops = [c.to(cuda)] + [m.to(cuda) for m in mats]
+    assert all(torch.equal(a, b) for a, b in zip(kernels.chol_apply(*ops), kernels.chol_apply(*ops)))
+
+
+def test_chol_apply_nan_factor_counts_and_checks(cuda):
+    c = _upper(8, torch.float64).to(cuda)
+    z, az = (torch.randn(1000, 8, dtype=torch.float64, device=cuda) for _ in range(2))
+    kernels.reset_launch_counts()
+    p, ap = kernels.chol_apply(torch.full_like(c, float("nan")), z, az)
+    assert bool(torch.isnan(p).all()) and bool(torch.isnan(ap).all())
+    # an offset view: a base address that is not 16-byte aligned gives the same result
+    zz = torch.randn(1000 * 8 + 1, dtype=torch.float64, device=cuda)[1:].view(1000, 8)
+    got = kernels.chol_apply(c, zz)[0]
+    torch.testing.assert_close(got.cpu(), chol_apply_ref(c.cpu(), zz.cpu())[0], rtol=1e-12, atol=1e-12)
+    assert kernels.launch_counts() == _counts(chol_apply=2)
+    with pytest.raises(ValueError, match="t <= 16"):
+        w = torch.randn(10, 17, dtype=torch.float64, device=cuda)
+        kernels.chol_apply(torch.eye(17, dtype=torch.float64, device=cuda), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.chol_apply(c.T, z)
+    with pytest.raises(TypeError, match="one dtype"):
+        kernels.chol_apply(c, z, az.float())
+    assert kernels.launch_counts() == _counts(chol_apply=2)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("t", WIDTHS)
 @pytest.mark.parametrize("n", [1, 530, 70001])
@@ -454,6 +542,7 @@ def test_preconditioned_solve_on_card_matches_cpu(cuda, kind, mesh_shape):
     assert gpu.converged and cpu.converged
     assert counts["fused_gram"] == 0 and counts["ecg_tail"] == k
     assert counts["block_trisolve"] == (k + 1 if kind == "block_jacobi" else 0)
+    assert counts["chol_apply"] == k
     x_g, x_c = solver.unshard(gpu.x), solver.unshard(cpu.x)
     if kind != "inexact":
         assert k == cpu.n_iters

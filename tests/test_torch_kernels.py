@@ -151,9 +151,11 @@ def test_cpu_tensors_never_count_launches():
     kernels.halo_unpack(v.reshape(2, -1, t), buf, idx)
     kernels.block_update(v, v, v, v, c)
     kernels.block_trisolve(c[None].expand(pa.shape[0] // t, t, t), v)
+    kernels.chol_apply(c, v, v)
     assert kernels.launch_counts() == {"bsr_spmbv": 0, "fused_gram": 0, "ecg_tail": 0,
                                        "halo_pack": 0, "halo_unpack": 0,
-                                       "block_trisolve": 0, "block_update": 0}
+                                       "block_trisolve": 0, "block_update": 0,
+                                       "chol_apply": 0}
 
 
 def test_mixed_devices_rejected():

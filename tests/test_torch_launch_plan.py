@@ -1,7 +1,9 @@
-"""Launch geometry of the ``bsr_spmbv`` and ``fused_gram`` CUDA kernels, on the CPU.
+"""Launch geometry of the ``bsr_spmbv``, ``fused_gram`` and ``block_trisolve``
+CUDA kernels, on the CPU.
 
 The wrappers take their grid, path and scratch sizes from the pure
-functions ``spmbv_plan`` and ``gram_plan``.  These tests replay each
+functions ``spmbv_plan`` and ``gram_plan``; ``block_trisolve``'s C launcher
+picks its own geometry, which ``trisolve_plan`` mirrors.  These tests replay each
 kernel's loops over the plan in Python (which rows a warp, thread or CTA
 visits) and check that every row is visited exactly once, that no CTA or
 part is left without work, that the scratch sizes are right, that the
@@ -20,6 +22,7 @@ from repro_torch.kernels import _build
 
 bops = importlib.import_module("repro_torch.kernels.bsr_spmbv.ops")
 gops = importlib.import_module("repro_torch.kernels.fused_gram.ops")
+tops = importlib.import_module("repro_torch.kernels.block_trisolve.ops")
 
 CSRC = Path(_build.CSRC)
 F32, F64 = torch.float32, torch.float64
@@ -231,8 +234,130 @@ def test_gram_constants_mirror_the_cuda_source():
     assert "constexpr int U = 8 / MT;" in (CSRC / "fused_gram.cu").read_text()
 
 
+# ------------------------------------------------------------- block_trisolve
+@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("t", [1, 8, 16])
+@pytest.mark.parametrize("bs", [1, 8, 16, 32, 64])
+def test_trisolve_plan_fits_shared_memory_and_covers_every_block_once(bs, t, dtype):
+    es = 8 if dtype == F64 else 4
+    vec = 16 // es
+    for nb in (1, 7, 300, 1_310_720 // bs):
+        plan = tops.trisolve_plan(nb, bs, t, dtype, 132)
+        # every row of a block has a lane: one row a lane up to 32, two above
+        assert plan.seg in (8, 16, 32) and plan.per_warp * plan.seg == 32
+        assert plan.rows == (2 if bs > 32 else 1) and bs <= plan.rows * plan.seg
+        assert plan.seg == 8 or plan.seg // 2 < bs
+        assert plan.cols in (1, 2, 4, 8, 16) and t <= plan.cols < 2 * t
+        # 16-byte rows whose length in 16-byte units is odd; the forward
+        # pass reads up to bs rounded up to vec
+        assert plan.ls % vec == 0 and (plan.ls // vec) % 2 == 1 and plan.ls >= -(-bs // vec) * vec
+        assert plan.tp >= bs * plan.ls and plan.tp % vec == 0
+        assert plan.per_warp == 1 or plan.tp % 32 == plan.seg
+        # two stages a warp, each the task's tiles, and a reciprocal for
+        # each row of the task (and for the forward steps past bs)
+        assert plan.stage == plan.per_warp * plan.tp
+        assert (plan.per_warp - 1) * bs + -(-bs // vec) * vec <= tops._RECIP
+        assert plan.warp_smem == (2 * plan.stage + tops._RECIP) * es
+        # one-warp CTAs: a warp's stages within a CTA's 227 KB, the warps
+        # of an SM (1 KB each for the system) within its 228 KB
+        assert plan.warp_smem <= 227 * 1024
+        assert plan.smem == plan.warps * (plan.warp_smem + 1024) <= 228 * 1024
+        assert 1 <= plan.warps <= (16 if plan.rows == 1 else 8)
+        assert plan.grid == min(132 * plan.warps, plan.tasks)  # no CTA without work
+        # the kernel's walk: CTA w takes tasks w, w + grid, ..., each task
+        # per_warp consecutive blocks
+        visits = torch.zeros(plan.tasks * plan.per_warp, dtype=torch.int64)
+        for w in range(plan.grid):
+            for task in range(w, plan.tasks, plan.grid):
+                visits[task * plan.per_warp:(task + 1) * plan.per_warp] += 1
+        assert bool((visits[:nb] == 1).all())
+
+
+def test_trisolve_plan_at_the_block_jacobi_shapes():
+    # bs = 16 (the profiled cells): two blocks a warp, 16 warps; bs = 32
+    # (the default block): one block a warp, 12 warps; bs = 64: two rows a
+    # lane, 3 warps (two stages of 33 KB each)
+    p16 = tops.trisolve_plan(81_920, 16, 8, F64, 132)
+    p32 = tops.trisolve_plan(40_960, 32, 8, F64, 132)
+    p64 = tops.trisolve_plan(20_480, 64, 8, F64, 132)
+    assert (p16.rows, p16.seg, p16.per_warp, p16.warps, p16.grid) == (1, 16, 2, 16, 16 * 132)
+    assert (p32.rows, p32.seg, p32.per_warp, p32.warps, p32.grid) == (1, 32, 1, 12, 12 * 132)
+    assert (p64.rows, p64.seg, p64.per_warp, p64.warps, p64.grid) == (2, 32, 1, 3, 3 * 132)
+    assert (p16.ls, p32.ls, p64.ls, p16.tp) == (18, 34, 66, 304)
+
+
+def _banks(words, width, lanes):
+    """Bank conflicts of one shared-memory read: the lanes' 4-byte word
+    addresses (None for a lane that reads nothing), ``width`` consecutive
+    words each, served ``lanes`` lanes to a 128-byte wavefront.  Returns
+    the largest number of distinct addresses that meet on one bank in a
+    wavefront."""
+    worst = 1
+    for w0 in range(0, len(words), lanes):
+        seen = {}
+        for a in words[w0:w0 + lanes]:
+            if a is None:
+                continue
+            for k in range(width):
+                seen.setdefault((a + k) % 32, set()).add(a + k)
+        worst = max([worst, *(len(v) for v in seen.values())])
+    return worst
+
+
+@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("bs", [5, 8, 13, 16, 32, 48, 64])
+def test_trisolve_factor_reads_meet_no_bank_conflict(bs, dtype):
+    """Replay the kernel's reads of the staged factors: forward, lane j of a
+    block reads L[j, i .. i + vec - 1] as one 16-byte vector (a column
+    strip of the tile, rows of ``ls``); backward, L[i, j] (a row); the
+    tiles of a warp's blocks lie ``tp`` apart.  No two lanes of a wavefront
+    meet on a bank, in either pass and at every step."""
+    plan = tops.trisolve_plan(1000, bs, 8, dtype, 132)
+    width = 2 if dtype == F64 else 1  # 4-byte words per element
+    vec = 16 // (4 * width)
+    for h in range(plan.rows):
+        for i in range(bs):
+            fwd, bwd = [], []
+            for lane in range(32):
+                b, r = divmod(lane, plan.seg)
+                row = r + 32 * h
+                ra = min(row, bs - 1)  # the kernel clamps a lane's row into the tile
+                fwd.append(width * (b * plan.tp + ra * plan.ls + i // vec * vec))
+                bwd.append(width * (b * plan.tp + i * plan.ls + ra) if row < bs else None)
+            assert _banks(fwd, 4, 8) == 1, (h, i, fwd)
+            assert _banks(bwd, width, 32 // width) == 1, (h, i, bwd)
+
+
+@pytest.mark.parametrize("kwargs,error", [
+    (dict(bs=0), ValueError), (dict(bs=65), ValueError), (dict(t=0), ValueError),
+    (dict(t=17), ValueError), (dict(dtype=torch.float16), TypeError),
+])
+def test_trisolve_plan_raises_on_what_the_kernel_does_not_take(kwargs, error):
+    args = dict(nb=100, bs=16, t=8, dtype=F64, sms=132) | kwargs
+    with pytest.raises(error):
+        tops.trisolve_plan(**args)
+
+
+def test_trisolve_constants_mirror_the_cuda_source():
+    src = (CSRC / "block_trisolve.cu").read_text()
+    assert _cuda_constant("block_trisolve.cu", "kSmemSm") == tops._SMEM_SM
+    assert _cuda_constant("block_trisolve.cu", "kSmemCta") == tops._SMEM_CTA
+    assert "constexpr int max_warps(int rows) { return rows == 1 ? 16 : 8; }" in src
+    assert all(tops._max_warps(r) == (16 if r == 1 else 8) for r in (1, 2))
+    assert "p.seg = bs <= 8 ? 8 : bs <= 16 ? 16 : 32;" in src
+    assert "p.cols = t <= 1 ? 1 : t <= 2 ? 2 : t <= 4 ? 4 : t <= 8 ? 8 : 16;" in src
+    assert "p.ls = vec * (((bs + vec - 1) / vec) | 1);" in src
+    assert "if (p.per_warp > 1) p.tp += ((p.seg - p.tp) % 32 + 32) % 32;" in src
+    assert "p.stage = p.per_warp * p.tp;" in src
+    assert _cuda_constant("block_trisolve.cu", "kRecip") == tops._RECIP
+    assert "p.warp_smem = (2 * p.stage + kRecip) * static_cast<int>(sizeof(T));" in src
+    assert "__launch_bounds__(32, max_warps(R))" in src
+    assert "p.warps = std::max(1, std::min(max_warps(p.rows), kSmemSm / (p.warp_smem + kSmemCta)));" in src
+
+
 # ---------------------------------------------------------------- the build
-@pytest.mark.parametrize("name", ["bsr_spmbv", "fused_gram", "halo_pack", "halo_unpack"])
+@pytest.mark.parametrize("name", ["bsr_spmbv", "fused_gram", "halo_pack", "halo_unpack",
+                                  "block_trisolve", "chol_apply"])
 def test_ctypes_signature_matches_the_c_entry_point(name):
     src = (CSRC / f"{_build.SOURCES[name]}.cu").read_text()
     for suffix in ("f32", "f64"):
