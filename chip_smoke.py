@@ -106,6 +106,42 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     converge under it) at t = 1 (the flexible recurrence breaks down at
     t = 4 and 8 there, in the reference too) sequential and on the mesh:
     converged, true residual ≤ 10·tol, at least one flexible reseed.
+17. ``rank_apply_check`` — the adaptive solver's rank-revealing apply (the
+    pivoted factorization of G and its apply to Z and AZ, one launch)
+    against its substitution-form plain version ``rank_apply_dense`` at
+    (1 310 720, 8) ×2 f64, on three Gs: a full-rank gram1, one of rank 4
+    (four columns of Z combinations of the other four) and one holding NaN
+    (rank 0, zero blocks); rank and pivot order must be equal, the blocks
+    within 2·t·eps·κ(L)·max|y|; times as in phase 3, the library call being
+    the reference's route in torch (the factor loop, ``solve_triangular``,
+    ``.contiguous()`` and the mask); also t = 4 and f32.  ``drop_mask`` (the
+    stagnation drop, one warp) against its plain version: mask and counts
+    equal; no library call computes it.
+18. ``adaptive_sequential`` — Example 2.1 at full scale, t = 8, with the
+    right-hand side random on the first 4 of 8 contiguous subdomains, zero
+    elsewhere (the reference test's ``deficient_rhs``): without a policy
+    the solve breaks down; with ``adaptive="reduce"`` (a ``with_config``
+    sibling) it converges, true residual ≤ 10·tol, ``active_hist`` starting
+    [8, 4], first reduction event (1, 8, 4), ``rank_apply`` and
+    ``drop_mask`` one launch per iteration and ``chol_apply`` none, and one
+    iteration makes exactly one host sync (``torch.profiler``'s runtime
+    calls); ms and host launches per iteration.
+19. ``adaptive_distributed`` — the same on the (2, 4) mesh (``optimal``):
+    ``comm_segments`` [(8, 1), (4, k − 1)], iterations within 1% (or 2) of
+    phase 18's and ``active_hist`` equal over the common prefix, ``psum``
+    3·k + 1, the halo kernels counted in both widths' exchanges (the
+    width-4 graph is captured mid-solve), and the mesh's exchanged elements
+    equal to one width-1, one width-8 and k − 1 width-4 exchanges, a width-4
+    exchange moving exactly 4/8 of a width-8 one.  Then the width-4
+    segment's kernels at its own shapes, each against its plain version at
+    phase 3's and phase 7's tolerances: ``bsr_spmbv`` at t = 4 in the ranked
+    layout (the library call: the same tiles as one CSR matrix), the halo
+    kernels on the widest phase of ``plan.at_width(4)``, and the width-4
+    exchange graph the solve captured, equal to the eager exchange bit for
+    bit.
+20. ``adaptive_full_rank`` — phase 4's system under ``rankrev``, ``reduce``
+    and ``reduce+restart``: each converges within phase 4's iterations + 2
+    (no spurious drops), with its reduction events and restarts.
 
 """
 
@@ -194,6 +230,35 @@ def device_kernel_counts(torch, fn, names) -> dict[str, int]:
     return counts
 
 
+def iteration_calls(torch, fn) -> dict:
+    """The host's calls in one call of ``fn`` (after one to warm up), as
+    ``torch.profiler`` records them: the launch calls (``LAUNCH_APIS`` of
+    ``tools/profile_torch_solve.py``) and the synchronizations, each by API
+    name, with their totals; the calls of an empty profiled window (the
+    profiler's own synchronization) are subtracted."""
+    from profile_torch_solve import launch_calls
+    from torch.profiler import ProfilerActivity, profile
+
+    def record(f):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            f()
+        torch.cuda.synchronize()
+        averages = prof.key_averages()
+        return launch_calls(averages) | {
+            e.key: e.count for e in averages
+            if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")}
+
+    fn()
+    torch.cuda.synchronize()
+    empty = record(lambda: None)
+    calls = {k: v - empty.get(k, 0) for k, v in record(fn).items()}
+    calls = {k: v for k, v in calls.items() if v}
+    launches = {k: v for k, v in calls.items() if not k.endswith("Synchronize")}
+    syncs = {k: v for k, v in calls.items() if k.endswith("Synchronize")}
+    return {"launches": sum(launches.values()), "launch_calls": launches,
+            "syncs": sum(syncs.values()), "sync_calls": syncs}
+
+
 def demangle(names: list[str]) -> list[str]:
     """C++ symbol names as ``c++filt`` prints them (as given without it)."""
     try:
@@ -220,7 +285,19 @@ def main() -> int:
     from repro_torch.kernels.block_update.ref import block_update_ref, ecg_tail_ref
     from repro_torch.kernels.bsr_spmbv.ops import spmbv_plan
     from repro_torch.kernels.bsr_spmbv.ref import bsr_spmbv_ref
-    from repro_torch.kernels.chol_apply.ref import chol_apply_dense, chol_apply_ref
+    from repro_torch.adaptive import (
+        ReductionPolicy,
+        default_rank_rtol,
+        pivoted_cholesky,
+        resolve_policy,
+    )
+    from repro_torch.kernels.chol_apply.ref import (
+        chol_apply_dense,
+        chol_apply_ref,
+        drop_mask_ref,
+        rank_apply_dense,
+        rank_apply_ref,
+    )
     from repro_torch.core.node_aware import build_exchange_plan
     from repro_torch.kernels.fused_gram.ops import gram_plan
     from repro_torch.kernels.fused_gram.ref import fused_gram_ref
@@ -456,7 +533,7 @@ def main() -> int:
         raise AssertionError(f"main path did not converge in {res.n_iters} iterations")
     want = {"bsr_spmbv": res.n_iters + 1, "fused_gram": res.n_iters, "ecg_tail": res.n_iters,
             "halo_pack": 0, "halo_unpack": 0, "block_trisolve": 0, "block_update": 0,
-            "chol_apply": res.n_iters}
+            "chol_apply": res.n_iters, "rank_apply": 0, "drop_mask": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if not true_res <= 10 * tol:
@@ -527,16 +604,25 @@ def main() -> int:
         raise AssertionError("the handle's plan differs from build_exchange_plan's")
 
     # ------------------------------------------ 7. distributed kernel checks
-    widest = max(range(len(plan.phases)), key=lambda i: plan.phases[i].width)
-    ph = plan.phases[widest]
-    g_idx, s_pos = op.gathers[widest], op.scatters[widest]
-    p_ranks, c = g_idx.shape
-    src_rows = op.rmax * plan.col_split if ph.src == "x" else plan.stage_size + 1
-    dst_rows = plan.halo_size + 1 if ph.dst == "halo" else plan.stage_size + 1
-    rank_ids = torch.arange(p_ranks, device=dev)[:, None].expand(p_ranks, c)
-    g_long, s_long = g_idx.long(), s_pos.long()
+    def widest_phase(plan_):
+        """The widest phase of ``plan_`` (the operator's plan or one of its
+        width re-slices): the phase, its index tensors as the exchange uses
+        them and the row counts of the buffers they index."""
+        i = max(range(len(plan_.phases)), key=lambda j: plan_.phases[j].width)
+        ph_ = plan_.phases[i]
+        gathers_, scatters_ = op.exchange_arrays(plan_)
+        return (ph_, gathers_[i], scatters_[i],
+                op.rmax * plan_.col_split if ph_.src == "x" else plan_.stage_size + 1,
+                plan_.halo_size + 1 if ph_.dst == "halo" else plan_.stage_size + 1)
 
-    def run_halo_check(name, w, dtype):
+    main_phase = widest_phase(plan)
+    p_ranks = main_phase[1].shape[0]
+
+    def run_halo_check(name, w, dtype, at=main_phase):
+        ph, g_idx, s_pos, src_rows, dst_rows = at
+        c = g_idx.shape[1]
+        rank_ids = torch.arange(p_ranks, device=dev)[:, None].expand(p_ranks, c)
+        g_long, s_long = g_idx.long(), s_pos.long()
         es = torch.finfo(dtype).bits // 8
         if name == "halo_pack":
             src = randn(p_ranks, src_rows, w, dtype=dtype)
@@ -581,16 +667,21 @@ def main() -> int:
         run_halo_check(name, 1, torch.float64)
         run_halo_check(name, T // plan.col_split, torch.float32)
 
+    def graph_equals_eager(width):
+        """The width's exchange (captured by an earlier apply or here) run by
+        its CUDA graph and eagerly on the same rows must agree bit for bit."""
+        ex_ = op.exchange(op.plan.at_width(width), width, torch.float64)
+        ex_.run(randn(p_ranks, op.rmax, width, dtype=torch.float64))
+        ex_.run(ex_.own.clone())  # captured here unless an earlier run did
+        ex_.exchange()
+        eager_ = ex_.xfull.clone()
+        ex_.replay()
+        if not torch.equal(ex_.xfull, eager_):
+            raise AssertionError(f"the width-{width} exchange's CUDA graph differs from the eager exchange")
+        return ex_
+
     # one whole exchange at the main path's width: eager, then its CUDA graph
-    ex = op.exchange(plan, T, torch.float64)
-    v3 = randn(p_ranks, op.rmax, T, dtype=torch.float64)
-    ex.run(v3)
-    ex.run(v3)  # captured here unless an earlier apply did
-    ex.exchange()
-    eager = ex.xfull.clone()
-    ex.replay()
-    if not torch.equal(ex.xfull, eager):
-        raise AssertionError("the exchange's CUDA graph differs from the eager exchange")
+    ex = graph_equals_eager(T)
     # the counts a replay adds are bookkeeping: hold them against the kernels
     # the device ran in a few replays, as torch.profiler sees them
     kernels.reset_launch_counts()
@@ -610,7 +701,7 @@ def main() -> int:
          "host_launches_graph": host_launches(torch, ex.replay),
          "replays": replays, "device_kernels": on_device,
          "counted": {k: counted[k] for k in ("halo_pack", "halo_unpack")}})
-    del ex, v3, eager
+    del ex
 
     def check_gram_batched(t, dtype):
         ops = tuple(randn(p_ranks, op.rmax, t, dtype=dtype) for _ in range(4))
@@ -655,7 +746,7 @@ def main() -> int:
     n_phases = len(plan.phases)
     want = {"bsr_spmbv": k + 1, "fused_gram": k, "ecg_tail": k,
             "halo_pack": n_phases * (k + 1), "halo_unpack": n_phases * (k + 1),
-            "block_trisolve": 0, "block_update": 0, "chol_apply": k}
+            "block_trisolve": 0, "block_update": 0, "chol_apply": k, "rank_apply": 0, "drop_mask": 0}
     if dlaunches != want:
         raise AssertionError(f"distributed launch counts {dlaunches} != {want}")
     if dcounters["psum"] != 3 * k + 1:
@@ -825,7 +916,8 @@ def main() -> int:
                     "mesh_counters": counters}
         log(row)
         want_ = {"bsr_spmbv": k_ + 1, "fused_gram": 0, "ecg_tail": k_, "halo_pack": 0,
-                 "halo_unpack": 0, "block_trisolve": k_ + 1, "block_update": 0, "chol_apply": k_}
+                 "halo_unpack": 0, "block_trisolve": k_ + 1, "block_update": 0, "chol_apply": k_,
+                 "rank_apply": 0, "drop_mask": 0}
         if mesh_ is not None:
             want_ |= {"halo_pack": n_phases * (k_ + 1), "halo_unpack": n_phases * (k_ + 1)}
         if not r.converged:
@@ -854,8 +946,7 @@ def main() -> int:
     del psolver
     torch.cuda.empty_cache()
     pseq[32] = bj_solve(solver.with_config(precondition=prec_bj32), "block_jacobi_32_main_path", 32)
-    del solver
-    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()  # the handle stays: phases 18 and 20 derive siblings
 
     # 14. on the (2, 4) mesh (``optimal``), at both blocks
     for block, prec, phase in ((BLOCK, prec_bj, "distributed_block_jacobi_main_path"),
@@ -867,8 +958,7 @@ def main() -> int:
         bj_solve(handle, phase, block, mesh, pseq[block], build_s=build_s, **handle._precond.build_s)
         del handle
         torch.cuda.empty_cache()
-    del dsolver, a
-    torch.cuda.empty_cache()
+    # the operator and both handles stay: phases 17-20
 
     # ------------------------------------------------------- 15. Chebyshev
     cheb_cfg = cfg2.replace(backend="pallas", precondition="chebyshev")
@@ -935,6 +1025,282 @@ def main() -> int:
             raise AssertionError(f"inexact {where}: converged={r3.converged}, true residual {true3}, "
                                  f"{r3.n_reseeds} reseeds")
 
+
+    # ------------------------------------------------- 17. rank_apply checks
+    def run_rank_check(z, az, what, rank=None, nan=False):
+        """``rank_apply`` against its substitution form on G = ZᵀAZ (gram1
+        as the main path forms it), or that G with a NaN on its diagonal."""
+        dtype, (rows, t) = z.dtype, z.shape
+        g = (z.mT @ az).contiguous()
+        if nan:
+            g[t // 2, t // 2] = float("nan")
+        rtol = default_rank_rtol(dtype)
+        kernel = lambda: kernels.rank_apply(g, z, az, rtol=rtol)
+        *got, k_rank, k_perm = kernel()
+        *want, w_rank, w_perm = rank_apply_dense(g, z, az, rtol=rtol)
+        torch.cuda.synchronize()
+        r = int(k_rank)
+        if r != int(w_rank) or not torch.equal(k_perm, w_perm) or (rank is not None and r != rank):
+            raise AssertionError(f"rank_apply {what}: rank {r} perm {k_perm.tolist()}, plain "
+                                 f"{int(w_rank)} {w_perm.tolist()}, want rank {rank}")
+        l, _, _ = pivoted_cholesky(g.double(), rtol=rtol)
+        kappa = float(torch.linalg.cond(l[:r, :r])) if r else 1.0
+        eps = torch.finfo(dtype).eps
+        err = max(float((y.double() - w.double()).abs().max()) for y, w in zip(got, want))
+        tol = 2 * t * eps * kappa * max(float(w.abs().max()) for w in want)
+        if not (all(bool(torch.isfinite(y).all()) for y in got) and err <= tol):
+            raise AssertionError(f"rank_apply {what}: max_abs_err {err} > tol {tol}")
+        if any(bool(y[:, r:].any()) for y in got):
+            raise AssertionError(f"rank_apply {what}: a column past the rank is not zero")
+        es = z.element_size()
+        bytes_ = 4 * rows * t * es + t * t * es + 4 * (t + 1)
+        flops = 2 * rows * t * (t + 1)  # two blocks: t(t-1)/2 multiply-adds, t divisions, t masks a row
+        dname = str(dtype).removeprefix("torch.")
+        bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / PEAK_FLOPS[dname] * 1e3
+        row = {"name": "rank_apply", "what": what, "shape": [rows, t], "dtype": dname, "rank": r,
+               "perm": k_perm.tolist(), "kappa": kappa, "max_abs_err": err, "tol": tol,
+               "kernel_ms": time_ms(torch, kernel),
+               "plain_ms": time_ms(torch, lambda: rank_apply_dense(g, z, az, rtol=rtol)),
+               "library_ms": time_ms(torch, lambda: rank_apply_ref(g, z, az, rtol=rtol)),
+               "bound_ms": max(bytes_ms, flops_ms),
+               "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+        log(row)
+        return row
+
+    def rank_operands(t, dtype, dependent=0):
+        """Z random (n, t) with its last ``dependent`` columns combinations of
+        the others, and AZ = A·Z by the main path's Block-ELL apply."""
+        z = randn(n, t, dtype=torch.float64)
+        if dependent:
+            z[:, t - dependent:] = z[:, : t - dependent] @ randn(t - dependent, dependent,
+                                                                dtype=torch.float64)
+        az = solver._apply(z)
+        return z.to(dtype).contiguous(), az.to(dtype).contiguous()
+
+    zr, azr = rank_operands(T, torch.float64)
+    checks["rank_apply"] = run_rank_check(zr, azr, "main path, full rank", rank=T)
+    run_rank_check(*rank_operands(T, torch.float64, dependent=4), "rank 4", rank=4)
+    run_rank_check(zr, azr, "NaN in G", rank=0, nan=True)
+    run_rank_check(*rank_operands(4, torch.float64), "t=4", rank=4)
+    run_rank_check(*rank_operands(T, torch.float32), "float32")
+    del zr, azr
+    torch.cuda.empty_cache()
+
+    def run_drop_check(policy, what):
+        """``drop_mask`` on step coefficients whose row norms spread over
+        10^-4 … 10^2 (a column slice of a packed (t, 3t) payload, as the
+        solver passes), rank 7 of 8, rn = 1."""
+        gen_c = torch.Generator().manual_seed(11)
+        c3 = torch.randn(T, 3 * T, generator=gen_c, dtype=torch.float64)
+        c3 /= c3[:, :T].norm(dim=1, keepdim=True)
+        c3 *= 10.0 ** torch.linspace(-4, 2, T)[torch.randperm(T, generator=gen_c)][:, None]
+        c = c3.to(dev)[:, :T]
+        rank = torch.tensor(T - 1, dtype=torch.int32, device=dev)
+        kernel = lambda: kernels.drop_mask(c, rank, 1.0, policy)
+        (mask, counts), (w_mask, w_counts) = kernel(), drop_mask_ref(c, rank, 1.0, policy)
+        if not (torch.equal(mask, w_mask) and torch.equal(counts, w_counts)):
+            raise AssertionError(f"drop_mask {what}: {mask.tolist()} {counts.tolist()} against "
+                                 f"{w_mask.tolist()} {w_counts.tolist()}")
+        bytes_ = T * T * 8 + 4 + (T + 2) * 8
+        flops = 2 * T * T
+        bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / PEAK_FLOPS["float64"] * 1e3
+        row = {"name": "drop_mask", "what": what, "shape": [T, T], "dtype": "float64",
+               "mask": mask.tolist(), "counts": counts.tolist(), "max_abs_err": 0.0, "tol": 0.0,
+               "kernel_ms": time_ms(torch, kernel),
+               # the kernel alone, without the host's launch overhead
+               "kernel_graph_ms": time_graph_ms(torch, kernel),
+               "plain_ms": time_ms(torch, lambda: drop_mask_ref(c, rank, 1.0, policy)),
+               "library_ms": None, "bound_ms": max(bytes_ms, flops_ms),
+               "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+        log(row)
+        return row
+
+    checks["drop_mask"] = run_drop_check(resolve_policy("reduce"), "reduce")
+    run_drop_check(ReductionPolicy(drop_tol=0.3, min_t=3), "drop_tol=0.3, min_t=3")
+
+    # --------------------------------------------- 18. adaptive, sequential
+    # the reference test's deficient_rhs: random on the first 4 of 8
+    # contiguous subdomains, zero elsewhere
+    m_sub = 4
+    b_def = np.zeros(n)
+    b_def[: (m_sub * n) // T] = np.random.default_rng(7).standard_normal((m_sub * n) // T)
+    tol_def = 1e-8 * float(np.linalg.norm(b_def))
+    b_def_dev = torch.as_tensor(b_def, device=dev)
+    fixed_def = solver.with_config(tol=tol_def).solve(b_def)
+    if not fixed_def.breakdown:
+        raise AssertionError(f"the deficient solve without a policy did not break down "
+                             f"({fixed_def.n_iters} iterations, converged={fixed_def.converged})")
+    asolver = solver.with_config(tol=tol_def, adaptive="reduce")
+
+    def adaptive_solve(handle, phase, mesh_=None, **extra):
+        """One adaptive solve of the deficient system with the launch counts
+        (and the mesh's counters) set to 0 just before it; returns the
+        result, the launch counts, the counters, the true residual and the
+        solve's seconds."""
+        kernels.reset_launch_counts()
+        if mesh_ is not None:
+            mesh_.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = handle.solve(b_def)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        counters = None if mesh_ is None else {
+            "psum": mesh_.psum_calls, "ppermute": mesh_.ppermute_calls,
+            "ppermute_elements": mesh_.ppermute_elements}
+        x_ = torch.as_tensor(handle.unshard(r.x), device=dev) if mesh_ is not None else r.x
+        true_ = float(torch.linalg.norm(b_def_dev - csr_spmv(a, x_)))
+        k_ = r.n_iters
+        if not (r.converged and true_ <= 10 * tol_def):
+            raise AssertionError(f"{phase}: converged={r.converged} breakdown={r.breakdown} in "
+                                 f"{k_} iterations, true residual {true_} (10·tol {10 * tol_def})")
+        ah = np.asarray(r.active_hist)
+        if list(ah[:2]) != [T, m_sub] or r.reduction_events()[0] != (1, T, m_sub):
+            raise AssertionError(f"{phase}: active_hist {ah[:4].tolist()}, events "
+                                 f"{r.reduction_events()[:3]}")
+        if not (got["rank_apply"] == got["drop_mask"] == k_ and got["chol_apply"] == 0):
+            raise AssertionError(f"{phase}: launch counts {got}, {k_} iterations")
+        row = {"phase": phase, "n": n, "t": T, "m": m_sub, "tol": tol_def, "adaptive": "reduce",
+               **extra, "converged": r.converged, "n_iters": k_, "final_rn": float(r.res_hist[k_]),
+               "true_residual": true_, "reduction_events": r.reduction_events(),
+               "recovery_events": r.recovery_events()[:8], "restarts": r.restarts,
+               "comm_segments": r.comm_segments, "solve_s": solve_s,
+               "ms_per_iter": solve_s * 1e3 / max(k_, 1), "launches": got, "mesh_counters": counters,
+               "fixed_width": {"breakdown": fixed_def.breakdown, "n_iters": fixed_def.n_iters}}
+        return r, got, counters, row
+
+    ares, alaunches, _, row = adaptive_solve(asolver, "adaptive_sequential")
+    ka = ares.n_iters
+    if alaunches != {**dict.fromkeys(alaunches, 0), "bsr_spmbv": ka + 1, "fused_gram": ka,
+                     "ecg_tail": ka, "rank_apply": ka, "drop_mask": ka}:
+        raise AssertionError(f"adaptive_sequential: launch counts {alaunches}")
+    # one steady-state iteration: its host launches and its syncs (one: the
+    # residual norm, the rank and the active count in one copy)
+    runner = asolver._runner(T)
+    carry = runner.init(b_def_dev, torch.zeros_like(b_def_dev))
+    for _ in range(3):
+        carry = runner.step(carry)
+    calls = iteration_calls(torch, lambda: runner.step(carry))
+    row["iteration_host_calls"] = calls
+    log(row)
+    if calls["syncs"] != 1 or calls["sync_calls"].get("cudaStreamSynchronize") != 1:
+        raise AssertionError(f"adaptive_sequential: one iteration synchronized {calls['sync_calls']}")
+    aseq = {"n_iters": ka, "ms_per_iter": row["ms_per_iter"], "active_hist": np.asarray(ares.active_hist)}
+    del ares, carry, runner
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------ 19. adaptive, distributed
+    adsolver = dsolver.with_config(tol=tol_def, adaptive="reduce")
+    op = adsolver.op
+    plan4 = op.plan.at_width(m_sub)
+    dres_a, dal, dac, row = adaptive_solve(adsolver, "adaptive_distributed", mesh, mesh=list(mesh.shape),
+                                           strategy="optimal", sequential={
+                                               k_: v for k_, v in aseq.items() if k_ != "active_hist"})
+    kd = dres_a.n_iters
+    if op.exchange(plan4, m_sub, torch.float64).graph is None:
+        raise AssertionError(f"adaptive_distributed: the solve captured no width-{m_sub} exchange graph")
+    # what one exchange moves at each width, measured after the solve (whose
+    # width-4 exchange was captured mid-solve)
+    per_exchange = {}
+    for w in (1, T, m_sub):  # the solve applies widths 1 and T through the full plan
+        mesh.reset_counters()
+        apply_w = op.matvec_fn() if w in (1, T) else op.matvec_fn(t_active=w)
+        apply_w(torch.zeros(op.n_padded, w, dtype=torch.float64, device=dev))
+        torch.cuda.synchronize()
+        per_exchange[w] = mesh.ppermute_elements
+    row["ppermute_elements_per_exchange"] = per_exchange
+    ph8, ph4 = len(op.plan.phases), len(plan4.phases)
+    row["phases"] = {T: ph8, m_sub: ph4}
+    log(row)
+    if dres_a.comm_segments != [(T, 1), (m_sub, kd - 1)]:
+        raise AssertionError(f"adaptive_distributed: segments {dres_a.comm_segments}, {kd} iterations")
+    if not abs(kd - aseq["n_iters"]) <= max(2, 0.01 * aseq["n_iters"]):
+        raise AssertionError(f"adaptive_distributed: {kd} iterations, sequential {aseq['n_iters']}")
+    common = min(kd, aseq["n_iters"]) + 1
+    if not np.array_equal(np.asarray(dres_a.active_hist)[:common], aseq["active_hist"][:common]):
+        raise AssertionError("adaptive_distributed: active_hist differs from the sequential one")
+    if dac["psum"] != 3 * kd + 1:
+        raise AssertionError(f"adaptive_distributed: psum ran {dac['psum']} times, want 3·{kd} + 1")
+    if per_exchange[m_sub] * T != per_exchange[T] * m_sub:
+        raise AssertionError(f"adaptive_distributed: a width-{m_sub} exchange moves "
+                             f"{per_exchange[m_sub]} elements, width {T} {per_exchange[T]}")
+    want_el = per_exchange[1] + per_exchange[T] + per_exchange[m_sub] * (kd - 1)
+    if dac["ppermute_elements"] != want_el:
+        raise AssertionError(f"adaptive_distributed: {dac['ppermute_elements']} elements exchanged, "
+                             f"want {want_el}")
+    want_halo = 2 * ph8 + ph4 * (kd - 1)
+    if not (dal["halo_pack"] == dal["halo_unpack"] == want_halo and dal["bsr_spmbv"] == kd + 1):
+        raise AssertionError(f"adaptive_distributed: launch counts {dal}, halo want {want_halo}")
+
+    # the width-4 segment's kernels at the shapes it gives them, each against
+    # its plain version: bsr_spmbv at t = 4 in the ranked layout, the halo
+    # kernels on the widest phase of the width-4 plan, and the exchange graph
+    # the solve captured against the eager exchange, bit for bit
+    def check_bsr_ranked(t, dtype):
+        """``bsr_spmbv`` as the distributed local product calls it: the p
+        ranks' Block-ELL rows stacked, V the (p·m_pad, t) operands."""
+        blk, idx = op.ell["blocks"].to(dtype), op.ell["indices"]
+        nbr, kmax, br, bc = blk.shape
+        v = randn(p_ranks * op.m_pad, t, dtype=dtype)
+        plain = lambda blk_, v_: bsr_spmbv_ref(blk_, idx, v_)
+        kernel = lambda: kernels.bsr_spmbv(blk, idx, v)
+        # the library: the same tiles as one CSR matrix, explicit zeros dropped
+        vals = blk.permute(0, 2, 1, 3).reshape(nbr * br, kmax * bc)
+        cols = (idx.long()[:, None, :, None] * bc + torch.arange(bc, device=dev)).expand(
+            nbr, br, kmax, bc).reshape(nbr * br, kmax * bc)
+        nz = vals != 0
+        crow = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), nz.sum(1).cumsum(0)])
+        csr = torch.sparse_csr_tensor(crow, cols[nz], vals[nz], size=(nbr * br, v.shape[0]))
+        library = lambda: torch.sparse.mm(csr, v)
+        es = blk.element_size()
+        return (plain, (blk, v), kernel, library, plain(blk.abs(), v.abs()), kmax * bc,
+                blk.numel() * es + idx.numel() * 4 + (v.shape[0] + nbr * br) * t * es,
+                2 * blk.numel() * t, list(blk.shape) + [t],
+                spmbv_plan(nbr, br, bc, t, nbr * br, dtype, sms).path)
+
+    run_check("bsr_spmbv_ranked", check_bsr_ranked, m_sub, torch.float64)
+    at4 = widest_phase(plan4)
+    for name in ("halo_pack", "halo_unpack"):
+        run_halo_check(name, m_sub // plan4.col_split, torch.float64, at=at4)
+    graph_equals_eager(m_sub)
+    log({"phase": "exchange", "strategy": "optimal", "t": m_sub, "phases": ph4,
+         "captured_in_solve": True, "graph_equals_eager": True})
+    torch.cuda.empty_cache()
+    # one steady-state iteration of the width-4 segment
+    carry = adsolver._runner(T).init(adsolver._device_vec(b_def), torch.zeros(op.n_padded, dtype=torch.float64,
+                                                                              device=dev))
+    carry = adsolver._runner(T).step(carry)
+    runner4 = adsolver._runner(m_sub)
+    for _ in range(3):
+        carry = runner4.step(carry)
+    calls = iteration_calls(torch, lambda: runner4.step(carry))
+    log({"phase": "adaptive_distributed_iteration", "width": m_sub,
+         "active_width": int(carry["ahist"][carry["k"]]), "iteration_host_calls": calls})
+    del dres_a, carry, runner4, adsolver, op
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- 20. adaptive, full rank
+    for pol in ("rankrev", "reduce", "reduce+restart"):
+        handle = solver.with_config(adaptive=pol)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = handle.solve(b)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        log({"phase": "adaptive_full_rank", "adaptive": pol, "n": n, "t": T, "tol": tol,
+             "converged": r.converged, "n_iters": r.n_iters, "fixed_width_iters": seq["n_iters"],
+             "reduction_events": r.reduction_events()[:20], "restarts": r.restarts,
+             "solve_s": solve_s, "ms_per_iter": solve_s * 1e3 / max(r.n_iters, 1)})
+        if not (r.converged and r.n_iters <= seq["n_iters"] + 2):
+            raise AssertionError(f"adaptive_full_rank {pol}: converged={r.converged} in {r.n_iters} "
+                                 f"iterations, fixed width {seq['n_iters']}")
+        del handle, r
+    del solver, dsolver, a
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------------ result
     sources = {
         "bsr_spmbv": ("src/repro_torch/kernels/csrc/bsr_spmbv.cu", "src/repro/kernels/bsr_spmbv/kernel.py:43"),
@@ -947,13 +1313,19 @@ def main() -> int:
         "block_update": ("src/repro_torch/kernels/csrc/ecg_tail.cu", "src/repro/kernels/block_update/kernel.py:32"),
         "chol_apply": ("src/repro_torch/kernels/csrc/chol_apply.cu",
                        "src/repro/core/methods/base.py:38 (no Pallas kernel: the reference's TRSMs)"),
+        "rank_apply": ("src/repro_torch/kernels/csrc/chol_apply.cu",
+                       "src/repro/adaptive/rankrev.py:76 (no Pallas kernel: the reference's XLA ops)"),
+        "drop_mask": ("src/repro_torch/kernels/csrc/chol_apply.cu",
+                      "src/repro/adaptive/reduce.py:93 (no Pallas kernel: the reference's XLA ops)"),
     }
     # launches: the sequential main path's (phase 4) for the kernels it runs
     # (chol_apply among them), the distributed main path's (phase 8) for the
     # halo kernels, the block-Jacobi main path's (phase 13) for
-    # block_trisolve; no path runs block_update
+    # block_trisolve, the adaptive sequential path's (phase 18) for rank_apply
+    # and drop_mask; no path runs block_update
     launches = {**seq_launches, "halo_pack": dlaunches["halo_pack"], "halo_unpack": dlaunches["halo_unpack"],
-                "block_trisolve": pseq[BLOCK]["launches"]["block_trisolve"], "block_update": 0}
+                "block_trisolve": pseq[BLOCK]["launches"]["block_trisolve"], "block_update": 0,
+                "rank_apply": alaunches["rank_apply"], "drop_mask": alaunches["drop_mask"]}
     log({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": checks[name]["max_abs_err"],

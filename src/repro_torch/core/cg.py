@@ -32,11 +32,35 @@ class SolveResult:
     #                          (x, residual norm) froze at the last finite
     #                          iteration instead of NaNs
     t: int | None = None     # enlarging factor used (None for plain CG)
+    active_hist: np.ndarray | None = None  # (max_iters + 1,) int32 active
+    #                          block width per iteration — the reduction
+    #                          trace (adaptive ECG only, -1 past the end)
+    restarts: int = 0        # re-enlarge events (adaptive ECG)
+    comm_segments: list | None = None  # [(exchange width, iterations)] per
+    #                          width segment of the re-sliced solve
+    #                          (width-segmented distributed ECG only)
     event_hist: np.ndarray | None = None  # (max_iters + 1,) int32 event
     #                          bitmask per iteration (EV_RECOVERY,
     #                          EV_RESEED), -1 past the recorded end; None
     #                          when no tracked mechanism was active
     final_carry: dict | None = dataclasses.field(default=None, repr=False)
+
+    def reduction_events(self) -> list[tuple[int, int, int]]:
+        """[(iteration, width_before, width_after)] from the reduction trace
+        — every iteration where the active block width changed.
+
+        Scans the full valid trace (every entry >= 0) rather than slicing at
+        ``n_iters``: the trace is -1-padded past the last recorded iteration,
+        so a width change recorded on the final iteration is always reported.
+        """
+        if self.active_hist is None:
+            return []
+        h = np.asarray(self.active_hist).tolist()
+        return [
+            (k, h[k - 1], h[k])
+            for k in range(1, len(h))
+            if h[k] >= 0 and h[k - 1] >= 0 and h[k] != h[k - 1]
+        ]
 
     def _event_iters(self, bit: int) -> list[int]:
         """Iterations whose event-bitmask entry carries ``bit`` (valid
@@ -48,7 +72,8 @@ class SolveResult:
 
     def recovery_events(self) -> list[int]:
         """Iterations where the rank-revealing factorization dropped live
-        directions (none until adaptive policies are ported)."""
+        directions — the breakdown-recovery trace: the factorization accepted
+        fewer pivots than the entering active width."""
         return self._event_iters(EV_RECOVERY)
 
     def reseed_events(self) -> list[int]:
@@ -64,6 +89,35 @@ class SolveResult:
     @property
     def n_reseeds(self) -> int:
         return len(self.reseed_events())
+
+    def iter_trace(self) -> list[dict]:
+        """Structured per-iteration view over the recorded histories.
+
+        One dict per *recorded* iteration ``k`` (including iteration 0, the
+        initial residual): ``dict(k, resnorm, active, events)``.  ``active``
+        is the active block width (None when no reduction trace was
+        recorded), ``events`` a tuple of event names (``"recovery"`` /
+        ``"reseed"``).  The valid prefix is the leading run of finite
+        ``res_hist`` entries (the history is NaN-padded past convergence).
+        """
+        hist = self.res_hist
+        hist = np.asarray(hist.detach().cpu() if isinstance(hist, torch.Tensor) else hist, np.float64)
+        finite = np.isfinite(hist)
+        end = int(np.argmin(finite)) if not finite.all() else hist.size
+        act = None if self.active_hist is None else np.asarray(self.active_hist).tolist()
+        ev = None if self.event_hist is None else np.asarray(self.event_hist).tolist()
+        rows = []
+        for k in range(end):
+            events = ()
+            if ev is not None and k < len(ev) and ev[k] > 0:
+                events = tuple(
+                    name for bit, name in sorted(EVENT_NAMES.items()) if int(ev[k]) & bit
+                )
+            active = None
+            if act is not None and k < len(act) and act[k] >= 0:
+                active = int(act[k])
+            rows.append(dict(k=k, resnorm=float(hist[k]), active=active, events=events))
+        return rows
 
 
 def _guarded_while(cond_extra: Callable, body_fn: Callable, init: dict) -> dict:

@@ -80,6 +80,9 @@ def make_ecg_runner(
     precond: Callable | None = None,
     gram2p: Callable | None = None,
     precond_reseed: int | None = None,
+    policy=None,
+    a_apply_masked: Callable | None = None,
+    exit_below_width: int | None = None,
 ) -> ECGRunner:
     """Build the ECG iteration machinery for one fixed configuration.
 
@@ -99,6 +102,16 @@ def make_ecg_runner(
     kernel's middle term is the symmetric APᵀAP, so it cannot serve);
     ``precond_reseed`` the flexible-restart period of an iteration-varying
     preconditioner.
+
+    ``policy`` is a resolved :class:`~repro_torch.adaptive.ReductionPolicy`
+    (None = fixed width): the rank-revealing factorization, stagnation drops
+    and optional restart of :mod:`repro_torch.adaptive`.  ``a_apply_masked(V,
+    active)`` is the width-compacted SpMBV of the segmented distributed
+    solver (used only with a policy); with it, ``exit_below_width`` ends the
+    loop once fewer than that many directions are active, so the caller can
+    re-slice the exchange at the narrower width and resume from the carry.
+    The port has no ``chol_eps`` regularization, which the reference refuses
+    together with a policy.
     """
     if backend not in ("jnp", "pallas"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -119,15 +132,23 @@ def make_ecg_runner(
     if tail is None:
         tail = ecg_tail if backend == "pallas" else _plain_tail
     split_fn = split if split is not None else split_residual
+    use_mask = a_apply_masked is not None and policy is not None
     ctx = MethodContext(
         t=t, max_iters=max_iters, a_apply=a_apply, split_fn=split_fn,
         gram1=gram1, gram2=gram2, sqnorm=sqnorm, tail=tail,
         precond=precond, gram2p=gram2p, precond_reseed=precond_reseed,
+        policy=policy, use_mask=use_mask, a_apply_masked=a_apply_masked,
     )
     init, iterate = spec.build(ctx)
 
     def cond(c):
-        return c["rn"] > tol and c["k"] < max_iters
+        go = c["rn"] > tol and c["k"] < max_iters
+        if exit_below_width is not None and use_mask:
+            # width-reduction event: hand control back so the caller can
+            # re-slice the exchange plan at the narrower width and resume
+            # (the active width is the host trace's last entry)
+            go = go and c["ahist"][c["k"]] >= exit_below_width
+        return go
 
     def run(carry):
         return _guarded_while(cond, iterate, carry)
@@ -138,7 +159,7 @@ def make_ecg_runner(
     )
 
 
-def finalize_result(out: dict, *, x0, t: int, tol: float) -> SolveResult:
+def finalize_result(out: dict, *, x0, t: int, tol: float, policy=None) -> SolveResult:
     """Convert a final loop carry into a :class:`SolveResult`."""
     x = x0 + out["X"].sum(dim=1)  # line 14: x = Σᵢ (X)ᵢ
     breakdown = bool(out["bd"])
@@ -149,6 +170,8 @@ def finalize_result(out: dict, *, x0, t: int, tol: float) -> SolveResult:
         converged=bool(out["rn"] <= tol) and not breakdown,
         breakdown=breakdown,
         t=t,
+        active_hist=out["ahist"] if policy is not None else None,
+        restarts=int(out["restarts"]) if policy is not None else 0,
         event_hist=out.get("evhist"),
         final_carry=out,
     )

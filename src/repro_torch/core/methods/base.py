@@ -47,7 +47,10 @@ class MethodContext:
     """Everything a :class:`MethodSpec` needs to build its loop closures.
 
     ``gram1``/``gram2``/``sqnorm`` are the reductions, ``tail`` the local
-    X/R/Z update, ``split_fn`` is T_{r,t}.
+    X/R/Z update, ``split_fn`` is T_{r,t}.  ``policy`` is the adaptive
+    :class:`~repro_torch.adaptive.ReductionPolicy` (None = fixed width);
+    ``a_apply_masked(V, active)`` and ``use_mask`` carry the width-compacted
+    exchange of the segmented distributed solver.
 
     ``precond`` is the preconditioner apply ``M⁻¹ₖ: (V, k) -> (n, t)`` (None
     = unpreconditioned); when set, the scheme orthogonalizes the
@@ -70,6 +73,9 @@ class MethodContext:
     precond: Callable | None = None
     gram2p: Callable | None = None
     precond_reseed: int | None = None
+    policy: object = None
+    use_mask: bool = False
+    a_apply_masked: Callable | None = None
 
 
 class MethodSpec:

@@ -16,13 +16,13 @@ from repro_torch.kernels.bsr_spmbv.ops import (
     csr_arrays_to_block_ell,
     make_block_ell_apply_from_arrays,
 )
-from repro_torch.kernels.chol_apply.ops import chol_apply
+from repro_torch.kernels.chol_apply.ops import chol_apply, drop_mask, rank_apply
 from repro_torch.kernels.fused_gram.ops import fused_gram
 from repro_torch.kernels.halo_pack.ops import halo_pack, halo_unpack
 
 #: the kernel ops, each with its ``launches`` counter
 KERNEL_OPS = (bsr_spmbv, fused_gram, ecg_tail, halo_pack, halo_unpack, block_trisolve,
-              block_update, chol_apply)
+              block_update, chol_apply, rank_apply, drop_mask)
 
 
 def launch_counts() -> dict[str, int]:
@@ -45,11 +45,13 @@ __all__ = [
     "chol_apply",
     "count_block_ell_tiles",
     "csr_arrays_to_block_ell",
+    "drop_mask",
     "ecg_tail",
     "fused_gram",
     "halo_pack",
     "halo_unpack",
     "launch_counts",
     "make_block_ell_apply_from_arrays",
+    "rank_apply",
     "reset_launch_counts",
 ]

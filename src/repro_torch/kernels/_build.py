@@ -38,7 +38,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 #: argument types of ``<name>_f32`` / ``<name>_f64``: pointers and the stream
 #: as c_void_p, so ctypes never cuts a 64-bit address to an int
 SIGNATURES = {
@@ -49,11 +49,14 @@ SIGNATURES = {
     "halo_unpack": [_P, _P, _P, _I, _L, _I, _I, _P],
     "block_trisolve": [_P, _P, _P, _L, _I, _I, _L, _L, _P],
     "chol_apply": [_P] * 5 + [_L, _I, _P],
+    "rank_apply": [_P] * 5 + [_L, _I, _D, _P, _P, _P],
+    "drop_mask": [_P, _L, _P, _D, _D, _I, _I, _P, _P, _P],
     "block_update": [_P] * 7 + [_L, _I, _P],
 }
 #: the source, ``csrc/<source>.cu``, that exports each kernel function
 SOURCES = {name: name for name in SIGNATURES} | {
     "halo_unpack": "halo_pack", "block_update": "ecg_tail",
+    "rank_apply": "chol_apply", "drop_mask": "chol_apply",
 }
 
 _lock = threading.Lock()

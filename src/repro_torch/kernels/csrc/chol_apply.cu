@@ -29,6 +29,29 @@
 // index is a constant).  The grid is one wave of the CTAs that fit on the
 // card, walking the tiles with a grid stride; no atomics.
 
+// Two more kernel functions serve the adaptive solver (a ReductionPolicy):
+//
+// rank_apply — the rank-revealing apply of src/repro/adaptive/rankrev.py
+// (``rank_revealing_apply``, no Pallas kernel: XLA ops there).  Every CTA
+// first factors the t×t G with diagonal pivoting in shared memory, one warp,
+// in the order of the plain version (``adaptive/rankrev.py``
+// ``pivoted_cholesky``): the largest remaining diagonal as pivot (a NaN
+// first, ties to the lower index, as ``jnp.argmax``), a swap by
+// transposition, ``pivot > thresh`` with thresh = rtol·max(max diag G, 0),
+// the column, then the full rank-1 Schur update, each product and
+// difference rounded on its own (no fused multiply-add), so the pivot order
+// and the rank equal the plain version's.  The other warps stage their first
+// tile meanwhile.  Then the row pass of chol_apply: each row's values are
+// read in pivot order from the staged tile, solved against L with dead
+// pivots set to 1 on the diagonal, and written as y_j·(j < rank).  CTA 0
+// writes rank and perm.  Bytes and grid are chol_apply's; a G holding NaN
+// gives thresh = NaN, rank 0 and zero blocks, as the reference.
+//
+// drop_mask — the flexible-ECG stagnation drop of src/repro/adaptive/
+// reduce.py (``stagnation_mask``, no Pallas kernel either) on the t×t step
+// coefficients c and that rank: one warp, a lane per direction, writes the
+// column mask and [rank, active count] for the iteration's one host copy.
+
 #include <algorithm>
 
 #include "common.cuh"
@@ -146,6 +169,308 @@ REPRO_EXPORT int chol_apply_f32(const void* c, const void* m0, void* y0, const v
 REPRO_EXPORT int chol_apply_f64(const void* c, const void* m0, void* y0, const void* m1,
                                 void* y1, long long rows, int t, void* stream) {
   return launch<double>(c, m0, y0, m1, y1, rows, t, stream);
+}
+
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// Products and differences rounded on their own, as the plain versions'
+// separate torch ops: no contraction into a fused multiply-add.
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+
+template <typename T>
+__device__ __forceinline__ T inf() {
+  return static_cast<T>(__longlong_as_double(0x7ff0000000000000LL));
+}
+
+// (a, ia) comes first in jnp.argmax's order: a NaN, else the larger value,
+// else the lower index.
+template <typename T>
+__device__ __forceinline__ bool argmax_first(T a, int ia, T b, int ib) {
+  const bool na = isnan(a), nb = isnan(b);
+  if (na != nb) return na;
+  if (!na && a != b) return a > b;
+  return ia < ib;
+}
+
+// a sorts before b in an ascending sort with NaN last (jnp.argsort's order)
+template <typename T>
+__device__ __forceinline__ bool sorts_before(T a, T b) {
+  return a < b || (isnan(b) && !isnan(a));
+}
+
+// Diagonally pivoted Cholesky of the t×t G by one warp (see the head of the
+// file).  sa: the Schur complement, sl: L (row-major), sperm: the pivot
+// order, all in shared memory.  Returns the rank.
+template <typename T, int TT>
+__device__ int pivoted_factor(const T* __restrict__ g, T rtol, T* sa, T* sl, int* sperm, int lane) {
+  for (int e = lane; e < TT * TT; e += 32) {
+    sa[e] = g[e];
+    sl[e] = T(0);
+  }
+  if (lane < TT) sperm[lane] = lane;
+  __syncwarp();
+  // thresh = rtol · max(max diag G, 0); a NaN on the diagonal makes it NaN
+  T m = lane < TT ? sa[lane * TT + lane] : -inf<T>();
+  for (int off = 16; off; off >>= 1) {
+    const T o = __shfl_xor_sync(kFull, m, off);
+    m = isnan(m) ? m : (isnan(o) || o > m ? o : m);
+  }
+  const T thresh = mul_rn(rtol, (m > T(0) || isnan(m)) ? m : T(0));
+  int rank = 0;
+#pragma unroll 1
+  for (int k = 0; k < TT; ++k) {
+    // pivot: the largest remaining diagonal entry (rows/columns >= k)
+    T d = (lane < TT && lane >= k) ? sa[lane * TT + lane] : -inf<T>();
+    int j = lane;
+    for (int off = 16; off; off >>= 1) {
+      const T od = __shfl_xor_sync(kFull, d, off);
+      const int oj = __shfl_xor_sync(kFull, j, off);
+      if (argmax_first(od, oj, d, j)) {
+        d = od;
+        j = oj;
+      }
+    }
+    if (j != k) {  // the transposition k <-> j of G's rows and columns, L's rows, perm
+      if (lane < TT) {
+        const T x = sa[lane * TT + k];
+        sa[lane * TT + k] = sa[lane * TT + j];
+        sa[lane * TT + j] = x;
+      }
+      __syncwarp();
+      if (lane < TT) {
+        const T x = sa[k * TT + lane];
+        sa[k * TT + lane] = sa[j * TT + lane];
+        sa[j * TT + lane] = x;
+        const T y = sl[k * TT + lane];
+        sl[k * TT + lane] = sl[j * TT + lane];
+        sl[j * TT + lane] = y;
+      }
+      if (lane == 0) {
+        const int p = sperm[k];
+        sperm[k] = sperm[j];
+        sperm[j] = p;
+      }
+      __syncwarp();
+    }
+    const T pivot = sa[k * TT + k];
+    const bool ok = pivot > thresh;
+    const T root = sqrt(ok ? pivot : T(1));
+    T col = T(0);  // a dependent direction: a zero column
+    if (ok && lane < TT) col = lane > k ? sa[lane * TT + k] / root : (lane == k ? root : T(0));
+    __syncwarp();  // column k is read before the update overwrites it
+    if (lane < TT) sl[lane * TT + k] = col;
+#pragma unroll
+    for (int c = 0; c < TT; ++c) {  // the Schur complement update
+      const T cc = __shfl_sync(kFull, col, c);
+      if (lane < TT) sa[lane * TT + c] = sub_rn(sa[lane * TT + c], mul_rn(col, cc));
+    }
+    rank += ok;
+    __syncwarp();
+  }
+  return rank;
+}
+
+template <typename T, int TT>
+__global__ void __launch_bounds__(repro::kThreads) rank_apply_kernel(
+    const T* __restrict__ g, const T* __restrict__ m0, T* __restrict__ y0,
+    const T* __restrict__ m1, T* __restrict__ y1, long long rows, int nmat, T rtol,
+    int* __restrict__ rank_out, int* __restrict__ perm_out) {
+  constexpr int kStride = TT % 2 ? TT : TT + 1;  // odd: a lane's row meets no bank conflict
+  __shared__ T sa[TT * TT];
+  __shared__ T sl[TT * TT];
+  __shared__ T smask[TT];
+  __shared__ int sperm[TT];
+  __shared__ T buf[repro::kThreads / 32][32 * kStride];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  T* b = buf[warp];
+  const long long per = (rows + 31) / 32;  // warp tiles per block
+  const long long tiles = nmat * per;
+  const long long wstride = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
+  long long tile = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  bool staged = false;
+  if (warp != 0 && tile < tiles) {  // the other warps stage a tile while warp 0 factors
+    const bool second = tile >= per;
+    const long long r0 = (second ? tile - per : tile) * 32;
+    tile_in<T, TT, kStride>(b, (second ? m1 : m0) + r0 * TT,
+                            static_cast<int>(min(32LL, rows - r0)), lane);
+    staged = true;
+  }
+  if (warp == 0) {
+    const int rank = pivoted_factor<T, TT>(g, rtol, sa, sl, sperm, lane);
+    if (lane < TT) {
+      smask[lane] = lane < rank ? T(1) : T(0);
+      if (lane >= rank) sl[lane * TT + lane] += T(1);  // unit-ized dead pivots
+      if (blockIdx.x == 0) perm_out[lane] = sperm[lane];
+    }
+    if (blockIdx.x == 0 && lane == 0) *rank_out = rank;
+  }
+  __syncthreads();
+
+  for (; tile < tiles; tile += wstride) {
+    const bool second = tile >= per;
+    const long long r0 = (second ? tile - per : tile) * 32;
+    const int n = static_cast<int>(min(32LL, rows - r0));
+    if (!staged) tile_in<T, TT, kStride>(b, (second ? m1 : m0) + r0 * TT, n, lane);
+    staged = false;
+    __syncwarp();
+    // forward substitution L·y = m[perm] on this lane's row
+    T v[TT];
+#pragma unroll
+    for (int j = 0; j < TT; ++j) v[j] = b[lane * kStride + sperm[j]];
+#pragma unroll
+    for (int j = 0; j < TT; ++j) {
+      T acc = v[j];
+#pragma unroll
+      for (int i = 0; i < j; ++i) acc -= v[i] * sl[j * TT + i];
+      v[j] = acc / sl[j * TT + j];
+    }
+#pragma unroll
+    for (int j = 0; j < TT; ++j) b[lane * kStride + j] = v[j] * smask[j];
+    __syncwarp();
+    tile_out<T, TT, kStride>((second ? y1 : y0) + r0 * TT, b, n, lane);
+    __syncwarp();  // the tile is read out before the next one lands
+  }
+}
+
+template <typename T, int TT>
+__global__ void __launch_bounds__(32) drop_mask_kernel(
+    const T* __restrict__ c, long long ldc, const int* __restrict__ rank, T rn, T tau, int min_t,
+    T* __restrict__ mask, T* __restrict__ counts) {
+  const int lane = threadIdx.x;
+  const int r = *rank;
+  const bool live = lane < TT && lane < r;
+  bool keep = live;
+  if (tau != T(0)) {
+    // direction i's share of the A-norm error drop, ‖c_{i,:}‖², against τ²·rn²
+    T score = T(0);
+    if (lane < TT) {
+#pragma unroll
+      for (int j = 0; j < TT; ++j) {
+        const T x = c[lane * ldc + j];
+        score = add_rn(score, mul_rn(x, x));
+      }
+    }
+    const bool stagnant = score <= mul_rn(mul_rn(mul_rn(tau, tau), rn), rn);
+    const int max_drops = max(__popc(__ballot_sync(kFull, live)) - min_t, 0);
+    // the direction's place in a stable ascending sort of the live scores
+    const T key = live ? score : inf<T>();
+    int pos = 0;
+#pragma unroll
+    for (int j = 0; j < TT; ++j) {
+      const T kj = __shfl_sync(kFull, key, j);
+      pos += j != lane && (sorts_before(kj, key) || (!sorts_before(key, kj) && j < lane));
+    }
+    keep = live && !(stagnant && pos < max_drops);
+  }
+  const int n_active = __popc(__ballot_sync(kFull, keep));
+  if (lane < TT) mask[lane] = keep ? T(1) : T(0);
+  if (lane == 0) {
+    counts[0] = static_cast<T>(r);
+    counts[1] = static_cast<T>(n_active);
+  }
+}
+
+template <typename T, int TT>
+int launch_rank_t(const void* g, const void* m0, void* y0, const void* m1, void* y1,
+                  long long rows, double rtol, void* rank, void* perm, void* stream) {
+  auto kernel = rank_apply_kernel<T, TT>;
+  static const int per_sm = [&] {
+    int n = 0;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, repro::kThreads, 0) ==
+                   cudaSuccess && n > 0
+               ? n
+               : 1;
+  }();
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int nmat = m1 ? 2 : 1;
+  const long long warps = nmat * repro::cdiv(rows, 32);
+  // at least one CTA: it writes rank and perm even for an empty block
+  const long long grid = std::max(1LL, std::min(repro::cdiv(warps, repro::kThreads / 32),
+                                                static_cast<long long>(sms) * per_sm));
+  kernel<<<static_cast<unsigned>(grid), repro::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(g), static_cast<const T*>(m0), static_cast<T*>(y0),
+      static_cast<const T*>(m1), static_cast<T*>(y1), rows, nmat, static_cast<T>(rtol),
+      static_cast<int*>(rank), static_cast<int*>(perm));
+  return repro::launch_status();
+}
+
+template <typename T>
+int launch_rank(const void* g, const void* m0, void* y0, const void* m1, void* y1, long long rows,
+                int t, double rtol, void* rank, void* perm, void* stream) {
+  if (rows < 0 || (m1 == nullptr) != (y1 == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (t) {
+#define REPRO_RANK_T(TT) \
+  case TT: return launch_rank_t<T, TT>(g, m0, y0, m1, y1, rows, rtol, rank, perm, stream);
+    REPRO_RANK_T(1) REPRO_RANK_T(2) REPRO_RANK_T(3) REPRO_RANK_T(4)
+    REPRO_RANK_T(5) REPRO_RANK_T(6) REPRO_RANK_T(7) REPRO_RANK_T(8)
+    REPRO_RANK_T(9) REPRO_RANK_T(10) REPRO_RANK_T(11) REPRO_RANK_T(12)
+    REPRO_RANK_T(13) REPRO_RANK_T(14) REPRO_RANK_T(15) REPRO_RANK_T(16)
+#undef REPRO_RANK_T
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int launch_drop(const void* c, long long ldc, const void* rank, double rn, double tau, int min_t,
+                int t, void* mask, void* counts, void* stream) {
+  auto go = [&](auto kernel) {
+    kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(c), ldc, static_cast<const int*>(rank), static_cast<T>(rn),
+        static_cast<T>(tau), min_t, static_cast<T*>(mask), static_cast<T*>(counts));
+    return repro::launch_status();
+  };
+  switch (t) {
+#define REPRO_DROP_T(TT) \
+  case TT: return go(drop_mask_kernel<T, TT>);
+    REPRO_DROP_T(1) REPRO_DROP_T(2) REPRO_DROP_T(3) REPRO_DROP_T(4)
+    REPRO_DROP_T(5) REPRO_DROP_T(6) REPRO_DROP_T(7) REPRO_DROP_T(8)
+    REPRO_DROP_T(9) REPRO_DROP_T(10) REPRO_DROP_T(11) REPRO_DROP_T(12)
+    REPRO_DROP_T(13) REPRO_DROP_T(14) REPRO_DROP_T(15) REPRO_DROP_T(16)
+#undef REPRO_DROP_T
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// g: (t, t) Gram matrix; m0, y0 and (when m1 is not null) m1, y1: (rows, t)
+// row-major; rank: one int32, perm: t int32 (written by CTA 0); 1 <= t <= 16.
+REPRO_EXPORT int rank_apply_f32(const void* g, const void* m0, void* y0, const void* m1, void* y1,
+                                long long rows, int t, double rtol, void* rank, void* perm,
+                                void* stream) {
+  return launch_rank<float>(g, m0, y0, m1, y1, rows, t, rtol, rank, perm, stream);
+}
+
+REPRO_EXPORT int rank_apply_f64(const void* g, const void* m0, void* y0, const void* m1, void* y1,
+                                long long rows, int t, double rtol, void* rank, void* perm,
+                                void* stream) {
+  return launch_rank<double>(g, m0, y0, m1, y1, rows, t, rtol, rank, perm, stream);
+}
+
+// c: (t, t) with row stride ldc; rank: one int32 (rank_apply's); mask: t
+// values, counts: [rank, active count]; 1 <= t <= 16.
+REPRO_EXPORT int drop_mask_f32(const void* c, long long ldc, const void* rank, double rn,
+                               double tau, int min_t, int t, void* mask, void* counts,
+                               void* stream) {
+  return launch_drop<float>(c, ldc, rank, rn, tau, min_t, t, mask, counts, stream);
+}
+
+REPRO_EXPORT int drop_mask_f64(const void* c, long long ldc, const void* rank, double rn,
+                               double tau, int min_t, int t, void* mask, void* counts,
+                               void* stream) {
+  return launch_drop<double>(c, ldc, rank, rn, tau, min_t, t, mask, counts, stream);
 }
 
 REPRO_ERROR_STRING(chol_apply)

@@ -4,6 +4,8 @@
         --backend pallas --strategy sequential [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.solve --matrix fd --elements 6 \
         --t 4 --devices 8 --ppn 4 --strategy 3step --backend pallas [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.solve --matrix fd --t 8 \
+        --strategy sequential --adaptive reduce [--device cpu]
 
 The flags and the summary lines are the reference CLI's
 (``python -m repro.launch.solve``).  ``--backend pallas`` runs the Block-ELL
@@ -13,10 +15,14 @@ kernels' plain versions.  ``--devices N --ppn K`` runs the distributed
 node-aware solver on a ``VirtualMesh(N // K, K)``: all N ranks on that one
 device (no re-exec, unlike the reference's forced host devices).
 ``--precondition block_jacobi|chebyshev|inexact`` runs the preconditioned
-solve (block-Jacobi through the ``block_trisolve`` CUDA kernel).  Options
-whose machinery is not ported yet (``--t auto``, tuning, ``--overlap``,
-``--adaptive``, other methods) stop with the ROADMAP.md item that brings
-them; note that ``--strategy tuned`` (the default) implies ``--tune model``.
+solve (block-Jacobi through the ``block_trisolve`` CUDA kernel).
+``--adaptive rankrev|reduce|reduce+restart`` runs the in-solve width
+controller (the ``rank_apply`` and ``drop_mask`` CUDA kernels) and prints
+the reference's summary of reduction events, restarts and, on a mesh, the
+re-sliced exchange segments.  Options whose machinery is not ported yet
+(``--t auto``, tuning, ``--overlap``, other methods) stop with the ROADMAP.md
+item that brings them; note that ``--strategy tuned`` (the default) implies
+``--tune model``.
 """
 
 from __future__ import annotations
@@ -35,6 +41,25 @@ def _parse_t(value: str) -> int | str:
     if t < 1:
         raise argparse.ArgumentTypeError(f"--t must be >= 1, got {t}")
     return t
+
+
+def _print_adaptive_summary(res) -> None:
+    """Reduction events, restarts and exchange segments for the run summary
+    (the reference CLI's; ``t="auto"``'s selection table is not ported)."""
+    events = res.reduction_events()
+    if events:
+        for k, before, after in events:
+            kind = "re-enlarged" if after > before else "reduced"
+            print(f"  iter {k}: active width {kind} {before} -> {after}")
+        if res.restarts:
+            print(f"  restarts: {res.restarts}")
+    elif res.active_hist is not None:
+        print(f"  active width constant at t={res.t}")
+    if res.comm_segments and len(res.comm_segments) > 1:
+        trace = ", ".join(f"{it} iters @ width {w}" for w, it in res.comm_segments)
+        print(f"  exchange payload re-sliced: {trace}")
+    if res.breakdown:
+        print("  BREAKDOWN: solver stopped at the last finite iterate")
 
 
 def main(argv=None):
@@ -139,8 +164,7 @@ def main(argv=None):
         res = solver.solve(b)
         print(f"sequential ECG[{mtag}/{args.backend}] t={res.t}: iters={res.n_iters} "
               f"converged={res.converged} {time.time()-t0:.1f}s")
-        if res.breakdown:
-            print("  BREAKDOWN: solver stopped at the last finite iterate")
+        _print_adaptive_summary(res)
         b_dev = solver.a.data.new_tensor(b)
         res_cg = _cg_solve(lambda v: csr_spmv(solver.a, v), b_dev, tol=args.tol, max_iters=20000)
         print(f"reference CG:  iters={res_cg.n_iters}")
@@ -158,8 +182,7 @@ def main(argv=None):
         f"iters={res.n_iters} converged={res.converged} relres={relres:.2e} "
         f"{time.time()-t0:.1f}s"
     )
-    if res.breakdown:
-        print("  BREAKDOWN: solver stopped at the last finite iterate")
+    _print_adaptive_summary(res)
 
 
 if __name__ == "__main__":

@@ -14,6 +14,10 @@ Port of ``repro/solver/handle.py``, sequential and distributed:
         t=8, comm=CommConfig(strategy="optimal"), kernel="pallas"))
     x = dist.unshard(dist.solve(b).x)
 
+    adaptive = ECGSolver.build(a, VirtualMesh(2, 4), SolverConfig(
+        t=8, adaptive="reduce", comm=CommConfig(strategy="optimal"), kernel="pallas"))
+    res = adaptive.solve(b)   # res.active_hist, res.comm_segments
+
 ``build`` moves the operator to ``device`` and, with ``backend="pallas"``,
 converts it to Block-ELL once.  With a mesh it also partitions the rows,
 builds the node-aware exchange plan and the per-rank operator
@@ -21,8 +25,18 @@ builds the node-aware exchange plan and the per-rank operator
 each followed by one ``mesh.psum``.  The reference compiles its solve loop once
 per width; PyTorch runs eagerly, so the handle instead caches one runner per
 width and ``stats.traces`` counts runner constructions (flat across repeated
-solves).  Options whose machinery is not ported yet raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
+solves).
+
+An adaptive policy (``SolverConfig(adaptive="rankrev" | "reduce" |
+"reduce+restart")``) runs the rank-revealing factorization and the width
+controller in the classic scheme.  On a mesh, a policy without restart
+*segments* the solve: when the active width drops, the loop exits, the
+exchange is re-sliced at the narrower width (``plan.at_width``, its own
+``HaloExchange`` graph) and the solve resumes from the same carry;
+``result.comm_segments`` lists (width, iterations) per segment.  A
+sequential handle never segments.  Options whose machinery is not ported
+yet raise ``NotImplementedError`` naming the ROADMAP.md item that brings
+them.
 """
 
 from __future__ import annotations
@@ -80,6 +94,9 @@ class ECGSolver:
     device:  the torch device every solve runs on.
     mesh:    the :class:`~repro_torch.launch.mesh.VirtualMesh` (None for a
              sequential handle).
+    policy:  the resolved adaptive
+             :class:`~repro_torch.adaptive.ReductionPolicy` (None = fixed
+             width).
     op:      the :class:`~repro_torch.sparse.spmbv.DistributedSpMBV`
              operator (None for a sequential handle).
     stats:   :class:`SolverStats`.
@@ -154,11 +171,9 @@ class ECGSolver:
     def _build(self):
         cfg = self.config
         if isinstance(cfg.t, str):
-            _not_ported('t="auto"', "queue 1 item 6")
+            _not_ported('t="auto"', "queue 1 item 6b")
         if cfg.tune.active:
             _not_ported(f"tuning (tune mode {cfg.tune.mode!r})", "queue 1 item 9")
-        if cfg.adaptive.policy is not None:
-            _not_ported("an adaptive policy", "queue 1 item 6")
         if cfg.method.name != "classic":
             _not_ported(f"method {cfg.method.name!r}", "queue 1 item 7")
         if self.device.type == "cuda":
@@ -167,6 +182,7 @@ class ECGSolver:
             torch.backends.cuda.matmul.allow_tf32 = False
         self.stats.builds += 1
         self.t = cfg.t
+        self._set_policy(cfg.adaptive.policy)
         self._gram1 = self._gram2 = self._sqnorm = self._tail = self._split_fn = None
         self._gram2p = None
         if self.mesh is not None:
@@ -176,6 +192,13 @@ class ECGSolver:
         else:
             self._apply = lambda V: csr_spmbv(self.a, V)
         self._precond = self._build_precond()
+
+    def _set_policy(self, policy):
+        """The adaptive policy and whether solves run width-segmented: on a
+        mesh, without restart (a restart re-enlarges, which a narrower
+        exchange could not carry)."""
+        self.policy = policy
+        self._segmented = self.mesh is not None and policy is not None and not policy.restart
 
     def _build_distributed(self):
         cfg = self.config
@@ -316,11 +339,23 @@ class ECGSolver:
 
     # ------------------------------------------------------------- runners
     def _runner(self, width: int):
+        """The runner of the segment at exchange width ``width`` (the solve
+        at ``self.t`` when the handle does not segment)."""
         runner = self._runners.get(width)
         if runner is None:
             cfg = self.config
+            masked = exit_bw = None
+            if self._segmented:
+                # the full-width segment still carries the active mask (so the
+                # loop can exit on a reduction event); narrower segments
+                # compact the exchange's payload
+                masked = (
+                    (lambda z, act: self._apply(z)) if width == self.t
+                    else self.op.masked_matvec_fn(width)
+                )
+                exit_bw = width
             runner = make_ecg_runner(
-                self._apply, width, tol=cfg.tol, max_iters=cfg.max_iters,
+                self._apply, self.t, tol=cfg.tol, max_iters=cfg.max_iters,
                 split=self._split_fn, gram1=self._gram1, gram2=self._gram2,
                 sqnorm=self._sqnorm, tail=self._tail,
                 backend=cfg.kernel.backend, method=cfg.method.name,
@@ -328,6 +363,7 @@ class ECGSolver:
                 precond_reseed=(
                     cfg.precondition.reseed if cfg.precondition.kind == "inexact" else None
                 ),
+                policy=self.policy, a_apply_masked=masked, exit_below_width=exit_bw,
             )
             self.stats.traces += 1
             self._runners[width] = runner
@@ -355,9 +391,38 @@ class ECGSolver:
         b_dev = b_dev.to(torch.promote_types(b_dev.dtype, self.a.data.dtype))
         x0_dev = torch.zeros_like(b_dev) if x0 is None else self._device_vec(x0, b_dev.dtype)
         runner = self._runner(self.t)
-        out = runner.run(runner.init(b_dev, x0_dev))
+        carry = runner.run(runner.init(b_dev, x0_dev))
+        segments = None
+        if self._segmented:
+            # Width-segmented solve: each segment runs the loop with the
+            # exchange compacted to its width; when the controller retires
+            # directions the loop exits, the exchange is re-sliced at the new
+            # width and the solve resumes from the same carry.
+            t_seg, k_prev, segments = self.t, 0, []
+            while True:
+                k = carry["k"]
+                it_seg = k - k_prev
+                segments.append((t_seg, it_seg))
+                k_prev = k
+                n_act = int(carry["ahist"][k])
+                if (
+                    carry["rn"] <= cfg.tol
+                    or carry["bd"]
+                    or k >= cfg.max_iters
+                    or n_act >= t_seg
+                    # every direction dead (a rank-0 Gram without a non-finite
+                    # iterate) or a zero-progress segment: nothing a narrower
+                    # re-slice could fix
+                    or n_act == 0
+                    or it_seg == 0
+                ):
+                    break
+                t_seg = n_act  # width-reduction event -> re-slice
+                carry = self._runner(t_seg).run(carry)
         self.stats.solves += 1
-        return finalize_result(out, x0=x0_dev, t=self.t, tol=cfg.tol)
+        result = finalize_result(carry, x0=x0_dev, t=self.t, tol=cfg.tol, policy=self.policy)
+        result.comm_segments = segments
+        return result
 
     def solve_many(self, bs, x0s=None):
         """Solve the same operator against many right-hand sides.
@@ -395,8 +460,8 @@ class ECGSolver:
         """Derive a sibling handle with config overrides, reusing as much
         setup as the overrides permit.
 
-        Solve-level overrides (``tol``, ``max_iters``, ``method``) reuse the
-        operator outright; operator-level overrides (backend, tile, t, ...)
+        Solve-level overrides (``tol``, ``max_iters``, ``method``, the
+        adaptive policy) reuse the operator outright; operator-level overrides (backend, tile, t, ...)
         rebuild it, reusing the parent's conversion artifacts where they
         still match.  The preconditioner is reused with the operator unless
         the precondition knobs changed, which rebuild it alone.  Accepts the flat field spellings of
@@ -418,12 +483,12 @@ class ECGSolver:
             and new_cfg.comm == self.config.comm
             and new_cfg.kernel == self.config.kernel
             and new_cfg.tune == self.config.tune
-            and new_cfg.adaptive == self.config.adaptive
         )
         if reuse_op:
             if new_cfg.method.name != "classic":
                 _not_ported(f"method {new_cfg.method.name!r}", "queue 1 item 7")
             clone.t = self.t
+            clone._set_policy(new_cfg.adaptive.policy)
             clone.op = self.op
             clone._apply = self._apply
             clone._gram1, clone._gram2 = self._gram1, self._gram2

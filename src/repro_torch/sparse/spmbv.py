@@ -157,10 +157,7 @@ class DistributedSpMBV:
         key = (plan.t, plan.col_split, t, dtype)
         ex = self._exchanges.get(key)
         if ex is None:
-            if plan is self.plan or plan.phases is self.plan.phases:
-                gathers, scatters = self.gathers, self.scatters
-            else:
-                gathers, scatters = self.exchange_arrays(plan)
+            gathers, scatters = self.exchange_arrays(plan)
             ex = HaloExchange(self.mesh, plan, gathers, scatters, self.rmax, self.m_pad, t, dtype)
             self._exchanges[key] = ex
         return ex
@@ -182,8 +179,11 @@ class DistributedSpMBV:
 
     # ------------------------------------------------- width-sliced arrays
     def exchange_arrays(self, plan: ExchangePlan):
-        """Stacked per-phase device index arrays for ``plan`` (cached by the
-        plan's width and col-split)."""
+        """Stacked per-phase device index arrays for ``plan``: the operator's
+        own when ``plan`` shares its phases, else built once per width and
+        col-split."""
+        if plan.phases is self.plan.phases:
+            return self.gathers, self.scatters
         key = (plan.t, plan.col_split)
         hit = self._width_arrays.get(key)
         if hit is None:
@@ -204,6 +204,30 @@ class DistributedSpMBV:
             v3 = v.reshape(self.mesh.local_ranks, self.rmax, -1)
             xfull = self.exchange(plan, v3.shape[2], v3.dtype).run(v3)
             return self._local_spmbv(xfull).reshape(v.shape)
+
+        return apply
+
+    def masked_matvec_fn(self, t_active: int):
+        """Width-compacted apply for the adaptive solver.
+
+        Returns ``f(V (n_padded, t), active (t,) bool) -> (n_padded, t)``:
+        the ``t_active`` active columns (zero-masked block vectors guarantee
+        the rest are zero) are gathered to the front in their order, pushed
+        through the width-``t_active`` operator — its exchange, over
+        ``plan.at_width(t_active)`` and its own CUDA graph, moves exactly
+        ``t_active`` columns — and scattered back into a zero (n, t) block.
+        Equal to the full-width apply: the gather and scatter move data only
+        and A·0 = 0 for the retired columns.
+        """
+        apply_active = self.matvec_fn(t_active=t_active)
+
+        def apply(v: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+            # stable argsort: active columns first, original order preserved;
+            # gather/scatter along rows (index_select along dim 1 reads the
+            # (n, t) block at a fraction of the card's memory rate)
+            cols = torch.argsort(~active, stable=True)[:t_active].expand(v.shape[0], t_active)
+            wc = apply_active(torch.gather(v, 1, cols))
+            return torch.zeros_like(v).scatter_(1, cols, wc)
 
         return apply
 

@@ -12,7 +12,10 @@ float32 2e-5 (1e-4/1e-3 for the Gram sums) — only the summation order differs.
 triangular solves: 1e-11 in float64, 1e-4 in float32, on factors of
 blocks with condition number below 10.  ``chol_apply`` substitutes where its
 plain version calls ``solve_triangular``: within 2·t·eps·κ(C)·max|y| (the
-forward error bound of a t-term substitution).  The halo kernels move data only and
+forward error bound of a t-term substitution); ``rank_apply`` factors G in
+the plain version's order, so its rank and pivot order must equal the plain
+version's, its blocks within that bound; ``drop_mask``'s mask and counts
+must equal its plain version's.  The halo kernels move data only and
 must equal their plain versions exactly, and two CSR products on the same
 inputs must be bit-identical (no atomics).
 """
@@ -25,7 +28,14 @@ from repro_torch import kernels
 from repro_torch.kernels import block_ell_arrays
 from repro_torch.kernels.block_trisolve.ref import block_trisolve_ref
 from repro_torch.kernels.block_update.ref import block_update_ref, ecg_tail_ref
-from repro_torch.kernels.chol_apply.ref import chol_apply_dense, chol_apply_ref
+from repro_torch.adaptive import ReductionPolicy, default_rank_rtol, pivoted_cholesky
+from repro_torch.kernels.chol_apply.ref import (
+    chol_apply_dense,
+    chol_apply_ref,
+    drop_mask_ref,
+    rank_apply_dense,
+    rank_apply_ref,
+)
 from repro_torch.kernels.fused_gram.ref import fused_gram_ref
 from repro_torch.kernels.halo_pack.ref import halo_pack_ref, halo_unpack_ref
 from repro_torch.launch.mesh import VirtualMesh
@@ -490,6 +500,139 @@ def test_chol_apply_nan_factor_counts_and_checks(cuda):
     with pytest.raises(TypeError, match="one dtype"):
         kernels.chol_apply(c, z, az.float())
     assert kernels.launch_counts() == _counts(chol_apply=2)
+
+
+def _gram_case(rows, t, rank, dtype, seed=0):
+    """(G, Z, AZ) on the CPU: Z with t − rank zero columns, AZ = A·Z on a
+    1-D Laplacian stencil, G = ZᵀAZ (its dead rows and columns exactly 0)."""
+    gen = torch.Generator().manual_seed(seed)
+    z = torch.randn(rows, t, generator=gen, dtype=torch.float64)
+    z[:, torch.randperm(t, generator=gen)[rank:]] = 0.0
+    az = 2.0 * z
+    az[1:] -= z[:-1]
+    az[:-1] -= z[1:]
+    g = z.T @ az
+    return tuple(x.to(dtype).contiguous() for x in ((g + g.T) / 2, z, az))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,rank", [(1, 1), (1, 0), (2, 1), (4, 4), (4, 2), (8, 8), (8, 4),
+                                    (8, 0), (12, 7), (16, 16), (16, 9)])
+@pytest.mark.parametrize("rows", [1, 530, 70001])
+def test_rank_apply_matches_plain(cuda, rows, t, rank, dtype):
+    g, z, az = _gram_case(max(rows, 64), t, rank, dtype, seed=t + rank)
+    z, az = z[:rows].contiguous(), az[:rows].contiguous()
+    rtol = default_rank_rtol(dtype)
+    eps = torch.finfo(dtype).eps
+    l, _, _ = pivoted_cholesky(g.double(), rtol=rtol)
+    kappa = float(torch.linalg.cond(l[:rank, :rank])) if rank else 1.0
+    for n_mats in (1, 2):
+        kernels.reset_launch_counts()
+        *got, k_rank, k_perm = kernels.rank_apply(g.to(cuda), *(m.to(cuda) for m in (z, az)[:n_mats]),
+                                                  rtol=rtol)
+        assert kernels.launch_counts() == _counts(rank_apply=1)
+        *want, w_rank, w_perm = rank_apply_ref(g, *(z, az)[:n_mats], rtol=rtol)
+        *dense, _, _ = rank_apply_dense(g, *(z, az)[:n_mats], rtol=rtol)
+        assert int(k_rank) == int(w_rank) == rank and k_perm.cpu().tolist() == w_perm.tolist()
+        for y, w, d in zip(got, want, dense):
+            assert y.shape == (rows, t) and y.dtype == dtype and y.is_contiguous()
+            tol = 2 * t * eps * kappa * float(w.abs().max())
+            assert float((y.cpu().double() - w.double()).abs().max()) <= tol
+            assert float((y.cpu().double() - d.double()).abs().max()) <= tol
+            assert not y[:, rank:].any()
+    ops = [g.to(cuda), z.to(cuda), az.to(cuda)]
+    assert all(torch.equal(a, b) for a, b in zip(kernels.rank_apply(*ops, rtol=rtol),
+                                                 kernels.rank_apply(*ops, rtol=rtol)))
+
+
+def test_rank_apply_nan_gram_empty_block_and_checks(cuda):
+    g, z, az = (x.to(cuda) for x in _gram_case(1000, 8, 8, torch.float64))
+    g_nan = g.clone()
+    g_nan[3, 3] = float("nan")
+    kernels.reset_launch_counts()
+    p, ap, rank, perm = kernels.rank_apply(g_nan, z, az, rtol=1e-10)
+    _, _, w_rank, w_perm = rank_apply_ref(g_nan.cpu(), z.cpu(), az.cpu(), rtol=1e-10)
+    assert int(rank) == int(w_rank) == 0 and perm.cpu().tolist() == w_perm.tolist()
+    assert not p.any() and not ap.any()
+    # an empty block still gets the rank and the pivot order
+    _, rank0, perm0 = kernels.rank_apply(g, z[:0], rtol=1e-10)
+    _, w_rank0, w_perm0 = rank_apply_ref(g.cpu(), z[:0].cpu(), rtol=1e-10)
+    assert int(rank0) == int(w_rank0) == 8 and perm0.cpu().tolist() == w_perm0.tolist()
+    assert kernels.launch_counts() == _counts(rank_apply=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.rank_apply(g, z.T.contiguous().T, rtol=1e-10)
+    with pytest.raises(TypeError, match="one dtype"):
+        kernels.rank_apply(g, z, az.float(), rtol=1e-10)
+    assert kernels.launch_counts() == _counts(rank_apply=2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("policy", [{}, {"drop_tol": 0.0}, {"drop_tol": 0.3, "min_t": 3}],
+                         ids=["default", "rankrev", "tau0.3-min3"])
+@pytest.mark.parametrize("t,rank", [(1, 1), (4, 4), (8, 5), (8, 8), (16, 9), (16, 0)])
+def test_drop_mask_matches_plain(cuda, t, rank, policy, dtype):
+    gen = torch.Generator().manual_seed(t + rank)
+    c = torch.randn(t, 3 * t, generator=gen, dtype=torch.float64)
+    c /= c[:, :t].norm(dim=1, keepdim=True)
+    c *= 10.0 ** torch.linspace(-4, 2, t)[torch.randperm(t, generator=gen)][:, None]
+    c = c.to(dtype)[:, :t]  # a column slice of the packed payload, as the solver passes
+    pol = ReductionPolicy(**policy)
+    r = torch.tensor(rank, dtype=torch.int32)
+    kernels.reset_launch_counts()
+    mask, counts = kernels.drop_mask(c.to(cuda), r.to(cuda), 1.0, pol)
+    assert kernels.launch_counts() == _counts(drop_mask=1)
+    w_mask, w_counts = drop_mask_ref(c, r, 1.0, pol)
+    assert mask.dtype == counts.dtype == dtype
+    assert torch.equal(mask.cpu(), w_mask) and torch.equal(counts.cpu(), w_counts)
+
+
+@pytest.mark.parametrize("adaptive", ["rankrev", "reduce", "reduce+restart"])
+def test_adaptive_solve_on_card_matches_cpu(cuda, adaptive):
+    """A right-hand side on half of 8 subdomains: the dependent directions
+    drop at iteration 1, on the card as on the CPU; one ``rank_apply`` and
+    one ``drop_mask`` launch per iteration, no ``chol_apply``."""
+    a = fd_laplace_2d(24, device="cpu")
+    n = a.shape[0]
+    b = np.zeros(n)
+    b[: n // 2] = np.random.default_rng(0).standard_normal(n // 2)
+    cfg = SolverConfig(t=8, tol=1e-8 * np.linalg.norm(b), max_iters=2000, kernel="pallas",
+                       adaptive=adaptive)
+    kernels.reset_launch_counts()
+    gpu = ECGSolver.build(a, config=cfg, device=cuda).solve(b)
+    counts = kernels.launch_counts()
+    cpu = ECGSolver.build(a, config=cfg, device="cpu").solve(b)
+    k = gpu.n_iters
+    assert gpu.converged and k == cpu.n_iters
+    assert np.array_equal(gpu.active_hist, cpu.active_hist) and gpu.active_hist[1] == 4
+    assert gpu.reduction_events() == cpu.reduction_events() and gpu.restarts == cpu.restarts
+    assert counts == _counts(bsr_spmbv=k + 1, fused_gram=k, ecg_tail=k, rank_apply=k, drop_mask=k)
+    x_g, x_c = gpu.x.cpu(), cpu.x
+    assert float((x_g - x_c).abs().max()) <= 1e-8 * float(x_c.abs().max())
+
+
+@pytest.mark.parametrize("strategy", ["3step", "optimal"])
+def test_distributed_adaptive_solve_on_card_matches_cpu(cuda, strategy):
+    a = fd_laplace_2d(24, device="cpu")
+    n = a.shape[0]
+    b = np.zeros(n)
+    b[: n // 2] = np.random.default_rng(0).standard_normal(n // 2)
+    cfg = SolverConfig(t=8, tol=1e-8 * np.linalg.norm(b), max_iters=2000, kernel="pallas",
+                       comm=CommConfig(strategy=strategy), adaptive="reduce")
+    mesh = VirtualMesh(2, 4, device=cuda)
+    solver = ECGSolver.build(a, mesh, cfg)
+    kernels.reset_launch_counts()
+    mesh.reset_counters()
+    gpu = solver.solve(b)
+    counts = kernels.launch_counts()
+    cpu = ECGSolver.build(a, VirtualMesh(2, 4, device="cpu"), cfg).solve(b)
+    k = gpu.n_iters
+    assert gpu.converged and k == cpu.n_iters and gpu.comm_segments == cpu.comm_segments
+    assert gpu.comm_segments[0] == (8, 1) and gpu.comm_segments[-1][0] == 4
+    assert np.array_equal(gpu.active_hist, cpu.active_hist)
+    assert counts["rank_apply"] == counts["drop_mask"] == k and counts["chol_apply"] == 0
+    assert mesh.psum_calls == 3 * k + 1
+    x_g, x_c = solver.unshard(gpu.x), solver.unshard(cpu.x)
+    assert np.abs(x_g - x_c).max() <= 1e-8 * np.abs(x_c).max()
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -22,7 +22,16 @@ from seeds with numpy on both sides.  Compared:
     the ranks' 22 rows, Chebyshev and inexact) on ``fd_laplace_2d(13)`` to
     1e-8·‖b‖, held as in (b), with equal reseed iterations; a
     preconditioner adds no psum, and only Chebyshev and inexact add
-    exchanges (their extra SpMBVs).
+    exchanges (their extra SpMBVs);
+(f) adaptive solves (``tests/dist_worker.py``'s ``check_adaptive_and_auto_t``
+    without its auto-t half): ``fd_laplace_2d(13)`` with t = 4 and a
+    right-hand side on m = 2 of the 4 subdomains, ``3step`` and ``optimal``.
+    The fixed width breaks down; ``reduce`` converges width-segmented with
+    ``comm_segments``, ``active_hist`` and the iterations equal to the
+    reference's and ``res_hist`` as in (b); against the port's sequential
+    adaptive solve ``active_hist`` is equal and ``res_hist`` agrees to 1e-5
+    (the distributed reductions sum in another order); the reduced segment's
+    exchanges move exactly m/t of the full width's elements.
 """
 
 import os
@@ -42,6 +51,7 @@ PRECONDS = {"block_jacobi": dict(kind="block_jacobi", block=8), "chebyshev": "ch
 PREC_SOLVES = [(kind, "pallas") for kind in PRECONDS] + [("block_jacobi", "jnp")]
 T_APPLY, T_SOLVE = 3, 4
 MAX_ITERS = 500
+ADAPTIVE_M, ADAPTIVE_TOL, ADAPTIVE_MAX_ITERS = 2, 1e-8, 300
 
 
 def _ref_operators(sparse):
@@ -57,6 +67,14 @@ def _rhs(n):
 
 def _block(n, t):
     return np.random.default_rng(100 + n).standard_normal((n, t))
+
+
+def _deficient_rhs(n):
+    """t − m zero subdomains (dist_worker.py's right-hand side)."""
+    b = np.zeros(n)
+    hi = (ADAPTIVE_M * n) // T_SOLVE
+    b[:hi] = np.random.default_rng(7).standard_normal(hi)
+    return b
 
 
 def _tol(name, b):
@@ -110,6 +128,20 @@ def _reference_results(out_path):
             out[key + "/res_hist"] = np.asarray(res.res_hist)
             out[key + "/x"] = solver.unshard(res.x)
             out[key + "/reseeds"] = np.asarray(res.reseed_events(), np.int64)
+        for strategy in ("3step", "optimal") if name == "fd" else []:
+            bd = _deficient_rhs(n)
+            for adaptive in (None, "reduce"):
+                cfg = SolverConfig(t=T_SOLVE, tol=ADAPTIVE_TOL, max_iters=ADAPTIVE_MAX_ITERS,
+                                   comm=CommConfig(strategy=strategy, machine=BLUE_WATERS),
+                                   kernel="pallas", adaptive=adaptive)
+                res = ECGSolver.build(a, mesh, cfg).solve(bd)
+                key = f"adaptive/{strategy}/{adaptive}"
+                out[key + "/n_iters"] = np.asarray(res.n_iters)
+                out[key + "/breakdown"] = np.asarray(res.breakdown)
+                if adaptive is not None:
+                    out[key + "/res_hist"] = np.asarray(res.res_hist)
+                    out[key + "/active_hist"] = np.asarray(res.active_hist)
+                    out[key + "/segments"] = np.asarray(res.comm_segments, np.int64)
     np.savez(out_path, **out)
 
 
@@ -269,6 +301,71 @@ def test_preconditioned_solve_matches_reference(reference, operators, kind, back
         spmbvs += applies * (solver.config.precondition.sweeps - 1)
     assert mesh.ppermute_calls == n_perm * spmbvs
     assert kernels.launch_counts() == dict.fromkeys(kernels.launch_counts(), 0)  # CPU tensors
+
+
+@pytest.mark.parametrize("strategy", ["3step", "optimal"])
+def test_adaptive_solve_matches_reference_and_sequential(reference, operators, strategy):
+    from repro_torch.solver import ECGSolver
+
+    a = operators["fd"]
+    b = _deficient_rhs(a.shape[0])
+    mesh = _mesh()
+    cfg = _config("fd", b, strategy, "pallas").replace(tol=ADAPTIVE_TOL,
+                                                        max_iters=ADAPTIVE_MAX_ITERS)
+    key = f"adaptive/{strategy}"
+    fixed = ECGSolver.build(a, mesh, cfg).solve(b)
+    assert fixed.breakdown and not fixed.converged and bool(reference[key + "/None/breakdown"])
+    assert fixed.n_iters == int(reference[key + "/None/n_iters"])
+    solver = ECGSolver.build(a, mesh, cfg.replace(adaptive="reduce"))
+    mesh.reset_counters()
+    res = solver.solve(b)
+    k = int(reference[key + "/reduce/n_iters"])
+    assert res.converged and res.n_iters == k
+    assert res.comm_segments == [tuple(s) for s in reference[key + "/reduce/segments"].tolist()]
+    assert res.comm_segments[0][0] == T_SOLVE and res.comm_segments[-1][0] == ADAPTIVE_M
+    assert sum(it for _, it in res.comm_segments) == k
+    assert np.array_equal(res.active_hist, reference[key + "/reduce/active_hist"])
+    _assert_hist_close(res.res_hist.numpy()[: k + 1], reference[key + "/reduce/res_hist"][: k + 1])
+    # (d) the policy adds no reduction; every exchange moves its width's
+    # columns: one at width 1 (the initial residual), then per segment
+    assert mesh.psum_calls == 3 * k + 1
+    per_exchange = {}
+    for w in (1, T_SOLVE, ADAPTIVE_M):  # widths 1 and t go through the full plan
+        mesh.reset_counters()
+        apply_w = solver.op.matvec_fn() if w in (1, T_SOLVE) else solver.op.matvec_fn(t_active=w)
+        apply_w(torch.zeros(solver.op.n_padded, w, dtype=torch.float64))
+        per_exchange[w] = mesh.ppermute_elements
+    assert per_exchange[ADAPTIVE_M] * T_SOLVE == per_exchange[T_SOLVE] * ADAPTIVE_M
+    mesh.reset_counters()
+    solver.solve(b)
+    assert mesh.ppermute_elements == per_exchange[1] + sum(
+        per_exchange[w] * it for w, it in res.comm_segments)
+    # the port's sequential adaptive solve: the same drops
+    seq = ECGSolver.build(a, config=cfg.replace(adaptive="reduce"), device="cpu").solve(b)
+    assert seq.converged and seq.comm_segments is None and abs(seq.n_iters - k) <= 2
+    common = min(k, seq.n_iters) + 1
+    assert np.array_equal(res.active_hist[:common], seq.active_hist[:common])
+    np.testing.assert_allclose(res.res_hist.numpy()[:common], seq.res_hist.numpy()[:common],
+                               rtol=1e-5, atol=1e-10)
+    x = solver.unshard(res.x)
+    assert np.linalg.norm(a.todense().numpy() @ x - b) / np.linalg.norm(b) < 1e-6
+
+
+def test_masked_apply_equals_the_full_width_apply(operators):
+    """The width-compacted apply gathers the active columns, applies the
+    narrower operator and scatters back: equal to the full-width apply of a
+    block whose retired columns are zero."""
+    from repro_torch.core.machines import BLUE_WATERS
+    from repro_torch.sparse.spmbv import _make_distributed_spmbv
+
+    a = operators["dg"]
+    op = _make_distributed_spmbv(a, _mesh(), "optimal", t=8, machine=BLUE_WATERS, backend="pallas")
+    active = torch.tensor([True, False, True, True, False, False, True, False])
+    v = _block(a.shape[0], 8) * active.numpy()
+    full = op.matvec_fn()(op.shard_vector(v))
+    masked = op.masked_matvec_fn(4)(op.shard_vector(v), active)
+    assert torch.allclose(masked, full, rtol=1e-13, atol=1e-13 * float(full.abs().max()))
+    assert not masked[:, ~active].any()
 
 
 @pytest.mark.parametrize("col_split", [2, 4])
@@ -516,7 +613,7 @@ def test_mesh_rotations_and_sum():
 @pytest.mark.parametrize("override,item", [
     (dict(overlap=True), "queue 1 item 5a"),
     (dict(tune="model"), "queue 1 item 9"),
-    (dict(t="auto"), "queue 1 item 6"),
+    (dict(t="auto"), "queue 1 item 6b"),
     (dict(method="sstep"), "queue 1 item 7"),
 ])
 def test_unported_distributed_options_raise(operators, override, item):

@@ -24,6 +24,7 @@ from repro.kernels.bsr_spmbv.kernel import bsr_spmbv_pallas
 from repro.kernels.fused_gram.kernel import fused_gram_pallas
 
 import repro_torch.kernels as kernels
+from repro_torch.adaptive import ReductionPolicy
 from repro_torch.kernels.block_update.ref import ecg_tail_ref
 from repro_torch.kernels.bsr_spmbv.ref import bsr_spmbv_ref
 from repro_torch.kernels.fused_gram.ref import fused_gram_ref
@@ -152,10 +153,12 @@ def test_cpu_tensors_never_count_launches():
     kernels.block_update(v, v, v, v, c)
     kernels.block_trisolve(c[None].expand(pa.shape[0] // t, t, t), v)
     kernels.chol_apply(c, v, v)
+    _, _, rank, _ = kernels.rank_apply(c, v, v, rtol=1e-10)
+    kernels.drop_mask(c, rank, 1.0, ReductionPolicy())
     assert kernels.launch_counts() == {"bsr_spmbv": 0, "fused_gram": 0, "ecg_tail": 0,
                                        "halo_pack": 0, "halo_unpack": 0,
                                        "block_trisolve": 0, "block_update": 0,
-                                       "chol_apply": 0}
+                                       "chol_apply": 0, "rank_apply": 0, "drop_mask": 0}
 
 
 def test_mixed_devices_rejected():

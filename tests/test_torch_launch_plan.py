@@ -357,15 +357,15 @@ def test_trisolve_constants_mirror_the_cuda_source():
 
 # ---------------------------------------------------------------- the build
 @pytest.mark.parametrize("name", ["bsr_spmbv", "fused_gram", "halo_pack", "halo_unpack",
-                                  "block_trisolve", "chol_apply"])
+                                  "block_trisolve", "chol_apply", "rank_apply", "drop_mask"])
 def test_ctypes_signature_matches_the_c_entry_point(name):
     src = (CSRC / f"{_build.SOURCES[name]}.cu").read_text()
     for suffix in ("f32", "f64"):
         m = re.search(rf"REPRO_EXPORT int {name}_{suffix}\(([^)]*)\)", src)
         assert m, f"{name}_{suffix} not exported"
         params = [p.strip() for p in m.group(1).split(",")]
-        kinds = [_build._P if "*" in p else (_build._L if "long long" in p else _build._I)
-                 for p in params]
+        kinds = [_build._P if "*" in p else _build._L if "long long" in p
+                 else _build._D if p.startswith("double") else _build._I for p in params]
         assert kinds == _build.SIGNATURES[name]
 
 

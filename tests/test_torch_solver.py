@@ -122,9 +122,8 @@ def test_build_from_reference_conversion():
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (dict(t="auto"), "queue 1 item 6"),
+    (dict(t="auto"), "queue 1 item 6b"),
     (dict(tune="model"), "queue 1 item 9"),
-    (dict(adaptive="reduce"), "queue 1 item 6"),
     # preconditioning runs (tests/test_torch_precondition.py); composed
     # with a method not ported yet it still raises
     (dict(method="sstep", precondition="block_jacobi"), "queue 1 item 7"),
@@ -134,6 +133,15 @@ def test_build_from_reference_conversion():
 def test_options_not_ported_raise(op, overrides, item):
     with pytest.raises(NotImplementedError, match=item):
         ECGSolver.build(op, config=SolverConfig(**overrides), device="cpu")
+
+
+@pytest.mark.parametrize("adaptive", ["rankrev", "reduce", "reduce+restart"])
+def test_adaptive_policy_builds_and_solves(op, adaptive):
+    """An adaptive policy runs (it raised before the controller was ported):
+    the handle builds, solves and records the width trace."""
+    s = ECGSolver.build(op, config=SolverConfig(t=4, adaptive=adaptive), device="cpu")
+    res = s.solve(np.random.default_rng(4).standard_normal(op.shape[0]))
+    assert res.converged and s.policy is not None and res.active_hist[0] == 4
 
 
 def test_mesh_and_solve_packed_not_ported(op):

@@ -4,6 +4,8 @@
     PYTHONPATH=src python tools/profile_torch_solve.py [--iters 50] [--elements 320 256]
     PYTHONPATH=src python tools/profile_torch_solve.py --devices 8 --ppn 4 --strategy optimal
     PYTHONPATH=src python tools/profile_torch_solve.py --precondition block_jacobi [--block 16]
+    PYTHONPATH=src python tools/profile_torch_solve.py --adaptive reduce --deficient 4 \
+        [--devices 8 --ppn 4]
 
 Builds the main path of ``chip_smoke.py`` (``dg_laplace_2d(elements,
 block=16)``, t = 8, float64, ``backend="pallas"``) on the GPU, steps the
@@ -17,8 +19,13 @@ replayed exchange graph is one ``cudaGraphLaunch``).  ``--devices N --ppn
 K`` profiles the distributed solve on a
 ``VirtualMesh(N // K, K)`` with exchange ``--strategy`` instead of the
 sequential one.  ``--precondition KIND`` profiles the preconditioned
-iteration (``--block`` sets the block-Jacobi block size).  ``--trace PATH``
-also writes the Chrome trace.
+iteration (``--block`` sets the block-Jacobi block size).  ``--adaptive
+POLICY`` profiles the adaptive iteration (``rank_apply`` and ``drop_mask``
+in place of the Cholesky and ``chol_apply``); with ``--deficient M`` the
+right-hand side is zero outside the first M of the t contiguous subdomains,
+so the width drops to M at the first iteration and, on a mesh, the steps
+run the narrower segment's runner (its compacted exchange), as the
+segmented solve does.  ``--trace PATH`` also writes the Chrome trace.
 """
 
 from __future__ import annotations
@@ -67,6 +74,9 @@ def main(argv=None) -> int:
     ap.add_argument("--precondition", default="none",
                     choices=["none", "block_jacobi", "chebyshev", "inexact"])
     ap.add_argument("--block", type=int, default=16, help="block-Jacobi block size")
+    ap.add_argument("--adaptive", default=None, choices=["rankrev", "reduce", "reduce+restart"])
+    ap.add_argument("--deficient", type=int, default=0, metavar="M",
+                    help="right-hand side on the first M of the t subdomains only (0: all)")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
     if args.devices and args.devices % args.ppn:
@@ -91,12 +101,16 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     a = dg_laplace_2d(tuple(args.elements), block=16, device=dev)
-    b = np.random.default_rng(0).standard_normal(a.shape[0])
+    n = a.shape[0]
+    b = np.random.default_rng(0).standard_normal(n)
+    if args.deficient:
+        b[(args.deficient * n) // 8:] = 0.0
     config = SolverConfig(
         t=8, tol=0.0, max_iters=10 + 2 * args.iters, kernel=KernelConfig(backend="pallas"),
         comm=CommConfig(strategy=args.strategy),
         precondition=(dict(kind="block_jacobi", block=args.block)
                       if args.precondition == "block_jacobi" else args.precondition),
+        adaptive=args.adaptive,
     )
     if args.devices:
         mesh = VirtualMesh(args.devices // args.ppn, args.ppn, device=dev)
@@ -104,22 +118,27 @@ def main(argv=None) -> int:
     else:
         solver = ECGSolver.build(a, config=config, device=dev)
     b = solver._device_vec(b)  # the padded per-rank layout on a mesh
-    runner = solver._runner(solver.t)
-    carry = runner.init(b, torch.zeros_like(b))
+
+    def step(carry):
+        # a segmented solve runs each width's runner: the one of the active width
+        width = int(carry["ahist"][carry["k"]]) if solver._segmented else solver.t
+        return solver._runner(width).step(carry)
+
+    carry = solver._runner(solver.t).init(b, torch.zeros_like(b))
     for _ in range(10):
-        carry = runner.step(carry)
+        carry = step(carry)
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
     for _ in range(args.iters):
-        carry = runner.step(carry)
+        carry = step(carry)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.iters):
-            carry = runner.step(carry)
+            carry = step(carry)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
     if args.trace:
@@ -141,7 +160,9 @@ def main(argv=None) -> int:
         "n": a.shape[0], "t": 8, "iters": args.iters,
         "mesh": list(mesh.shape) if args.devices else None,
         "strategy": args.strategy if args.devices else "sequential",
-        "precondition": args.precondition,
+        "precondition": args.precondition, "adaptive": args.adaptive,
+        "deficient": args.deficient or None,
+        "active_width": int(carry["ahist"][carry["k"]]) if args.adaptive else 8,
         "wall_ms_per_iter": wall_ms,
         "profiled_wall_ms_per_iter": prof_wall_ms, "device_busy_ms_per_iter": busy_ms,
         "device_idle_share": 1.0 - busy_ms / prof_wall_ms if prof_wall_ms else None,
