@@ -143,6 +143,48 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     and ``reduce+restart``: each converges within phase 4's iterations + 2
     (no spurious drops), with its reduction events and restarts.
 
+Phases 21-28 run the pipelined and s-step schemes and the overlapped SpMBV
+at the same full scale.  Each solve sets the launch counts (and the mesh's
+counters) to 0 just before it, must converge with the true residual ≤
+10·tol, and logs its iterations (blocks for s-step) and ms per iteration:
+
+21. ``pipelined_sequential`` — ``method="pipelined"``: within 1% of phase
+    4's iterations; ``bsr_spmbv`` n_iters + 2 launches (r₀ and the AZ₀
+    seed), ``fused_gram``, ``ecg_tail`` and ``chol_apply`` n_iters; one
+    host synchronization per iteration.
+22. ``pipelined_block_jacobi_32_sequential`` — with block-Jacobi 32: within
+    1% of phase 13's; ``block_trisolve`` n_iters + 1, ``bsr_spmbv`` n_iters + 2.
+23. ``distributed_overlap_main_path`` — classic on the (2, 4) mesh with
+    ``CommConfig(overlap=True)`` (the interior/boundary split built on the
+    same partition): x, ``res_hist`` and the count equal to phase 8's bit for
+    bit, ``bsr_spmbv`` two launches per SpMBV (interior and boundary); one
+    SpMBV blocking against overlapped in turns (b, o, o, b), and the device
+    timeline of five overlapped SpMBVs (streams, and how long the exchange
+    ran beside ``bsr_spmbv`` on the other stream).
+24. ``pipelined_distributed`` and ``pipelined_distributed_overlap`` — the
+    mesh, blocking and overlapped: ``psum`` 3·k + 1, k + 2 exchanges, within
+    1% of phase 21's; the overlapped solve equal to the blocking one bit for
+    bit.
+25. ``sstep_s2_sequential``, ``sstep_s4_sequential`` — s-step at s = 2 and 4:
+    s·k ≤ 2 × phase 4's iterations (the reference sweep's gate),
+    ``rank_apply`` k launches at width s·t, ``bsr_spmbv`` s·k + 1, one host
+    synchronization per block.
+26. ``sstep_s2_distributed`` — s = 2 on the mesh: ``psum`` 3·k + 1, s·k + 1
+    exchanges, within 1% of phase 25's blocks.
+27. adaptive, on phase 18's deficient b: ``pipelined`` ``reduce``
+    sequential and on the mesh (segments [(8, 1), (4, k − 1)]), s-step s = 2
+    ``reduce`` and ``reduce+restart`` sequential; each ends with fewer than
+    8 active directions, ``rank_apply`` and ``drop_mask`` one launch per
+    step, ``chol_apply`` none.
+28. the kernels at this slice's shapes, as phase 3: ``rank_apply`` at
+    (n, 16) and (n, 32) ×2 in float64 on the first s-step block's monomial
+    basis (rank and pivot order equal to the plain version's), with a rank
+    deficit, with a NaN in G, and at (n, 32) in float32; ``drop_mask`` on
+    (8, 16) and (8, 32) coefficient blocks with a live mask that has holes
+    (exact); ``bsr_spmbv`` on the overlap split's interior and boundary
+    arrays.  The ``kernels`` line's ``rank_apply`` row gains its times at
+    s·t = 16 and 32.
+
 """
 
 from __future__ import annotations
@@ -163,6 +205,7 @@ ELEMENTS, BLOCK = (320, 256), 16  # Example 2.1 at full scale
 T = 8
 MAX_ITERS = 5000
 REPS, BATCHES = 10, 5
+SLOW_MS, SLOW_REPS, SLOW_BATCHES = 2.0, 2, 3
 
 
 def log(obj) -> None:
@@ -170,19 +213,28 @@ def log(obj) -> None:
 
 
 def time_ms(torch, fn) -> float:
-    """Median over BATCHES of the mean CUDA-event time of REPS back-to-back calls."""
-    for _ in range(3):
+    """Median over BATCHES of the mean CUDA-event time of REPS back-to-back
+    calls.  A call that takes over SLOW_MS (the host-bound plain and library
+    chains) is timed over SLOW_BATCHES batches of SLOW_REPS calls instead:
+    its spread is the host's, and more repeats only lengthen the run."""
+    for _ in range(2):
         fn()
     torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    reps, batches = (SLOW_REPS, SLOW_BATCHES) if start.elapsed_time(end) > SLOW_MS else (REPS, BATCHES)
     per_call = []
-    for _ in range(BATCHES):
+    for _ in range(batches):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(REPS):
+        for _ in range(reps):
             fn()
         end.record()
         end.synchronize()
-        per_call.append(start.elapsed_time(end) / REPS)
+        per_call.append(start.elapsed_time(end) / reps)
     return statistics.median(per_call)
 
 
@@ -759,6 +811,9 @@ def main() -> int:
     # equal in every run so far (2007 both); DG rounding may move it a little
     if not abs(k - seq["n_iters"]) <= max(1, 0.01 * seq["n_iters"]):
         raise AssertionError(f"distributed iterations {k} not within 1% of sequential {seq['n_iters']}")
+    # phase 24 holds the overlap schedule's solve to this one
+    d8 = {"n_iters": k, "x": dres.x.clone(), "res_hist": dres.res_hist.clone(),
+          "ms_per_iter": dsolve_s * 1e3 / max(k, 1)}
     del dres, x_glob
     torch.cuda.empty_cache()
 
@@ -1298,6 +1353,350 @@ def main() -> int:
             raise AssertionError(f"adaptive_full_rank {pol}: converged={r.converged} in {r.n_iters} "
                                  f"iterations, fixed width {seq['n_iters']}")
         del handle, r
+    torch.cuda.empty_cache()
+
+    # ---------------------------- 21.-27. the pipelined and s-step schemes, overlap
+    def scheme_solve(handle, phase, b_=None, tol_=None, mesh_=None, **extra):
+        """One full-scale solve with the launch counts (and the mesh's
+        counters) set to 0 just before it: converged and true residual ≤
+        10·tol, else it raises.  Returns the result, the launch counts, the
+        counters and the logged row (extended by the caller's gates)."""
+        b_ = b if b_ is None else b_
+        tol_ = tol if tol_ is None else tol_
+        kernels.reset_launch_counts()
+        if mesh_ is not None:
+            mesh_.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = handle.solve(b_)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        got = kernels.launch_counts()
+        counters = None if mesh_ is None else {
+            "psum": mesh_.psum_calls, "ppermute": mesh_.ppermute_calls}
+        x_ = torch.as_tensor(handle.unshard(r.x), device=dev) if mesh_ is not None else r.x
+        true_ = float(torch.linalg.norm(torch.as_tensor(b_, device=dev) - csr_spmv(a, x_)))
+        k_ = r.n_iters
+        mcfg = handle.config.method
+        row = {"phase": phase, "n": n, "t": T, "method": mcfg.name, "s": mcfg.s,
+               "reorth": mcfg.reorth, "overlap": handle.config.comm.overlap, "tol": tol_, **extra,
+               "converged": r.converged, "breakdown": r.breakdown, "n_iters": k_,
+               "iterations": mcfg.s * k_, "final_rn": float(r.res_hist[k_]), "true_residual": true_,
+               "solve_s": solve_s, "ms_per_iter": solve_s * 1e3 / max(mcfg.s * k_, 1),
+               "ms_per_step": solve_s * 1e3 / max(k_, 1), "launches": got, "mesh_counters": counters}
+        if r.active_hist is not None:
+            ah = np.asarray(r.active_hist)
+            row.update(active_hist_head=ah[:4].tolist(), active_final=int(ah[k_]),
+                       reduction_events=r.reduction_events()[:8], restarts=r.restarts,
+                       comm_segments=r.comm_segments)
+        if not (r.converged and true_ <= 10 * tol_):
+            log(row)
+            raise AssertionError(f"{phase}: converged={r.converged} breakdown={r.breakdown} in {k_} "
+                                 f"steps, true residual {true_} (10·tol {10 * tol_})")
+        return r, got, counters, row
+
+    def want_launches(**named):
+        return dict.fromkeys(seq_launches, 0) | named
+
+    def gate(phase, ok, what):
+        if not ok:
+            raise AssertionError(f"{phase}: {what}")
+
+    def one_sync_per_step(handle, phase, b_):
+        """The host calls of one steady-state step (iteration or block):
+        exactly one synchronization."""
+        runner = handle._runner(handle.t)
+        b_d = torch.as_tensor(b_, device=dev)
+        carry = runner.init(b_d, torch.zeros_like(b_d))
+        for _ in range(2):
+            carry = runner.step(carry)
+        calls = iteration_calls(torch, lambda: runner.step(carry))
+        gate(phase, calls["syncs"] == 1 and calls["sync_calls"].get("cudaStreamSynchronize") == 1,
+             f"one step synchronized {calls['sync_calls']}")
+        return calls
+
+    schemes = {}
+
+    # 21. pipelined, sequential
+    h = solver.with_config(method="pipelined")
+    r, got, _, row = scheme_solve(h, "pipelined_sequential", classic=seq["n_iters"])
+    k_ = r.n_iters
+    row["step_host_calls"] = one_sync_per_step(h, "pipelined_sequential", b)
+    log(row)
+    gate("pipelined_sequential", got == want_launches(bsr_spmbv=k_ + 2, fused_gram=k_, ecg_tail=k_,
+                                                      chol_apply=k_), f"launch counts {got}")
+    gate("pipelined_sequential", abs(k_ - seq["n_iters"]) <= max(1, 0.01 * seq["n_iters"]),
+         f"{k_} iterations not within 1% of classic's {seq['n_iters']}")
+    schemes["pipelined_sequential"] = row
+    del h, r
+    torch.cuda.empty_cache()
+
+    # 22. pipelined with block-Jacobi at the default block (32), sequential
+    h = solver.with_config(method="pipelined", precondition=prec_bj32)
+    r, got, _, row = scheme_solve(h, "pipelined_block_jacobi_32_sequential",
+                                  classic=pseq[32]["n_iters"])
+    k_ = r.n_iters
+    log(row)
+    gate("pipelined_block_jacobi_32_sequential",
+         got == want_launches(bsr_spmbv=k_ + 2, ecg_tail=k_, chol_apply=k_, block_trisolve=k_ + 1),
+         f"launch counts {got}")
+    gate("pipelined_block_jacobi_32_sequential",
+         abs(k_ - pseq[32]["n_iters"]) <= max(1, 0.01 * pseq[32]["n_iters"]),
+         f"{k_} iterations not within 1% of classic's {pseq[32]['n_iters']}")
+    schemes["pipelined_block_jacobi_32_sequential"] = row
+    del h, r
+    torch.cuda.empty_cache()
+
+    # 23. the overlap schedule's operator (the same partition): classic
+    # with overlap, phase 8's solve bit for bit
+    t0 = time.perf_counter()
+    osolver = dsolver.with_config(overlap=True)
+    torch.cuda.synchronize()
+    overlap_build_s = time.perf_counter() - t0
+    oop = osolver.op
+    n_int, n_bnd = (int(oop.split[f"{p_}_rows"].shape[1]) for p_ in ("int", "bnd"))
+    per_spmbv = (n_int > 0) + (n_bnd > 0)
+    log({"phase": "build_overlap", "build_s": overlap_build_s, "interior_rows_max": n_int,
+         "boundary_rows_max": n_bnd,
+         "interior_blocks": list(oop.split["int_blocks"].shape),
+         "boundary_blocks": list(oop.split["bnd_blocks"].shape)})
+
+    def mesh_gates(phase, k_, got, counters, spmbvs, psums, **named):
+        gate(phase, counters["psum"] == psums, f"psum ran {counters['psum']} times, want {psums}")
+        gate(phase, counters["ppermute"] == n_rot * spmbvs,
+             f"ppermute ran {counters['ppermute']} times, want {n_rot}·{spmbvs}")
+        halo = n_phases * spmbvs
+        gate(phase, got == want_launches(halo_pack=halo, halo_unpack=halo, **named),
+             f"launch counts {got}")
+
+    r, got, counters, row = scheme_solve(osolver, "distributed_overlap_main_path", mesh_=mesh,
+                                         strategy="optimal", blocking=d8["ms_per_iter"])
+    k_ = r.n_iters
+    same = k_ == d8["n_iters"] and torch.equal(r.x, d8["x"]) and np.array_equal(
+        r.res_hist.cpu().numpy(), d8["res_hist"].cpu().numpy(), equal_nan=True)
+    row["equals_blocking"] = same
+    # one SpMBV blocking against overlapped, in turns (b, o, o, b)
+    v_sh = dsolver.op.shard_vector(v_apply)
+    apply_b, apply_o = dsolver.op.matvec_fn(), oop.matvec_fn()
+    apply_times = [time_ms(torch, lambda: f(v_sh)) for f in (apply_b, apply_o, apply_o, apply_b)]
+    row["spmbv_ms"] = {"blocking": [apply_times[0], apply_times[3]],
+                       "overlap": [apply_times[1], apply_times[2]]}
+    from profile_torch_solve import kernel_events, timeline
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            apply_o(v_sh)
+        torch.cuda.synchronize()
+    line = timeline(kernel_events(prof))
+    row["overlap_timeline_us_per_spmbv"] = {"busy": line["busy_us"] / 5,
+                                            "concurrent": line["concurrent_us"] / 5,
+                                            "streams": len(line["per_stream_us"])}
+    log(row)
+    mesh_gates("distributed_overlap_main_path", k_, got, counters, k_ + 1, 3 * k_ + 1,
+               bsr_spmbv=per_spmbv * (k_ + 1), fused_gram=k_, ecg_tail=k_, chol_apply=k_)
+    gate("distributed_overlap_main_path", same, f"{k_} iterations, x and res_hist differ from "
+                                                f"the blocking solve's ({d8['n_iters']})")
+    schemes["distributed_overlap_main_path"] = row
+    del r
+    torch.cuda.empty_cache()
+
+    # 24. pipelined on the mesh, blocking then overlapped
+    pdist = {}
+    for handle, phase in ((dsolver.with_config(method="pipelined"), "pipelined_distributed"),
+                          (osolver.with_config(method="pipelined"), "pipelined_distributed_overlap")):
+        r, got, counters, row = scheme_solve(handle, phase, mesh_=mesh, strategy="optimal",
+                                             sequential=schemes["pipelined_sequential"]["n_iters"])
+        k_ = r.n_iters
+        per = per_spmbv if handle.config.comm.overlap else 1
+        if phase == "pipelined_distributed_overlap":
+            first = pdist["pipelined_distributed"]
+            row["equals_blocking"] = (k_ == first.n_iters and torch.equal(r.x, first.x)
+                                      and np.array_equal(r.res_hist.cpu().numpy(),
+                                                         first.res_hist.cpu().numpy(), equal_nan=True))
+        log(row)
+        mesh_gates(phase, k_, got, counters, k_ + 2, 3 * k_ + 1, bsr_spmbv=per * (k_ + 2),
+                   fused_gram=k_, ecg_tail=k_, chol_apply=k_)
+        pk = schemes["pipelined_sequential"]["n_iters"]
+        gate(phase, abs(k_ - pk) <= max(1, 0.01 * pk), f"{k_} iterations not within 1% of {pk}")
+        if phase == "pipelined_distributed_overlap":
+            gate(phase, row["equals_blocking"], "x and res_hist differ from the blocking solve's")
+        pdist[phase] = r
+        schemes[phase] = row
+        del handle
+    del pdist, r
+    torch.cuda.empty_cache()
+
+    # 25. s-step, sequential, s = 2 and 4
+    for s_, reorth in ((2, False), (4, False)):
+        phase = f"sstep_s{s_}_sequential" + ("_reorth" if reorth else "")
+        h = solver.with_config(method="sstep", s=s_, reorth=reorth)
+        r, got, _, row = scheme_solve(h, phase, classic=seq["n_iters"])
+        k_ = r.n_iters
+        row["step_host_calls"] = one_sync_per_step(h, phase, b)
+        log(row)
+        gate(phase, got == want_launches(bsr_spmbv=s_ * k_ + 1, rank_apply=(1 + reorth) * k_),
+             f"launch counts {got}")
+        gate(phase, s_ * k_ <= 2 * seq["n_iters"],
+             f"s·k = {s_ * k_} effective iterations, over twice classic's {seq['n_iters']}")
+        schemes[phase] = row
+        del h, r
+        torch.cuda.empty_cache()
+
+    # 26. s-step s = 2 on the mesh
+    phase = "sstep_s2_distributed"
+    r, got, counters, row = scheme_solve(dsolver.with_config(method="sstep", s=2), phase, mesh_=mesh,
+                                         strategy="optimal",
+                                         sequential=schemes["sstep_s2_sequential"]["n_iters"])
+    k_ = r.n_iters
+    log(row)
+    mesh_gates(phase, k_, got, counters, 2 * k_ + 1, 3 * k_ + 1, bsr_spmbv=2 * k_ + 1,
+               rank_apply=k_)
+    sk = schemes["sstep_s2_sequential"]["n_iters"]
+    gate(phase, abs(k_ - sk) <= max(1, 0.01 * sk), f"{k_} blocks not within 1% of {sk}")
+    gate(phase, 2 * k_ <= 2 * seq["n_iters"], f"s·k = {2 * k_} over twice {seq['n_iters']}")
+    schemes[phase] = row
+    del r
+    torch.cuda.empty_cache()
+
+    # 27. adaptive on the deficient b (phase 18's): pipelined reduce,
+    # sequential and on the mesh; s-step s = 2 reduce and reduce+restart
+    for handle, phase, mesh_ in (
+            (solver.with_config(tol=tol_def, adaptive="reduce", method="pipelined"),
+             "pipelined_adaptive_sequential", None),
+            (dsolver.with_config(tol=tol_def, adaptive="reduce", method="pipelined"),
+             "pipelined_adaptive_distributed", mesh),
+            (solver.with_config(tol=tol_def, adaptive="reduce", method="sstep", s=2),
+             "sstep_s2_adaptive_sequential", None),
+            (solver.with_config(tol=tol_def, adaptive="reduce+restart", method="sstep", s=2),
+             "sstep_s2_adaptive_restart_sequential", None)):
+        r, got, counters, row = scheme_solve(handle, phase, b_def, tol_def, mesh_)
+        k_ = r.n_iters
+        log(row)
+        gate(phase, row["active_final"] < T and row["active_hist_head"][:2] == [T, m_sub],
+             f"active_hist {row['active_hist_head']} … {row['active_final']}")
+        gate(phase, got["rank_apply"] == got["drop_mask"] == k_ and got["chol_apply"] == 0,
+             f"launch counts {got}, {k_} steps")
+        if mesh_ is not None:
+            gate(phase, r.comm_segments == [(T, 1), (m_sub, k_ - 1)], f"segments {r.comm_segments}")
+            gate(phase, counters["psum"] == 3 * k_ + 1, f"psum ran {counters['psum']} times")
+        schemes[phase] = row
+        del handle, r
+        torch.cuda.empty_cache()
+
+    # ------------------------- 28. the kernels at the s-step and overlap shapes
+    from repro_torch.core.enlarging import split_residual
+
+    def sstep_operands(s_, dtype, dependent=0):
+        """V = [R, AR, …, A^{s−1}R] of the main path's split residual and AV
+        = A·V by the sequential Block-ELL apply: the first block's monomial
+        basis (its last ``dependent`` columns replaced by combinations of
+        the others: a rank deficit)."""
+        cur = split_residual(b_dev, T)
+        vs, avs = [], []
+        for _ in range(s_):
+            nxt = solver._apply(cur)
+            vs.append(cur)
+            avs.append(nxt)
+            cur = nxt
+        v, av = torch.cat(vs, dim=1), torch.cat(avs, dim=1)
+        if dependent:
+            mix = randn(s_ * T - dependent, dependent, dtype=torch.float64)
+            v[:, -dependent:] = v[:, :-dependent] @ mix
+            av[:, -dependent:] = av[:, :-dependent] @ mix
+        return v.to(dtype).contiguous(), av.to(dtype).contiguous()
+
+    rank_rows = {}
+    for st_, dtype, dep, nan, what in ((16, torch.float64, 0, False, "s-step gram, s=2"),
+                                       (32, torch.float64, 0, False, "s-step gram, s=4"),
+                                       (32, torch.float64, 8, False, "s-step gram, s=4, rank deficit"),
+                                       (32, torch.float64, 0, True, "s-step gram, s=4, NaN in G"),
+                                       (32, torch.float32, 0, False, "s-step gram, s=4, float32")):
+        zr, azr = sstep_operands(st_ // T, dtype, dep)
+        row = run_rank_check(zr, azr, what, rank=0 if nan else None, nan=nan)
+        if dep:
+            gate("rank_apply_check", row["rank"] <= st_ - dep, f"rank {row['rank']} with {dep} "
+                                                                f"dependent columns")
+        if dtype == torch.float64 and not dep and not nan:
+            rank_rows[st_] = row
+        del zr, azr
+        torch.cuda.empty_cache()
+
+    def run_drop_check_live(k, live, policy, what):
+        """``drop_mask`` on a (t, k) transposed coefficient block with a
+        live mask that has holes (s-step's carried seed mask): mask and
+        counts equal to the plain version's."""
+        gen_c = torch.Generator().manual_seed(13 + k)
+        ct = torch.randn(T, k, generator=gen_c, dtype=torch.float64)
+        ct /= ct.norm(dim=1, keepdim=True)
+        ct *= 10.0 ** torch.linspace(-4, 2, T)[torch.randperm(T, generator=gen_c)][:, None]
+        c = ct.to(dev)
+        act = torch.tensor(live, dtype=torch.bool, device=dev)
+        rank = torch.tensor(k - 1, dtype=torch.int32, device=dev)
+        kernel = lambda: kernels.drop_mask(c, rank, 1.0, policy, live=act)
+        (mask, counts), (w_mask, w_counts) = kernel(), drop_mask_ref(c, rank, 1.0, policy, live=act)
+        gate("drop_mask_check", torch.equal(mask, w_mask) and torch.equal(counts, w_counts),
+             f"{what}: {mask.tolist()} {counts.tolist()} against {w_mask.tolist()} {w_counts.tolist()}")
+        bytes_ = T * k * 8 + 4 + T + (T + 2) * 8
+        flops = 2 * T * k
+        bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+        flops_ms = flops / PEAK_FLOPS["float64"] * 1e3
+        row = {"name": "drop_mask", "what": what, "shape": [T, k], "dtype": "float64",
+               "live": list(live), "mask": mask.tolist(), "counts": counts.tolist(),
+               "max_abs_err": 0.0, "tol": 0.0, "kernel_ms": time_ms(torch, kernel),
+               "kernel_graph_ms": time_graph_ms(torch, kernel),
+               "plain_ms": time_ms(torch, lambda: drop_mask_ref(c, rank, 1.0, policy, live=act)),
+               "library_ms": None, "bound_ms": max(bytes_ms, flops_ms),
+               "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+        log(row)
+        return row
+
+    for k, live in ((16, (1, 0, 1, 1, 0, 1, 1, 1)), (32, (0, 1, 1, 1, 1, 1, 0, 1))):
+        run_drop_check_live(k, live, resolve_policy("reduce"), f"s-step (t, {k}), holes")
+        run_drop_check_live(k, live, ReductionPolicy(drop_tol=0.3, min_t=3),
+                            f"s-step (t, {k}), holes, drop_tol=0.3, min_t=3")
+
+    def check_bsr_part(part):
+        """``bsr_spmbv`` on the overlap split's interior (V the own rows)
+        or boundary (V [own ‖ halo]) arrays, as ``_part_spmbv`` calls it."""
+        def make(t, dtype):
+            view = oop._split_views()[part]
+            blk, idx = view["blocks"].to(dtype), view["indices"]
+            nbr, kmax, br, bc = blk.shape
+            v = randn(p_ranks * view["operand_rows"], t, dtype=dtype)
+            plain = lambda blk_, v_: bsr_spmbv_ref(blk_, idx, v_)
+            kernel = lambda: kernels.bsr_spmbv(blk, idx, v)
+            es = blk.element_size()
+            csr = torch.sparse_csr_tensor(*part_csr[part], size=(nbr * br, v.shape[0]))
+            # V's bytes: the rows the tiles reference (the boundary rows
+            # touch the halo and a few own rows, not all of V)
+            v_rows = int(torch.unique(idx).numel()) * bc
+            return (plain, (blk, v), kernel, lambda: torch.sparse.mm(csr, v),
+                    plain(blk.abs(), v.abs()), kmax * bc,
+                    blk.numel() * es + idx.numel() * 4 + (v_rows + nbr * br) * t * es,
+                    2 * blk.numel() * t, list(blk.shape) + [t],
+                    spmbv_plan(nbr, br, bc, t, nbr * br, dtype, sms).path)
+        return make
+
+    # the library yardstick: the same tiles as one CSR matrix (explicit zeros dropped)
+    part_csr = {}
+    for part in ("int", "bnd"):
+        view = oop._split_views()[part]
+        blk, idx = view["blocks"], view["indices"]
+        nbr, kmax, br, bc = blk.shape
+        vals = blk.permute(0, 2, 1, 3).reshape(nbr * br, kmax * bc)
+        cols = (idx.long()[:, None, :, None] * bc + torch.arange(bc, device=dev)).expand(
+            nbr, br, kmax, bc).reshape(nbr * br, kmax * bc)
+        nz = vals != 0
+        crow = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), nz.sum(1).cumsum(0)])
+        part_csr[part] = (crow, cols[nz], vals[nz])
+    if n_int:
+        run_check("bsr_spmbv_interior", check_bsr_part("int"), T, torch.float64)
+    run_check("bsr_spmbv_boundary", check_bsr_part("bnd"), T, torch.float64)
+    del part_csr, osolver, oop, apply_b, apply_o, v_sh
+    log({"phase": "schemes", "summary": {
+        ph: {k_: row.get(k_) for k_ in ("n_iters", "iterations", "ms_per_iter", "ms_per_step",
+                                        "true_residual")} for ph, row in schemes.items()}})
     del solver, dsolver, a
     torch.cuda.empty_cache()
 
@@ -1326,14 +1725,22 @@ def main() -> int:
     launches = {**seq_launches, "halo_pack": dlaunches["halo_pack"], "halo_unpack": dlaunches["halo_unpack"],
                 "block_trisolve": pseq[BLOCK]["launches"]["block_trisolve"], "block_update": 0,
                 "rank_apply": alaunches["rank_apply"], "drop_mask": alaunches["drop_mask"]}
-    log({"kernels": [
+    rows = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": checks[name]["max_abs_err"],
          "ms": checks[name]["kernel_ms"], "plain_ms": checks[name]["plain_ms"],
          "bound_ms": checks[name]["bound_ms"], "bound_by": checks[name]["bound_by"],
          "library_ms": checks[name]["library_ms"]}
         for name, (src, replaces) in sources.items()
-    ]})
+    ]
+    # rank_apply also at the s-step scheme's widths s·t (phase 28), with its
+    # launches in the s = 2 and s = 4 solves (phase 25)
+    rows[list(sources).index("rank_apply")]["widths"] = [
+        {"t": st_, "launches": schemes[f"sstep_s{st_ // T}_sequential"]["launches"]["rank_apply"],
+         **{k_: rank_rows[st_][k_] for k_ in ("max_abs_err", "plain_ms", "bound_ms", "bound_by",
+                                              "library_ms")}, "ms": rank_rows[st_]["kernel_ms"]}
+        for st_ in (16, 32)]
+    log({"kernels": rows})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
     return 0

@@ -12,6 +12,12 @@ Communication-efficient Grigori–Tissot form, per iteration:
     X   += P c ;  R -= AP c
     Z    = AP − P d − P_old d_old
 
+That is the *classic* scheme, one of three (:mod:`repro_torch.core.methods`):
+``pipelined`` makes the packed Gram reduction independent of the SpMBV by
+an AZ recurrence, and ``sstep`` amortizes both reductions over s SpMBV
+sweeps with a rank-revealing safeguard.  This module runs any
+of them.
+
 Backend switch: ``backend="jnp"`` runs the Gram products and the tail as
 plain torch ops; ``backend="pallas"`` routes them through the hand-written
 CUDA kernels ``fused_gram`` and ``ecg_tail`` (their plain versions on CPU
@@ -42,8 +48,8 @@ class ECGRunner:
 
     ``init(b, x0) -> carry`` builds the initial loop carry (initial residual
     SpMV, splitting, norm); ``step(carry) -> carry`` is one raw, unguarded
-    iteration of Algorithm 3; ``run(carry) -> carry`` is the
-    breakdown-guarded loop to convergence.
+    iteration of the scheme (a block of ``s`` for s-step); ``run(carry) ->
+    carry`` is the breakdown-guarded loop to convergence.
     """
 
     t: int
@@ -53,6 +59,7 @@ class ECGRunner:
     step: Callable
     run: Callable
     method: str = "classic"
+    s: int = 1
 
 
 def _plain_gram2(p, r, ap, apo):
@@ -83,6 +90,9 @@ def make_ecg_runner(
     policy=None,
     a_apply_masked: Callable | None = None,
     exit_below_width: int | None = None,
+    s: int = 1,
+    reorth: bool = False,
+    rank_rtol: float | None = None,
 ) -> ECGRunner:
     """Build the ECG iteration machinery for one fixed configuration.
 
@@ -112,9 +122,19 @@ def make_ecg_runner(
     re-slice the exchange at the narrower width and resume from the carry.
     The port has no ``chol_eps`` regularization, which the reference refuses
     together with a policy.
+
+    ``method`` selects the iteration scheme ("classic" | "pipelined" |
+    "sstep", see :mod:`repro_torch.core.methods`); ``s``/``reorth``/
+    ``rank_rtol`` parameterize the s-step scheme (inner-step count,
+    per-block Cholesky-QR2 second pass, pivot threshold of its
+    rank-revealing factorization).  Every scheme resumes from a carry
+    (``run``), which is how the segmented solve continues at a narrower
+    exchange width.
     """
     if backend not in ("jnp", "pallas"):
         raise ValueError(f"unknown backend {backend!r}")
+    if not isinstance(s, int) or s < 1:
+        raise ValueError(f"s must be an int >= 1, got {s!r}")
     spec = get_method(method)
     if gram1 is None:
         gram1 = lambda z, az: allreduce(z.T @ az)
@@ -138,7 +158,9 @@ def make_ecg_runner(
         gram1=gram1, gram2=gram2, sqnorm=sqnorm, tail=tail,
         precond=precond, gram2p=gram2p, precond_reseed=precond_reseed,
         policy=policy, use_mask=use_mask, a_apply_masked=a_apply_masked,
+        s=s, reorth=reorth, rank_rtol=rank_rtol,
     )
+    spec.validate(ctx)
     init, iterate = spec.build(ctx)
 
     def cond(c):
@@ -155,7 +177,7 @@ def make_ecg_runner(
 
     return ECGRunner(
         t=t, tol=tol, max_iters=max_iters, init=init, step=iterate, run=run,
-        method=spec.name,
+        method=spec.name, s=s,
     )
 
 

@@ -1,25 +1,21 @@
-"""Pluggable ECG iteration schemes; the port registers ``classic`` so far."""
+"""Pluggable ECG iteration schemes (classic / pipelined / s-step)."""
 
 from __future__ import annotations
 
 from repro_torch.core.methods.base import MethodContext, MethodSpec
 from repro_torch.core.methods.classic import ClassicMethod
+from repro_torch.core.methods.pipelined import PipelinedMethod
+from repro_torch.core.methods.sstep import SStepMethod
 
 METHODS: dict[str, MethodSpec] = {
     "classic": ClassicMethod(),
+    "pipelined": PipelinedMethod(),
+    "sstep": SStepMethod(),
 }
-
-#: reference schemes the port does not carry yet, and the ROADMAP item
-#: that brings them
-NOT_PORTED = {"pipelined": "queue 1 item 7", "sstep": "queue 1 item 7"}
 
 
 def get_method(name: str) -> MethodSpec:
     """Look up an iteration scheme by name."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"method {name!r} is not ported yet (ROADMAP.md {NOT_PORTED[name]})"
-        )
     try:
         return METHODS[name]
     except KeyError:
@@ -28,4 +24,12 @@ def get_method(name: str) -> MethodSpec:
         ) from None
 
 
-__all__ = ["METHODS", "MethodContext", "MethodSpec", "ClassicMethod", "get_method"]
+__all__ = [
+    "METHODS",
+    "MethodContext",
+    "MethodSpec",
+    "ClassicMethod",
+    "PipelinedMethod",
+    "SStepMethod",
+    "get_method",
+]

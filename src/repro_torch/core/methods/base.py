@@ -60,6 +60,11 @@ class MethodContext:
     residual every that-many iterations: the chain ``Z' = W − Pd −
     P_old d_old`` never re-reads the residual, so an iteration-varying M⁻¹ₖ
     needs this flexible restart (Notay, SISC 22(4), 2000).
+
+    ``s``, ``reorth`` and ``rank_rtol`` parameterize the s-step scheme: its
+    inner-step count, its per-block Cholesky-QR2 second pass and the pivot
+    threshold of its rank-revealing factorization (None defers to the
+    policy's threshold or the dtype default).
     """
 
     t: int
@@ -76,12 +81,32 @@ class MethodContext:
     policy: object = None
     use_mask: bool = False
     a_apply_masked: Callable | None = None
+    s: int = 1
+    reorth: bool = False
+    rank_rtol: float | None = None
 
 
 class MethodSpec:
-    """One iteration scheme: loop closures + collective accounting."""
+    """One iteration scheme: loop closures + collective accounting.
+
+    ``overlaps_gram`` declares that the packed Gram reduction reads nothing
+    the iteration's SpMBV writes (the pipelining invariant).
+    """
 
     name: str = "?"
+    overlaps_gram: bool = False
+
+    def validate(self, ctx: MethodContext) -> None:
+        """Raise ``ValueError`` for context options this scheme cannot run."""
+        if ctx.s != 1:
+            raise ValueError(
+                f"method {self.name!r} has no inner-step count; s={ctx.s} "
+                "only applies to method 'sstep'"
+            )
+        if ctx.reorth:
+            raise ValueError(
+                "reorth (per-block Cholesky-QR2) only applies to method 'sstep'"
+            )
 
     def build(self, ctx: MethodContext):
         """Return ``(init, step)``: ``init(b, x0) -> carry`` and one raw,
@@ -96,6 +121,10 @@ class MethodSpec:
         """Allreduce-shaped reductions one ``step`` call issues (the
         convergence-norm reduction is excluded)."""
         return 2
+
+    def psum_payload_floats(self, t: int, s: int = 1, reorth: bool = False) -> int:
+        """Total floats those reductions carry (t² + 3t² for the classic shape)."""
+        return 4 * t * t
 
     def collectives_per_iteration(self, s: int = 1, reorth: bool = False) -> float:
         return self.psums_per_block(s, reorth) / self.iters_per_block(s)

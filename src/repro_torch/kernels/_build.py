@@ -50,7 +50,7 @@ SIGNATURES = {
     "block_trisolve": [_P, _P, _P, _L, _I, _I, _L, _L, _P],
     "chol_apply": [_P] * 5 + [_L, _I, _P],
     "rank_apply": [_P] * 5 + [_L, _I, _D, _P, _P, _P],
-    "drop_mask": [_P, _L, _P, _D, _D, _I, _I, _P, _P, _P],
+    "drop_mask": [_P, _L, _I, _P, _P, _D, _D, _I, _I, _P, _P, _P],
     "block_update": [_P] * 7 + [_L, _I, _P],
 }
 #: the source, ``csrc/<source>.cu``, that exports each kernel function

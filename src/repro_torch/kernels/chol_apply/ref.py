@@ -87,12 +87,15 @@ def rank_apply_dense(g: torch.Tensor, *mats: torch.Tensor, rtol: float):
     return (*outs, rank, perm.to(torch.int32))
 
 
-def drop_mask_ref(c: torch.Tensor, rank: torch.Tensor, rn: float, policy):
-    """The stagnation drop on the directions the factorization kept:
-    :func:`repro_torch.adaptive.reduce.stagnation_mask` of ``arange(t) <
-    rank``.  Returns the column mask in c's dtype and [rank, active count]
-    in c's dtype (the values the iteration copies to the host)."""
+def drop_mask_ref(c: torch.Tensor, rank: torch.Tensor, rn: float, policy, live=None):
+    """The stagnation drop on the live directions: :func:`repro_torch.
+    adaptive.reduce.stagnation_mask` of ``live``, or of ``arange(t) < rank``
+    (the directions the factorization kept) when ``live`` is None.  Returns
+    the column mask in c's dtype and [rank, active count] in c's dtype (the
+    values the iteration copies to the host)."""
     from repro_torch.adaptive.reduce import stagnation_mask
 
-    active = stagnation_mask(c, rn, torch.arange(c.shape[0], device=c.device) < rank, policy)
+    if live is None:
+        live = torch.arange(c.shape[0], device=c.device) < rank
+    active = stagnation_mask(c, rn, live, policy)
     return active.to(c.dtype), torch.stack([rank.to(c.dtype), active.sum().to(c.dtype)])

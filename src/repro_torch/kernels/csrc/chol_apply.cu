@@ -32,8 +32,11 @@
 // Two more kernel functions serve the adaptive solver (a ReductionPolicy):
 //
 // rank_apply — the rank-revealing apply of src/repro/adaptive/rankrev.py
-// (``rank_revealing_apply``, no Pallas kernel: XLA ops there).  Every CTA
-// first factors the t×t G with diagonal pivoting in shared memory, one warp,
+// (``rank_revealing_apply``, no Pallas kernel: XLA ops there), for t <= 32:
+// the classic and pipelined schemes call it at t (under a policy), the
+// s-step scheme on every block at s·t (16 and 32 at t = 8, s = 2 and 4).
+// Every CTA first factors the t×t G with diagonal pivoting in shared
+// memory, one warp,
 // in the order of the plain version (``adaptive/rankrev.py``
 // ``pivoted_cholesky``): the largest remaining diagonal as pivot (a NaN
 // first, ties to the lower index, as ``jnp.argmax``), a swap by
@@ -45,12 +48,17 @@
 // read in pivot order from the staged tile, solved against L with dead
 // pivots set to 1 on the diagonal, and written as y_j·(j < rank).  CTA 0
 // writes rank and perm.  Bytes and grid are chol_apply's; a G holding NaN
-// gives thresh = NaN, rank 0 and zero blocks, as the reference.
+// gives thresh = NaN, rank 0 and zero blocks, as the reference.  Its shared
+// memory is dynamic (76 KB a CTA at t = 32 in float64, see RankSmem); the
+// factorization's t pivot steps (a butterfly and a t-column update each)
+// grow as t², the row pass's substitution as t²/2 multiply-adds a row.
 //
 // drop_mask — the flexible-ECG stagnation drop of src/repro/adaptive/
-// reduce.py (``stagnation_mask``, no Pallas kernel either) on the t×t step
-// coefficients c and that rank: one warp, a lane per direction, writes the
-// column mask and [rank, active count] for the iteration's one host copy.
+// reduce.py (``stagnation_mask``, no Pallas kernel either) on the (t, k)
+// step coefficients c (k = t for classic and pipelined, s·t for s-step's
+// transposed coefficient block) and the live directions (the first rank, or
+// a given mask): one warp, a lane per direction, writes the column mask and
+// [rank, active count] for the iteration's one host copy.
 
 #include <algorithm>
 
@@ -207,18 +215,19 @@ __device__ __forceinline__ bool sorts_before(T a, T b) {
 }
 
 // Diagonally pivoted Cholesky of the t×t G by one warp (see the head of the
-// file).  sa: the Schur complement, sl: L (row-major), sperm: the pivot
+// file).  sa: the Schur complement, sl: L (row-major), both with row stride
+// kS (odd, so a lane per row meets no bank conflict), sperm: the pivot
 // order, all in shared memory.  Returns the rank.
-template <typename T, int TT>
+template <typename T, int TT, int kS>
 __device__ int pivoted_factor(const T* __restrict__ g, T rtol, T* sa, T* sl, int* sperm, int lane) {
   for (int e = lane; e < TT * TT; e += 32) {
-    sa[e] = g[e];
-    sl[e] = T(0);
+    sa[(e / TT) * kS + e % TT] = g[e];
+    sl[(e / TT) * kS + e % TT] = T(0);
   }
   if (lane < TT) sperm[lane] = lane;
   __syncwarp();
   // thresh = rtol · max(max diag G, 0); a NaN on the diagonal makes it NaN
-  T m = lane < TT ? sa[lane * TT + lane] : -inf<T>();
+  T m = lane < TT ? sa[lane * kS + lane] : -inf<T>();
   for (int off = 16; off; off >>= 1) {
     const T o = __shfl_xor_sync(kFull, m, off);
     m = isnan(m) ? m : (isnan(o) || o > m ? o : m);
@@ -228,7 +237,7 @@ __device__ int pivoted_factor(const T* __restrict__ g, T rtol, T* sa, T* sl, int
 #pragma unroll 1
   for (int k = 0; k < TT; ++k) {
     // pivot: the largest remaining diagonal entry (rows/columns >= k)
-    T d = (lane < TT && lane >= k) ? sa[lane * TT + lane] : -inf<T>();
+    T d = (lane < TT && lane >= k) ? sa[lane * kS + lane] : -inf<T>();
     int j = lane;
     for (int off = 16; off; off >>= 1) {
       const T od = __shfl_xor_sync(kFull, d, off);
@@ -240,18 +249,18 @@ __device__ int pivoted_factor(const T* __restrict__ g, T rtol, T* sa, T* sl, int
     }
     if (j != k) {  // the transposition k <-> j of G's rows and columns, L's rows, perm
       if (lane < TT) {
-        const T x = sa[lane * TT + k];
-        sa[lane * TT + k] = sa[lane * TT + j];
-        sa[lane * TT + j] = x;
+        const T x = sa[lane * kS + k];
+        sa[lane * kS + k] = sa[lane * kS + j];
+        sa[lane * kS + j] = x;
       }
       __syncwarp();
       if (lane < TT) {
-        const T x = sa[k * TT + lane];
-        sa[k * TT + lane] = sa[j * TT + lane];
-        sa[j * TT + lane] = x;
-        const T y = sl[k * TT + lane];
-        sl[k * TT + lane] = sl[j * TT + lane];
-        sl[j * TT + lane] = y;
+        const T x = sa[k * kS + lane];
+        sa[k * kS + lane] = sa[j * kS + lane];
+        sa[j * kS + lane] = x;
+        const T y = sl[k * kS + lane];
+        sl[k * kS + lane] = sl[j * kS + lane];
+        sl[j * kS + lane] = y;
       }
       if (lane == 0) {
         const int p = sperm[k];
@@ -260,17 +269,17 @@ __device__ int pivoted_factor(const T* __restrict__ g, T rtol, T* sa, T* sl, int
       }
       __syncwarp();
     }
-    const T pivot = sa[k * TT + k];
+    const T pivot = sa[k * kS + k];
     const bool ok = pivot > thresh;
     const T root = sqrt(ok ? pivot : T(1));
     T col = T(0);  // a dependent direction: a zero column
-    if (ok && lane < TT) col = lane > k ? sa[lane * TT + k] / root : (lane == k ? root : T(0));
+    if (ok && lane < TT) col = lane > k ? sa[lane * kS + k] / root : (lane == k ? root : T(0));
     __syncwarp();  // column k is read before the update overwrites it
-    if (lane < TT) sl[lane * TT + k] = col;
+    if (lane < TT) sl[lane * kS + k] = col;
 #pragma unroll
     for (int c = 0; c < TT; ++c) {  // the Schur complement update
       const T cc = __shfl_sync(kFull, col, c);
-      if (lane < TT) sa[lane * TT + c] = sub_rn(sa[lane * TT + c], mul_rn(col, cc));
+      if (lane < TT) sa[lane * kS + c] = sub_rn(sa[lane * kS + c], mul_rn(col, cc));
     }
     rank += ok;
     __syncwarp();
@@ -278,20 +287,37 @@ __device__ int pivoted_factor(const T* __restrict__ g, T rtol, T* sa, T* sl, int
   return rank;
 }
 
+// rank_apply's shared memory, all of it dynamic: each warp's tile buffer
+// (32 rows of kStride values), L (TT rows of kStride values), the column mask
+// and the pivot order.  The Schur complement of the factorization lives in
+// warp 0's tile buffer (TT·kStride <= 32·kStride values), which warp 0 does
+// not fill before the factorization ends.  At TT = 32 in float64 that is
+// 76 416 bytes a CTA, above the 48 KB a launch gets without opting in.
+template <typename T, int TT>
+struct RankSmem {
+  static constexpr int kStride = TT % 2 ? TT : TT + 1;  // odd: no bank conflict on rows
+  static constexpr int kWarps = repro::kThreads / 32;
+  static constexpr int kTile = 32 * kStride;
+  static constexpr size_t kBytes =
+      (static_cast<size_t>(kWarps) * kTile + TT * kStride + TT) * sizeof(T) + TT * sizeof(int);
+};
+
 template <typename T, int TT>
 __global__ void __launch_bounds__(repro::kThreads) rank_apply_kernel(
     const T* __restrict__ g, const T* __restrict__ m0, T* __restrict__ y0,
     const T* __restrict__ m1, T* __restrict__ y1, long long rows, int nmat, T rtol,
     int* __restrict__ rank_out, int* __restrict__ perm_out) {
-  constexpr int kStride = TT % 2 ? TT : TT + 1;  // odd: a lane's row meets no bank conflict
-  __shared__ T sa[TT * TT];
-  __shared__ T sl[TT * TT];
-  __shared__ T smask[TT];
-  __shared__ int sperm[TT];
-  __shared__ T buf[repro::kThreads / 32][32 * kStride];
+  using S = RankSmem<T, TT>;
+  constexpr int kStride = S::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const bufs = reinterpret_cast<T*>(smem_raw);
+  T* const sl = bufs + S::kWarps * S::kTile;
+  T* const smask = sl + TT * kStride;
+  int* const sperm = reinterpret_cast<int*>(smask + TT);
+  T* const sa = bufs;  // warp 0's tile buffer, free until the factorization ends
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  T* b = buf[warp];
+  T* b = bufs + warp * S::kTile;
   const long long per = (rows + 31) / 32;  // warp tiles per block
   const long long tiles = nmat * per;
   const long long wstride = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
@@ -305,10 +331,10 @@ __global__ void __launch_bounds__(repro::kThreads) rank_apply_kernel(
     staged = true;
   }
   if (warp == 0) {
-    const int rank = pivoted_factor<T, TT>(g, rtol, sa, sl, sperm, lane);
+    const int rank = pivoted_factor<T, TT, kStride>(g, rtol, sa, sl, sperm, lane);
     if (lane < TT) {
       smask[lane] = lane < rank ? T(1) : T(0);
-      if (lane >= rank) sl[lane * TT + lane] += T(1);  // unit-ized dead pivots
+      if (lane >= rank) sl[lane * kStride + lane] += T(1);  // unit-ized dead pivots
       if (blockIdx.x == 0) perm_out[lane] = sperm[lane];
     }
     if (blockIdx.x == 0 && lane == 0) *rank_out = rank;
@@ -330,8 +356,8 @@ __global__ void __launch_bounds__(repro::kThreads) rank_apply_kernel(
     for (int j = 0; j < TT; ++j) {
       T acc = v[j];
 #pragma unroll
-      for (int i = 0; i < j; ++i) acc -= v[i] * sl[j * TT + i];
-      v[j] = acc / sl[j * TT + j];
+      for (int i = 0; i < j; ++i) acc -= v[i] * sl[j * kStride + i];
+      v[j] = acc / sl[j * kStride + j];
     }
 #pragma unroll
     for (int j = 0; j < TT; ++j) b[lane * kStride + j] = v[j] * smask[j];
@@ -341,20 +367,25 @@ __global__ void __launch_bounds__(repro::kThreads) rank_apply_kernel(
   }
 }
 
-template <typename T, int TT>
+// One warp, a lane per direction (row of c): t <= 32 directions scored over
+// k <= 32 coefficients each.  The live directions are live[0..t) when the
+// caller passes that mask (s-step's carried seed mask, which may have
+// holes), else the first rank (the pivoted factorization's, whose dead
+// directions are the trailing ones).
+template <typename T>
 __global__ void __launch_bounds__(32) drop_mask_kernel(
-    const T* __restrict__ c, long long ldc, const int* __restrict__ rank, T rn, T tau, int min_t,
-    T* __restrict__ mask, T* __restrict__ counts) {
+    const T* __restrict__ c, long long ldc, int k, int t, const int* __restrict__ rank,
+    const unsigned char* __restrict__ live_in, T rn, T tau, int min_t, T* __restrict__ mask,
+    T* __restrict__ counts) {
   const int lane = threadIdx.x;
   const int r = *rank;
-  const bool live = lane < TT && lane < r;
+  const bool live = lane < t && (live_in ? live_in[lane] != 0 : lane < r);
   bool keep = live;
   if (tau != T(0)) {
     // direction i's share of the A-norm error drop, ‖c_{i,:}‖², against τ²·rn²
     T score = T(0);
-    if (lane < TT) {
-#pragma unroll
-      for (int j = 0; j < TT; ++j) {
+    if (lane < t) {
+      for (int j = 0; j < k; ++j) {
         const T x = c[lane * ldc + j];
         score = add_rn(score, mul_rn(x, x));
       }
@@ -364,15 +395,14 @@ __global__ void __launch_bounds__(32) drop_mask_kernel(
     // the direction's place in a stable ascending sort of the live scores
     const T key = live ? score : inf<T>();
     int pos = 0;
-#pragma unroll
-    for (int j = 0; j < TT; ++j) {
+    for (int j = 0; j < t; ++j) {
       const T kj = __shfl_sync(kFull, key, j);
       pos += j != lane && (sorts_before(kj, key) || (!sorts_before(key, kj) && j < lane));
     }
     keep = live && !(stagnant && pos < max_drops);
   }
   const int n_active = __popc(__ballot_sync(kFull, keep));
-  if (lane < TT) mask[lane] = keep ? T(1) : T(0);
+  if (lane < t) mask[lane] = keep ? T(1) : T(0);
   if (lane == 0) {
     counts[0] = static_cast<T>(r);
     counts[1] = static_cast<T>(n_active);
@@ -383,9 +413,17 @@ template <typename T, int TT>
 int launch_rank_t(const void* g, const void* m0, void* y0, const void* m1, void* y1,
                   long long rows, double rtol, void* rank, void* perm, void* stream) {
   auto kernel = rank_apply_kernel<T, TT>;
+  constexpr size_t smem = RankSmem<T, TT>::kBytes;
+  // opt in to the dynamic shared memory above 48 KB, then ask for the
+  // resident CTAs per SM at that size; both once per instance
+  static const cudaError_t opt_in =
+      smem > 48 * 1024 ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              static_cast<int>(smem))
+                       : cudaSuccess;
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
   static const int per_sm = [&] {
     int n = 0;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, repro::kThreads, 0) ==
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, repro::kThreads, smem) ==
                    cudaSuccess && n > 0
                ? n
                : 1;
@@ -399,7 +437,7 @@ int launch_rank_t(const void* g, const void* m0, void* y0, const void* m1, void*
   // at least one CTA: it writes rank and perm even for an empty block
   const long long grid = std::max(1LL, std::min(repro::cdiv(warps, repro::kThreads / 32),
                                                 static_cast<long long>(sms) * per_sm));
-  kernel<<<static_cast<unsigned>(grid), repro::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned>(grid), repro::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(g), static_cast<const T*>(m0), static_cast<T*>(y0),
       static_cast<const T*>(m1), static_cast<T*>(y1), rows, nmat, static_cast<T>(rtol),
       static_cast<int*>(rank), static_cast<int*>(perm));
@@ -417,36 +455,30 @@ int launch_rank(const void* g, const void* m0, void* y0, const void* m1, void* y
     REPRO_RANK_T(5) REPRO_RANK_T(6) REPRO_RANK_T(7) REPRO_RANK_T(8)
     REPRO_RANK_T(9) REPRO_RANK_T(10) REPRO_RANK_T(11) REPRO_RANK_T(12)
     REPRO_RANK_T(13) REPRO_RANK_T(14) REPRO_RANK_T(15) REPRO_RANK_T(16)
+    REPRO_RANK_T(17) REPRO_RANK_T(18) REPRO_RANK_T(19) REPRO_RANK_T(20)
+    REPRO_RANK_T(21) REPRO_RANK_T(22) REPRO_RANK_T(23) REPRO_RANK_T(24)
+    REPRO_RANK_T(25) REPRO_RANK_T(26) REPRO_RANK_T(27) REPRO_RANK_T(28)
+    REPRO_RANK_T(29) REPRO_RANK_T(30) REPRO_RANK_T(31) REPRO_RANK_T(32)
 #undef REPRO_RANK_T
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename T>
-int launch_drop(const void* c, long long ldc, const void* rank, double rn, double tau, int min_t,
-                int t, void* mask, void* counts, void* stream) {
-  auto go = [&](auto kernel) {
-    kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(c), ldc, static_cast<const int*>(rank), static_cast<T>(rn),
-        static_cast<T>(tau), min_t, static_cast<T*>(mask), static_cast<T*>(counts));
-    return repro::launch_status();
-  };
-  switch (t) {
-#define REPRO_DROP_T(TT) \
-  case TT: return go(drop_mask_kernel<T, TT>);
-    REPRO_DROP_T(1) REPRO_DROP_T(2) REPRO_DROP_T(3) REPRO_DROP_T(4)
-    REPRO_DROP_T(5) REPRO_DROP_T(6) REPRO_DROP_T(7) REPRO_DROP_T(8)
-    REPRO_DROP_T(9) REPRO_DROP_T(10) REPRO_DROP_T(11) REPRO_DROP_T(12)
-    REPRO_DROP_T(13) REPRO_DROP_T(14) REPRO_DROP_T(15) REPRO_DROP_T(16)
-#undef REPRO_DROP_T
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+int launch_drop(const void* c, long long ldc, int k, const void* rank, const void* live, double rn,
+                double tau, int min_t, int t, void* mask, void* counts, void* stream) {
+  if (t < 1 || t > 32 || k < 1 || k > 32 || ldc < k) return static_cast<int>(cudaErrorInvalidValue);
+  drop_mask_kernel<T><<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(c), ldc, k, t, static_cast<const int*>(rank),
+      static_cast<const unsigned char*>(live), static_cast<T>(rn), static_cast<T>(tau), min_t,
+      static_cast<T*>(mask), static_cast<T*>(counts));
+  return repro::launch_status();
 }
 
 }  // namespace
 
 // g: (t, t) Gram matrix; m0, y0 and (when m1 is not null) m1, y1: (rows, t)
-// row-major; rank: one int32, perm: t int32 (written by CTA 0); 1 <= t <= 16.
+// row-major; rank: one int32, perm: t int32 (written by CTA 0); 1 <= t <= 32.
 REPRO_EXPORT int rank_apply_f32(const void* g, const void* m0, void* y0, const void* m1, void* y1,
                                 long long rows, int t, double rtol, void* rank, void* perm,
                                 void* stream) {
@@ -459,18 +491,19 @@ REPRO_EXPORT int rank_apply_f64(const void* g, const void* m0, void* y0, const v
   return launch_rank<double>(g, m0, y0, m1, y1, rows, t, rtol, rank, perm, stream);
 }
 
-// c: (t, t) with row stride ldc; rank: one int32 (rank_apply's); mask: t
-// values, counts: [rank, active count]; 1 <= t <= 16.
-REPRO_EXPORT int drop_mask_f32(const void* c, long long ldc, const void* rank, double rn,
-                               double tau, int min_t, int t, void* mask, void* counts,
-                               void* stream) {
-  return launch_drop<float>(c, ldc, rank, rn, tau, min_t, t, mask, counts, stream);
+// c: (t, k) with row stride ldc; rank: one int32 (rank_apply's); live: t
+// bytes (nonzero = live) or null for the first rank; mask: t values,
+// counts: [rank, active count]; 1 <= t, k <= 32.
+REPRO_EXPORT int drop_mask_f32(const void* c, long long ldc, int k, const void* rank,
+                               const void* live, double rn, double tau, int min_t, int t,
+                               void* mask, void* counts, void* stream) {
+  return launch_drop<float>(c, ldc, k, rank, live, rn, tau, min_t, t, mask, counts, stream);
 }
 
-REPRO_EXPORT int drop_mask_f64(const void* c, long long ldc, const void* rank, double rn,
-                               double tau, int min_t, int t, void* mask, void* counts,
-                               void* stream) {
-  return launch_drop<double>(c, ldc, rank, rn, tau, min_t, t, mask, counts, stream);
+REPRO_EXPORT int drop_mask_f64(const void* c, long long ldc, int k, const void* rank,
+                               const void* live, double rn, double tau, int min_t, int t,
+                               void* mask, void* counts, void* stream) {
+  return launch_drop<double>(c, ldc, k, rank, live, rn, tau, min_t, t, mask, counts, stream);
 }
 
 REPRO_ERROR_STRING(chol_apply)

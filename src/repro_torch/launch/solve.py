@@ -6,6 +6,8 @@
         --t 4 --devices 8 --ppn 4 --strategy 3step --backend pallas [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.solve --matrix fd --t 8 \
         --strategy sequential --adaptive reduce [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.solve --matrix dg --backend pallas \
+        --strategy optimal --devices 8 --ppn 4 --method sstep --s 2 [--reorth] [--overlap]
 
 The flags and the summary lines are the reference CLI's
 (``python -m repro.launch.solve``).  ``--backend pallas`` runs the Block-ELL
@@ -19,10 +21,11 @@ solve (block-Jacobi through the ``block_trisolve`` CUDA kernel).
 ``--adaptive rankrev|reduce|reduce+restart`` runs the in-solve width
 controller (the ``rank_apply`` and ``drop_mask`` CUDA kernels) and prints
 the reference's summary of reduction events, restarts and, on a mesh, the
-re-sliced exchange segments.  Options whose machinery is not ported yet
-(``--t auto``, tuning, ``--overlap``, other methods) stop with the ROADMAP.md
-item that brings them; note that ``--strategy tuned`` (the default) implies
-``--tune model``.
+re-sliced exchange segments.  ``--method pipelined|sstep`` (``--s N``,
+``--reorth``) runs the other iteration schemes, and ``--overlap`` the
+interior/boundary SpMBV schedule on a mesh.  Options whose machinery is not
+ported yet (``--t auto``, tuning) stop with the ROADMAP.md item that brings
+them; note that ``--strategy tuned`` (the default) implies ``--tune model``.
 """
 
 from __future__ import annotations
@@ -93,6 +96,11 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.method == "pipelined" and args.precondition == "inexact":
+        ap.error("--precondition inexact needs the flexible residual reseed, "
+                 "which --method pipelined cannot absorb into its AZ "
+                 "recurrence; use --method classic or sstep, or a fixed "
+                 "preconditioner")
     if args.method != "sstep":
         if args.s != 1:
             ap.error(f"--s {args.s} only applies to --method sstep")
@@ -103,9 +111,6 @@ def main(argv=None):
     if args.devices and args.strategy == "tuned":
         ap.error("--strategy tuned: autotuning the exchange is not ported yet "
                  "(ROADMAP.md queue 1 item 9); pick standard, 2step, 3step or optimal")
-    if args.overlap and args.devices and args.strategy != "sequential":
-        ap.error("--overlap: the interior/boundary schedule is not ported yet "
-                 "(ROADMAP.md queue 1 item 5a)")
     if args.tune is None:
         args.tune = "model" if (args.strategy == "tuned" or args.t == "auto") else "off"
 
@@ -155,7 +160,7 @@ def main(argv=None):
     if config.precondition.active:
         print(f"preconditioner: {config.precondition.kind}")
     coll = get_method(args.method).collectives_per_iteration(args.s, args.reorth)
-    mtag = args.method
+    mtag = args.method + (f"[s={args.s}]" if args.method == "sstep" else "")
     print(f"method: {mtag} ({coll:g} psums/iter)")
 
     if sequential:
@@ -178,7 +183,8 @@ def main(argv=None):
     b_dev = solver.a.data.new_tensor(b)
     relres = float(torch.linalg.norm(b_dev - csr_spmv(solver.a, x)) / torch.linalg.norm(b_dev))
     print(
-        f"distributed ECG[{mtag}/{strategy}/{args.backend}] t={res.t} on {mesh.p} devices: "
+        f"distributed ECG[{mtag}/{strategy}/{args.backend}"
+        f"{'/overlap' if solver.op.overlap else ''}] t={res.t} on {mesh.p} devices: "
         f"iters={res.n_iters} converged={res.converged} relres={relres:.2e} "
         f"{time.time()-t0:.1f}s"
     )

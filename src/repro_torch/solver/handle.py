@@ -27,9 +27,14 @@ per width; PyTorch runs eagerly, so the handle instead caches one runner per
 width and ``stats.traces`` counts runner constructions (flat across repeated
 solves).
 
+``SolverConfig(method="pipelined")`` and ``method="sstep"`` (with ``s`` and
+``reorth``) run the other two iteration schemes on the same operator and
+reductions; ``CommConfig(overlap=True)`` runs each distributed SpMBV as the
+interior/boundary schedule (:mod:`repro_torch.sparse.spmbv`).
+
 An adaptive policy (``SolverConfig(adaptive="rankrev" | "reduce" |
 "reduce+restart")``) runs the rank-revealing factorization and the width
-controller in the classic scheme.  On a mesh, a policy without restart
+controller in every scheme.  On a mesh, a policy without restart
 *segments* the solve: when the active width drops, the loop exits, the
 exchange is re-sliced at the narrower width (``plan.at_width``, its own
 ``HaloExchange`` graph) and the solve resumes from the same carry;
@@ -174,8 +179,6 @@ class ECGSolver:
             _not_ported('t="auto"', "queue 1 item 6b")
         if cfg.tune.active:
             _not_ported(f"tuning (tune mode {cfg.tune.mode!r})", "queue 1 item 9")
-        if cfg.method.name != "classic":
-            _not_ported(f"method {cfg.method.name!r}", "queue 1 item 7")
         if self.device.type == "cuda":
             # float32 Gram products and TRSMs run in full float32, as the
             # reference's; this is torch's default, set here explicitly
@@ -237,10 +240,11 @@ class ECGSolver:
         # each rank's rows are split into chunks, summed in a fixed order after
         chunks = math.gcd(rmax, 64)
 
-        def local_product(u, v):  # (p·rmax, t) x2 -> (p, t, t) per-rank uᵀv
-            t_ = u.shape[-1]
-            uc, vc = (m.reshape(p * chunks, rmax // chunks, t_) for m in (u, v))
-            return torch.bmm(uc.mT, vc).reshape(p, chunks, t_, t_).sum(dim=1)
+        def local_product(u, v):  # (p·rmax, a), (p·rmax, b) -> (p, a, b) per-rank uᵀv
+            a_, b_ = u.shape[-1], v.shape[-1]
+            uc = u.reshape(p * chunks, rmax // chunks, a_)
+            vc = v.reshape(p * chunks, rmax // chunks, b_)
+            return torch.bmm(uc.mT, vc).reshape(p, chunks, a_, b_).sum(dim=1)
 
         self._gram1 = lambda z, az: mesh.psum(local_product(z, az))
         # the preconditioned packed reduction [PᵀR | APᵀW | AP_oldᵀW]: three
@@ -364,6 +368,7 @@ class ECGSolver:
                     cfg.precondition.reseed if cfg.precondition.kind == "inexact" else None
                 ),
                 policy=self.policy, a_apply_masked=masked, exit_below_width=exit_bw,
+                s=cfg.method.s, reorth=cfg.method.reorth, rank_rtol=cfg.method.rank_rtol,
             )
             self.stats.traces += 1
             self._runners[width] = runner
@@ -485,8 +490,8 @@ class ECGSolver:
             and new_cfg.tune == self.config.tune
         )
         if reuse_op:
-            if new_cfg.method.name != "classic":
-                _not_ported(f"method {new_cfg.method.name!r}", "queue 1 item 7")
+            # the SpMBV and the reductions do not depend on the scheme: a
+            # method change reuses the operator; only the runners differ
             clone.t = self.t
             clone._set_policy(new_cfg.adaptive.policy)
             clone.op = self.op

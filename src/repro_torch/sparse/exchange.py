@@ -19,7 +19,10 @@ capture), captures it into a CUDA graph the second time, and replays that
 graph from then on, so an exchange costs the host one graph launch instead
 of some thirty kernel launches.  A capture that fails raises; there is no
 eager fallback.  On CPU tensors every run is eager, through the plain
-versions.
+versions.  :meth:`HaloExchange.start` is :meth:`run` for the overlap
+schedule: it replays the graph on a given side stream, after the caller's
+stream has copied in the own rows, and hands back an event that the
+boundary product waits on.
 
 Python counters move only while the exchange's Python code runs, so under a
 graph the kernel ops' ``launches`` and the mesh's counters would stop at the
@@ -117,6 +120,7 @@ class HaloExchange:
                        + [0, rotations, elements])
         self.graph = None
         self.runs = 0
+        self._done = None  # start()'s event, made at its first replay
 
     def exchange(self) -> None:
         """One exchange, run eagerly: ``xfull``'s halo rows from its own rows."""
@@ -158,6 +162,15 @@ class HaloExchange:
         exchanged halo: eager at the first run and on the CPU, captured at
         the second run on CUDA and replayed from then on.  ``v3`` must lie
         on the exchange's device, in its dtype and shape."""
+        return self.start(v3)[0]
+
+    def start(self, v3: torch.Tensor, stream=None):
+        """:meth:`run` with the replay on ``stream``: returns ``(xfull,
+        done)``, where ``done`` is a CUDA event recorded on ``stream`` after
+        the replay (the caller's stream must wait on it before it reads the
+        halo rows), or None when the exchange ran on the caller's stream
+        (no ``stream``, the eager first run, CPU tensors).  The
+        replay waits for the caller's stream, which has copied ``v3`` in."""
         own = self.own
         if v3.device != own.device or v3.dtype != own.dtype or v3.shape != own.shape:
             raise ValueError(f"exchange of {tuple(own.shape)} {own.dtype} on {own.device} "
@@ -165,9 +178,18 @@ class HaloExchange:
         own.copy_(v3)
         if self.graph is None and self.runs and self.xfull.is_cuda:
             self.capture()
-        if self.graph is not None:
+        done = None
+        if self.graph is None:
+            self.exchange()
+        elif stream is None:
             self.replay()
         else:
-            self.exchange()
+            stream.wait_stream(torch.cuda.current_stream(own.device))
+            with torch.cuda.stream(stream):
+                self.replay()
+            if self._done is None:
+                self._done = torch.cuda.Event()
+            done = self._done
+            done.record(stream)
         self.runs += 1
-        return self.xfull
+        return self.xfull, done

@@ -699,3 +699,139 @@ def test_preconditioned_solve_on_card_matches_cpu(cuda, kind, mesh_shape):
         assert abs(k - cpu.n_iters) <= 0.1 * cpu.n_iters
         assert gpu.reseed_events() == list(range(8, k + 1, 8))
         assert np.abs(x_g - x_c).max() <= 1e-5 * np.abs(x_c).max()
+
+
+# ------------------------------------- s-step widths, schemes and overlap
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,rank", [(17, 17), (24, 24), (24, 13), (31, 30), (32, 32), (32, 20),
+                                    (32, 0)])
+@pytest.mark.parametrize("rows", [1, 530, 70001])
+def test_rank_apply_wide_matches_plain(cuda, rows, t, rank, dtype):
+    """``rank_apply`` at the s-step scheme's widths s·t (17-32 columns, the
+    dynamic shared memory past 48 KB at t >= 22 in float64): rank and
+    pivot order equal to the plain version's, blocks within the bound."""
+    test_rank_apply_matches_plain(cuda, rows, t, rank, dtype)
+
+
+@pytest.mark.parametrize("s", [2, 4])
+def test_rank_apply_on_an_sstep_gram(cuda, s):
+    """The first s-step block's monomial Gram at s·t = 16 and 32 (t = 8):
+    rank and pivot order equal to the plain version's."""
+    a = dg_laplace_2d((8, 8), block=2, device="cpu")
+    from repro_torch.core.enlarging import split_residual
+
+    cur = split_residual(torch.as_tensor(np.random.default_rng(5).standard_normal(a.shape[0])), 8)
+    vs, avs = [], []
+    for _ in range(s):
+        nxt = csr_spmbv(a, cur)
+        vs.append(cur)
+        avs.append(nxt)
+        cur = nxt
+    v, av = torch.cat(vs, dim=1), torch.cat(avs, dim=1)
+    g = (v.T @ av).contiguous()
+    rtol = default_rank_rtol(torch.float64)
+    *got, rank, perm = kernels.rank_apply(g.to(cuda), v.to(cuda), av.to(cuda), rtol=rtol)
+    *want, w_rank, w_perm = rank_apply_dense(g, v, av, rtol=rtol)
+    assert int(rank) == int(w_rank) and perm.cpu().tolist() == w_perm.tolist()
+    for y, w in zip(got, want):
+        assert torch.allclose(y.cpu(), w, rtol=1e-9, atol=1e-9 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("policy", [{}, {"drop_tol": 0.0}, {"drop_tol": 0.3, "min_t": 3}],
+                         ids=["default", "rankrev", "tau0.3-min3"])
+@pytest.mark.parametrize("t,k,live", [(8, 16, (1, 0, 1, 1, 0, 1, 1, 1)),
+                                      (8, 32, (0, 1, 1, 1, 1, 1, 0, 1)),
+                                      (8, 32, (1,) * 8), (32, 32, (1, 0) * 16)])
+def test_drop_mask_with_a_live_mask_matches_plain(cuda, t, k, live, policy, dtype):
+    """``drop_mask`` on a (t, k) c (s-step's transposed coefficient block)
+    with a live mask that has holes: mask and counts equal."""
+    gen = torch.Generator().manual_seed(t + k)
+    c = torch.randn(t, k, generator=gen, dtype=torch.float64)
+    c /= c.norm(dim=1, keepdim=True)
+    c *= 10.0 ** torch.linspace(-4, 2, t)[torch.randperm(t, generator=gen)][:, None]
+    c = c.to(dtype)
+    act = torch.tensor(live, dtype=torch.bool)
+    r = torch.tensor(k - 1, dtype=torch.int32)
+    pol = ReductionPolicy(**policy)
+    kernels.reset_launch_counts()
+    mask, counts = kernels.drop_mask(c.to(cuda), r.to(cuda), 1.0, pol, live=act.to(cuda))
+    assert kernels.launch_counts() == _counts(drop_mask=1)
+    w_mask, w_counts = drop_mask_ref(c, r, 1.0, pol, live=act)
+    assert torch.equal(mask.cpu(), w_mask) and torch.equal(counts.cpu(), w_counts)
+    with pytest.raises(TypeError, match="bool live mask"):
+        kernels.drop_mask(c.to(cuda), r.to(cuda), 1.0, pol, live=act.to(cuda, torch.int32))
+    with pytest.raises(ValueError, match="t, k <= 32"):
+        kernels.drop_mask(torch.zeros(8, 33, dtype=dtype, device=cuda), r.to(cuda), 1.0, pol)
+
+
+METHOD_CASES = [("pipelined", 1, False, None), ("sstep", 2, False, None), ("sstep", 4, True, None),
+                ("pipelined", 1, False, "reduce"), ("sstep", 2, False, "reduce")]
+
+
+@pytest.mark.parametrize("method,s,reorth,adaptive", METHOD_CASES)
+def test_method_solve_on_card_matches_cpu(cuda, method, s, reorth, adaptive):
+    """pipelined: ``fused_gram``/``ecg_tail`` and ``chol_apply`` (or
+    ``rank_apply`` + ``drop_mask``) once per iteration, ``bsr_spmbv`` once
+    more for the AZ₀ seed; s-step: s SpMBVs and one ``rank_apply`` (two
+    with reorth) per block, no Gram or tail kernel."""
+    a = fd_laplace_2d(24, device="cpu")
+    n = a.shape[0]
+    b = np.random.default_rng(0).standard_normal(n)
+    if adaptive:
+        b[n // 2:] = 0.0
+    cfg = SolverConfig(t=8, tol=1e-8 * np.linalg.norm(b), max_iters=2000, kernel="pallas",
+                       method=method, adaptive=adaptive).replace(s=s, reorth=reorth)
+    kernels.reset_launch_counts()
+    gpu = ECGSolver.build(a, config=cfg, device=cuda).solve(b)
+    counts = kernels.launch_counts()
+    cpu = ECGSolver.build(a, config=cfg, device="cpu").solve(b)
+    k = gpu.n_iters
+    assert gpu.converged and k == cpu.n_iters
+    if adaptive:
+        assert np.array_equal(gpu.active_hist, cpu.active_hist)
+    if method == "pipelined":
+        factor = dict(rank_apply=k, drop_mask=k) if adaptive else dict(chol_apply=k)
+        assert counts == _counts(bsr_spmbv=k + 2, fused_gram=k, ecg_tail=k, **factor)
+    else:
+        assert counts == _counts(bsr_spmbv=s * k + 1, rank_apply=(2 if reorth else 1) * k,
+                                 drop_mask=k if adaptive else 0)
+    x_g, x_c = gpu.x.cpu(), cpu.x
+    assert float((x_g - x_c).abs().max()) <= 1e-8 * float(x_c.abs().max())
+
+
+@pytest.mark.parametrize("method,s,overlap", [("classic", 1, True), ("pipelined", 1, True),
+                                              ("sstep", 2, False), ("sstep", 2, True)])
+def test_distributed_method_and_overlap_on_card_matches_cpu(cuda, method, s, overlap):
+    """On the mesh, with the overlap schedule the interior and boundary
+    products are two ``bsr_spmbv`` launches per SpMBV and the exchange
+    graph replays on a side stream; x and the count equal the CPU solve's
+    and the card's blocking solve's, bit for bit against the latter."""
+    a = fd_laplace_2d(24, device="cpu")
+    b = np.random.default_rng(0).standard_normal(a.shape[0])
+    cfg = SolverConfig(t=8, tol=1e-8 * np.linalg.norm(b), max_iters=2000, kernel="pallas",
+                       comm=CommConfig(strategy="optimal", overlap=overlap),
+                       method=method).replace(s=s)
+    mesh = VirtualMesh(2, 4, device=cuda)
+    solver = ECGSolver.build(a, mesh, cfg)
+    kernels.reset_launch_counts()
+    mesh.reset_counters()
+    gpu = solver.solve(b)
+    counts = kernels.launch_counts()
+    cpu = ECGSolver.build(a, VirtualMesh(2, 4, device="cpu"), cfg).solve(b)
+    k = gpu.n_iters
+    assert gpu.converged and k == cpu.n_iters
+    spmbvs = 1 + s * k + (method == "pipelined")
+    per = 2 if overlap else 1
+    if overlap:
+        assert solver.op.split["int_rows"].shape[1] and solver.op.split["bnd_rows"].shape[1]
+    assert counts["bsr_spmbv"] == per * spmbvs
+    assert counts["halo_pack"] == len(solver.op.plan.phases) * spmbvs
+    from repro_torch.core.methods import get_method
+
+    assert mesh.psum_calls == (get_method(method).psums_per_block(s) + 1) * k + 1
+    x_g, x_c = solver.unshard(gpu.x), solver.unshard(cpu.x)
+    assert np.abs(x_g - x_c).max() <= 1e-8 * np.abs(x_c).max()
+    if overlap:
+        blocking = ECGSolver.build(a, mesh, cfg.replace(overlap=False)).solve(b)
+        assert blocking.n_iters == k and torch.equal(blocking.x, gpu.x)

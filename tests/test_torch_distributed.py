@@ -32,6 +32,13 @@ from seeds with numpy on both sides.  Compared:
     adaptive solve ``active_hist`` is equal and ``res_hist`` agrees to 1e-5
     (the distributed reductions sum in another order); the reduced segment's
     exchanges move exactly m/t of the full width's elements.
+(g) the pipelined and s-step schemes (s = 2, with and without ``reorth``)
+    on ``fd_laplace_2d(13)`` at 1e-8·‖b‖ (``optimal``, pallas), held as in
+    (b) against the reference's distributed solves and against the port's
+    sequential solve; ``psum`` (psums_per_block + 1)·k + 1 (k blocks for
+    s-step), exchanges one per SpMBV (s per block, one for r₀, and for
+    pipelined one more that seeds AZ₀); and ``pipelined``/s-step ``reduce``
+    width-segmented on the deficient right-hand side of (f).
 """
 
 import os
@@ -52,6 +59,12 @@ PREC_SOLVES = [(kind, "pallas") for kind in PRECONDS] + [("block_jacobi", "jnp")
 T_APPLY, T_SOLVE = 3, 4
 MAX_ITERS = 500
 ADAPTIVE_M, ADAPTIVE_TOL, ADAPTIVE_MAX_ITERS = 2, 1e-8, 300
+METHOD_SOLVES = [("pipelined", 1, False, None), ("sstep", 2, False, None), ("sstep", 2, True, None),
+                 ("pipelined", 1, False, "reduce"), ("sstep", 2, False, "reduce")]
+
+
+def _method_key(method, s, reorth, adaptive):
+    return f"method/{method}/{s}/{reorth}/{adaptive}"
 
 
 def _ref_operators(sparse):
@@ -142,6 +155,21 @@ def _reference_results(out_path):
                     out[key + "/res_hist"] = np.asarray(res.res_hist)
                     out[key + "/active_hist"] = np.asarray(res.active_hist)
                     out[key + "/segments"] = np.asarray(res.comm_segments, np.int64)
+        for method, s, reorth, adaptive in METHOD_SOLVES if name == "fd" else []:
+            bm = b if adaptive is None else _deficient_rhs(n)
+            cfg = SolverConfig(t=T_SOLVE, tol=_tol(name, bm), max_iters=MAX_ITERS,
+                               comm=CommConfig(strategy="optimal", machine=BLUE_WATERS),
+                               kernel="pallas", method=method, adaptive=adaptive,
+                               ).replace(s=s, reorth=reorth)
+            solver = ECGSolver.build(a, mesh, cfg)
+            res = solver.solve(bm)
+            key = _method_key(method, s, reorth, adaptive)
+            out[key + "/n_iters"] = np.asarray(res.n_iters)
+            out[key + "/res_hist"] = np.asarray(res.res_hist)
+            out[key + "/x"] = solver.unshard(res.x)
+            if adaptive is not None:
+                out[key + "/active_hist"] = np.asarray(res.active_hist)
+                out[key + "/segments"] = np.asarray(res.comm_segments, np.int64)
     np.savez(out_path, **out)
 
 
@@ -349,6 +377,49 @@ def test_adaptive_solve_matches_reference_and_sequential(reference, operators, s
                                rtol=1e-5, atol=1e-10)
     x = solver.unshard(res.x)
     assert np.linalg.norm(a.todense().numpy() @ x - b) / np.linalg.norm(b) < 1e-6
+
+
+@pytest.mark.parametrize("method,s,reorth,adaptive", METHOD_SOLVES,
+                         ids=[_method_key(*c).removeprefix("method/") for c in METHOD_SOLVES])
+def test_method_solve_matches_reference_and_sequential(reference, operators, method, s, reorth,
+                                                      adaptive):
+    from repro_torch.core.methods import get_method
+    from repro_torch.solver import ECGSolver
+
+    a = operators["fd"]
+    b = _rhs(a.shape[0]) if adaptive is None else _deficient_rhs(a.shape[0])
+    mesh = _mesh()
+    cfg = _config("fd", b, "optimal", "pallas").replace(method=method, s=s, reorth=reorth,
+                                                         adaptive=adaptive)
+    solver = ECGSolver.build(a, mesh, cfg)
+    mesh.reset_counters()
+    res = solver.solve(b)
+    key = _method_key(method, s, reorth, adaptive)
+    k = int(reference[key + "/n_iters"])
+    assert res.converged and res.n_iters == k
+    # the recurred AZ carries the summation-order rounding one step further:
+    # the last entries (~1e-6·‖r₀‖) agree to ~2e-15·‖r₀‖, 10 ulps of ‖r₀‖
+    _assert_hist_close(res.res_hist.numpy()[: k + 1], reference[key + "/res_hist"][: k + 1],
+                       floor=1e-14)
+    want = reference[key + "/x"]
+    x = solver.unshard(res.x)
+    assert np.abs(x - want).max() <= 1e-9 * np.abs(want).max()
+    # (d) the scheme's reductions per block plus the residual norm, and the
+    # initial residual norm; one exchange per SpMBV
+    spec = get_method(method)
+    assert mesh.psum_calls == (spec.psums_per_block(s, reorth) + 1) * k + 1
+    n_perm = sum(1 for st in solver.op.plan.steps if st.offset)
+    spmbvs = 1 + s * k + (method == "pipelined")  # r₀, the loop's, the AZ₀ seed
+    if adaptive is None:
+        assert mesh.ppermute_calls == n_perm * spmbvs
+    else:
+        assert res.comm_segments == [tuple(x_) for x_ in reference[key + "/segments"].tolist()]
+        assert res.comm_segments[0][0] == T_SOLVE and res.comm_segments[-1][0] == ADAPTIVE_M
+        assert np.array_equal(res.active_hist, reference[key + "/active_hist"])
+    # (c) the port's sequential solve of the same system
+    seq = ECGSolver.build(a, config=cfg.replace(strategy="standard"), device="cpu").solve(b)
+    assert seq.n_iters == k
+    assert np.abs(x - seq.x.numpy()).max() <= 1e-9 * np.abs(want).max()
 
 
 def test_masked_apply_equals_the_full_width_apply(operators):
@@ -611,10 +682,10 @@ def test_mesh_rotations_and_sum():
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(overlap=True), "queue 1 item 5a"),
+    (dict(overlap=True, tune="model:structural"), "queue 1 item 9"),
     (dict(tune="model"), "queue 1 item 9"),
     (dict(t="auto"), "queue 1 item 6b"),
-    (dict(method="sstep"), "queue 1 item 7"),
+    (dict(method="sstep", t="auto"), "queue 1 item 6b"),
 ])
 def test_unported_distributed_options_raise(operators, override, item):
     from repro_torch.solver import ECGSolver, SolverConfig
@@ -632,11 +703,20 @@ def test_cli_runs_the_virtual_mesh_and_refuses_tuned(capsys):
     assert line.startswith("distributed ECG[classic/3step/pallas] t=4 on 8 devices:")
     assert "converged=True" in line
     for flags, item in ((["--strategy", "tuned"], "queue 1 item 9"),
-                        (["--strategy", "3step", "--overlap"], "queue 1 item 5a")):
+                        (["--strategy", "3step", "--method", "pipelined", "--precondition",
+                          "inexact"], "cannot absorb")):
         with pytest.raises(SystemExit):
             port_cli.main(["--matrix", "fd", "--elements", "4", "--devices", "8", "--ppn", "4",
                            "--device", "cpu", *flags])
         assert item in capsys.readouterr().err
+    # the overlap schedule and the other schemes run (they were refused
+    # before they were ported)
+    port_cli.main(["--matrix", "fd", "--elements", "4", "--t", "4", "--devices", "8", "--ppn", "4",
+                   "--strategy", "3step", "--backend", "pallas", "--device", "cpu", "--overlap",
+                   "--method", "sstep", "--s", "2"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("distributed ECG[sstep[s=2]/3step/pallas/overlap] t=4 on 8 devices:")
+    assert "converged=True" in line
 
 
 if __name__ == "__main__":

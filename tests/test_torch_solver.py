@@ -124,11 +124,11 @@ def test_build_from_reference_conversion():
 @pytest.mark.parametrize("overrides,item", [
     (dict(t="auto"), "queue 1 item 6b"),
     (dict(tune="model"), "queue 1 item 9"),
-    # preconditioning runs (tests/test_torch_precondition.py); composed
-    # with a method not ported yet it still raises
-    (dict(method="sstep", precondition="block_jacobi"), "queue 1 item 7"),
-    (dict(method="pipelined"), "queue 1 item 7"),
-    (dict(method="sstep"), "queue 1 item 7"),
+    # every scheme and preconditioner runs (tests/test_torch_methods.py);
+    # composed with an option not ported yet they still raise
+    (dict(method="sstep", precondition="block_jacobi", tune="model"), "queue 1 item 9"),
+    (dict(method="pipelined", t="auto"), "queue 1 item 6b"),
+    (dict(method="sstep", tune="model:structural"), "queue 1 item 9"),
 ])
 def test_options_not_ported_raise(op, overrides, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -150,8 +150,10 @@ def test_mesh_and_solve_packed_not_ported(op):
     s = ECGSolver.build(op, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
         s.solve_packed([np.ones(op.shape[0])])
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        s.with_config(method="sstep")
+    # a method change reuses the operator (it raised before the schemes
+    # were ported)
+    sib = s.with_config(method="sstep", s=2)
+    assert sib.stats.op_reused and sib._apply is s._apply
 
 
 def test_build_without_device_needs_cuda(op, monkeypatch):

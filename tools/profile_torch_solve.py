@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Where one iteration of the port's classic-ECG solve spends its time on the card.
+"""Where one iteration of the port's ECG solve spends its time on the card.
 
     PYTHONPATH=src python tools/profile_torch_solve.py [--iters 50] [--elements 320 256]
     PYTHONPATH=src python tools/profile_torch_solve.py --devices 8 --ppn 4 --strategy optimal
     PYTHONPATH=src python tools/profile_torch_solve.py --precondition block_jacobi [--block 16]
     PYTHONPATH=src python tools/profile_torch_solve.py --adaptive reduce --deficient 4 \
         [--devices 8 --ppn 4]
+    PYTHONPATH=src python tools/profile_torch_solve.py --method sstep --s 2 [--reorth]
+    PYTHONPATH=src python tools/profile_torch_solve.py --method pipelined --devices 8 --ppn 4 \
+        --overlap
 
 Builds the main path of ``chip_smoke.py`` (``dg_laplace_2d(elements,
 block=16)``, t = 8, float64, ``backend="pallas"``) on the GPU, steps the
@@ -25,15 +28,26 @@ in place of the Cholesky and ``chol_apply``); with ``--deficient M`` the
 right-hand side is zero outside the first M of the t contiguous subdomains,
 so the width drops to M at the first iteration and, on a mesh, the steps
 run the narrower segment's runner (its compacted exchange), as the
-segmented solve does.  ``--trace PATH`` also writes the Chrome trace.
+segmented solve does.  ``--method pipelined|sstep`` (``--s``, ``--reorth``)
+profiles another iteration scheme; for s-step one step is a block of s
+iterations, and the per-iteration numbers are per block (the line's
+``iters_per_step`` says how many).  ``--overlap`` (with ``--devices``)
+profiles the interior/boundary SpMBV schedule.  Every run also reads the
+device timeline (the profiler's kernel events, by stream): the busy time as
+the union of kernel intervals, the kernel time per stream, and how long a
+halo kernel or a copy of the exchange on one stream ran while ``bsr_spmbv``
+ran on another (``concurrent_ms_per_iter``: the exchange the overlap
+schedule hid).  ``--trace PATH`` also writes the Chrome trace.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -62,6 +76,55 @@ def host_launches(torch, fn) -> dict[str, int]:
     return {"total": sum(calls.values()), **calls}
 
 
+def kernel_events(prof) -> list[dict]:
+    """The device kernels and copies of a ``torch.profiler`` run, from its
+    Chrome trace: ``{"name", "stream", "ts", "dur"}`` each (µs)."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    finally:
+        os.unlink(path)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    return [{"name": e.get("name", ""), "stream": e.get("args", {}).get("stream", e.get("tid")),
+             "ts": float(e["ts"]), "dur": float(e.get("dur", 0.0))}
+            for e in events
+            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for lo, hi in sorted(intervals):
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return total
+
+
+def timeline(events) -> dict:
+    """Busy time (the union of all kernel intervals), kernel time per
+    stream, and the time during which a kernel of the exchange (``halo_*``
+    or a copy) on one stream overlapped a ``bsr_spmbv`` on another, in µs."""
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events]
+    per_stream: dict = {}
+    for e in events:
+        per_stream[str(e["stream"])] = per_stream.get(str(e["stream"]), 0.0) + e["dur"]
+    spmbv = [e for e in events if "bsr_spmbv" in e["name"]]
+    exch = [e for e in events if "halo_" in e["name"] or "Memcpy" in e["name"]
+            or "copy" in e["name"].lower()]
+    pieces = []
+    for x in exch:
+        for m in spmbv:
+            if m["stream"] != x["stream"]:
+                lo, hi = max(x["ts"], m["ts"]), min(x["ts"] + x["dur"], m["ts"] + m["dur"])
+                if hi > lo:
+                    pieces.append((lo, hi))
+    return {"busy_us": _union_us(spans), "per_stream_us": per_stream,
+            "concurrent_us": _union_us(pieces)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=50)
@@ -77,10 +140,17 @@ def main(argv=None) -> int:
     ap.add_argument("--adaptive", default=None, choices=["rankrev", "reduce", "reduce+restart"])
     ap.add_argument("--deficient", type=int, default=0, metavar="M",
                     help="right-hand side on the first M of the t subdomains only (0: all)")
+    ap.add_argument("--method", default="classic", choices=["classic", "pipelined", "sstep"])
+    ap.add_argument("--s", type=int, default=1, help="s-step inner steps")
+    ap.add_argument("--reorth", action="store_true", help="s-step Cholesky-QR2 second pass")
+    ap.add_argument("--overlap", action="store_true",
+                    help="the interior/boundary SpMBV schedule (with --devices)")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
     if args.devices and args.devices % args.ppn:
         ap.error(f"--devices {args.devices} is not a multiple of --ppn {args.ppn}")
+    if args.overlap and not args.devices:
+        ap.error("--overlap needs a mesh (--devices)")
 
     import numpy as np
     import torch
@@ -107,11 +177,11 @@ def main(argv=None) -> int:
         b[(args.deficient * n) // 8:] = 0.0
     config = SolverConfig(
         t=8, tol=0.0, max_iters=10 + 2 * args.iters, kernel=KernelConfig(backend="pallas"),
-        comm=CommConfig(strategy=args.strategy),
+        comm=CommConfig(strategy=args.strategy, overlap=args.overlap),
         precondition=(dict(kind="block_jacobi", block=args.block)
                       if args.precondition == "block_jacobi" else args.precondition),
-        adaptive=args.adaptive,
-    )
+        adaptive=args.adaptive, method=args.method,
+    ).replace(s=args.s, reorth=args.reorth)
     if args.devices:
         mesh = VirtualMesh(args.devices // args.ppn, args.ppn, device=dev)
         solver = ECGSolver.build(a, mesh, config)
@@ -143,6 +213,7 @@ def main(argv=None) -> int:
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
     if args.trace:
         prof.export_chrome_trace(args.trace)
+    line = timeline(kernel_events(prof))
 
     def dev_us(e):
         return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
@@ -161,11 +232,21 @@ def main(argv=None) -> int:
         "mesh": list(mesh.shape) if args.devices else None,
         "strategy": args.strategy if args.devices else "sequential",
         "precondition": args.precondition, "adaptive": args.adaptive,
-        "deficient": args.deficient or None,
+        "deficient": args.deficient or None, "method": args.method, "s": args.s,
+        "reorth": args.reorth, "overlap": args.overlap,
+        "iters_per_step": args.s if args.method == "sstep" else 1,
         "active_width": int(carry["ahist"][carry["k"]]) if args.adaptive else 8,
         "wall_ms_per_iter": wall_ms,
         "profiled_wall_ms_per_iter": prof_wall_ms, "device_busy_ms_per_iter": busy_ms,
         "device_idle_share": 1.0 - busy_ms / prof_wall_ms if prof_wall_ms else None,
+        # the timeline: busy as the union of kernel intervals (streams
+        # overlap under --overlap), kernel time per stream, and the exchange
+        # time hidden behind bsr_spmbv on another stream
+        "device_union_busy_ms_per_iter": line["busy_us"] / 1e3 / args.iters,
+        "device_idle_share_union": (1.0 - line["busy_us"] / 1e3 / args.iters / prof_wall_ms
+                                    if prof_wall_ms else None),
+        "stream_ms_per_iter": {k: v / 1e3 / args.iters for k, v in line["per_stream_us"].items()},
+        "concurrent_ms_per_iter": line["concurrent_us"] / 1e3 / args.iters,
         "host_launches_per_iter": sum(calls.values()) / args.iters,
         "host_launch_calls_per_iter": {k: v / args.iters for k, v in sorted(calls.items())},
         "device_ops_per_iter": sum(r[1] for r in rows),
