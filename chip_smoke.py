@@ -185,11 +185,46 @@ counters) to 0 just before it, must converge with the true residual ≤
     arrays.  The ``kernels`` line's ``rank_apply`` row gains its times at
     s·t = 16 and 32.
 
+Phases 29-33 run the paper's performance models and the setup-time tuner
+on the card, at the same full scale:
+
+29. ``calibrate`` — ``tools/calibrate_h100.py``'s measurements (latencies
+    and rates of a ``VirtualMesh(2, 4)`` rotation, the streaming copy, the
+    f64 matmul rate, the per-dispatch cost of a captured halo chain) beside
+    the committed ``repro_torch.core.machines.H100`` constants, one JSON
+    line; every value must be finite and positive.
+30. ``bsr_spmbv_tiles`` — ``bsr_spmbv`` at every tile of the tuner's
+    ``DEFAULT_TILES`` on Example 2.1 (sequential Block-ELL, f64, t = 8), in
+    phase 3's format: the path (mma/fma), the error against the plain
+    version and its tolerance, ms against the bound (the stored tiles and V
+    over 3.35 TB/s) and against ``torch.sparse.mm``, kmax, the fill (stored
+    elements over nonzeros) and the conversion's seconds.  The ``kernels``
+    line's ``bsr_spmbv`` row gains these times.
+31. ``tuned_sequential`` — the handle with ``tune="model"`` (the H100's
+    constants): the chosen tile and kmax, the build's seconds, the model's
+    local time per tile, and the solve: converged, true residual ≤ 10·tol,
+    ``bsr_spmbv`` n_iters + 1 launches on the tuned tile; ms per iteration
+    beside phase 4's.
+32. ``tuned_distributed`` — on the (2, 4) mesh, ``tune(mode=
+    "model:structural")`` and ``tune(mode="measure")`` (H100 constants):
+    the measured grid (µs per config), the model's grid, both choices and
+    ``tune``'s seconds; the measured choice must be the least of its own
+    grid.  It then solves (true residual ≤ 10·tol, ``bsr_spmbv`` one launch
+    per SpMBV, two with overlap, ``psum`` 3·k + 1), and its ``TunedConfig``,
+    through ``to_json``/``from_json``, rebuilds the same operator: strategy,
+    tile, overlap, col_split and the plan's wire bytes.
+33. ``auto_t`` — ``SolverConfig(t="auto")`` sequential: the ``TSelection``
+    table, ``probe_iters_used``, the chosen t and tile, the build's seconds;
+    the solve converges to ≤ 10·tol at the chosen t, with the launch counts
+    of a ``rankrev`` solve at that t (``rank_apply`` and ``drop_mask`` one
+    per iteration, ``chol_apply`` none).
+
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1697,7 +1732,147 @@ def main() -> int:
     log({"phase": "schemes", "summary": {
         ph: {k_: row.get(k_) for k_ in ("n_iters", "iterations", "ms_per_iter", "ms_per_step",
                                         "true_residual")} for ph, row in schemes.items()}})
-    del solver, dsolver, a
+    del solver, dsolver, mesh, pm
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 29. calibrate
+    from calibrate_h100 import measure as calibrate
+    from repro_torch.core.machines import H100
+
+    t0 = time.perf_counter()
+    cal = calibrate(torch)
+    keys = ("alpha", "alpha_l", "R_N", "R_b", "R_bl", "gamma", "eager_cutoff", "R_mem",
+            "dispatch_overhead")
+    committed = {k: getattr(H100, k) for k in keys}
+    log({"phase": "calibrate", "seconds": time.perf_counter() - t0, "card": cal["card"],
+         "measured": {k: cal[k] for k in keys}, "committed": committed,
+         "measured_over_committed": {k: cal[k] / committed[k] for k in keys}})
+    gate("calibrate", all(math.isfinite(v) and v > 0 for v in [cal[k] for k in keys] + list(committed.values())),
+         f"a constant is not finite and positive: {cal} / {committed}")
+
+    # ------------------------------- 30. bsr_spmbv at every tile the tuner weighs
+    from repro_torch.tune import DEFAULT_TILES, TunedConfig, tile_stats, tune
+    from repro_torch.kernels.bsr_spmbv.ops import block_ell_arrays
+    from repro_torch.sparse.spmbv import _make_distributed_spmbv
+
+    tile_rows = []
+    for br, bc in DEFAULT_TILES:
+        t0 = time.perf_counter()
+        tblk, tidx, _, tmeta, _ = block_ell_arrays(a, br, bc)
+        torch.cuda.synchronize()
+        convert_s = time.perf_counter() - t0
+
+        def check_tile(t, dtype, tblk=tblk, tidx=tidx):
+            blk = tblk.to(dtype)
+            v = randn(n, t, dtype=dtype)
+            nbr, kmax, br_, bc_ = blk.shape
+            plain = lambda blk_, v_: bsr_spmbv_ref(blk_, tidx, torch.nn.functional.pad(
+                v_, (0, 0, 0, tmeta["m_pad"] - n)))[:n]
+            es = blk.element_size()
+            return (plain, (blk, v), lambda: kernels.bsr_spmbv(blk, tidx, v, n_rows=n),
+                    lambda: torch.sparse.mm(library_csr(dtype), v), plain(blk.abs(), v.abs()),
+                    kmax * bc_, blk.numel() * es + tidx.numel() * 4 + 2 * n * t * es,
+                    2 * blk.numel() * t, list(blk.shape) + [t],
+                    spmbv_plan(nbr, br_, bc_, t, n, dtype, sms).path)
+
+        row = run_check("bsr_spmbv", check_tile, T, torch.float64)
+        row.update(phase="bsr_spmbv_tiles", tile=[br, bc], kmax=tmeta["kmax"],
+                   fill=tblk.numel() / a.nnz, convert_s=convert_s)
+        log(row)
+        tile_rows.append(row)
+        del tblk, tidx, check_tile
+        torch.cuda.empty_cache()
+    csr_by_dtype.clear()
+    best_tile = min(tile_rows, key=lambda r_: r_["kernel_ms"])["tile"]
+    log({"phase": "bsr_spmbv_tiles", "summary": {f"{r_['tile'][0]}x{r_['tile'][1]}": {
+        k_: r_[k_] for k_ in ("path", "kernel_ms", "bound_ms", "library_ms", "kmax", "fill")}
+        for r_ in tile_rows}, "fastest": best_tile})
+
+    # ------------------------------------------- 31. tuned, sequential (model)
+    t0 = time.perf_counter()
+    tsolver = ECGSolver.build(a, config=config.replace(tune_mode="model"), device=dev)
+    torch.cuda.synchronize()
+    tuned_build_s = time.perf_counter() - t0
+    tcfg = tsolver.tuned
+    r, got, _, row = scheme_solve(tsolver, "tuned_sequential", tile=list(tcfg.ell_block),
+                                  kmax=tcfg.kmax, machine=tcfg.machine.name, build_s=tuned_build_s,
+                                  model_local_us={k_: v_ * 1e6 for k_, v_ in tcfg.predicted["local"].items()},
+                                  untuned_ms_per_iter=seq["ms_per_iter"], untuned_n_iters=seq["n_iters"])
+    k_ = r.n_iters
+    log(row)
+    gate("tuned_sequential", tuple(tsolver.conversion["arrays"]["blocks"].shape[-2:]) == tcfg.ell_block,
+         f"the solve's tiles are not the tuned {tcfg.ell_block}")
+    gate("tuned_sequential", got == want_launches(bsr_spmbv=k_ + 1, fused_gram=k_, ecg_tail=k_,
+                                                  chol_apply=k_), f"launch counts {got}")
+    tuned_launches = got
+    del tsolver, r
+    torch.cuda.empty_cache()
+
+    # ---------------------- 32. tuned, distributed: structural model, measured
+    tmesh = VirtualMesh(2, 4, device=dev)
+    tpm = partition_csr(a, tmesh.p)
+    t0 = time.perf_counter()
+    cfg_s = tune(a, t=T, mesh=tmesh, pm=tpm, mode="model:structural")
+    struct_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg_m = tune(a, t=T, mesh=tmesh, pm=tpm, mode="measure")
+    torch.cuda.synchronize()
+    measure_s = time.perf_counter() - t0
+
+    def key(c):
+        return f"{c.strategy}/{c.br}x{c.bc}/{'overlap' if c.overlap else 'blocking'}"
+
+    measured = cfg_m.predicted["measured_us"]
+    modeled = {k_: v_ * 1e6 for k_, v_ in cfg_s.predicted["grid"].items()}
+    log({"phase": "tuned_distributed_grid", "machine": cfg_s.machine.name,
+         "structural_choice": key(cfg_s), "measured_choice": key(cfg_m),
+         "structural_s": struct_s, "measure_s": measure_s, "measured_us": measured,
+         "modeled_us": {k_: modeled[k_] for k_ in measured},
+         "modeled_us_full_grid": modeled,
+         "structural_choice_measured_us": measured.get(key(cfg_s)),
+         "tile_stats": {f"{br}x{bc}": dict(kmax=ts_.kmax, stored=ts_.stored, fill=ts_.fill)
+                        for br, bc in DEFAULT_TILES for ts_ in [tile_stats(tpm, br, bc)]}})
+    gate("tuned_distributed", key(cfg_m) in measured and measured[key(cfg_m)] == min(
+        measured[k_] for k_ in measured if k_.startswith(f"{cfg_m.strategy}/{cfg_m.br}x{cfg_m.bc}/")),
+         f"the measured choice {key(cfg_m)} is not the least of its own grid {measured}")
+    msolver = ECGSolver.build(a, tmesh, config.replace(tuned=cfg_m), pm=tpm)
+    r, got, counters, row = scheme_solve(msolver, "tuned_distributed", mesh_=tmesh, choice=key(cfg_m),
+                                         col_split=cfg_m.col_split)
+    k_ = r.n_iters
+    log(row)
+    spmbv_per = 2 if msolver.op.overlap else 1
+    gate("tuned_distributed", got["bsr_spmbv"] == spmbv_per * (k_ + 1) and counters["psum"] == 3 * k_ + 1,
+         f"launch counts {got}, counters {counters}")
+    back = TunedConfig.from_json(cfg_m.to_json())
+    again = _make_distributed_spmbv(a, tmesh, t=T, pm=tpm, backend="pallas", tune=back)
+    same = (key(again.tuned) == key(msolver.op.tuned) and again.tuned.col_split == msolver.op.tuned.col_split
+            and again.plan.strategy == msolver.op.plan.strategy and again.overlap == msolver.op.overlap
+            and again.plan.col_split == msolver.op.plan.col_split
+            and again.plan.wire_bytes(8) == msolver.op.plan.wire_bytes(8))
+    log({"phase": "tuned_distributed_json", "round_trip_same_operator": same,
+         "wire_bytes": again.plan.wire_bytes(8)})
+    gate("tuned_distributed", same, "the TunedConfig's JSON did not rebuild the same operator")
+    del msolver, again, r, tmesh, tpm
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- 33. t="auto", sequential
+    t0 = time.perf_counter()
+    asolver = ECGSolver.build(a, config=config.replace(t="auto"), b=b, device=dev)
+    torch.cuda.synchronize()
+    auto_build_s = time.perf_counter() - t0
+    sel = asolver.selection
+    log({"phase": "auto_t_selection", "t": sel.t, "build_s": auto_build_s,
+         "probe_iters_used": {str(t_): v_ for t_, v_ in sel.probe_iters_used.items()},
+         "table": {str(t_): row_ for t_, row_ in sel.table.items()}, "tile": list(asolver.tuned.ell_block),
+         "summary": sel.summary()})
+    r, got, _, row = scheme_solve(asolver, "auto_t", t=sel.t, tile=list(asolver.tuned.ell_block),
+                                  est_iters=sel.table[sel.t]["est_iters"], build_s=auto_build_s)
+    k_ = r.n_iters
+    log(row)
+    gate("auto_t", r.t == sel.t == asolver.t and r.selection is sel, f"solved at t={r.t}, chose {sel.t}")
+    gate("auto_t", got == want_launches(bsr_spmbv=k_ + 1, fused_gram=k_, ecg_tail=k_, rank_apply=k_,
+                                        drop_mask=k_), f"launch counts {got}")
+    del asolver, r
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ result
@@ -1735,6 +1910,13 @@ def main() -> int:
     ]
     # rank_apply also at the s-step scheme's widths s·t (phase 28), with its
     # launches in the s = 2 and s = 4 solves (phase 25)
+    # bsr_spmbv also at every tile the tuner weighs (phase 30), with its
+    # launches in the tuned sequential solve (phase 31) at the tuned tile
+    rows[0]["tiles"] = [
+        {"tile": r_["tile"], "path": r_["path"], "kmax": r_["kmax"], "fill": r_["fill"],
+         "launches": tuned_launches["bsr_spmbv"] if tuple(r_["tile"]) == tcfg.ell_block else 0,
+         **{k_: r_[k_] for k_ in ("max_abs_err", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "ms": r_["kernel_ms"]} for r_ in tile_rows]
     rows[list(sources).index("rank_apply")]["widths"] = [
         {"t": st_, "launches": schemes[f"sstep_s{st_ // T}_sequential"]["launches"]["rank_apply"],
          **{k_: rank_rows[st_][k_] for k_ in ("max_abs_err", "plain_ms", "bound_ms", "bound_by",

@@ -8,10 +8,14 @@ and the in-solve width controller.
   (n, t) shapes, zero-masked columns): stagnation drops per the flexible-ECG
   criterion, optional re-enlarge/restart on a residual plateau.
 * :mod:`repro_torch.adaptive.groups` — the packed multi-RHS layout.
+* :mod:`repro_torch.adaptive.select_t` — ``t="auto"``: an
+  iterations-to-convergence model (probe- or condition-calibrated) composed
+  with :mod:`repro_torch.tune`'s per-iteration cost model to rank candidate
+  widths at setup time.
 
-Entry points: ``ECGSolver.build(..., config=SolverConfig(adaptive="reduce"))``
-and ``python -m repro_torch.launch.solve --adaptive reduce``.  ``t="auto"``
-(``select_t``) is ROADMAP.md queue 1 item 6b.
+Entry points: ``ECGSolver.build(..., config=SolverConfig(adaptive="reduce"))``,
+``SolverConfig(t="auto")`` and ``python -m repro_torch.launch.solve
+--adaptive reduce`` / ``--t auto``.
 """
 
 from repro_torch.adaptive.groups import GroupSpec
@@ -27,6 +31,18 @@ from repro_torch.adaptive.reduce import (
     resolve_policy,
     stagnation_mask,
 )
+from repro_torch.adaptive.select_t import (
+    DEFAULT_CANDIDATES,
+    TSelection,
+    estimate_condition,
+    iteration_cost,
+    iters_from_condition,
+    probe_decay_rate,
+    resolve_auto_t,
+    select_t,
+    tselection_from_dict,
+    tselection_to_dict,
+)
 
 __all__ = [
     "GroupSpec",
@@ -38,4 +54,14 @@ __all__ = [
     "plateau_update",
     "resolve_policy",
     "stagnation_mask",
+    "DEFAULT_CANDIDATES",
+    "TSelection",
+    "estimate_condition",
+    "iteration_cost",
+    "iters_from_condition",
+    "probe_decay_rate",
+    "resolve_auto_t",
+    "select_t",
+    "tselection_from_dict",
+    "tselection_to_dict",
 ]

@@ -1,15 +1,16 @@
-"""Core: the ECG engine and node-aware exchange planning (port of ``repro.core``,
-classic method)."""
+"""Core: the ECG engine, node-aware exchange planning and the paper's
+performance models (port of ``repro.core``)."""
 
 from repro_torch.core.cg import SolveResult
-from repro_torch.core.ecg import ECGRunner, finalize_result, make_ecg_runner
+from repro_torch.core.ecg import ECGOperationCounts, ECGRunner, finalize_result, make_ecg_runner
 from repro_torch.core.enlarging import collapse, split_residual
-from repro_torch.core.machines import MACHINES, MachineParams
+from repro_torch.core.machines import H100, MACHINES, MachineParams
 from repro_torch.core.methods import METHODS, MethodSpec, get_method
 from repro_torch.core.node_aware import ExchangePlan, build_exchange_plan, simulate_plan
 
 __all__ = [
     "SolveResult",
+    "ECGOperationCounts",
     "ECGRunner",
     "finalize_result",
     "make_ecg_runner",
@@ -18,6 +19,7 @@ __all__ = [
     "get_method",
     "split_residual",
     "collapse",
+    "H100",
     "MachineParams",
     "MACHINES",
     "ExchangePlan",

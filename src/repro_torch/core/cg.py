@@ -43,6 +43,7 @@ class SolveResult:
     #                          bitmask per iteration (EV_RECOVERY,
     #                          EV_RESEED), -1 past the recorded end; None
     #                          when no tracked mechanism was active
+    selection: object = None  # the TSelection when t was chosen by "auto"
     final_carry: dict | None = dataclasses.field(default=None, repr=False)
 
     def reduction_events(self) -> list[tuple[int, int, int]]:

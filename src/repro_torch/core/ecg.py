@@ -197,3 +197,53 @@ def finalize_result(out: dict, *, x0, t: int, tol: float, policy=None) -> SolveR
         event_hist=out.get("evhist"),
         final_carry=out,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class ECGOperationCounts:
+    """Per-iteration flop/communication counts of Algorithm 3 (used by the
+    performance model, eq. 3.3)."""
+
+    n: int
+    nnz: int
+    p: int
+    t: int
+
+    @property
+    def spmbv_flops(self) -> float:  # 2·t·nnz/p
+        return 2 * self.t * self.nnz / self.p
+
+    @property
+    def gram_flops(self) -> float:  # ZᵀAZ: 2·(n/p)·t² … counted as n/p·t² per Alg 3
+        return self.n / self.p * self.t**2
+
+    @property
+    def fused_gram_flops(self) -> float:  # c,d,d_old: 3 products
+        return 3 * self.n / self.p * self.t**2
+
+    @property
+    def cholesky_flops(self) -> float:  # (1/6)t³ (+ ~(1/2)t² triangular work)
+        return self.t**3 / 6 + self.t**2 / 2
+
+    @property
+    def trsm_flops(self) -> float:  # two TRSMs with n/p rhs rows: 2·(n/p)·t²
+        return 2 * self.n / self.p * self.t**2
+
+    @property
+    def update_flops(self) -> float:  # X += Pc, R -= APc, Z = AP − Pd − P_old d_old
+        return (2 + 2) * self.n / self.p * self.t + 4 * self.n / self.p * self.t**2
+
+    @property
+    def total_flops(self) -> float:
+        """Paper eq. (3.3): γ-weighted flop count per iteration."""
+        return (
+            (2 + 2 * self.t) * self.nnz / self.p
+            + (4 * self.t + 4 * self.t**2) * self.n / self.p
+            + self.t**2 / 2
+            + self.t**3 / 6
+        )
+
+    @property
+    def allreduce_payload_floats(self) -> tuple[int, int]:
+        """(t², 3t²) — the two fused reductions of §3.1."""
+        return (self.t**2, 3 * self.t**2)

@@ -1,15 +1,16 @@
 """Machine parameter sets for the paper's communication models.
 
-Port of ``repro/core/machines.py``, copied value for value.  These are
-*inputs* to the paper's models (Table 1): Blue Waters and Lassen constants
-are estimates consistent with the published max-rate literature, the
-TPU-v5e mapping (chip = process, pod = node) uses public v5e specs, and
-``HOST`` describes forced host devices.  None of them is a measurement of
-the H100 this port runs on; they matter here because the nodal-optimal
-exchange plan's byte model (``eager_cutoff``, ``f``) decides its message
-splitting and ``col_split``, so plans equal the reference's only if these
-values do.  H100 parameters come with tuning (ROADMAP.md queue 1 item 9).
-All rates in bytes/second, latencies in seconds.
+Port of ``repro/core/machines.py``, copied value for value, plus
+:data:`H100`.  The copied sets are *inputs* to the paper's models (Table
+1): Blue Waters and Lassen constants are estimates consistent with the
+published max-rate literature, the TPU-v5e mapping (chip = process, pod =
+node) uses public v5e specs, and ``HOST`` describes forced host devices.
+None of them is a measurement of the H100 this port runs on; they matter
+here because the nodal-optimal exchange plan's byte model
+(``eager_cutoff``, ``f``) decides its message splitting and ``col_split``,
+so plans equal the reference's only if these values do.  :data:`H100` holds
+the card's own constants, measured by ``tools/calibrate_h100.py``; the
+tuner defaults to it.  All rates in bytes/second, latencies in seconds.
 """
 
 from __future__ import annotations
@@ -98,4 +99,32 @@ HOST = MachineParams(
     dispatch_overhead=1.5e-5,
 )
 
+#: The reference's four sets, by name (:data:`H100` is the port's own).
 MACHINES = {m.name: m for m in (BLUE_WATERS, LASSEN, TPU_V5E_POD, HOST)}
+
+
+#: One NVIDIA H100 running the port's distributed solve on a
+#: ``VirtualMesh(2, 4)``: a rank is a slice of the card, a "node" a group of
+#: 4 slices; a rotation (``mesh.ppermute``) is a device-local copy, and an
+#: exchange replays as one CUDA graph.  Every constant was measured by
+#: ``tools/calibrate_h100.py`` on an "NVIDIA H100 80GB HBM3, 700.00 W" card
+#: (``nvidia-smi --query-gpu=name,power.limit``); a second run on the same
+#: card agreed within 2%.  Later runs, each on a fresh machine with such a
+#: card, read the rates within 1%, alpha and dispatch_overhead up to 30%
+#: higher and eager_cutoff up to 55% higher.  No TPU or data-sheet number
+#: stands in for one.
+H100 = MachineParams(
+    name="H100",
+    alpha=1.23e-6,          # a near-empty "node" rotation in a CUDA graph (8 B a rank)
+    alpha_l=1.40e-6,        # the same along "proc"
+    R_N=1.314e12,           # derived: a node's ranks share the card's memory, R_N = R_b
+    R_b=1.314e12,           # "node" rotation bytes / time, median over 64 MiB and 256 MiB
+    R_bl=1.311e12,          # the same along "proc"
+    ppn=4,                  # ranks per "node" of the VirtualMesh(2, 4)
+    gamma=1.79e-14,         # s per f64 flop of an 8192² torch.matmul (55.8 TFLOP/s)
+    eager_cutoff=207_419,   # derived: bytes a rank at which a "node" rotation takes 2·alpha
+    f=8,                    # float64 solver data
+    R_mem=2.443e12,         # 1 GiB device copy: bytes read + written / time
+    dispatch_overhead=1.52e-6,  # measure_dispatch_overhead: per-op slope of a captured chain
+)
+

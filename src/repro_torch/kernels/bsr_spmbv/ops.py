@@ -77,16 +77,30 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def _tile_keys(indptr: np.ndarray, indices: np.ndarray, n_rows: int, br: int, bc: int,
+               nbc: int) -> np.ndarray:
+    """Sorted distinct tile keys (block row · nbc + block column) of the
+    first ``n_rows`` CSR rows.  A nonzero whose tile equals the previous
+    nonzero's in the same row is dropped before the sort: its key is already
+    there, so the result is the same, and the sort sees a few entries per
+    row instead of every nonzero."""
+    nnz = int(indptr[n_rows])
+    rows = np.repeat(np.arange(n_rows, dtype=np.int64), np.diff(indptr[: n_rows + 1]))
+    tcol = indices[:nnz] // bc
+    new = np.ones(nnz, dtype=bool)
+    new[1:] = (tcol[1:] != tcol[:-1]) | (rows[1:] != rows[:-1])
+    return np.unique((rows[new] // br) * nbc + tcol[new])
+
+
 def count_block_ell_tiles(indptr, indices, n_rows: int, n_cols: int, br: int, bc: int) -> int:
     """Max distinct (br x bc) tiles in any block row of a raw-CSR matrix."""
-    indptr = _host(indptr).astype(np.int64)
-    indices = _host(indices).astype(np.int64)
-    nnz = int(indptr[min(n_rows, len(indptr) - 1)])
-    if nnz == 0:
+    indptr = np.asarray(_host(indptr), dtype=np.int64)
+    indices = np.asarray(_host(indices), dtype=np.int64)
+    n_rows = min(n_rows, len(indptr) - 1)
+    if int(indptr[n_rows]) == 0:
         return 0
-    rows = np.repeat(np.arange(n_rows, dtype=np.int64), np.diff(indptr[: n_rows + 1]))
     nbc = (n_cols + bc - 1) // bc
-    tiles = np.unique((rows // br) * nbc + indices[:nnz] // bc)
+    tiles = _tile_keys(indptr, indices, n_rows, br, bc, nbc)
     return int(np.bincount(tiles // nbc).max())
 
 
@@ -142,8 +156,7 @@ def block_ell_meta(a: CSRMatrix, br: int, bc: int) -> dict:
     n_pad = (n + br - 1) // br * br
     m_pad = (m + bc - 1) // bc * bc
     nbr, nbc = n_pad // br, m_pad // bc
-    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
-    tiles = np.unique((rows // br) * nbc + indices // bc)
+    tiles = _tile_keys(indptr, indices, n, br, bc, nbc)
     per_row = np.bincount((tiles // nbc).astype(np.int64), minlength=nbr)
     kmax = int(per_row.max()) if len(tiles) else 0
     return dict(

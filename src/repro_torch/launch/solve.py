@@ -8,6 +8,8 @@
         --strategy sequential --adaptive reduce [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.solve --matrix dg --backend pallas \
         --strategy optimal --devices 8 --ppn 4 --method sstep --s 2 [--reorth] [--overlap]
+    PYTHONPATH=src python -m repro_torch.launch.solve --backend pallas --devices 8 \
+        [--strategy tuned] [--tune model|model:structural|measure|off] [--t auto]
 
 The flags and the summary lines are the reference CLI's
 (``python -m repro.launch.solve``).  ``--backend pallas`` runs the Block-ELL
@@ -23,9 +25,20 @@ controller (the ``rank_apply`` and ``drop_mask`` CUDA kernels) and prints
 the reference's summary of reduction events, restarts and, on a mesh, the
 re-sliced exchange segments.  ``--method pipelined|sstep`` (``--s N``,
 ``--reorth``) runs the other iteration schemes, and ``--overlap`` the
-interior/boundary SpMBV schedule on a mesh.  Options whose machinery is not
-ported yet (``--t auto``, tuning) stop with the ROADMAP.md item that brings
-them; note that ``--strategy tuned`` (the default) implies ``--tune model``.
+interior/boundary SpMBV schedule on a mesh.
+
+``--tune model`` (the default with ``--strategy tuned``, itself the
+default) hands the strategy, the Block-ELL tile and blocking-vs-overlap to
+the setup-time tuner (:mod:`repro_torch.tune`; sequentially the tile alone,
+with ``--backend pallas``); ``--tune model:structural`` ranks strategies by
+the executor-structural cost; ``--tune measure`` times the candidates on the
+mesh (a sequential run uses the model); ``--tune off`` keeps the explicit
+``--strategy``/``--ell-block``/``--overlap``.  The models use the H100's
+measured parameters on a sequential run and the reference CLI's TPU-v5e set
+(with ``--ppn``) on a mesh, so the distributed plans equal the reference's.
+``--t auto`` picks the enlarging factor from the iterations-vs-cost model
+(:mod:`repro_torch.adaptive.select_t`) and prints its table; it needs the
+cost models, so ``--tune off`` refuses it.
 """
 
 from __future__ import annotations
@@ -47,8 +60,9 @@ def _parse_t(value: str) -> int | str:
 
 
 def _print_adaptive_summary(res) -> None:
-    """Reduction events, restarts and exchange segments for the run summary
-    (the reference CLI's; ``t="auto"``'s selection table is not ported)."""
+    """Chosen t, selection table, and reduction events for the run summary."""
+    if res.selection is not None:
+        print(res.selection.summary())
     events = res.reduction_events()
     if events:
         for k, before, after in events:
@@ -71,7 +85,8 @@ def main(argv=None):
     ap.add_argument("--elements", type=int, default=16)
     ap.add_argument("--block", type=int, default=16)
     ap.add_argument("--t", type=_parse_t, default=8,
-                    help="enlarging factor ('auto' is not ported yet)")
+                    help="enlarging factor, or 'auto' to pick it from the "
+                         "iterations-vs-cost model")
     ap.add_argument("--tol", type=float, default=1e-8)
     ap.add_argument("--strategy", default="tuned",
                     choices=["sequential", "standard", "2step", "3step", "optimal", "tuned"])
@@ -83,8 +98,8 @@ def main(argv=None):
     ap.add_argument("--ell-block", type=int, default=8, help="Block-ELL tile size")
     ap.add_argument("--tune", default=None,
                     choices=["model", "model:structural", "measure", "off"],
-                    help="autotuning (default: model when --strategy tuned or "
-                         "--t auto, else off; not ported yet)")
+                    help="autotune strategy/tile/overlap (default: model when "
+                         "--strategy tuned or --t auto, else off)")
     ap.add_argument("--adaptive", default=None,
                     choices=["off", "rankrev", "reduce", "reduce+restart"])
     ap.add_argument("--method", default="classic",
@@ -108,9 +123,14 @@ def main(argv=None):
             ap.error("--reorth only applies to --method sstep")
     if args.devices and args.devices % args.ppn:
         ap.error(f"--devices {args.devices} is not a multiple of --ppn {args.ppn}")
-    if args.devices and args.strategy == "tuned":
-        ap.error("--strategy tuned: autotuning the exchange is not ported yet "
-                 "(ROADMAP.md queue 1 item 9); pick standard, 2step, 3step or optimal")
+    if args.t == "auto" and args.tune == "off":
+        ap.error("--t auto composes the tuner's cost models and cannot run "
+                 "with --tune off; use --tune model (or --tune measure — the "
+                 "t ranking itself is always model-based, measured "
+                 "calibration applies to the operator tuning)")
+    if args.t == "auto" and args.tune == "measure":
+        print("note: --t auto ranks candidates with the model-mode cost; "
+              "--tune measure calibrates the distributed operator tuning only")
     if args.tune is None:
         args.tune = "model" if (args.strategy == "tuned" or args.t == "auto") else "off"
 
@@ -140,6 +160,10 @@ def main(argv=None):
     print(f"matrix: {a.shape[0]} rows, {a.nnz} nnz; t={args.t}")
 
     sequential = args.strategy == "sequential" or not args.devices
+    if sequential and args.tune == "measure":
+        print("note: measured tuning needs a device mesh; using the model "
+              "for the sequential run")
+        args.tune = "model"
     strategy = args.strategy if args.strategy not in ("sequential", "tuned") else "standard"
     config = SolverConfig(
         t=args.t,
@@ -164,7 +188,9 @@ def main(argv=None):
     print(f"method: {mtag} ({coll:g} psums/iter)")
 
     if sequential:
-        solver = ECGSolver.build(a, config=config, device=device)
+        solver = ECGSolver.build(a, config=config, b=b, device=device)
+        if solver.tuned is not None:
+            print(f"tuned tile: {solver.tuned.ell_block} kmax={solver.tuned.kmax}")
         t0 = time.time()
         res = solver.solve(b)
         print(f"sequential ECG[{mtag}/{args.backend}] t={res.t}: iters={res.n_iters} "
@@ -177,8 +203,16 @@ def main(argv=None):
 
     mesh = VirtualMesh(args.devices // args.ppn, args.ppn, device=device)
     t0 = time.time()
-    solver = ECGSolver.build(a, mesh, config)
+    solver = ECGSolver.build(a, mesh, config, b=b)
     res = solver.solve(b)
+    if solver.tuned is not None:
+        cfg = solver.tuned
+        strategy = cfg.strategy
+        print(f"tuned[{cfg.mode}]: strategy={cfg.strategy} tile={cfg.ell_block} "
+              f"kmax={cfg.kmax} overlap={cfg.overlap} col_split={cfg.col_split}")
+        if "p2p" in cfg.predicted:
+            print("  p2p model:",
+                  {k: f"{v*1e6:.0f}us" for k, v in cfg.predicted["p2p"].items()})
     x = solver.a.data.new_tensor(solver.unshard(res.x))
     b_dev = solver.a.data.new_tensor(b)
     relres = float(torch.linalg.norm(b_dev - csr_spmv(solver.a, x)) / torch.linalg.norm(b_dev))

@@ -1,10 +1,9 @@
 """Typed, validated configuration for the ECG solver handle.
 
 Port of ``repro/solver/config.py``: the same fields, defaults, validation
-and JSON dicts, so one ``SolverConfig`` serialises identically in both
-packages.  Sub-config values whose types live in reference modules the port
-has not carried yet (a ``MachineParams`` machine, a ``TunedConfig``, a
-``TSelection``) raise ``NotImplementedError`` on the JSON round trip.
+and JSON dicts (a ``machine``, a ``tuned`` config and a ``select`` included,
+with the reference's field names), so one ``SolverConfig`` serialises to
+the same dict in both packages.
 
 One frozen :class:`SolverConfig` replaces the ~20 loosely-typed keyword
 arguments that had accreted on ``ecg_solve``/``distributed_ecg``/
@@ -129,7 +128,7 @@ class TuneConfig:
             max-rate models), ``"model:structural"`` (executor-structural:
             plan dispatches + moved bytes), or ``"measure"`` (setup-time
             microbenchmarks on the mesh).
-    tuned:  a precomputed :class:`~repro.tune.TunedConfig` to apply verbatim
+    tuned:  a precomputed :class:`~repro_torch.tune.TunedConfig` to apply verbatim
             (e.g. loaded back from ``TunedConfig.from_json``); wins over
             ``mode``.
     """
@@ -144,7 +143,7 @@ class TuneConfig:
             )
         if self.tuned is not None and not hasattr(self.tuned, "strategy"):
             raise TypeError(
-                f"tuned must be a repro.tune.TunedConfig, got {type(self.tuned)}"
+                f"tuned must be a repro_torch.tune.TunedConfig, got {type(self.tuned)}"
             )
 
     @classmethod
@@ -490,6 +489,8 @@ class SolverConfig:
 
 def solverconfig_to_dict(cfg: SolverConfig) -> dict:
     """JSON-safe dict form of a SolverConfig (see ``SolverConfig.to_json``)."""
+    from repro_torch.tune.autotune import tunedconfig_to_dict
+
     machine = cfg.comm.machine
     policy = cfg.adaptive.policy
     select = cfg.adaptive.select
@@ -510,7 +511,7 @@ def solverconfig_to_dict(cfg: SolverConfig) -> dict:
         ),
         tune=dict(
             mode=cfg.tune.mode,
-            tuned=None if tuned is None else _not_ported("tuned", "queue 1 item 9"),
+            tuned=None if tuned is None else tunedconfig_to_dict(tuned),
         ),
         adaptive=dict(
             policy=None if policy is None else dataclasses.asdict(policy),
@@ -533,32 +534,31 @@ def _precondition_dict(pc: PreconditionConfig) -> dict:
 
 
 def _tselection_dict(select) -> dict:
-    return _not_ported("select", "queue 1 item 6b")
+    from repro_torch.adaptive.select_t import tselection_to_dict
 
-
-def _not_ported(field: str, item: str):
-    raise NotImplementedError(
-        f"a {field!r} value has no JSON form in the port yet (ROADMAP.md {item})"
-    )
+    return tselection_to_dict(select)
 
 
 def solverconfig_from_dict(d: dict) -> SolverConfig:
     """Inverse of :func:`solverconfig_to_dict`."""
     from repro_torch.adaptive.reduce import ReductionPolicy
+    from repro_torch.adaptive.select_t import tselection_from_dict
+    from repro_torch.core.machines import MachineParams
+    from repro_torch.tune.autotune import tunedconfig_from_dict
 
     comm = dict(d["comm"])
     if comm.get("machine") is not None:
-        _not_ported("machine", "queue 1 item 5c")
+        comm["machine"] = MachineParams(**comm["machine"])
     kernel = dict(d["kernel"])
     kernel["ell_block"] = tuple(kernel["ell_block"])
     tune = dict(d["tune"])
     if tune.get("tuned") is not None:
-        _not_ported("tuned", "queue 1 item 9")
+        tune["tuned"] = tunedconfig_from_dict(tune["tuned"])
     adaptive = dict(d["adaptive"])
     if adaptive.get("policy") is not None:
         adaptive["policy"] = ReductionPolicy(**adaptive["policy"])
     if adaptive.get("select") is not None:
-        _not_ported("select", "queue 1 item 6b")
+        adaptive["select"] = tselection_from_dict(adaptive["select"])
     adaptive["t_candidates"] = tuple(adaptive["t_candidates"])
     precondition = dict(d.get("precondition") or {})
     if precondition.get("eig_bounds") is not None:

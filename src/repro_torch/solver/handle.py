@@ -32,6 +32,15 @@ solves).
 reductions; ``CommConfig(overlap=True)`` runs each distributed SpMBV as the
 interior/boundary schedule (:mod:`repro_torch.sparse.spmbv`).
 
+``SolverConfig(tune=TuneConfig(mode="model" | "model:structural" |
+"measure"))`` (or a precomputed ``TunedConfig``) hands the strategy, the
+Block-ELL tile and the overlap to the setup-time tuner
+(:mod:`repro_torch.tune`): on a mesh all three, sequentially the tile alone
+(``backend="pallas"``; ``"measure"`` needs a mesh).  ``SolverConfig(t="auto")``
+picks the enlarging factor at build time (:mod:`repro_torch.adaptive.
+select_t`) and runs the tuner's config for it; it implies the ``rankrev``
+policy unless the policy is explicitly ``"off"``.
+
 An adaptive policy (``SolverConfig(adaptive="rankrev" | "reduce" |
 "reduce+restart")``) runs the rank-revealing factorization and the width
 controller in every scheme.  On a mesh, a policy without restart
@@ -48,10 +57,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 
 import numpy as np
 import torch
 
+from repro_torch.adaptive.reduce import resolve_policy
 from repro_torch.core.ecg import finalize_result, make_ecg_runner
 from repro_torch.kernels.block_update.ops import ecg_tail
 from repro_torch.kernels.bsr_spmbv.ops import block_ell_arrays, make_block_ell_apply_from_arrays
@@ -95,8 +106,10 @@ class ECGSolver:
 
     Attributes after ``build``:
 
-    t:       the enlarging factor.
+    t:       the resolved enlarging factor (an int, even for ``t="auto"``).
     device:  the torch device every solve runs on.
+    tuned:   the applied :class:`~repro_torch.tune.TunedConfig` (None untuned).
+    selection: the :class:`~repro_torch.adaptive.TSelection` when ``t="auto"``.
     mesh:    the :class:`~repro_torch.launch.mesh.VirtualMesh` (None for a
              sequential handle).
     policy:  the resolved adaptive
@@ -118,6 +131,7 @@ class ECGSolver:
         mesh=None,
         config: SolverConfig | dict | None = None,
         *,
+        b=None,
         pm=None,
         conversion=None,
         device=None,
@@ -130,6 +144,10 @@ class ECGSolver:
                     distributed node-aware solver, or None for the
                     sequential solver.
         config:     a :class:`SolverConfig` (or dict of its fields).
+        b:          optional probe right-hand side for ``t="auto"`` (defaults
+                    to a seeded Gaussian: the selection only needs a
+                    representative right-hand side, but the real one
+                    sharpens the probe).
         pm:         optional precomputed partition to reuse (distributed).
         conversion: optional CSR→Block-ELL artifacts to reuse (sequential
                     ``backend="pallas"`` only): a dict with ``"arrays"``
@@ -164,8 +182,11 @@ class ECGSolver:
         self.mesh = mesh
         self.config = SolverConfig.coerce(config)
         self.stats = SolverStats()
+        self.selection = None
+        self.tuned = None
         self.op = None
         self._pm = pm
+        self._probe_b = b
         self._runners: dict = {}
         self._onehot_cache: dict = {}
         self._conversion_in = conversion
@@ -173,28 +194,72 @@ class ECGSolver:
         self._build()
         return self
 
-    def _build(self):
+    def _auto_probe_b(self):
+        if self._probe_b is not None:
+            return self._probe_b
+        return np.random.default_rng(0).standard_normal(self.a.shape[0])
+
+    def _resolve_auto_t(self, adaptive, n_nodes=1, ppn=1, tune_mode="model", pm=None):
+        """``t="auto"``: run (or reuse) the selection; returns ``(t,
+        adaptive)`` and records ``self.selection``.  ``pm`` is the mesh's
+        partition, which the selection's tuning reuses."""
+        from repro_torch.adaptive.select_t import resolve_auto_t
+
         cfg = self.config
-        if isinstance(cfg.t, str):
-            _not_ported('t="auto"', "queue 1 item 6b")
-        if cfg.tune.active:
-            _not_ported(f"tuning (tune mode {cfg.tune.mode!r})", "queue 1 item 9")
+        t, self.selection, adaptive = resolve_auto_t(
+            "auto", adaptive, a=self.a, b=self._auto_probe_b(),
+            select=cfg.adaptive.select, candidates=cfg.adaptive.t_candidates,
+            tol=cfg.tol, machine=cfg.comm.machine, n_nodes=n_nodes, ppn=ppn,
+            pm=pm, backend=cfg.kernel.backend, tune_mode=tune_mode,
+            probe_iters=cfg.adaptive.probe_iters, probe_rtol=cfg.adaptive.probe_rtol,
+            method=cfg.method.name, s=cfg.method.s, reorth=cfg.method.reorth,
+        )
+        return t, adaptive
+
+    def _build(self):
         if self.device.type == "cuda":
             # float32 Gram products and TRSMs run in full float32, as the
             # reference's; this is torch's default, set here explicitly
             torch.backends.cuda.matmul.allow_tf32 = False
         self.stats.builds += 1
-        self.t = cfg.t
-        self._set_policy(cfg.adaptive.policy)
+        self.selection = None
         self._gram1 = self._gram2 = self._sqnorm = self._tail = self._split_fn = None
         self._gram2p = None
         if self.mesh is not None:
             self._build_distributed()
-        elif cfg.kernel.backend == "pallas":
-            self._build_ell_apply(cfg.kernel.ell_block)
+        else:
+            self._build_sequential()
+        self._precond = self._build_precond()
+
+    def _build_sequential(self):
+        cfg = self.config
+        t = cfg.t
+        adaptive = "off" if cfg.adaptive.explicit_off else cfg.adaptive.policy
+        tuned = cfg.tune.tuned
+        if cfg.tune.mode == "measure":
+            raise ValueError(
+                'tune mode "measure" times candidate operators on a device '
+                "mesh; build the handle with mesh= (or use mode='model')"
+            )
+        if isinstance(t, str):  # "auto"
+            t, adaptive = self._resolve_auto_t(adaptive)
+            if tuned is None and cfg.kernel.backend == "pallas":
+                # execute the tile the candidate costs were modeled with
+                tuned = self.selection.configs.get(t)
+        elif tuned is None and cfg.tune.active and cfg.kernel.backend == "pallas":
+            from repro_torch.tune import tune as run_tune
+
+            tuned = run_tune(
+                self.a, t=t, machine=cfg.comm.machine, n_nodes=1, ppn=1,
+                backend="pallas", mode=cfg.tune.mode,
+            )
+        self.tuned = tuned
+        self.t = t
+        self._set_policy(resolve_policy(adaptive))
+        if cfg.kernel.backend == "pallas":
+            self._build_ell_apply(tuned.ell_block if tuned is not None else cfg.kernel.ell_block)
         else:
             self._apply = lambda V: csr_spmbv(self.a, V)
-        self._precond = self._build_precond()
 
     def _set_policy(self, policy):
         """The adaptive policy and whether solves run width-segmented: on a
@@ -205,23 +270,61 @@ class ECGSolver:
 
     def _build_distributed(self):
         cfg = self.config
+        n_nodes, ppn = self.mesh.shape
         if self._pm is None:
             self._pm = partition_csr(self.a, self.mesh.p)
+        t = cfg.t
+        adaptive = "off" if cfg.adaptive.explicit_off else cfg.adaptive.policy
+        tune_arg = cfg.tune.tuned if cfg.tune.tuned is not None else cfg.tune.mode
+        strategy, overlap = cfg.comm.strategy, cfg.comm.overlap
+        ell_block = cfg.kernel.ell_block
+        if isinstance(t, str):  # "auto"
+            tune_mode = (
+                cfg.tune.mode if cfg.tune.mode in ("model", "model:structural") else "model"
+            )
+            t, adaptive = self._resolve_auto_t(adaptive, n_nodes, ppn, tune_mode, self._pm)
+            if not cfg.tune.active:
+                # execute the exact config the choice was modeled with — a t
+                # optimized for one (strategy, tile, overlap) but run under
+                # another would make the selection meaningless.  Explicit
+                # comm/kernel settings are overridden (warn when that
+                # discards a non-default request).
+                tcfg = self.selection.configs.get(t)
+                if tcfg is not None:
+                    if strategy != "standard" or overlap or ell_block != (8, 8):
+                        warnings.warn(
+                            "t='auto' executes the tuner config its choice was "
+                            f"modeled with ({tcfg.strategy}/{tcfg.ell_block}/"
+                            f"{'overlap' if tcfg.overlap else 'blocking'}); the "
+                            f"explicit strategy={strategy!r}/overlap={overlap}/"
+                            f"ell_block={ell_block} settings are ignored — pass "
+                            "a fixed t to force them",
+                            stacklevel=4,
+                        )
+                    tune_arg = tcfg
         # a sibling from with_config that changed only the exchange reuses
         # its parent's Block-ELL arrays: they depend on the partition alone
+        # (an untuned build only: a tuned one picks its own tile)
         parent = self._conversion_in or {}
         ell = None
-        if parent.get("ell_block") == cfg.kernel.ell_block and cfg.kernel.backend == "pallas":
+        if (tune_arg == "off" and parent.get("ell_block") == ell_block
+                and cfg.kernel.backend == "pallas"):
             ell = parent.get("ell")
         self.op = _make_distributed_spmbv(
-            self.a, self.mesh, cfg.comm.strategy, t=self.t,
+            self.a, self.mesh, strategy, t=t,
             machine=cfg.comm.machine, pm=self._pm, backend=cfg.kernel.backend,
-            overlap=cfg.comm.overlap, ell_block=cfg.kernel.ell_block,
+            overlap=overlap, ell_block=ell_block, tune=tune_arg,
             col_split=cfg.comm.col_split, ell=ell,
         )
         self.stats.conv_reused = ell is not None
+        if self.selection is not None and self.op.tuned is not None:
+            self.op.tuned = dataclasses.replace(self.op.tuned, selection=self.selection)
+        self.tuned = self.op.tuned
         if self.op.ell:
-            self.conversion = dict(ell=self.op.ell, ell_block=cfg.kernel.ell_block)
+            applied = self.tuned.ell_block if self.tuned is not None else ell_block
+            self.conversion = dict(ell=self.op.ell, ell_block=applied)
+        self.t = t
+        self._set_policy(resolve_policy(adaptive))
         self._apply = self.op.matvec_fn()
         self._build_reducers()
 
@@ -427,6 +530,7 @@ class ECGSolver:
         self.stats.solves += 1
         result = finalize_result(carry, x0=x0_dev, t=self.t, tol=cfg.tol, policy=self.policy)
         result.comm_segments = segments
+        result.selection = self.selection
         return result
 
     def solve_many(self, bs, x0s=None):
@@ -466,19 +570,26 @@ class ECGSolver:
         setup as the overrides permit.
 
         Solve-level overrides (``tol``, ``max_iters``, ``method``, the
-        adaptive policy) reuse the operator outright; operator-level overrides (backend, tile, t, ...)
-        rebuild it, reusing the parent's conversion artifacts where they
-        still match.  The preconditioner is reused with the operator unless
-        the precondition knobs changed, which rebuild it alone.  Accepts the flat field spellings of
-        :meth:`SolverConfig.replace`.
+        adaptive policy) reuse the operator, the tuning and the ``t="auto"``
+        selection outright; operator-level overrides (strategy, backend,
+        tile, overlap, tune, t) rebuild it, reusing the parent's partition
+        and, where they still match, its conversion artifacts.  Under
+        ``t="auto"`` a change of the adaptive knobs, the tolerance or the
+        method re-runs the selection (each enters its ranking).  The
+        preconditioner is reused with the operator unless the precondition
+        knobs changed, which rebuild it alone.  Accepts the flat field
+        spellings of :meth:`SolverConfig.replace`.
         """
         new_cfg = self.config.replace(**overrides)
         clone = ECGSolver.__new__(ECGSolver)
         clone.a, clone.config = self.a, new_cfg
         clone.device, clone.mesh = self.device, self.mesh
         clone.stats = SolverStats()
+        clone.selection = None
+        clone.tuned = None
         clone.op = None
         clone._pm = self._pm
+        clone._probe_b = self._probe_b
         clone._runners = {}
         clone._onehot_cache = {}
         clone._conversion_in = self.conversion
@@ -488,12 +599,32 @@ class ECGSolver:
             and new_cfg.comm == self.config.comm
             and new_cfg.kernel == self.config.kernel
             and new_cfg.tune == self.config.tune
+            # a t="auto" resolution is derived from the adaptive knobs, the
+            # tolerance and the method (each enters its ranking): changing
+            # any of them must re-run the selection.  A method change under
+            # a fixed t reuses the operator outright.
+            and (
+                not isinstance(self.config.t, str)
+                or (
+                    new_cfg.adaptive == self.config.adaptive
+                    and new_cfg.tol == self.config.tol
+                    and new_cfg.method == self.config.method
+                )
+            )
         )
         if reuse_op:
             # the SpMBV and the reductions do not depend on the scheme: a
             # method change reuses the operator; only the runners differ
             clone.t = self.t
-            clone._set_policy(new_cfg.adaptive.policy)
+            clone.tuned = self.tuned
+            clone.selection = self.selection
+            if new_cfg.adaptive == self.config.adaptive:
+                policy = self.policy  # keeps auto-t's implied rankrev
+            else:
+                policy = new_cfg.adaptive.policy
+                if policy is None and clone.selection is not None and not new_cfg.adaptive.explicit_off:
+                    policy = resolve_policy("rankrev")  # auto-t implies breakdown safety
+            clone._set_policy(policy)
             clone.op = self.op
             clone._apply = self._apply
             clone._gram1, clone._gram2 = self._gram1, self._gram2

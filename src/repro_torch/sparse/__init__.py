@@ -4,12 +4,14 @@
 from repro_torch.sparse.csr import BSRMatrix, CSRMatrix, csr_spmbv, csr_spmv, csr_to_bsr
 from repro_torch.sparse.matrices import (
     EXAMPLE_2_1,
+    SUITE_MATRICES,
     aniso_laplace_2d,
     dg_laplace_2d,
     fd_laplace_2d,
     fd_laplace_3d,
     random_spd,
     scaled_laplace_2d,
+    suite_surrogate,
 )
 from repro_torch.sparse.partition import PartitionedMatrix, RowPartition, partition_csr
 
@@ -28,5 +30,7 @@ __all__ = [
     "random_spd",
     "aniso_laplace_2d",
     "scaled_laplace_2d",
+    "suite_surrogate",
+    "SUITE_MATRICES",
     "EXAMPLE_2_1",
 ]

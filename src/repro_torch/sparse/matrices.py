@@ -6,9 +6,20 @@ are vectorised: ``dg_laplace_2d((320, 256), block=16)`` (Example 2.1 at full
 scale: 1 310 720 rows, ~104.5M nonzeros) is built in seconds instead of the
 reference's per-row Python loops.  Arrays are built on the host with numpy
 and handed to ``device`` once.
+
+The SuiteSparse matrices of the paper's Table 3 are generated as
+*structural surrogates* (:func:`suite_surrogate`, :func:`surrogate_graph`)
+matched to the published rows and nonzeros per row.  Their id shuffle is
+seeded with ``hash(name) % 2**31``, as the reference's: Python randomises
+``str`` hashes per process (unless ``PYTHONHASHSEED`` is set), so these
+operators differ from one process to the next, and they equal the
+reference's only when both are built in the same process.  The seed is
+copied as it is so that the arrays stay equal to the reference's.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -91,6 +102,27 @@ def _coo_to_csr(rows, cols, vals, n):
     np.add.at(indptr[1:], rows, 1)
     indptr = np.cumsum(indptr)
     return indptr, cols.astype(np.int32), vals.astype(np.float64)
+
+
+def _permute_graph(indptr, cols, vals, n, perm):
+    """Symmetric permutation  A -> P A Pᵀ  of a scalar CSR graph."""
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(n)
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+    return _coo_to_csr(inv[rows], inv[cols], vals, n)
+
+
+def window_shuffle_perm(n: int, window: int, seed: int = 0) -> np.ndarray:
+    """Permutation shuffling ids within windows — emulates the 'natural'
+    (non-graph-partitioned) ordering of unstructured FE meshes, which scatters
+    geometric neighbours across nearby index ranges.  Used for the SuiteSparse
+    surrogates so comm graphs show the paper's message heterogeneity."""
+    rng = np.random.default_rng(seed)
+    perm = np.arange(n)
+    for s in range(0, n, window):
+        e = min(s + window, n)
+        perm[s:e] = rng.permutation(perm[s:e])
+    return perm
 
 
 def _spd_block(b: int, seed: int = 7) -> np.ndarray:
@@ -186,3 +218,86 @@ def random_spd(n: int, density: float = 0.05, seed: int = 0, dtype=torch.float64
 
 #: Example 2.1 of the paper: 1 310 720 rows, ~104.5M nnz at full scale.
 EXAMPLE_2_1 = dict(elements=(320, 256), block=16)
+
+
+@dataclasses.dataclass(frozen=True)
+class SuiteSpec:
+    """Published stats (paper Table 3) + surrogate generator parameters."""
+
+    rows: int
+    nnz: int
+    nnz_per_row: float
+    # surrogate params: block size + element grid (2D) or grid (3D stencil)
+    block: int
+    grid: tuple[int, ...]
+    # id-shuffle window (elements) emulating the unstructured natural ordering;
+    # 0 = keep the structured ordering
+    window: int = 2048
+
+
+# Table 3 of the paper.  Surrogate: dense `block` blocks on a 5-pt (2D) or
+# 7-pt (3D, thermal2) stencil, grid sized so rows and nnz/row approximate the
+# published values (rows_surrogate = block * prod(grid)).
+SUITE_MATRICES: dict[str, SuiteSpec] = {
+    "audikw_1": SuiteSpec(943_695, 77_651_847, 82.3, 16, (243, 243)),
+    "Geo_1438": SuiteSpec(1_437_960, 60_236_322, 41.9, 8, (424, 424)),
+    "bone010": SuiteSpec(986_703, 47_851_783, 48.5, 9, (331, 331)),
+    "Emilia_923": SuiteSpec(923_136, 40_373_538, 43.7, 9, (320, 320)),
+    "Flan_1565": SuiteSpec(1_565_794, 114_165_372, 72.9, 15, (323, 323)),
+    "Hook_1498": SuiteSpec(1_498_023, 59_374_451, 39.6, 8, (433, 433)),
+    "ldoor": SuiteSpec(952_203, 42_493_817, 44.6, 9, (325, 325)),
+    "Serena": SuiteSpec(1_391_349, 64_131_971, 46.1, 9, (393, 393)),
+    "thermal2": SuiteSpec(1_228_045, 8_580_313, 7.0, 1, (107, 107, 107)),
+}
+
+
+def _surrogate_graph_arrays(name: str, scale: float):
+    """The element-level graph of a Table-3 surrogate, id-shuffled within
+    windows (seed ``hash(name) % 2**31``: per process, see the module
+    docstring)."""
+    spec = SUITE_MATRICES[name]
+    grid = tuple(max(2, int(g * scale)) for g in spec.grid)
+    if len(grid) == 3:
+        indptr, cols, vals = _grid_laplacian_3d(*grid)
+    else:
+        indptr, cols, vals = _grid_laplacian_2d(*grid)
+    n = int(np.prod(grid))
+    if spec.window:
+        window = max(16, int(spec.window * scale))
+        perm = window_shuffle_perm(n, window, seed=hash(name) % 2**31)
+        indptr, cols, vals = _permute_graph(indptr, cols, vals, n, perm)
+    return indptr, cols, vals, n, spec
+
+
+def suite_surrogate(name: str, scale: float = 1.0, dtype=torch.float64,
+                    device="cuda") -> CSRMatrix:
+    """Structural surrogate of a Table-3 matrix (optionally scaled down).
+
+    ``scale`` < 1 shrinks the grid linearly (rows shrink ~quadratically for 2D
+    surrogates); structure class (block size, stencil) is preserved.
+    """
+    indptr, cols, vals, n, spec = _surrogate_graph_arrays(name, scale)
+    if spec.block == 1:
+        return _csr(indptr, cols, vals, n, dtype, device)
+    indptr, cols, vals = _kron_block_csr(indptr, cols, vals, n, _spd_block(spec.block))
+    return _csr(indptr, cols, vals, n * spec.block, dtype, device)
+
+
+def surrogate_graph(name: str, scale: float = 1.0, device="cuda") -> tuple[CSRMatrix, int]:
+    """Element-level graph of a Table-3 surrogate + its ``row_block`` factor.
+
+    Communication statistics computed on this graph with
+    ``build_comm_graph(..., row_block=block)`` are identical to dof-level
+    statistics when partitions align to element blocks — and ~block² cheaper
+    to build, so full published scale is tractable.
+    """
+    indptr, cols, vals, n, spec = _surrogate_graph_arrays(name, scale)
+    return _csr(indptr, cols, vals, n, torch.float64, device), spec.block
+
+
+def example_2_1_graph(scale: float = 1.0, device="cuda") -> tuple[CSRMatrix, int]:
+    """Element-level graph of Example 2.1 (320x256 elements, block 16)."""
+    nx, ny = EXAMPLE_2_1["elements"]
+    nx, ny = max(2, int(nx * scale)), max(2, int(ny * scale))
+    indptr, cols, vals = _grid_laplacian_2d(nx, ny)
+    return _csr(indptr, cols, vals, nx * ny, torch.float64, device), EXAMPLE_2_1["block"]

@@ -115,13 +115,13 @@ def interior_boundary_split(
         n_local = hi - lo
         ptr = np.asarray(pm.local_indptr[r])
         ix = np.asarray(pm.local_indices[r])
-        has_halo = np.zeros(n_local, dtype=bool)
         rows_of_nnz = np.repeat(np.arange(n_local, dtype=np.int64), np.diff(ptr))
-        np.logical_or.at(has_halo, rows_of_nnz, ix >= n_local)
+        # a row has a halo column when any of its nonzeros does (a count, not
+        # np.logical_or.at: the same mask, without ufunc.at's per-element cost)
+        has_halo = np.bincount(rows_of_nnz[ix >= n_local], minlength=n_local) > 0
         if block_row > 1 and n_local:
             blocks = np.arange(n_local) // block_row
-            block_has_halo = np.zeros(int(blocks[-1]) + 1, dtype=bool)
-            np.logical_or.at(block_has_halo, blocks, has_halo)
+            block_has_halo = np.bincount(blocks[has_halo], minlength=int(blocks[-1]) + 1) > 0
             has_halo = block_has_halo[blocks]
         out.append((np.nonzero(~has_halo)[0], np.nonzero(has_halo)[0]))
     return out

@@ -50,7 +50,8 @@ the exchange's CUDA graph replays on a second stream (enqueued first) while
 the interior SpMBV runs on the current one, and the boundary SpMBV waits on
 the replay's event; on CPU tensors it is the same code with no streams.
 
-Not ported yet: tuning (ROADMAP.md queue 1 item 9).
+``tune`` hands the strategy, the Block-ELL tile and the overlap to the
+setup-time autotuner (:mod:`repro_torch.tune`), as the reference does.
 """
 
 from __future__ import annotations
@@ -74,10 +75,6 @@ from repro_torch.sparse.partition import (
     partition_csr,
     rebased_local_csr,
 )
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
 @dataclasses.dataclass
@@ -111,6 +108,8 @@ class DistributedSpMBV:
     split: dict = dataclasses.field(default_factory=dict)
     _views: dict = dataclasses.field(default_factory=dict)
     _side_stream: object = None
+    # the applied repro_torch.tune.TunedConfig (None when built untuned)
+    tuned: object = None
     # per-width device index arrays, filled on demand by width re-slices
     _width_arrays: dict = dataclasses.field(default_factory=dict)
     # one HaloExchange (static buffers, CUDA graph) per
@@ -488,8 +487,17 @@ def _make_distributed_spmbv(
     Block-ELL here (one-time host cost) with tile ``ell_block`` (an int for
     square tiles or a (br, bc) pair); ``col_split`` overrides the
     nodal-optimal wide-halo splitting factor (must divide t; ``None`` = §4.3
-    byte model).  ``overlap=True`` and ``tune`` other than ``"off"`` are not
-    ported yet.
+    byte model).
+
+    ``tune`` hands the strategy, tile and overlap to the setup-time
+    autotuner (:mod:`repro_torch.tune`): ``"model"`` selects them from the
+    paper's analytic performance models, ``"model:structural"`` from the
+    executor-structural model (plan dispatches + moved bytes),
+    ``"measure"`` from setup-time microbenchmarks on ``mesh``, and a
+    :class:`~repro_torch.tune.TunedConfig` applies a previous choice; the
+    tuned strategy, overlap, tile, machine and ``col_split`` then win over
+    the explicit arguments, and :attr:`DistributedSpMBV.tuned` records the
+    config.  ``"off"`` (default) keeps the explicit arguments.
 
     ``ell`` reuses another operator's Block-ELL arrays (its ``.ell``) built
     on the same partition and tile: the [own ‖ halo] layout depends on the
@@ -501,13 +509,34 @@ def _make_distributed_spmbv(
     """
     if backend not in ("jnp", "pallas"):
         raise ValueError(f"unknown backend {backend!r}")
-    if not (tune is None or tune == "off"):
-        _not_ported(f"tuning (tune={tune!r})", "queue 1 item 9")
     n_nodes, ppn = mesh.shape
     p = n_nodes * ppn
     pm = pm or partition_csr(a, p)
     if pm.p != p:
         raise ValueError(f"partition has {pm.p} ranks, mesh {p}")
+
+    tuned = None
+    if not (tune is None or tune == "off"):
+        from repro_torch.tune import TunedConfig, tune as run_tune
+
+        if isinstance(tune, TunedConfig):
+            tuned = tune
+        elif tune in ("model", "model:structural", "measure"):
+            tuned = run_tune(
+                a, t=t, machine=machine, n_nodes=n_nodes, ppn=ppn,
+                pm=pm, backend=backend, mode=tune, mesh=mesh,
+            )
+        else:
+            raise ValueError(f"unknown tune mode {tune!r}")
+        strategy = tuned.strategy
+        overlap = tuned.overlap
+        ell_block = (tuned.br, tuned.bc)
+        # keep the built plan consistent with the config's byte-model
+        # decisions: the tuner's dtype-resolved machine wins over the raw
+        # caller argument it was derived from
+        machine = tuned.machine or machine
+        if col_split is None and tuned.col_split > 1:
+            col_split = tuned.col_split
 
     plan = build_exchange_plan(
         pm, n_nodes, ppn, strategy, t=t, machine=machine, col_split=col_split
@@ -557,4 +586,5 @@ def _make_distributed_spmbv(
         operand_rows=operand_rows,
         overlap=overlap,
         split=split,
+        tuned=tuned,
     )

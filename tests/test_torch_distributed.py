@@ -42,6 +42,7 @@ from seeds with numpy on both sides.  Compared:
 """
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -688,10 +689,21 @@ def test_mesh_rotations_and_sum():
     (dict(method="sstep", t="auto"), "queue 1 item 6b"),
 ])
 def test_unported_distributed_options_raise(operators, override, item):
+    """The options that raised until their ROADMAP.md ``item`` was ported
+    (tuning, ``t="auto"``) now build and solve on the mesh: the handle
+    records the applied tuner config (and, for ``t="auto"``, the
+    selection, whose config it runs)."""
     from repro_torch.solver import ECGSolver, SolverConfig
 
-    with pytest.raises(NotImplementedError, match=item):
-        ECGSolver.build(operators["fd"], _mesh(), SolverConfig().replace(**override))
+    a = operators["fd"]
+    b = _rhs(a.shape[0])
+    solver = ECGSolver.build(a, _mesh(), SolverConfig(tol=1e-8 * np.linalg.norm(b)).replace(**override))
+    res = solver.solve(b)
+    assert res.converged and solver.tuned is not None
+    assert solver.op.plan.strategy == solver.tuned.strategy and solver.op.overlap == solver.tuned.overlap
+    if override.get("t") == "auto":
+        assert res.selection is solver.selection and res.t == solver.selection.t
+        assert solver.tuned.selection is solver.selection
 
 
 def test_cli_runs_the_virtual_mesh_and_refuses_tuned(capsys):
@@ -702,13 +714,20 @@ def test_cli_runs_the_virtual_mesh_and_refuses_tuned(capsys):
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line.startswith("distributed ECG[classic/3step/pallas] t=4 on 8 devices:")
     assert "converged=True" in line
-    for flags, item in ((["--strategy", "tuned"], "queue 1 item 9"),
+    for flags, item in ((["--t", "auto", "--tune", "off"], "cannot run with --tune off"),
                         (["--strategy", "3step", "--method", "pipelined", "--precondition",
                           "inexact"], "cannot absorb")):
         with pytest.raises(SystemExit):
             port_cli.main(["--matrix", "fd", "--elements", "4", "--devices", "8", "--ppn", "4",
                            "--device", "cpu", *flags])
         assert item in capsys.readouterr().err
+    # --strategy tuned runs the tuner on the mesh (it was refused before
+    # the tuner was ported)
+    port_cli.main(["--matrix", "fd", "--elements", "4", "--t", "4", "--devices", "8", "--ppn", "4",
+                   "--strategy", "tuned", "--backend", "pallas", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert re.search(r"^tuned\[model\]: strategy=\w+ tile=\(\d+, \d+\) kmax=\d+", out, re.M)
+    assert "converged=True" in out.strip().splitlines()[-1]
     # the overlap schedule and the other schemes run (they were refused
     # before they were ported)
     port_cli.main(["--matrix", "fd", "--elements", "4", "--t", "4", "--devices", "8", "--ppn", "4",

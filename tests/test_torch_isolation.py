@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or the reference package ``repro``."""
+"""The port stands alone: no module of ``repro_torch``, and neither
+``chip_smoke.py`` nor ``tools/calibrate_h100.py``, imports JAX or the
+reference package ``repro``."""
 
 import ast
 import os
@@ -16,7 +17,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     assert files, "repro_torch has no modules"
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "tools" / "calibrate_h100.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -43,7 +44,8 @@ def test_no_jax_or_reference_imports(path):
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, repro_torch, repro_torch.solver, repro_torch.launch.solve, "
-        "repro_torch.kernels, repro_torch.sparse\n"
+        "repro_torch.kernels, repro_torch.sparse, repro_torch.tune, repro_torch.adaptive, "
+        "repro_torch.core.models\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

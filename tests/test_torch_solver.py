@@ -49,10 +49,21 @@ def test_config_validation_matches_reference():
 
 
 def test_config_values_without_a_port_refuse_json():
-    ref_cfg = ref_solver.SolverConfig(comm=ref_solver.CommConfig(machine=None))
+    """A ``machine``, the values that had no JSON form in the port until the
+    models were ported, now serialises to the reference's dict and loads
+    back; a malformed one raises as the reference's does."""
+    from repro.core.machines import LASSEN as REF_LASSEN
+    from repro_torch.core.machines import LASSEN
+
+    ref_cfg = ref_solver.SolverConfig(comm=ref_solver.CommConfig(machine=REF_LASSEN))
     d = ref_solver.config.solverconfig_to_dict(ref_cfg)
+    cfg = SolverConfig(comm=port_solver.CommConfig(machine=LASSEN))
+    assert port_solver.config.solverconfig_to_dict(cfg) == d
+    assert SolverConfig.from_json(d) == cfg == SolverConfig.from_json(cfg.to_json())
     d["comm"]["machine"] = {"name": "x"}
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(TypeError):
+        ref_solver.SolverConfig.from_json(d)
+    with pytest.raises(TypeError):
         SolverConfig.from_json(d)
 
 
@@ -131,8 +142,15 @@ def test_build_from_reference_conversion():
     (dict(method="sstep", tune="model:structural"), "queue 1 item 9"),
 ])
 def test_options_not_ported_raise(op, overrides, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ECGSolver.build(op, config=SolverConfig(**overrides), device="cpu")
+    """The options that raised until their ROADMAP.md ``item`` was ported
+    (``t="auto"``, tuning) now build and solve; a ``t="auto"`` handle
+    records its selection and runs at the chosen width."""
+    s = ECGSolver.build(op, config=SolverConfig(**overrides), device="cpu")
+    res = s.solve(np.random.default_rng(4).standard_normal(op.shape[0]))
+    assert res.converged
+    if overrides.get("t") == "auto":
+        assert res.selection is s.selection and res.t == s.t == s.selection.t
+        assert s.policy is not None  # auto-t implies rankrev
 
 
 @pytest.mark.parametrize("adaptive", ["rankrev", "reduce", "reduce+restart"])
@@ -193,5 +211,7 @@ def test_cli_summary_line(capsys, backend):
 
 
 def test_cli_refuses_distributed_run():
+    """A distributed run whose ranks do not fill whole nodes is refused (the
+    default tuned run itself now runs: tests/test_torch_tune.py)."""
     with pytest.raises(SystemExit):
-        port_cli.main(["--devices", "8", "--device", "cpu"])
+        port_cli.main(["--devices", "8", "--ppn", "3", "--device", "cpu"])
