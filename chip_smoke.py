@@ -13,8 +13,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    block=16)``: 1 310 720 rows, ~104.5M nonzeros) and an ``ECGSolver`` with
    t = 8, tol = 1e-8·‖b‖, ``backend="pallas"`` on the card.
 3. kernel checks — each kernel against its plain torch version at the main
-   path's shapes (f64, t = 8) and at t = 1 and in f32, ``bsr_spmbv`` and
-   ``fused_gram`` also at t = 16; one JSON line each with the kernel path
+   path's shapes (f64, t = 8) and at t = 1 and in f32, ``bsr_spmbv``,
+   ``fused_gram`` and ``ecg_tail`` also at t = 4 and 16 in f64 (the serve
+   phases' solves and packs); one JSON line each with the kernel path
    its wrapper chose (where it has two), its error, the tolerance, and
    CUDA-event times of the kernel, the plain version and one PyTorch library
    call of the same function (a yardstick only; the port never calls it),
@@ -217,8 +218,48 @@ on the card, at the same full scale:
     table, ``probe_iters_used``, the chosen t and tile, the build's seconds;
     the solve converges to ≤ 10·tol at the chosen t, with the launch counts
     of a ``rankrev`` solve at that t (``rank_apply`` and ``drop_mask`` one
-    per iteration, ``chol_apply`` none).
+    per iteration, ``chol_apply`` none).  Phase 32's measured descent times
+    phase 5's (64, 64)-element operator; its choice then solves at full
+    scale.
 
+Phases 34-39 run the serving layer (``repro_torch.serve``) on Example 2.1
+at full scale, the reference server's template at t = 4 under ``rankrev``
+with ``backend="pallas"``, tol = phase 4's:
+
+34. ``serve_build`` — an ``ECGServer`` with a warm-start cache in a temporary
+    directory: the fingerprint's seconds, the cold build's seconds and
+    ``conv_analyzed``/``conv_reused``.
+35. ``serve_batched`` — ``pack="off"``, 4 distinct requests and 1 duplicate
+    payload: one ``solve_many`` batch of 4, ``dedup_shared == 1``; two
+    results bit-identical (x, ``res_hist``) to solo ``solver.solve(b)``;
+    launches ``bsr_spmbv`` Σ(n_iters + 1), ``fused_gram``, ``ecg_tail``,
+    ``rank_apply`` and ``drop_mask`` Σ n_iters; true residual ≤ 10·tol;
+    seconds per submit, req/s, latency p50/p95.
+36. ``serve_packed`` — ``pack="width"``, ``max_pack_width=16``: the first 4
+    requests with absolute tolerances (1e-4, 1e-6, 1e-8, 1e-8)·‖b_j‖ in one
+    width-16 pack: each host ``true_relres`` ≤ its tolerance × 1.01,
+    retirements ordered by tolerance, ``packed_iters`` ≤ phase 35's slowest
+    solve, the kernels launched ``packed_iters`` times (``bsr_spmbv`` once
+    more: the full-width initial residual); req/s beside phase 35's.
+37. ``serve_packed_distributed`` — the same on ``VirtualMesh(2, 4)``,
+    ``optimal``, 3 requests at (1e-4, 1e-6, 1e-8)·‖b_j‖, width 12: segment
+    widths strictly decreasing from 12, ``psum`` 3·packed_iters + 1, the
+    elements per exchange dropping at each retirement width (and summing to
+    the mesh's count), the halo kernels ``len(plan.at_width(w).phases)``
+    times per SpMBV of each segment, each relres ≤ tolerance × 1.01.
+38. ``serve_restart`` — a second server on the same cache directory with a
+    byte budget below both operators: a warm build (``conv_analyzed``
+    False), eviction by phase 5's operator, re-admission of Example 2.1
+    with ``conv_reused``; cold, warm and re-admitted build seconds.
+39. ``serve_trace`` — phases 35-36's traffic again under a
+    ``Tracer([ChromeTraceSink])``: the trace holds ``serve/drain``,
+    ``serve/dispatch``, ``serve/queue_wait``, ``solve_many/dispatch`` and
+    ``solve_packed/dispatch`` spans, the traced results equal the untraced
+    ones bit for bit, and the traced over untraced wall time.
+
+The ``kernels`` line's ``bsr_spmbv``, ``fused_gram``, ``ecg_tail`` and
+``rank_apply`` rows carry ``widths`` entries for t = 4 and 16 with their
+launches in phases 35 and 36.
 """
 
 from __future__ import annotations
@@ -238,6 +279,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 ELEMENTS, BLOCK = (320, 256), 16  # Example 2.1 at full scale
 T = 8
+T_SERVE = 4  # the serving layer's solver template (phases 34-39)
 MAX_ITERS = 5000
 REPS, BATCHES = 10, 5
 SLOW_MS, SLOW_REPS, SLOW_BATCHES = 2.0, 2, 3
@@ -547,12 +589,14 @@ def main() -> int:
             raise AssertionError(f"{name}: two calls on the same inputs differ")
 
     checks = {}
+    # the serve phases' widths (34-39): t = 4 solves and width-16 packs
+    width_rows = {}
     for name, make in (("bsr_spmbv", check_bsr), ("fused_gram", check_gram), ("ecg_tail", check_tail)):
         checks[name] = run_check(name, make, T, torch.float64)  # the main path's shape
         run_check(name, make, 1, torch.float64)
         run_check(name, make, T, torch.float32)
+        width_rows[name] = {w: run_check(name, make, w, torch.float64) for w in (T_SERVE, 16)}
         if name != "ecg_tail":
-            run_check(name, make, 16, torch.float64)
             repeat_check(name, make, T)
     csr_by_dtype.clear()
     torch.cuda.empty_cache()
@@ -1172,7 +1216,8 @@ def main() -> int:
     checks["rank_apply"] = run_rank_check(zr, azr, "main path, full rank", rank=T)
     run_rank_check(*rank_operands(T, torch.float64, dependent=4), "rank 4", rank=4)
     run_rank_check(zr, azr, "NaN in G", rank=0, nan=True)
-    run_rank_check(*rank_operands(4, torch.float64), "t=4", rank=4)
+    width_rows["rank_apply"] = {T_SERVE: run_rank_check(*rank_operands(T_SERVE, torch.float64),
+                                                       f"t={T_SERVE}", rank=T_SERVE)}
     run_rank_check(*rank_operands(T, torch.float32), "float32")
     del zr, azr
     torch.cuda.empty_cache()
@@ -1654,6 +1699,8 @@ def main() -> int:
                                                                 f"dependent columns")
         if dtype == torch.float64 and not dep and not nan:
             rank_rows[st_] = row
+            if st_ == 16:  # also the width of phase 36's packs
+                width_rows["rank_apply"][16] = row
         del zr, azr
         torch.cuda.empty_cache()
 
@@ -1809,13 +1856,19 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---------------------- 32. tuned, distributed: structural model, measured
+    # The structural model ranks the full-scale operator; the measured
+    # descent (10 operator builds, each a Block-ELL conversion on the host)
+    # times phase 5's (64, 64)-element operator, and its choice then runs at
+    # full scale.
     tmesh = VirtualMesh(2, 4, device=dev)
     tpm = partition_csr(a, tmesh.p)
+    tpm2 = partition_csr(a2, tmesh.p)
     t0 = time.perf_counter()
     cfg_s = tune(a, t=T, mesh=tmesh, pm=tpm, mode="model:structural")
     struct_s = time.perf_counter() - t0
+    cfg_s2 = tune(a2, t=T, mesh=tmesh, pm=tpm2, mode="model:structural")
     t0 = time.perf_counter()
-    cfg_m = tune(a, t=T, mesh=tmesh, pm=tpm, mode="measure")
+    cfg_m = tune(a2, t=T, mesh=tmesh, pm=tpm2, mode="measure")
     torch.cuda.synchronize()
     measure_s = time.perf_counter() - t0
 
@@ -1824,12 +1877,14 @@ def main() -> int:
 
     measured = cfg_m.predicted["measured_us"]
     modeled = {k_: v_ * 1e6 for k_, v_ in cfg_s.predicted["grid"].items()}
+    modeled2 = {k_: v_ * 1e6 for k_, v_ in cfg_s2.predicted["grid"].items()}
     log({"phase": "tuned_distributed_grid", "machine": cfg_s.machine.name,
          "structural_choice": key(cfg_s), "measured_choice": key(cfg_m),
+         "measured_n": a2.shape[0], "structural_choice_measured_operator": key(cfg_s2),
          "structural_s": struct_s, "measure_s": measure_s, "measured_us": measured,
-         "modeled_us": {k_: modeled[k_] for k_ in measured},
+         "modeled_us": {k_: modeled2[k_] for k_ in measured},
          "modeled_us_full_grid": modeled,
-         "structural_choice_measured_us": measured.get(key(cfg_s)),
+         "structural_choice_measured_us": measured.get(key(cfg_s2)),
          "tile_stats": {f"{br}x{bc}": dict(kmax=ts_.kmax, stored=ts_.stored, fill=ts_.fill)
                         for br, bc in DEFAULT_TILES for ts_ in [tile_stats(tpm, br, bc)]}})
     gate("tuned_distributed", key(cfg_m) in measured and measured[key(cfg_m)] == min(
@@ -1852,7 +1907,7 @@ def main() -> int:
     log({"phase": "tuned_distributed_json", "round_trip_same_operator": same,
          "wire_bytes": again.plan.wire_bytes(8)})
     gate("tuned_distributed", same, "the TunedConfig's JSON did not rebuild the same operator")
-    del msolver, again, r, tmesh, tpm
+    del msolver, again, r, tmesh, tpm, tpm2
     torch.cuda.empty_cache()
 
     # ------------------------------------------------- 33. t="auto", sequential
@@ -1873,6 +1928,243 @@ def main() -> int:
     gate("auto_t", got == want_launches(bsr_spmbv=k_ + 1, fused_gram=k_, ecg_tail=k_, rank_apply=k_,
                                         drop_mask=k_), f"launch counts {got}")
     del asolver, r
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- 34. serve_build
+    # The serving layer (repro_torch.serve) on Example 2.1: the reference's
+    # server template at t = 4 under rankrev, on the Block-ELL kernels.
+    import tempfile
+
+    from repro_torch.observe import ChromeTraceSink, Tracer
+    from repro_torch.serve import (
+        ECGServer, ServeConfig, fingerprint_csr, latency_percentiles, operator_nbytes,
+    )
+
+    serve_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_serve_")
+    cache_dir = str(Path(serve_tmp.name) / "cache")
+    scfg = SolverConfig(t=T_SERVE, tol=tol, max_iters=MAX_ITERS, adaptive="rankrev",
+                        kernel=KernelConfig(backend="pallas"))
+    server = ECGServer(ServeConfig(solver=scfg, cache_dir=cache_dir), device=dev)
+    t0 = time.perf_counter()
+    fp = fingerprint_csr(a)
+    fingerprint_s = time.perf_counter() - t0
+    key_, ssolver = server.registry.get(a, fingerprint=fp)
+    torch.cuda.synchronize()
+    cold = server.registry.build_records[-1]
+    log({"phase": "serve_build", "n": n, "t": T_SERVE, "operator_nbytes": operator_nbytes(a),
+         "fingerprint": fp, "fingerprint_s": fingerprint_s, "cold_build_s": cold["build_s"],
+         "warm": cold["warm"], "conv_analyzed": cold["conv_analyzed"],
+         "conv_reused": cold["conv_reused"], "cache_files": len(list(Path(cache_dir).iterdir()))})
+    gate("serve_build", key_ == fp and not cold["warm"] and cold["conv_analyzed"]
+         and not cold["conv_reused"], f"build record {cold}")
+
+    def serve_traffic(srv, reqs, mesh_=None):
+        """Submit ``reqs`` [(b, tol)] to ``srv`` with the launch counts (and
+        the mesh's counters) set to 0 just before, flush; returns the
+        tickets, the seconds of each submit, the traffic's wall seconds, the
+        launch counts and the mesh counters."""
+        kernels.reset_launch_counts()
+        if mesh_ is not None:
+            mesh_.reset_counters()
+        torch.cuda.synchronize()
+        submit_s, tickets = [], []
+        t0 = time.perf_counter()
+        for b_, tol_ in reqs:
+            t1 = time.perf_counter()
+            tickets.append(srv.submit(a, b_, tol=tol_))
+            submit_s.append(time.perf_counter() - t1)
+        srv.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counters = None if mesh_ is None else {
+            "psum": mesh_.psum_calls, "ppermute": mesh_.ppermute_calls,
+            "ppermute_elements": mesh_.ppermute_elements}
+        return tickets, submit_s, wall, kernels.launch_counts(), counters
+
+    def true_residual(handle, x_, b_):
+        x_ = torch.as_tensor(handle.unshard(x_), device=dev) if handle.mesh is not None else x_
+        return float(torch.linalg.norm(torch.as_tensor(b_, device=dev) - csr_spmv(a, x_)))
+
+    def same_result(r1, r2):
+        h1, h2 = r1.res_hist, r2.res_hist
+        return (r1.n_iters == r2.n_iters and torch.equal(r1.x, r2.x) and h1.shape == h2.shape
+                and bool(((h1 == h2) | (h1.isnan() & h2.isnan())).all()))
+
+    # --------------------------------------------------------- 35. serve_batched
+    serve_b = [np.random.default_rng(100 + j).standard_normal(n) for j in range(4)]
+    batched_reqs = [(b_, None) for b_ in serve_b] + [(serve_b[1].copy(), None)]  # one duplicate
+    tickets, submit_s, batched_wall, got, _ = serve_traffic(server, batched_reqs)
+    q = server.stats()["queue"]
+    lat = latency_percentiles(tickets)
+    iters = [tk.result.n_iters for tk in tickets[:4]]
+    k_sum = sum(iters)
+    solo = [ssolver.solve(b_) for b_ in serve_b[:2]]
+    true_b = [true_residual(ssolver, tk.result.x, b_) for tk, b_ in zip(tickets, serve_b)]
+    row = {"phase": "serve_batched", "n": n, "t": T_SERVE, "tol": tol, "requests": len(tickets),
+           "n_iters": iters, "converged": [bool(tk.result.converged) for tk in tickets[:4]],
+           "true_residual": true_b, "batches": q["batches"], "batch_sizes": q["batch_sizes"],
+           "dedup_shared": q["dedup_shared"], "submit_s": submit_s, "wall_s": batched_wall,
+           "req_per_s": len(tickets) / batched_wall,
+           "ms_per_iter": batched_wall * 1e3 / k_sum, "latency_s": lat,
+           "launches": got, "solo_bit_identical": [same_result(tk.result, r_)
+                                                   for tk, r_ in zip(tickets[:2], solo)]}
+    log(row)
+    gate("serve_batched", q["dedup_shared"] == 1 and q["batches"] == 1 and q["batch_sizes"] == [4]
+         and tickets[4].deduped and tickets[4].result is tickets[1].result,
+         f"batches {q['batch_sizes']}, dedup {q['dedup_shared']}")
+    gate("serve_batched", all(row["solo_bit_identical"]), "a batched result differs from its solo solve")
+    gate("serve_batched", got == want_launches(bsr_spmbv=k_sum + 4, fused_gram=k_sum, ecg_tail=k_sum,
+                                               rank_apply=k_sum, drop_mask=k_sum),
+         f"launch counts {got} for {iters} iterations")
+    gate("serve_batched", all(tk.result.converged for tk in tickets)
+         and all(r_ <= 10 * tol for r_ in true_b), f"true residuals {true_b} (10·tol {10 * tol})")
+    batched = {"tickets": tickets, "launches": got, "wall": batched_wall, "max_iters": max(iters)}
+    del solo
+
+    # ---------------------------------------------------------- 36. serve_packed
+    # the same registered session, width-packed: one registry serves both
+    # policies, so the session is not built twice
+    pserver = ECGServer(ServeConfig(solver=scfg, cache_dir=cache_dir,
+                                    packing=dict(pack="width", max_pack_width=16)), device=dev)
+    pserver.registry = server.registry
+    pack_c = (1e-4, 1e-6, 1e-8, 1e-8)
+    packed_reqs = [(b_, c_ * float(np.linalg.norm(b_))) for b_, c_ in zip(serve_b, pack_c)]
+    tickets, submit_s, packed_wall, got, _ = serve_traffic(pserver, packed_reqs)
+    res0 = tickets[0].result
+    k_ = res0.pack["packed_iters"]
+    iters = [tk.result.n_iters for tk in tickets]
+    row = {"phase": "serve_packed", "n": n, "t_each": T_SERVE, "width": res0.pack["width"],
+           "tols_rel": pack_c, "n_iters": iters, "retired_iter": [tk.result.pack["retired_iter"]
+                                                                 for tk in tickets],
+           "packed_iters": k_, "relres": [tk.relres for tk in tickets],
+           "pack_layouts": pserver.stats()["queue"]["pack_layouts"], "submit_s": submit_s,
+           "wall_s": packed_wall, "req_per_s": len(tickets) / packed_wall,
+           "batched_req_per_s": len(batched["tickets"]) / batched["wall"],
+           "ms_per_iter": packed_wall * 1e3 / k_, "batched_max_iters": batched["max_iters"],
+           "launches": got}
+    log(row)
+    gate("serve_packed", res0.pack["width"] == 16 and all(tk.pack_id == 0 for tk in tickets),
+         f"pack {res0.pack}")
+    gate("serve_packed", all(tk.result.converged and tk.relres <= c_ * 1.01
+                             for tk, c_ in zip(tickets, pack_c)), f"relres {row['relres']}")
+    # a looser tolerance retires no later (equal tolerances in either order)
+    gate("serve_packed", all(iters[i] <= iters[j] for i in range(4) for j in range(4)
+                             if pack_c[i] > pack_c[j]), f"retirements {iters} not ordered by tolerance")
+    gate("serve_packed", k_ <= batched["max_iters"],
+         f"{k_} packed iterations over the slowest solo solve's {batched['max_iters']}")
+    gate("serve_packed", got == want_launches(bsr_spmbv=k_ + 1, fused_gram=k_, ecg_tail=k_,
+                                              rank_apply=k_, drop_mask=k_), f"launch counts {got}")
+    packed = {"tickets": tickets, "launches": got, "wall": packed_wall}
+
+    # ---------------------------------------------- 37. serve_packed_distributed
+    smesh = VirtualMesh(2, 4, device=dev)
+    dserver = ECGServer(ServeConfig(solver=scfg.replace(strategy="optimal"),
+                                    packing=dict(pack="width", max_pack_width=12)), mesh=smesh)
+    t0 = time.perf_counter()
+    _, dssolver = dserver.registry.get(a)
+    torch.cuda.synchronize()
+    dist_build_s = time.perf_counter() - t0
+    dist_c = (1e-4, 1e-6, 1e-8)
+    dist_reqs = [(b_, c_ * float(np.linalg.norm(b_))) for b_, c_ in zip(serve_b, dist_c)]
+    tickets, submit_s, dist_wall, got, counters = serve_traffic(dserver, dist_reqs, smesh)
+    res0 = tickets[0].result
+    k_ = res0.pack["packed_iters"]
+    segs = res0.comm_segments
+    widths = [w_ for w_, _ in segs]
+    plan_ = dssolver.op.plan
+
+    def exchange_elements(w_):
+        """Elements one exchange of the width-``w_`` plan rotates (its
+        captured counts)."""
+        ex = dssolver.op.exchange(plan_.at_width(w_), w_, torch.float64)
+        return ex.deltas[-1]
+
+    per_width = {w_: exchange_elements(w_) for w_ in widths}
+    applies = {w_: it_ for w_, it_ in segs}
+    applies[widths[0]] += 1  # the full-width initial residual of the pack
+    halo = sum(len(plan_.at_width(w_).phases) * c_ for w_, c_ in applies.items())
+    row = {"phase": "serve_packed_distributed", "mesh": list(smesh.shape), "strategy": "optimal",
+           "width": res0.pack["width"], "tols_rel": dist_c, "build_s": dist_build_s,
+           "n_iters": [tk.result.n_iters for tk in tickets], "packed_iters": k_,
+           "comm_segments": segs, "relres": [tk.relres for tk in tickets],
+           "elements_per_exchange": per_width, "mesh_counters": counters, "wall_s": dist_wall,
+           "ms_per_iter": dist_wall * 1e3 / k_, "submit_s": submit_s, "launches": got}
+    log(row)
+    gate("serve_packed_distributed", res0.pack["width"] == 12 and widths[0] == 12
+         and all(w1 > w2 for w1, w2 in zip(widths, widths[1:])), f"segments {segs}")
+    gate("serve_packed_distributed", counters["psum"] == 3 * k_ + 1,
+         f"psum ran {counters['psum']} times, want 3·{k_} + 1")
+    gate("serve_packed_distributed", all(per_width[w1] > per_width[w2]
+                                         for w1, w2 in zip(widths, widths[1:]))
+         and counters["ppermute_elements"] == sum(per_width[w_] * c_ for w_, c_ in applies.items()),
+         f"elements per exchange {per_width}, counted {counters['ppermute_elements']}")
+    gate("serve_packed_distributed", got == want_launches(
+        bsr_spmbv=k_ + 1, fused_gram=k_, ecg_tail=k_, rank_apply=k_, drop_mask=k_,
+        halo_pack=halo, halo_unpack=halo), f"launch counts {got}, halo want {halo}")
+    gate("serve_packed_distributed", all(tk.result.converged and tk.relres <= c_ * 1.01
+                                         for tk, c_ in zip(tickets, dist_c)),
+         f"relres {row['relres']}")
+    del dserver, dssolver, tickets, smesh
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------- 38. serve_restart
+    # a restarted server on the same cache directory, under a byte budget
+    # below both operators: warm build, eviction, re-admission
+    rserver = ECGServer(ServeConfig(solver=scfg, cache_dir=cache_dir, registry_bytes=1), device=dev)
+    reg = rserver.registry
+    reg.get(a)
+    warm = reg.build_records[-1]
+    reg.get(a2)
+    evicted = fp not in reg
+    reg.get(a)
+    readmit = reg.build_records[-1]
+    st = reg.stats()
+    log({"phase": "serve_restart", "cold_build_s": cold["build_s"], "warm_build_s": warm["build_s"],
+         "readmitted_build_s": readmit["build_s"], "warm": warm["warm"],
+         "warm_conv_analyzed": warm["conv_analyzed"], "evicted": evicted,
+         "readmitted_conv_reused": readmit["conv_reused"], "evictions": st["evictions"],
+         "resident": reg.fingerprints(), "small_operator_nbytes": operator_nbytes(a2)})
+    gate("serve_restart", warm["warm"] and not warm["conv_analyzed"], f"warm build {warm}")
+    gate("serve_restart", evicted and st["evictions"] == 2 and readmit["conv_reused"]
+         and not readmit["conv_analyzed"], f"re-admission {readmit}, evictions {st['evictions']}")
+    del rserver, reg
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- 39. serve_trace
+    trace_path = Path(serve_tmp.name) / "serve_trace.json"
+    tracer = Tracer([ChromeTraceSink(str(trace_path))])
+    tserver = ECGServer(ServeConfig(solver=scfg, cache_dir=cache_dir), tracer=tracer, device=dev)
+    tpserver = ECGServer(ServeConfig(solver=scfg, cache_dir=cache_dir,
+                                     packing=dict(pack="width", max_pack_width=16)),
+                         tracer=tracer, device=dev)
+    tserver.registry.get(a)  # a warm build, traced, before the timed traffic
+    tpserver.registry = tserver.registry
+    t_tickets, _, t_batched_wall, _, _ = serve_traffic(tserver, batched_reqs)
+    tp_tickets, _, t_packed_wall, _, _ = serve_traffic(tpserver, packed_reqs)
+    tracer.close()
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    names = sorted({e["name"] for e in events if e["ph"] == "X"})
+    want_names = {"serve/drain", "serve/dispatch", "serve/queue_wait", "solve_many/dispatch",
+                  "solve_packed/dispatch"}
+    equal = (all(same_result(u.result, v.result) for u, v in zip(t_tickets, batched["tickets"]))
+             and all(same_result(u.result, v.result) and u.relres == v.relres
+                     for u, v in zip(tp_tickets, packed["tickets"])))
+    ratio = (t_batched_wall + t_packed_wall) / (batched["wall"] + packed["wall"])
+    # the traced spans' seconds: the dispatch (the solves) by policy, the
+    # registry lookups (fingerprints) are the rest of each submit
+    dispatch_s = {pol: sum(e["dur"] for e in events if e["name"] == "serve/dispatch"
+                           and e["args"].get("policy") == pol) * 1e-6 for pol in ("batch", "width")}
+    log({"phase": "serve_trace", "events": len(events), "span_names": names,
+         "traced_equal_untraced": equal, "traced_wall_s": [t_batched_wall, t_packed_wall],
+         "untraced_wall_s": [batched["wall"], packed["wall"]], "traced_over_untraced": ratio,
+         "dispatch_s": dispatch_s,
+         "solve_ms_per_iter": {"batch": dispatch_s["batch"] * 1e3 / sum(
+             tk.result.n_iters for tk in t_tickets[:4]),
+             "width": dispatch_s["width"] * 1e3 / tp_tickets[0].result.pack["packed_iters"]}})
+    gate("serve_trace", want_names <= set(names), f"span names {names}")
+    gate("serve_trace", equal, "the traced results differ from the untraced ones")
+    del server, pserver, tserver, tpserver, ssolver, t_tickets, tp_tickets
+    serve_tmp.cleanup()
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ result
@@ -1918,10 +2210,23 @@ def main() -> int:
          **{k_: r_[k_] for k_ in ("max_abs_err", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "ms": r_["kernel_ms"]} for r_ in tile_rows]
     rows[list(sources).index("rank_apply")]["widths"] = [
-        {"t": st_, "launches": schemes[f"sstep_s{st_ // T}_sequential"]["launches"]["rank_apply"],
+        {"t": st_, "launches_in": f"sstep_s{st_ // T}_sequential",
+         "launches": schemes[f"sstep_s{st_ // T}_sequential"]["launches"]["rank_apply"],
          **{k_: rank_rows[st_][k_] for k_ in ("max_abs_err", "plain_ms", "bound_ms", "bound_by",
                                               "library_ms")}, "ms": rank_rows[st_]["kernel_ms"]}
         for st_ in (16, 32)]
+    # bsr_spmbv, fused_gram, ecg_tail and rank_apply also at the serve
+    # phases' widths (phase 3, phase 17, phase 28's s·t = 16), with their
+    # launches in the batched t = 4 traffic (phase 35) and the width-16
+    # pack (phase 36)
+    for name in ("bsr_spmbv", "fused_gram", "ecg_tail", "rank_apply"):
+        rows[list(sources).index(name)].setdefault("widths", []).extend(
+            {"t": w_, "launches_in": where, "launches": traffic["launches"][name],
+             **{k_: width_rows[name][w_][k_] for k_ in ("max_abs_err", "plain_ms", "bound_ms",
+                                                        "bound_by", "library_ms")},
+             "ms": width_rows[name][w_]["kernel_ms"]}
+            for w_, where, traffic in ((T_SERVE, "serve_batched", batched),
+                                       (16, "serve_packed", packed)))
     log({"kernels": rows})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -3,9 +3,9 @@
 Port of ``repro/adaptive/groups.py``.  Width packing coalesces k compatible
 right-hand sides into ONE enlarged block solve of width ``k·t′``: request j
 owns the contiguous column slab ``[j·t′, (j+1)·t′)`` and converges against
-its own tolerance.  :class:`GroupSpec` is the static (hashable) layout; the
-packed solve that consumes it (``solve_packed`` and the classic scheme's
-group retirement) is ROADMAP.md queue 1 item 10.
+its own tolerance.  :class:`GroupSpec` is the static (hashable) layout that
+``ECGSolver.solve_packed`` and the classic scheme's group retirement
+(:mod:`repro_torch.core.methods.classic`) consume.
 """
 
 from __future__ import annotations

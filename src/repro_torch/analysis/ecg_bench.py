@@ -2,16 +2,14 @@
 
 Port of ``repro/analysis/ecg_bench.py``'s ``_timeit`` only: the one timer
 that the tuner's measure mode (:mod:`repro_torch.tune.microbench`) uses.
-The sweeps of that module are ROADMAP.md queue 1 item 12, and its tracer
-hook (``repro.observe.timed_median_us``) comes with item 11.
+The sweeps of that module are ROADMAP.md queue 1 item 12.
 """
 
 from __future__ import annotations
 
-import time
-
-import numpy as np
 import torch
+
+from repro_torch.observe import get_tracer, timed_median_us
 
 
 def _sync() -> None:
@@ -33,16 +31,16 @@ def _timeit(fn, *args, repeats: int = 3) -> float:
     :func:`repro_torch.tune.microbench.measure_config`).  Each timed call is
     bracketed by a synchronization, so it times finished device work (the
     reference blocks on the result the same way); on CPU tensors the
-    synchronization is a no-op.
+    synchronization is a no-op.  The calls go through
+    :func:`repro_torch.observe.timed_median_us`, as the reference's, so an
+    installed ambient tracer (:func:`repro_torch.observe.set_tracer`) sees
+    each timed call as a ``bench/ecg_bench`` span.
     """
-    if repeats < 1:
-        raise ValueError(f"repeats must be >= 1, got {repeats}")
-    fn(*args)
-    _sync()
-    ts = []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        fn(*args)
+
+    def call(*a):
+        out = fn(*a)
         _sync()
-        ts.append(time.perf_counter() - t0)
-    return float(np.median(ts)) * 1e6
+        return out
+
+    return timed_median_us(call, *args, repeats=repeats, label="ecg_bench",
+                           tracer=get_tracer(), sync=False)

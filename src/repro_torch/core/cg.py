@@ -44,6 +44,11 @@ class SolveResult:
     #                          EV_RESEED), -1 past the recorded end; None
     #                          when no tracked mechanism was active
     selection: object = None  # the TSelection when t was chosen by "auto"
+    pack: dict | None = None  # width-packing telemetry when this result came
+    #                          out of a packed multi-RHS solve (total width,
+    #                          group layout, this request's group index and
+    #                          tolerance, retirement iteration, total packed
+    #                          iterations); None for solo solves
     final_carry: dict | None = dataclasses.field(default=None, repr=False)
 
     def reduction_events(self) -> list[tuple[int, int, int]]:

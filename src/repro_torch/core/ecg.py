@@ -93,6 +93,8 @@ def make_ecg_runner(
     s: int = 1,
     reorth: bool = False,
     rank_rtol: float | None = None,
+    groups=None,
+    sqnorm_cols: Callable | None = None,
 ) -> ECGRunner:
     """Build the ECG iteration machinery for one fixed configuration.
 
@@ -130,6 +132,15 @@ def make_ecg_runner(
     rank-revealing factorization).  Every scheme resumes from a carry
     (``run``), which is how the segmented solve continues at a narrower
     exchange width.
+
+    ``groups`` (a :class:`~repro_torch.adaptive.GroupSpec`, classic only)
+    turns the runner into a *packed* multi-RHS solve: ``t`` is the total
+    width ``n_groups · t_each``, ``init`` takes (n, n_groups) operands, each
+    group converges against its own tolerance and retires independently,
+    and the loop runs while any group is live.  ``sqnorm_cols`` is the
+    per-column squared-norm reduction ``(n, g) -> (g,)`` that replaces the
+    scalar ``sqnorm`` in group mode (``allreduce`` of the local column sums
+    by default; one psum of g floats on a mesh).
     """
     if backend not in ("jnp", "pallas"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -152,6 +163,32 @@ def make_ecg_runner(
     if tail is None:
         tail = ecg_tail if backend == "pallas" else _plain_tail
     split_fn = split if split is not None else split_residual
+    if groups is not None:
+        if spec.name != "classic":
+            raise ValueError(
+                f"packed group solves require method 'classic', got {spec.name!r}"
+            )
+        if groups.width != t:
+            raise ValueError(
+                f"groups describe width {groups.width} "
+                f"({groups.n_groups}×{groups.t_each}) but t={t}"
+            )
+        if policy is None:
+            raise ValueError(
+                "packed group solves require a rank-revealing policy "
+                "(adaptive='rankrev' at minimum): retirement zeroes Z "
+                "columns, so the Gram matrix is structurally singular from "
+                "the first retirement on, and the direction budget is "
+                "enforced through the pivoted factorization's column mask"
+            )
+        if policy.restart:
+            raise ValueError(
+                "packed group solves cannot run a restart policy: the "
+                "re-enlarge rebuilds the splitting from the summed residual, "
+                "which would mix request boundaries"
+            )
+        if sqnorm_cols is None:
+            sqnorm_cols = lambda m: allreduce(torch.sum(m * m, dim=0))
     use_mask = a_apply_masked is not None and policy is not None
     ctx = MethodContext(
         t=t, max_iters=max_iters, a_apply=a_apply, split_fn=split_fn,
@@ -159,12 +196,19 @@ def make_ecg_runner(
         precond=precond, gram2p=gram2p, precond_reseed=precond_reseed,
         policy=policy, use_mask=use_mask, a_apply_masked=a_apply_masked,
         s=s, reorth=reorth, rank_rtol=rank_rtol,
+        groups=groups, sqnorm_cols=sqnorm_cols,
     )
     spec.validate(ctx)
     init, iterate = spec.build(ctx)
 
     def cond(c):
-        go = c["rn"] > tol and c["k"] < max_iters
+        if groups is None:
+            go = c["rn"] > tol and c["k"] < max_iters
+        else:
+            # packed solve: run while ANY request is live — each group's own
+            # tolerance already gated its retirement inside the iteration
+            # (a live group's grp_iter is -1, a host array)
+            go = bool((c["grp_iter"] < 0).any()) and c["k"] < max_iters
         if exit_below_width is not None and use_mask:
             # width-reduction event: hand control back so the caller can
             # re-slice the exchange plan at the narrower width and resume

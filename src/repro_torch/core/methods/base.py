@@ -65,6 +65,15 @@ class MethodContext:
     inner-step count, its per-block Cholesky-QR2 second pass and the pivot
     threshold of its rank-revealing factorization (None defers to the
     policy's threshold or the dtype default).
+
+    ``groups`` (classic only) is a :class:`~repro_torch.adaptive.GroupSpec`
+    describing a *packed* multi-RHS solve: ``t`` becomes the total width
+    ``n_groups · t_each``, ``init`` takes (n, n_groups) operands, and each
+    group converges against its own tolerance and retires (R and Z slabs
+    zeroed) independently.  ``sqnorm_cols`` is the matching per-column
+    squared-norm reduction ``(n, g) -> (g,)``; it *replaces* the scalar
+    ``sqnorm`` reduction in group mode, so the scheme's reduction count is
+    unchanged.
     """
 
     t: int
@@ -84,6 +93,8 @@ class MethodContext:
     s: int = 1
     reorth: bool = False
     rank_rtol: float | None = None
+    groups: object = None
+    sqnorm_cols: Callable | None = None
 
 
 class MethodSpec:

@@ -39,6 +39,10 @@ measured parameters on a sequential run and the reference CLI's TPU-v5e set
 ``--t auto`` picks the enlarging factor from the iterations-vs-cost model
 (:mod:`repro_torch.adaptive.select_t`) and prints its table; it needs the
 cost models, so ``--tune off`` refuses it.
+
+``--trace PATH`` installs a :class:`~repro_torch.observe.Tracer` as the
+process tracer and writes the run's build and solve spans to ``PATH``: a
+Chrome/Perfetto trace, or an append-only event log for ``*.jsonl``.
 """
 
 from __future__ import annotations
@@ -110,6 +114,9 @@ def main(argv=None):
                     choices=["none", "block_jacobi", "chebyshev", "inexact"])
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default) or cpu")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a span trace of the run: *.json = Chrome/"
+                         "Perfetto trace, *.jsonl = append-only event log")
     args = ap.parse_args(argv)
     if args.method == "pipelined" and args.precondition == "inexact":
         ap.error("--precondition inexact needs the flexible residual reseed, "
@@ -133,7 +140,24 @@ def main(argv=None):
               "--tune measure calibrates the distributed operator tuning only")
     if args.tune is None:
         args.tune = "model" if (args.strategy == "tuned" or args.t == "auto") else "off"
+    if args.trace is None:
+        _run(args)
+        return
+    # install as the process tracer: the solver's build and solve spans and
+    # counters reach the sink without threading a tracer through the handle
+    from repro_torch.observe import Tracer, open_sink, set_tracer
 
+    tracer = Tracer(sinks=[open_sink(args.trace)])
+    prev = set_tracer(tracer)
+    try:
+        _run(args)
+    finally:
+        set_tracer(prev)
+        tracer.close()
+    print(f"# trace written to {args.trace}")
+
+
+def _run(args):
     import numpy as np
     import torch
 

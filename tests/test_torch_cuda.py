@@ -835,3 +835,42 @@ def test_distributed_method_and_overlap_on_card_matches_cpu(cuda, method, s, ove
     if overlap:
         blocking = ECGSolver.build(a, mesh, cfg.replace(overlap=False)).solve(b)
         assert blocking.n_iters == k and torch.equal(blocking.x, gpu.x)
+
+
+@pytest.mark.parametrize("mesh_shape", [None, (2, 4)])
+def test_solve_packed_on_card_launch_counts(cuda, mesh_shape):
+    """A width-16 pack (4 requests of t = 4) runs the hand-written kernels
+    at width 16: ``bsr_spmbv`` once per iteration plus the full-width
+    initial residual, ``fused_gram``, ``ecg_tail``, ``rank_apply`` and
+    ``drop_mask`` once per iteration; on the mesh every segment's exchange
+    launches the halo kernels of its re-sliced plan.  The results equal the
+    CPU pack's iteration counts, and a 32-wide pack raises before any
+    launch."""
+    a = fd_laplace_2d(24, device="cpu")
+    rng = np.random.default_rng(0)
+    bs = [rng.standard_normal(a.shape[0]) for _ in range(4)]
+    tols = [1e-4, 1e-6, 1e-8, 1e-8]
+    cfg = SolverConfig(t=4, tol=1e-8, max_iters=2000, kernel="pallas", adaptive="rankrev",
+                       comm=CommConfig(strategy="optimal"))
+    mesh = None if mesh_shape is None else VirtualMesh(*mesh_shape, device=cuda)
+    solver = ECGSolver.build(a, mesh, cfg, device=None if mesh else cuda)
+    kernels.reset_launch_counts()
+    res = solver.solve_packed(bs, tols=tols)
+    counts = kernels.launch_counts()
+    k = res[0].pack["packed_iters"]
+    cpu_mesh = None if mesh_shape is None else VirtualMesh(*mesh_shape, device="cpu")
+    cpu = ECGSolver.build(a, cpu_mesh, cfg, device=None if cpu_mesh else "cpu").solve_packed(
+        bs, tols=tols)
+    assert [r.n_iters for r in res] == [r.n_iters for r in cpu]
+    assert all(r.converged for r in res)
+    halo = 0
+    if mesh is not None:
+        segs = res[0].comm_segments
+        halo = len(solver.op.plan.at_width(16).phases) + sum(
+            len(solver.op.plan.at_width(w).phases) * it for w, it in segs)
+    assert counts == _counts(bsr_spmbv=k + 1, fused_gram=k, ecg_tail=k, rank_apply=k, drop_mask=k,
+                             halo_pack=halo, halo_unpack=halo)
+    kernels.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="queue 2 item 4"):
+        ECGSolver.build(a, mesh, cfg.replace(t=8), device=None if mesh else cuda).solve_packed(bs)
+    assert kernels.launch_counts() == _counts()

@@ -39,6 +39,26 @@ from seeds with numpy on both sides.  Compared:
     s-step), exchanges one per SpMBV (s per block, one for r₀, and for
     pipelined one more that seeds AZ₀); and ``pipelined``/s-step ``reduce``
     width-segmented on the deficient right-hand side of (f).
+(h) packed multi-RHS solves (``tests/dist_worker.py``'s
+    ``check_packed_retirement``): three requests on ``fd_laplace_2d(13)``
+    at t = 4 (one width-12 pack, ``optimal``, ``rankrev``), tolerances
+    1e-2/1e-5/1e-8, and the same on ``fd_laplace_2d(20)``.  Each request's
+    true residual meets its tolerance, retirements follow the tolerances,
+    the exchange re-slices at each retirement (widths 12 → 8 → 4, as the
+    reference's), ``psum`` 3·k + 1, and every exchange moves its width's
+    elements; per-request iterations within the reference's own margin
+    (max(5, k/3)) of the port's sequential pack.  The port restarts the
+    pack at a retirement where the reference drops directions
+    (``repro_torch.core.methods.classic``), so the two agree up to and
+    including the first retirement: its iteration and the first segment
+    are equal.  After it the reference's remaining requests slow down or
+    stall: on ``fd_laplace_2d(20)`` its third request runs to
+    ``max_iters`` (500) unconverged, where the port's converges in 52
+    iterations.
+(i) the drift helpers: ``bytes_drift`` at widths 4 and 2 (``standard``,
+    ``optimal``): the bytes the port's exchange moved equal the
+    reference's count of its compiled collective-permutes, and
+    ``predicted_iteration_seconds`` equals the reference's (1e-12).
 """
 
 import os
@@ -62,6 +82,12 @@ MAX_ITERS = 500
 ADAPTIVE_M, ADAPTIVE_TOL, ADAPTIVE_MAX_ITERS = 2, 1e-8, 300
 METHOD_SOLVES = [("pipelined", 1, False, None), ("sstep", 2, False, None), ("sstep", 2, True, None),
                  ("pipelined", 1, False, "reduce"), ("sstep", 2, False, "reduce")]
+PACK_TOLS, PACK_MAX_ITERS = [1e-2, 1e-5, 1e-8], 500
+
+
+def _pack_rhs(n):
+    rng = np.random.default_rng(7)
+    return [rng.standard_normal(n) for _ in range(3)]
 
 
 def _method_key(method, s, reorth, adaptive):
@@ -171,6 +197,29 @@ def _reference_results(out_path):
             if adaptive is not None:
                 out[key + "/active_hist"] = np.asarray(res.active_hist)
                 out[key + "/segments"] = np.asarray(res.comm_segments, np.int64)
+    # (h) packed retirement, on the reference test's operator and on a
+    # larger one
+    for nfd in (13, 20):
+        a = ref_sparse.fd_laplace_2d(nfd)
+        cfg = SolverConfig(t=T_SOLVE, tol=1e-8, max_iters=PACK_MAX_ITERS, adaptive="rankrev",
+                           comm=CommConfig(strategy="optimal", machine=BLUE_WATERS))
+        res = ECGSolver.build(a, mesh, cfg).solve_packed(_pack_rhs(a.shape[0]), tols=PACK_TOLS)
+        key = f"packed/{nfd}"
+        out[key + "/n_iters"] = np.asarray([r.n_iters for r in res])
+        out[key + "/converged"] = np.asarray([bool(r.converged) for r in res])
+        out[key + "/packed_iters"] = np.asarray(res[0].pack["packed_iters"])
+        out[key + "/segments"] = np.asarray(res[0].comm_segments, np.int64)
+    # (i) the drift helpers
+    from repro.observe.drift import bytes_drift, predicted_iteration_seconds
+
+    a = ref_sparse.fd_laplace_2d(13)
+    for strategy in ("standard", "optimal"):
+        solver = ECGSolver.build(a, mesh, SolverConfig(t=T_SOLVE, comm=CommConfig(
+            strategy=strategy, machine=BLUE_WATERS)))
+        for w in (4, 2):
+            bd = bytes_drift(solver, w)
+            out[f"drift/{strategy}/{w}"] = np.asarray(
+                [bd["plan_bytes"], bd["hlo_bytes"], predicted_iteration_seconds(solver, w)])
     np.savez(out_path, **out)
 
 
@@ -378,6 +427,80 @@ def test_adaptive_solve_matches_reference_and_sequential(reference, operators, s
                                rtol=1e-5, atol=1e-10)
     x = solver.unshard(res.x)
     assert np.linalg.norm(a.todense().numpy() @ x - b) / np.linalg.norm(b) < 1e-6
+
+
+def _pack_solve(nfd):
+    """The port's distributed packed solve of (h), with the mesh's counters
+    of the solve alone."""
+    from repro_torch.core.machines import BLUE_WATERS
+    from repro_torch.solver import CommConfig, ECGSolver, SolverConfig
+    from repro_torch.sparse import fd_laplace_2d
+
+    a = fd_laplace_2d(nfd, device="cpu")
+    bs = _pack_rhs(a.shape[0])
+    mesh = _mesh()
+    cfg = SolverConfig(t=T_SOLVE, tol=1e-8, max_iters=PACK_MAX_ITERS, adaptive="rankrev",
+                       comm=CommConfig(strategy="optimal", machine=BLUE_WATERS))
+    solver = ECGSolver.build(a, mesh, cfg)
+    mesh.reset_counters()
+    res = solver.solve_packed(bs, tols=PACK_TOLS)
+    counters = (mesh.psum_calls, mesh.ppermute_elements)
+    return a, bs, mesh, solver, res, counters
+
+
+def _elements_per_exchange(solver, mesh, w):
+    mesh.reset_counters()
+    solver.op.matvec_fn(t_active=w)(torch.zeros(solver.op.n_padded, w, dtype=torch.float64))
+    return mesh.ppermute_elements
+
+
+@pytest.mark.parametrize("nfd", [13, 20])
+def test_packed_retirement_matches_reference(reference, nfd):
+    from repro_torch.solver import ECGSolver
+
+    a, bs, mesh, solver, res, (psums, elements) = _pack_solve(nfd)
+    key = f"packed/{nfd}"
+    k = res[0].pack["packed_iters"]
+    dense = a.todense().numpy()
+    for r, b, tol in zip(res, bs, PACK_TOLS):
+        assert r.converged and r.pack["retired_iter"] == r.n_iters
+        assert np.linalg.norm(dense @ solver.unshard(r.x) - b) <= tol * 1.01
+    iters = [r.n_iters for r in res]
+    assert iters == sorted(iters)
+    # up to and including the first retirement the port is the reference
+    ref_iters = reference[key + "/n_iters"].tolist()
+    ref_segs = [tuple(s) for s in reference[key + "/segments"].tolist()]
+    segs = res[0].comm_segments
+    assert iters[0] == ref_iters[0] and segs[0] == ref_segs[0]
+    assert [w for w, _ in segs] == [w for w, _ in ref_segs] == [12, 8, 4]
+    assert sum(it for _, it in segs) == k
+    seq = ECGSolver.build(a, config=solver.config, device="cpu").solve_packed(bs, tols=PACK_TOLS)
+    assert all(abs(g.n_iters - w.n_iters) <= max(5, w.n_iters // 3) for g, w in zip(res, seq))
+    if nfd == 20:  # the reference's third request stalls after the retirements
+        assert reference[key + "/converged"].tolist() == [True, True, False]
+        assert ref_iters[2] == PACK_MAX_ITERS > iters[2]
+    # one norm reduction of g floats replaces the scalar one: 3 per
+    # iteration + 1 at the start, at every width
+    assert psums == 3 * k + 1
+    widths = [w for w, _ in segs]
+    per = {w: _elements_per_exchange(solver, mesh, w) for w in widths}
+    assert all(per[w1] > per[w2] for w1, w2 in zip(widths, widths[1:]))
+    assert elements == per[widths[0]] + sum(per[w] * it for w, it in segs)
+
+
+@pytest.mark.parametrize("strategy", ["standard", "optimal"])
+def test_drift_helpers_match_reference(reference, operators, strategy):
+    from repro_torch.core.machines import BLUE_WATERS
+    from repro_torch.observe.drift import bytes_drift, predicted_iteration_seconds
+    from repro_torch.solver import CommConfig, ECGSolver, SolverConfig
+
+    solver = ECGSolver.build(operators["fd"], _mesh(), SolverConfig(
+        t=T_SOLVE, comm=CommConfig(strategy=strategy, machine=BLUE_WATERS)))
+    for w in (4, 2):
+        plan_bytes, hlo_bytes, seconds = reference[f"drift/{strategy}/{w}"].tolist()
+        bd = bytes_drift(solver, w)
+        assert bd["plan_bytes"] == plan_bytes and bd["moved_bytes"] == hlo_bytes
+        assert predicted_iteration_seconds(solver, w) == pytest.approx(seconds, rel=1e-12)
 
 
 @pytest.mark.parametrize("method,s,reorth,adaptive", METHOD_SOLVES,

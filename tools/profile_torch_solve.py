@@ -9,6 +9,7 @@
     PYTHONPATH=src python tools/profile_torch_solve.py --method sstep --s 2 [--reorth]
     PYTHONPATH=src python tools/profile_torch_solve.py --method pipelined --devices 8 --ppn 4 \
         --overlap
+    PYTHONPATH=src python tools/profile_torch_solve.py --pack 4 --t 4 [--devices 8 --ppn 4]
 
 Builds the main path of ``chip_smoke.py`` (``dg_laplace_2d(elements,
 block=16)``, t = 8, float64, ``backend="pallas"``) on the GPU, steps the
@@ -37,7 +38,14 @@ device timeline (the profiler's kernel events, by stream): the busy time as
 the union of kernel intervals, the kernel time per stream, and how long a
 halo kernel or a copy of the exchange on one stream ran while ``bsr_spmbv``
 ran on another (``concurrent_ms_per_iter``: the exchange the overlap
-schedule hid).  ``--trace PATH`` also writes the Chrome trace.
+schedule hid).  ``--pack G`` profiles one iteration of a packed solve of G
+requests (``ECGSolver.solve_packed``'s runner at width G·t, ``--t`` the
+per-request width, ``rankrev`` unless ``--adaptive`` says otherwise; the
+tolerances are out of reach, so no request retires while it runs) and
+times the packed scheme's own passes on the iteration's own (n, G·t)
+blocks, each by name (``group_passes_ms``: the per-group reshape-sum of R,
+every iteration; the restart, once per retirement), beside the
+single-request residual sum the first stands in for (``solo_passes_ms``).  ``--trace PATH`` also writes the Chrome trace.
 """
 
 from __future__ import annotations
@@ -125,6 +133,45 @@ def timeline(events) -> dict:
             "concurrent_us": _union_us(pieces)}
 
 
+def group_passes(torch, carry, g, te, reps) -> dict:
+    """CUDA-event ms per call of the packed scheme's own passes on a packed
+    iteration's (n, g·te) R block (the ops of ``core/methods/classic.py``,
+    each by name): the per-group residual sum of every iteration, and the
+    restart of a retirement (each live group's residual split afresh, the
+    zero P and AP); and of the single-request residual sum it stands in
+    for."""
+    from repro_torch.core.enlarging import split_residual
+
+    big_r = carry["R"]
+    live = torch.ones(g, dtype=torch.bool, device=big_r.device)
+    rsum_g = big_r.reshape(big_r.shape[0], g, te).sum(dim=2)
+
+    def restart():
+        fresh = torch.cat([split_residual(rsum_g[:, j], te) for j in range(g)], dim=1)
+        fresh = fresh * live.repeat_interleave(te).to(fresh.dtype)[None, :]
+        return fresh, torch.zeros_like(big_r), torch.zeros_like(big_r)
+
+    ops = {
+        "rsum_per_group": lambda: big_r.reshape(big_r.shape[0], g, te).sum(dim=2),
+        "restart_at_retirement": restart,
+    }
+    solo = {"rsum": lambda: big_r.sum(dim=1)}
+
+    def ms(fn):
+        for _ in range(3):
+            fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    return {"group_passes_ms": {k: ms(f) for k, f in ops.items()},
+            "solo_passes_ms": {k: ms(f) for k, f in solo.items()}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=50)
@@ -145,12 +192,19 @@ def main(argv=None) -> int:
     ap.add_argument("--reorth", action="store_true", help="s-step Cholesky-QR2 second pass")
     ap.add_argument("--overlap", action="store_true",
                     help="the interior/boundary SpMBV schedule (with --devices)")
+    ap.add_argument("--t", type=int, default=8, help="enlarging factor (per request with --pack)")
+    ap.add_argument("--pack", type=int, default=0, metavar="G",
+                    help="profile a packed solve of G requests (width G·t)")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
     if args.devices and args.devices % args.ppn:
         ap.error(f"--devices {args.devices} is not a multiple of --ppn {args.ppn}")
     if args.overlap and not args.devices:
         ap.error("--overlap needs a mesh (--devices)")
+    if args.pack and (args.method != "classic" or args.deficient or args.precondition != "none"):
+        ap.error("--pack profiles the classic scheme's packed solve alone")
+    if args.pack and args.adaptive is None:
+        args.adaptive = "rankrev"  # solve_packed needs a rank-revealing policy
 
     import numpy as np
     import torch
@@ -161,6 +215,7 @@ def main(argv=None) -> int:
         print("profile_torch_solve: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.adaptive.groups import GroupSpec
     from repro_torch.launch.mesh import VirtualMesh
     from repro_torch.solver import CommConfig, ECGSolver, KernelConfig, SolverConfig
     from repro_torch.sparse import dg_laplace_2d
@@ -174,9 +229,9 @@ def main(argv=None) -> int:
     n = a.shape[0]
     b = np.random.default_rng(0).standard_normal(n)
     if args.deficient:
-        b[(args.deficient * n) // 8:] = 0.0
+        b[(args.deficient * n) // args.t:] = 0.0
     config = SolverConfig(
-        t=8, tol=0.0, max_iters=10 + 2 * args.iters, kernel=KernelConfig(backend="pallas"),
+        t=args.t, tol=0.0, max_iters=10 + 2 * args.iters, kernel=KernelConfig(backend="pallas"),
         comm=CommConfig(strategy=args.strategy, overlap=args.overlap),
         precondition=(dict(kind="block_jacobi", block=args.block)
                       if args.precondition == "block_jacobi" else args.precondition),
@@ -187,14 +242,26 @@ def main(argv=None) -> int:
         solver = ECGSolver.build(a, mesh, config)
     else:
         solver = ECGSolver.build(a, config=config, device=dev)
-    b = solver._device_vec(b)  # the padded per-rank layout on a mesh
+    if args.pack:
+        # tolerances out of reach: every request stays live, at the full width
+        spec = GroupSpec(t_each=args.t, tols=(1e-300,) * args.pack)
+        rng = np.random.default_rng(0)
+        b = solver._device_block([rng.standard_normal(n) for _ in range(args.pack)])
+        runner = solver._packed_runner(spec, spec.width)
 
-    def step(carry):
-        # a segmented solve runs each width's runner: the one of the active width
-        width = int(carry["ahist"][carry["k"]]) if solver._segmented else solver.t
-        return solver._runner(width).step(carry)
+        def step(carry):
+            return runner.step(carry)
 
-    carry = solver._runner(solver.t).init(b, torch.zeros_like(b))
+        carry = runner.init(b, torch.zeros_like(b))
+    else:
+        b = solver._device_vec(b)  # the padded per-rank layout on a mesh
+
+        def step(carry):
+            # a segmented solve runs each width's runner: the one of the active width
+            width = int(carry["ahist"][carry["k"]]) if solver._segmented else solver.t
+            return solver._runner(width).step(carry)
+
+        carry = solver._runner(solver.t).init(b, torch.zeros_like(b))
     for _ in range(10):
         carry = step(carry)
     torch.cuda.synchronize()
@@ -226,16 +293,18 @@ def main(argv=None) -> int:
     calls = launch_calls(averages)
     rows.sort(key=lambda r: -r[2])
     busy_ms = sum(r[2] for r in rows)
+    passes = group_passes(torch, carry, args.pack, args.t, args.iters) if args.pack else None
     print(smi)
     print(json.dumps({
-        "n": a.shape[0], "t": 8, "iters": args.iters,
+        "n": a.shape[0], "t": args.t, "iters": args.iters, "pack": args.pack or None,
+        "width": args.t * (args.pack or 1),
         "mesh": list(mesh.shape) if args.devices else None,
         "strategy": args.strategy if args.devices else "sequential",
         "precondition": args.precondition, "adaptive": args.adaptive,
         "deficient": args.deficient or None, "method": args.method, "s": args.s,
         "reorth": args.reorth, "overlap": args.overlap,
         "iters_per_step": args.s if args.method == "sstep" else 1,
-        "active_width": int(carry["ahist"][carry["k"]]) if args.adaptive else 8,
+        "active_width": int(carry["ahist"][carry["k"]]) if args.adaptive else args.t,
         "wall_ms_per_iter": wall_ms,
         "profiled_wall_ms_per_iter": prof_wall_ms, "device_busy_ms_per_iter": busy_ms,
         "device_idle_share": 1.0 - busy_ms / prof_wall_ms if prof_wall_ms else None,
@@ -250,6 +319,7 @@ def main(argv=None) -> int:
         "host_launches_per_iter": sum(calls.values()) / args.iters,
         "host_launch_calls_per_iter": {k: v / args.iters for k, v in sorted(calls.items())},
         "device_ops_per_iter": sum(r[1] for r in rows),
+        **(passes or {}),
     }))
     for name, calls, ms in rows:
         print(json.dumps({"kernel": name[:120], "calls_per_iter": calls, "device_ms_per_iter": ms}))
