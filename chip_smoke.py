@@ -15,18 +15,24 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 3. kernel checks — each kernel against its plain torch version at the main
    path's shapes (f64, t = 8) and at t = 1 and in f32, ``bsr_spmbv``,
    ``fused_gram`` and ``ecg_tail`` also at t = 4 and 16 in f64 (the serve
-   phases' solves and packs); one JSON line each with the kernel path
+   phases' solves and packs) and at t = 20 and 32 (phases 40-44's solves
+   and pack; the kernels' widest); one JSON line each with the kernel path
    its wrapper chose (where it has two), its error, the tolerance, and
    CUDA-event times of the kernel, the plain version and one PyTorch library
    call of the same function (a yardstick only; the port never calls it),
    beside the least time the card could take (bytes over 3.35 TB/s or flops
    over the peak rate).  Two calls of ``bsr_spmbv`` and ``fused_gram`` at
-   the main path's shapes must be bit-identical.
+   the main path's shapes, and at t = 20, must be bit-identical.
    ``chol_apply`` (P = Z·C⁻¹ and AP = AZ·C⁻¹ in one launch) on the factor
    C of a real gram1 ZᵀAZ of this operator, at (n, 8) float64, at t = 1 and
    in float32: within 2·t·eps·κ(C)·max|y| (the forward error bound of a
    t-term substitution) of the ``solve_triangular`` plain version, whose
-   two calls are the library yardstick; a NaN factor must give NaN blocks.
+   two calls are the library yardstick; a NaN factor must give NaN blocks;
+   also at t = 2 and at t = 20 and 32.  Each ``chol_apply`` row also times
+   the kernel replayed in a CUDA graph (``kernel_graph_ms``): at t ≤ 2 the
+   eager op's time is the host's launch path, not the kernel's; one
+   ``chol_apply_vector_path`` line gives the share of the bound the vector
+   path reaches at t = 1 and 2 by each.
 4. main path — the solve, with every kernel's launch count set to 0 just
    before it and read just after: ``bsr_spmbv`` must launch n_iters + 1
    times (the width-1 initial residual), ``fused_gram``, ``ecg_tail`` and
@@ -78,7 +84,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 12. ``block_trisolve`` checks — the kernel against its plain version (two
     batched triangular solves) at the main path's shape (81 920 blocks of
     16, t = 8, f64, the real factors), at t = 1, in f32, and at bs = 32 and
-    64 (random SPD blocks): error within 2·bs·eps·κ·max|y| (the forward
+    64 (random SPD blocks), and at bs = 32 with t = 20 and 32 (two chunks of
+    16 right-hand sides): error within 2·bs·eps·κ·max|y| (the forward
     error bound of two triangular solves, κ the worst block's condition
     number), times as in phase 3 (the plain version and the library call
     ``torch.cholesky_solve`` at every size);
@@ -106,7 +113,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 16. inexact — ``fd_laplace_2d(256)`` (65 536 rows; the DG operator does not
     converge under it) at t = 1 (the flexible recurrence breaks down at
     t = 4 and 8 there, in the reference too) sequential and on the mesh:
-    converged, true residual ≤ 10·tol, at least one flexible reseed.
+    converged, true residual ≤ 10·tol, at least one flexible reseed; the
+    sequential solve's launch counts (``chol_apply`` at t = 1, its vector
+    path).
 17. ``rank_apply_check`` — the adaptive solver's rank-revealing apply (the
     pivoted factorization of G and its apply to Z and AZ, one launch)
     against its substitution-form plain version ``rank_apply_dense`` at
@@ -257,9 +266,42 @@ with ``backend="pallas"``, tol = phase 4's:
     ``solve_packed/dispatch`` spans, the traced results equal the untraced
     ones bit for bit, and the traced over untraced wall time.
 
+Phases 40-44 run every width to 32 columns through the kernels at full
+scale (the card took no block wider than 16 before), each with the launch
+counts (and the mesh's counters) set to 0 just before its solve:
+
+40. ``wide_main_path`` — phase 2's handle ``with_config(t=20)`` (the paper's
+    widest t; the Block-ELL conversion reused): converged, true residual ≤
+    10·tol, ``bsr_spmbv`` n_iters + 1 launches, ``fused_gram``, ``ecg_tail``
+    and ``chol_apply`` n_iters; iterations and ms per iteration beside
+    phase 4's t = 8.
+41. ``wide_cross_check`` — phase 5's (64, 64)-element operator at t = 20,
+    pallas against jnp: iteration counts within one, x equal to 1e-8
+    (relative to max|x|).
+42. ``wide_distributed`` — ``with_config(t=20)`` of phase 6's mesh handle
+    (``optimal``): ``psum`` 3·n_iters + 1, ``ppermute`` rotations·(n_iters
+    + 1), the elements of one width-20 exchange equal to those the plan's
+    exchange at width 20 rotates (its padded buffers; the plan's wire
+    elements, the rows that cross, logged beside) and the solve's to one
+    width-1 and n_iters width-20 exchanges,
+    the halo kernels len(plan.phases)·(n_iters + 1) launches at width 20,
+    iterations within 1% of phase 40's.
+43. ``wide_block_jacobi_32`` — phase 40's handle with block-Jacobi at the
+    default block (32), held to ``bj_solve``'s gates (``block_trisolve``
+    n_iters + 1 launches, fewer iterations than phase 40).
+44. ``wide_pack`` — phase 35's first four right-hand sides at t = 8 in one
+    width-32 ``solve_packed`` on phase 2's handle with ``rankrev`` (no
+    server), at (1e-4, 1e-6, 1e-8, 1e-8)·‖b_j‖: each converged with its
+    true relative residual ≤ its tolerance × 1.01, retirements ordered by
+    tolerance, the kernels launched ``packed_iters`` times (``bsr_spmbv``
+    once more).
+
 The ``kernels`` line's ``bsr_spmbv``, ``fused_gram``, ``ecg_tail`` and
 ``rank_apply`` rows carry ``widths`` entries for t = 4 and 16 with their
-launches in phases 35 and 36.
+launches in phases 35 and 36; ``bsr_spmbv``, ``fused_gram``, ``ecg_tail``,
+``chol_apply`` and ``block_trisolve`` (bs = 32) entries for t = 20 and 32
+with their launches in phases 40, 43 and 44 (0 where no solve runs the
+width), and ``chol_apply`` one for t = 1 with its launches in phase 16.
 """
 
 from __future__ import annotations
@@ -280,6 +322,8 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 ELEMENTS, BLOCK = (320, 256), 16  # Example 2.1 at full scale
 T = 8
 T_SERVE = 4  # the serving layer's solver template (phases 34-39)
+T_WIDE = 20  # the paper's widest t (benchmarks/paper_figures.py), phases 40-44
+WIDE = (T_WIDE, 32)  # and the kernels' widest, checked in phases 3 and 12
 MAX_ITERS = 5000
 REPS, BATCHES = 10, 5
 SLOW_MS, SLOW_REPS, SLOW_BATCHES = 2.0, 2, 3
@@ -428,6 +472,7 @@ def main() -> int:
         rank_apply_ref,
     )
     from repro_torch.core.node_aware import build_exchange_plan
+    from repro_torch.kernels.chol_apply.ops import chol_plan
     from repro_torch.kernels.fused_gram.ops import gram_plan
     from repro_torch.kernels.fused_gram.ref import fused_gram_ref
     from repro_torch.kernels.halo_pack.ops import halo_plan
@@ -589,15 +634,18 @@ def main() -> int:
             raise AssertionError(f"{name}: two calls on the same inputs differ")
 
     checks = {}
-    # the serve phases' widths (34-39): t = 4 solves and width-16 packs
+    # the serve phases' widths (34-39): t = 4 solves and width-16 packs; and
+    # the wide ones (40-44): t = 20 solves and the width-32 pack
     width_rows = {}
     for name, make in (("bsr_spmbv", check_bsr), ("fused_gram", check_gram), ("ecg_tail", check_tail)):
         checks[name] = run_check(name, make, T, torch.float64)  # the main path's shape
         run_check(name, make, 1, torch.float64)
         run_check(name, make, T, torch.float32)
-        width_rows[name] = {w: run_check(name, make, w, torch.float64) for w in (T_SERVE, 16)}
+        width_rows[name] = {w: run_check(name, make, w, torch.float64) for w in (T_SERVE, 16) + WIDE}
         if name != "ecg_tail":
             repeat_check(name, make, T)
+            repeat_check(name, make, T_WIDE)
+        torch.cuda.empty_cache()
     csr_by_dtype.clear()
     torch.cuda.empty_cache()
 
@@ -627,7 +675,10 @@ def main() -> int:
         flops_ms = flops / PEAK_FLOPS[dname] * 1e3
         row = {"name": "chol_apply", "what": what, "shape": [rows, t], "dtype": dname,
                "kappa": kappa, "max_abs_err": err, "tol": tol, "nan_factor_gives_nan": True,
+               "path": chol_plan(t, dtype, all(m.data_ptr() % 16 == 0 for m in (z, az))).path,
                "kernel_ms": time_ms(torch, kernel),
+               # the kernel alone: at t <= 2 the eager op is the host's launch path
+               "kernel_graph_ms": time_graph_ms(torch, kernel),
                "plain_ms": time_ms(torch, lambda: chol_apply_dense(c, z, az)),
                "library_ms": time_ms(torch, lambda: chol_apply_ref(c, z, az)),
                "bound_ms": max(bytes_ms, flops_ms),
@@ -641,8 +692,20 @@ def main() -> int:
         return z.to(dtype), az.to(dtype)
 
     checks["chol_apply"] = run_chol_check(*chol_operands(T, torch.float64), "main path")
-    run_chol_check(*chol_operands(1, torch.float64), "t=1")
+    # t = 1 and 2 take the vector path; t = 1 is held to half its bound by
+    # its device time (logged: a time is not a gate)
+    width_rows["chol_apply"] = {1: run_chol_check(*chol_operands(1, torch.float64), "t=1")}
+    row = run_chol_check(*chol_operands(2, torch.float64), "t=2")
+    log({"phase": "chol_apply_vector_path", "share_of_bound_graph": {
+        w: r_["bound_ms"] / r_["kernel_graph_ms"] for w, r_ in ((1, width_rows["chol_apply"][1]), (2, row))},
+        "share_of_bound_eager": {
+        w: r_["bound_ms"] / r_["kernel_ms"] for w, r_ in ((1, width_rows["chol_apply"][1]), (2, row))},
+        "t1_at_least_half_of_bound": width_rows["chol_apply"][1]["kernel_graph_ms"]
+        <= 2 * width_rows["chol_apply"][1]["bound_ms"]})
     run_chol_check(*chol_operands(T, torch.float32), "float32")
+    for w in WIDE:
+        width_rows["chol_apply"][w] = run_chol_check(*chol_operands(w, torch.float64), f"t={w}")
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- 4. main path
@@ -1002,8 +1065,13 @@ def main() -> int:
     checks["block_trisolve"] = run_trisolve_check(factors, T, torch.float64, "main path")
     run_trisolve_check(factors, 1, torch.float64, "t=1")
     run_trisolve_check(factors, T, torch.float32, "float32")
-    for bs in (32, 64):
-        run_trisolve_check(spd_factors(n // bs, bs, torch.float64), T, torch.float64, f"bs={bs}")
+    l32 = spd_factors(n // 32, 32, torch.float64)
+    run_trisolve_check(l32, T, torch.float64, "bs=32")
+    run_trisolve_check(spd_factors(n // 64, 64, torch.float64), T, torch.float64, "bs=64")
+    # the wide widths at the default block: two chunks of 16 right-hand sides
+    width_rows["block_trisolve"] = {w: run_trisolve_check(l32, w, torch.float64, f"bs=32, t={w}")
+                                    for w in WIDE}
+    del l32
     torch.cuda.empty_cache()
 
     def check_update(t, dtype):
@@ -1021,13 +1089,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---------------------- 13./14. preconditioned main path, sequential and distributed
-    def bj_solve(handle, phase, block, mesh_=None, sequential=None, **extra):
+    def bj_solve(handle, phase, block, mesh_=None, sequential=None, unpre=None, **extra):
         """One block-Jacobi solve at full scale with the launch counts (and
         the mesh's counters) set to 0 just before it, held to every gate of
         the preconditioned main path: converged, the launch counts, true
         residual ≤ 10·tol, fewer iterations than the unpreconditioned solve
-        (phase 4), and on the mesh the psum/ppermute counts and the
-        iterations within 1% of the sequential solve at the same block."""
+        (phase 4's, or ``unpre``'s at another t), and on the mesh the
+        psum/ppermute counts and the iterations within 1% of the sequential
+        solve at the same block."""
+        unpre = seq if unpre is None else unpre
         kernels.reset_launch_counts()
         if mesh_ is not None:
             mesh_.reset_counters()
@@ -1039,11 +1109,11 @@ def main() -> int:
         got, k_ = kernels.launch_counts(), r.n_iters
         x_ = torch.as_tensor(handle.unshard(r.x), device=dev) if mesh_ is not None else r.x
         true_ = float(torch.linalg.norm(b_dev - csr_spmv(a, x_)))
-        row = {"phase": phase, "n": n, "t": T, "block": block, "tol": tol,
+        row = {"phase": phase, "n": n, "t": handle.t, "block": block, "tol": tol,
                "factors": list(handle._precond.factors.shape), **extra,
                "converged": r.converged, "breakdown": r.breakdown, "n_iters": k_,
                "final_rn": float(r.res_hist[k_]), "true_residual": true_, "solve_s": solve_s,
-               "ms_per_iter": solve_s * 1e3 / max(k_, 1), "unpreconditioned": seq, "launches": got}
+               "ms_per_iter": solve_s * 1e3 / max(k_, 1), "unpreconditioned": unpre, "launches": got}
         if mesh_ is not None:
             counters = {"psum": mesh_.psum_calls, "ppermute": mesh_.ppermute_calls}
             row |= {"mesh": list(mesh_.shape), "strategy": "optimal", "sequential": sequential,
@@ -1060,8 +1130,8 @@ def main() -> int:
             raise AssertionError(f"{phase}: launch counts {got} != {want_}")
         if not true_ <= 10 * tol:
             raise AssertionError(f"{phase}: true residual {true_} > 10·tol {10 * tol}")
-        if not k_ < seq["n_iters"]:
-            raise AssertionError(f"{phase}: {k_} iterations, unpreconditioned {seq['n_iters']}")
+        if not k_ < unpre["n_iters"]:
+            raise AssertionError(f"{phase}: {k_} iterations, unpreconditioned {unpre['n_iters']}")
         if mesh_ is not None:
             if counters["psum"] != 3 * k_ + 1:
                 raise AssertionError(f"{phase}: psum ran {counters['psum']} times, want 3·{k_} + 1")
@@ -1147,14 +1217,18 @@ def main() -> int:
             s3 = ECGSolver.build(a3, config=inx_cfg, device=dev)
         else:
             s3 = ECGSolver.build(a3, VirtualMesh(2, 4, device=dev), inx_cfg.replace(strategy=where))
+        kernels.reset_launch_counts()
         t0 = time.perf_counter()
         r3 = s3.solve(b3)
         torch.cuda.synchronize()
+        inexact_launches = kernels.launch_counts()
+        if where == "sequential":  # chol_apply at t = 1, its vector path
+            chol_t1_launches = inexact_launches["chol_apply"]
         x3 = torch.as_tensor(s3.unshard(r3.x), device=dev)
         true3 = float(torch.linalg.norm(b3_dev - csr_spmv(a3, x3)))
         log({"phase": "inexact", "n": a3.shape[0], "strategy": where, "converged": r3.converged,
              "n_iters": r3.n_iters, "n_reseeds": r3.n_reseeds, "true_residual": true3, "tol": tol3,
-             "solve_s": time.perf_counter() - t0})
+             "solve_s": time.perf_counter() - t0, "launches": inexact_launches})
         if not (r3.converged and true3 <= 10 * tol3 and r3.n_reseeds >= 1):
             raise AssertionError(f"inexact {where}: converged={r3.converged}, true residual {true3}, "
                                  f"{r3.n_reseeds} reseeds")
@@ -1779,8 +1853,7 @@ def main() -> int:
     log({"phase": "schemes", "summary": {
         ph: {k_: row.get(k_) for k_ in ("n_iters", "iterations", "ms_per_iter", "ms_per_step",
                                         "true_residual")} for ph, row in schemes.items()}})
-    del solver, dsolver, mesh, pm
-    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()  # solver, dsolver, mesh and pm stay: phases 40-44
 
     # ---------------------------------------------------------- 29. calibrate
     from calibrate_h100 import measure as calibrate
@@ -2167,6 +2240,132 @@ def main() -> int:
     serve_tmp.cleanup()
     torch.cuda.empty_cache()
 
+    # ---------------------------------------------- 40. wide_main_path (t = 20)
+    # The paper's widest t (Fig 3.2 solves Example 2.1 at t = 20) through the
+    # kernels' wide instances: phase 2's handle at t = 20, the conversion reused
+    t0 = time.perf_counter()
+    h20 = solver.with_config(t=T_WIDE)
+    torch.cuda.synchronize()
+    h20_build_s = time.perf_counter() - t0
+    r, got, _, row = scheme_solve(h20, "wide_main_path", t=T_WIDE, build_s=h20_build_s,
+                                  conv_reused=h20.stats.conv_reused, t8=seq)
+    k20 = r.n_iters
+    log(row)
+    gate("wide_main_path", h20.t == T_WIDE and r.t == T_WIDE and h20.stats.conv_reused,
+         f"t={r.t}, conversion reused {h20.stats.conv_reused}")
+    gate("wide_main_path", got == want_launches(bsr_spmbv=k20 + 1, fused_gram=k20, ecg_tail=k20,
+                                                chol_apply=k20), f"launch counts {got}")
+    wide = {"main": row}
+    del r
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------- 41. wide_cross_check (t = 20)
+    out = {}
+    for backend in ("pallas", "jnp"):
+        s2 = ECGSolver.build(a2, config=cfg2.replace(t=T_WIDE, backend=backend), device=dev)
+        out[backend] = s2.solve(b2)
+    xp, xj = out["pallas"].x, out["jnp"].x
+    x_rel = float((xp - xj).abs().max() / xj.abs().max())
+    log({"phase": "wide_cross_check", "n": a2.shape[0], "t": T_WIDE,
+         "iters_pallas": out["pallas"].n_iters, "iters_jnp": out["jnp"].n_iters,
+         "x_max_rel_diff": x_rel})
+    gate("wide_cross_check", out["pallas"].converged and out["jnp"].converged, "did not converge")
+    gate("wide_cross_check", abs(out["pallas"].n_iters - out["jnp"].n_iters) <= 1,
+         f"{out['pallas'].n_iters} pallas against {out['jnp'].n_iters} jnp iterations")
+    gate("wide_cross_check", x_rel <= 1e-8, f"x differs by {x_rel} (relative)")
+    del out, s2
+
+    # ---------------------------------------- 42. wide_distributed (t = 20, mesh)
+    t0 = time.perf_counter()
+    d20 = dsolver.with_config(t=T_WIDE)  # the partition and the Block-ELL arrays reused
+    torch.cuda.synchronize()
+    d20_build_s = time.perf_counter() - t0
+    plan20 = d20.op.plan
+    ph20, rot20 = len(plan20.phases), sum(1 for st in plan20.steps if st.offset)
+    r, got, counters, row = scheme_solve(d20, "wide_distributed", mesh_=mesh, t=T_WIDE,
+                                         strategy="optimal", build_s=d20_build_s,
+                                         conv_reused=d20.stats.conv_reused, sequential=k20)
+    k_ = r.n_iters
+    counters["ppermute_elements"] = mesh.ppermute_elements
+    # one exchange at width 1 and at width 20, each counted alone: the width-20
+    # one against the elements the plan's exchange at that width rotates (its
+    # buffers, padded to the widest rank) and the solve's against one width-1
+    # and n_iters width-20 exchanges; the plan's wire elements (the rows that
+    # cross, without the padding) are logged beside
+    per = {}
+    for w in (1, T_WIDE):
+        mesh.reset_counters()
+        d20.op.matvec_fn()(torch.zeros(d20.op.n_padded, w, dtype=torch.float64, device=dev))
+        torch.cuda.synchronize()
+        per[w] = mesh.ppermute_elements
+    plan_el = d20.op.exchange(plan20, T_WIDE, torch.float64).deltas[-1]
+    row.update(col_split=plan20.col_split, phases=ph20, rotations=rot20,
+               elements_per_exchange=per, plan_exchange_elements=plan_el,
+               plan_wire_elements=plan20.wire_bytes(8) // 8,
+               ppermute_elements=counters["ppermute_elements"])
+    log(row)
+    gate("wide_distributed", counters["psum"] == 3 * k_ + 1, f"psum ran {counters['psum']} times")
+    gate("wide_distributed", counters["ppermute"] == rot20 * (k_ + 1),
+         f"ppermute ran {counters['ppermute']} times, want {rot20}·({k_} + 1)")
+    gate("wide_distributed", per[T_WIDE] == plan_el
+         and counters["ppermute_elements"] == per[1] + k_ * per[T_WIDE],
+         f"{per} elements an exchange, the plan's exchange {plan_el}; "
+         f"{counters['ppermute_elements']} in the solve, want {per[1]} + {k_}·{per[T_WIDE]}")
+    gate("wide_distributed", got == want_launches(
+        bsr_spmbv=k_ + 1, fused_gram=k_, ecg_tail=k_, chol_apply=k_,
+        halo_pack=ph20 * (k_ + 1), halo_unpack=ph20 * (k_ + 1)), f"launch counts {got}")
+    gate("wide_distributed", abs(k_ - k20) <= max(1, 0.01 * k20),
+         f"{k_} iterations not within 1% of the sequential {k20}")
+    wide["distributed"] = row
+    del r, d20, plan20
+    torch.cuda.empty_cache()
+
+    # ---------------------------------- 43. wide_block_jacobi (t = 20, block 32)
+    t0 = time.perf_counter()
+    b20 = h20.with_config(precondition=prec_bj32)
+    torch.cuda.synchronize()
+    wide["block_jacobi"] = bj_solve(b20, "wide_block_jacobi_32", 32, unpre={
+        k2: wide["main"][k2] for k2 in ("n_iters", "ms_per_iter", "solve_s")},
+                                    build_s=time.perf_counter() - t0, **b20._precond.build_s)
+    del b20, h20
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------- 44. wide_pack (width 32)
+    # four requests at t = 8 in one width-32 pack on phase 2's handle
+    # (rankrev), no server: the retirement and true-residual gates of phase 36
+    psolver = solver.with_config(adaptive="rankrev")
+    wide_c = (1e-4, 1e-6, 1e-8, 1e-8)
+    wide_tols = [c_ * float(np.linalg.norm(b_)) for b_, c_ in zip(serve_b, wide_c)]
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = psolver.solve_packed(serve_b, tols=wide_tols)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    got = kernels.launch_counts()
+    k_ = res[0].pack["packed_iters"]
+    relres = [true_residual(psolver, r_.x, b_) / float(np.linalg.norm(b_)) for r_, b_ in zip(res, serve_b)]
+    iters = [r_.n_iters for r_ in res]
+    row = {"phase": "wide_pack", "n": n, "t_each": T, "width": res[0].pack["width"],
+           "tols_rel": wide_c, "n_iters": iters, "retired_iter": [r_.pack["retired_iter"] for r_ in res],
+           "packed_iters": k_, "true_relres": relres, "solve_s": pack_s,
+           "ms_per_iter": pack_s * 1e3 / max(k_, 1), "launches": got}
+    log(row)
+    gate("wide_pack", res[0].pack["width"] == 4 * T, f"pack {res[0].pack}")
+    gate("wide_pack", all(r_.converged and rr <= c_ * 1.01 for r_, rr, c_ in zip(res, relres, wide_c)),
+         f"converged {[r_.converged for r_ in res]}, true relres {relres}")
+    gate("wide_pack", all(iters[i] <= iters[j] for i in range(4) for j in range(4)
+                          if wide_c[i] > wide_c[j]), f"retirements {iters} not ordered by tolerance")
+    gate("wide_pack", got == want_launches(bsr_spmbv=k_ + 1, fused_gram=k_, ecg_tail=k_,
+                                           rank_apply=k_, drop_mask=k_), f"launch counts {got}")
+    wide["pack"] = row
+    log({"phase": "wide", "summary": {
+        ph: {k2: r2.get(k2) for k2 in ("n_iters", "packed_iters", "ms_per_iter", "solve_s",
+                                       "true_residual", "true_relres")} for ph, r2 in wide.items()},
+        "t8": seq})
+    del psolver, res, solver, dsolver, mesh, pm
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------------------ result
     sources = {
         "bsr_spmbv": ("src/repro_torch/kernels/csrc/bsr_spmbv.cu", "src/repro/kernels/bsr_spmbv/kernel.py:43"),
@@ -2227,6 +2426,27 @@ def main() -> int:
              "ms": width_rows[name][w_]["kernel_ms"]}
             for w_, where, traffic in ((T_SERVE, "serve_batched", batched),
                                        (16, "serve_packed", packed)))
+    # the wide widths (phases 3 and 12), with their launches in the t = 20
+    # solves (phases 40 and 43) and the width-32 pack (phase 44); chol_apply
+    # also at t = 1 (its vector path), launched by the sequential inexact
+    # solve (phase 16); no solve runs chol_apply or block_trisolve at 32
+    wide_launches = {
+        "bsr_spmbv": {T_WIDE: ("wide_main_path", wide["main"]), 32: ("wide_pack", wide["pack"])},
+        "fused_gram": {T_WIDE: ("wide_main_path", wide["main"]), 32: ("wide_pack", wide["pack"])},
+        "ecg_tail": {T_WIDE: ("wide_main_path", wide["main"]), 32: ("wide_pack", wide["pack"])},
+        "chol_apply": {1: ("inexact_sequential", {"launches": {"chol_apply": chol_t1_launches}}),
+                       T_WIDE: ("wide_main_path", wide["main"]), 32: (None, None)},
+        "block_trisolve": {T_WIDE: ("wide_block_jacobi_32", wide["block_jacobi"]), 32: (None, None)},
+    }
+    for name, by_width in wide_launches.items():
+        rows[list(sources).index(name)].setdefault("widths", []).extend(
+            {"t": w_, "launches_in": where, "launches": run_["launches"][name] if run_ else 0,
+             **{k_: width_rows[name][w_][k_] for k_ in ("max_abs_err", "plain_ms", "bound_ms",
+                                                        "bound_by", "library_ms")},
+             "ms": width_rows[name][w_]["kernel_ms"],
+             **({"graph_ms": width_rows[name][w_]["kernel_graph_ms"]}
+                if "kernel_graph_ms" in width_rows[name][w_] else {})}
+            for w_, (where, run_) in by_width.items())
     log({"kernels": rows})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -20,8 +20,10 @@ from repro_torch.kernels.block_trisolve.ref import block_trisolve_ref
 from repro_torch.kernels.dispatch import use_kernel
 
 #: largest block and width the kernel takes (a lane owns one row of a
-#: block, two at bs > 32, and holds its rows' t values in registers)
-MAX_BS, MAX_T = 64, 16
+#: block, two at bs > 32, and holds its rows' values of one chunk of up to
+#: _CHUNK right-hand sides in registers)
+MAX_BS, MAX_T = 64, 32
+_CHUNK = 16            # right-hand sides a pass solves above t = 16
 _SMEM_SM = 233_472     # shared memory of an SM, 228 KB (kSmemSm) ...
 _SMEM_CTA = 1024       # ... of which each CTA holds 1 KB for the system (kSmemCta)
 _RECIP = 64            # reciprocals of a warp's diagonals (kRecip)
@@ -40,7 +42,8 @@ class TrisolvePlan(NamedTuple):
     rows: int       # rows a lane owns: 2 at bs > 32, else 1
     seg: int        # lanes per block: bs rounded up to 8, 16 or 32
     per_warp: int   # blocks a warp solves at once, 32 // seg
-    cols: int       # right-hand sides the kernel is built for: t rounded up to 1, 2, 4, 8 or 16
+    cols: int       # right-hand sides a pass solves: t rounded up to 1, 2, 4, 8 or 16 (16 above)
+    chunks: int     # passes over the staged tile, cdiv(t, cols): 1 up to t = 16, 2 to t = 32
     ls: int         # elements per staged row of L: a multiple of vec (16 bytes), ls / vec odd
     tp: int         # elements per staged tile: bs·ls, rounded up to seg modulo 32
                     # where a warp takes several blocks (no bank conflict)
@@ -72,7 +75,8 @@ def trisolve_plan(nb: int, bs: int, t: int, dtype, sms: int) -> TrisolvePlan:
     rows = 2 if bs > 32 else 1
     seg = 8 if bs <= 8 else 16 if bs <= 16 else 32
     per_warp = 32 // seg
-    cols = next(c for c in (1, 2, 4, 8, 16) if t <= c)
+    cols = next((c for c in (1, 2, 4, 8) if t <= c), _CHUNK)
+    chunks = -(-t // cols)
     ls = vec * (-(-bs // vec) | 1)
     tp = bs * ls + ((seg - bs * ls) % 32 if per_warp > 1 else 0)
     stage = per_warp * tp
@@ -80,8 +84,8 @@ def trisolve_plan(nb: int, bs: int, t: int, dtype, sms: int) -> TrisolvePlan:
     warps = max(1, min(_max_warps(rows), _SMEM_SM // (warp_smem + _SMEM_CTA)))
     tasks = -(-nb // per_warp)
     grid = min(sms * warps, tasks)
-    return TrisolvePlan(rows, seg, per_warp, cols, ls, tp, stage, warp_smem, warps, tasks, grid,
-                        warps * (warp_smem + _SMEM_CTA))
+    return TrisolvePlan(rows, seg, per_warp, cols, chunks, ls, tp, stage, warp_smem, warps, tasks,
+                        grid, warps * (warp_smem + _SMEM_CTA))
 
 
 def block_trisolve(l: torch.Tensor, x: torch.Tensor, ranks: int = 1) -> torch.Tensor:

@@ -30,7 +30,7 @@ if TYPE_CHECKING:
     from repro_torch.sparse.csr import CSRMatrix
 
 #: largest block width the kernel takes
-MAX_T = 16
+MAX_T = 32
 #: tile rows and columns the float64 tensor-core path takes (br = 8·MT,
 #: bc = 4·S in ``csrc/bsr_spmbv.cu``)
 MMA_BR, MMA_BC = (8, 16), (4, 8, 16)
@@ -48,6 +48,8 @@ class SpmbvPlan(NamedTuple):
     threads: int  # threads per CTA
     rows: int     # work items the grid strides over: block rows (mma, one
                   # warp each) or output rows (fma, one thread each)
+    cols: int     # output columns the kernel instance holds: 8·NT, NT =
+                  # cdiv(t, 8) column tiles (mma), or 8, 16 or 32 sums (fma)
 
 
 def spmbv_plan(nbr: int, br: int, bc: int, t: int, n_w: int, dtype, sms: int,
@@ -67,10 +69,10 @@ def spmbv_plan(nbr: int, br: int, bc: int, t: int, n_w: int, dtype, sms: int,
     if dtype == torch.float64 and br in MMA_BR and bc in MMA_BC and aligned:
         rows = min(nbr, -(-n_w // br))
         grid = min(-(-rows // _MMA_WARPS), sms * _MMA_CTAS_PER_SM)
-        return SpmbvPlan("mma", max(grid, 1), 32 * _MMA_WARPS, rows)
+        return SpmbvPlan("mma", max(grid, 1), 32 * _MMA_WARPS, rows, 8 * -(-t // 8))
     rows = n_w
     grid = min(-(-rows // _FMA_THREADS), sms * _FMA_CTAS_PER_SM)
-    return SpmbvPlan("fma", max(grid, 1), _FMA_THREADS, rows)
+    return SpmbvPlan("fma", max(grid, 1), _FMA_THREADS, rows, next(c for c in (8, 16, 32) if t <= c))
 
 
 def _host(x) -> np.ndarray:

@@ -6,7 +6,8 @@ new directions P = Z·C⁻¹ and AP = AZ·C⁻¹ (``core/methods/base.py``
 ``_chol_inv_apply``).  The reference leaves the two triangular solves to
 XLA; here one row-pass kernel, ``csrc/chol_apply.cu``, writes both blocks in
 one launch, row-major, where cuBLAS's solve returns column-major results
-that must then be copied.
+that must then be copied.  It takes 1 <= t <= 32: at t <= 2 a vector path
+with no staging, above it the staged row pass (:func:`chol_plan`).
 
 The adaptive solver (a ``ReductionPolicy``) and the s-step scheme call two
 more kernels of that source instead: :func:`rank_apply`, the pivoted
@@ -28,15 +29,51 @@ from repro_torch.kernels.chol_apply.ref import chol_apply_ref, drop_mask_ref, ra
 from repro_torch.kernels.dispatch import use_kernel
 
 #: widest t ``chol_apply`` takes (the row's t values are registers)
-MAX_T = 16
+MAX_T = 32
 #: widest t ``rank_apply`` takes, and the most directions and coefficients
 #: ``drop_mask`` scores (one warp)
 MAX_RANK_T = 32
-#: threads of a ``rank_apply`` CTA (``repro::kThreads``) and the dynamic
-#: shared memory a launch gets without opting in
+#: widest t ``chol_apply`` solves on its vector path (a 16-byte vector holds
+#: whole rows)
+_VEC_MAX_T = 2
+#: threads of a ``chol_apply``/``rank_apply`` CTA (``repro::kThreads``) and
+#: the dynamic shared memory a launch gets without opting in
 _THREADS, _SMEM_DEFAULT = 256, 48 * 1024
 #: shared memory of one SM, and what the runtime keeps of it per CTA
 _SMEM_SM, _SMEM_CTA = 233_472, 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class CholPlan:
+    """How ``chol_apply`` launches at width t (``launch_t`` in
+    ``csrc/chol_apply.cu``): the vector path (t <= 2, 16-byte aligned
+    blocks; no shared memory) or the staged path, whose dynamic shared
+    memory (``CholSmem``) holds C and each warp's tile of 32 rows of
+    ``stride`` values."""
+
+    path: str           # "vector" or "staged"
+    stride: int         # staged: values per staged row (odd: no bank conflict); vector: 0
+    rows_per_vec: int   # vector: rows in one 16-byte vector; staged: 0
+    smem_bytes: int     # dynamic shared memory per CTA
+    opt_in: bool        # above the 48 KB default: the launcher opts in
+    ctas_by_smem: int   # resident CTAs per SM that shared memory allows
+
+
+def chol_plan(t: int, dtype, aligned: bool = True) -> CholPlan:
+    """The launch geometry of ``chol_apply`` at width ``t`` (the C launcher
+    owns the choice; this mirrors it for the tests and reports).  The
+    registers may allow fewer CTAs per SM than ``ctas_by_smem``; the
+    launcher asks the runtime."""
+    if not 1 <= t <= MAX_T:
+        raise ValueError(f"chol_apply: kernel takes 1 <= t <= {MAX_T}, got t={t}")
+    es = {torch.float32: 4, torch.float64: 8}[dtype]
+    blocks = 2048 // _THREADS
+    if t <= _VEC_MAX_T and aligned:
+        return CholPlan("vector", 0, 16 // es // t, 0, False, blocks)
+    stride = t if t % 2 else t + 1
+    smem = (t * t + (_THREADS // 32) * 32 * stride) * es
+    return CholPlan("staged", stride, 0, smem, smem > _SMEM_DEFAULT,
+                    min(blocks, _SMEM_SM // (smem + _SMEM_CTA)))
 
 
 @dataclasses.dataclass(frozen=True)

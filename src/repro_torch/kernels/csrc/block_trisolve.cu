@@ -35,8 +35,16 @@
 // solves a column alone.  The sums run in a fixed order (i ascending
 // forward, descending backward): deterministic.  After each pass a lane
 // multiplies its rows by their reciprocals: y_i = acc_i / L[i,i].  The
-// kernel is built for TT ≥ t columns (1, 2, 4, 8 or 16) and shuffles all
-// TT of them, the ones past t zero, so no shuffle sits under a branch.
+// kernel is built for TT columns (1, 2, 4, 8 or 16) and shuffles all TT of
+// them, the ones past t zero, so no shuffle sits under a branch.  Up to
+// t = 16, TT ≥ t and one pass solves every right-hand side.  Above it (to
+// t = 32) a lane would hold 2·TT values of acc and of the next task's x, in
+// registers that TT = 16 already fills (124 at one row a lane against the
+// 128 of 16 warps an SM, 210 at two): so the kernel walks the right-hand
+// sides in chunks of TT = 16 columns against the tile already staged in
+// shared memory.  L is read from device memory once a task, and the rows
+// of x once a chunk (the first chunk's rows prefetched with the tile, the
+// later chunks' loaded when the chunk starts).
 //
 // Bytes in flight: a CTA is one warp (its warp index, the CTA's, is then
 // uniform to the compiler, so no shuffle is wrapped for divergent lanes),
@@ -78,7 +86,8 @@ struct Plan {
   int rows;        // rows a lane owns: 2 at bs > 32, else 1
   int seg;         // lanes per block: bs rounded up to 8, 16 or 32
   int per_warp;    // blocks a warp solves at once: 32 / seg
-  int cols;        // right-hand sides the kernel is built for: t rounded up to 1, 2, 4, 8 or 16
+  int cols;        // right-hand sides a pass solves: t rounded up to 1, 2, 4, 8 or 16 (16 above)
+  int chunks;      // passes over the staged tile: cdiv(t, cols), 1 up to t = 16, 2 to t = 32
   int ls;          // elements per staged row of L: a multiple of VEC, ls / VEC odd
   int tp;          // elements per staged tile: bs·ls, rounded up to seg modulo 32
                    // where a warp takes several blocks
@@ -96,6 +105,7 @@ Plan make_plan(long long nb, int bs, int t) {
   p.seg = bs <= 8 ? 8 : bs <= 16 ? 16 : 32;
   p.per_warp = 32 / p.seg;
   p.cols = t <= 1 ? 1 : t <= 2 ? 2 : t <= 4 ? 4 : t <= 8 ? 8 : 16;
+  p.chunks = (t + p.cols - 1) / p.cols;
   p.ls = vec * (((bs + vec - 1) / vec) | 1);
   p.tp = bs * p.ls;
   if (p.per_warp > 1) p.tp += ((p.seg - p.tp) % 32 + 32) % 32;
@@ -135,9 +145,10 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src) {
 
 struct Geometry {
   long long nb, nb_rank, rmax;
-  int bs, t, per_warp, ls, tp, stage;
+  int bs, t, chunks, per_warp, ls, tp, stage;
   bool vec_l;   // bs a multiple of VEC and l 16-byte aligned: tiles move as 16-byte chunks
-  bool vec_xy;  // t == TT, a multiple of VEC, x and y 16-byte aligned: rows move as vectors
+  bool vec_xy;  // t a multiple of VEC, t == TT or chunked, x and y 16-byte aligned: rows
+                // move as vectors
 };
 
 // The first row of block g in x, and how many of its bs rows lie below rmax.
@@ -196,10 +207,11 @@ __device__ __forceinline__ void stage_tiles(T* dst, const T* __restrict__ l, con
 }
 
 // This lane's rows of x for the block it solves in task ``task``: rows
-// row0 (+ 32) below rmax, TT values each (zero past t), and their number.
+// row0 (+ 32) below rmax, the TT values of columns c0 .. c0 + TT - 1 each
+// (zero past t), and their number.
 template <typename T, int R, int TT>
 __device__ __forceinline__ int load_x(T (&v)[R][TT], const T* __restrict__ x, const Geometry& geo,
-                                      long long task, int b, int row0) {
+                                      long long task, int b, int row0, int c0) {
   using VT = typename Vec<T>::type;
   constexpr int vec = 16 / static_cast<int>(sizeof(T));
   const int here = static_cast<int>(
@@ -210,13 +222,13 @@ __device__ __forceinline__ int load_x(T (&v)[R][TT], const T* __restrict__ x, co
 #pragma unroll
   for (int h = 0; h < R; ++h) {
     const int row = row0 + 32 * h;
-    const T* src = x + (start + row) * geo.t;
+    const T* src = x + (start + row) * geo.t + c0;
     if constexpr (TT % vec == 0) {
-      if (geo.vec_xy) {
+      if (geo.vec_xy) {  // t a multiple of vec: a vector lies wholly below t or past it
 #pragma unroll
         for (int c = 0; c < TT; c += vec) {
           VT u{};
-          if (row < live) u = *reinterpret_cast<const VT*>(src + c);
+          if (row < live && c0 + c < geo.t) u = *reinterpret_cast<const VT*>(src + c);
 #pragma unroll
           for (int k = 0; k < vec; ++k) v[h][c + k] = lane_of<T>(u, k);
         }
@@ -224,7 +236,7 @@ __device__ __forceinline__ int load_x(T (&v)[R][TT], const T* __restrict__ x, co
       }
     }
 #pragma unroll
-    for (int c = 0; c < TT; ++c) v[h][c] = row < live && c < geo.t ? src[c] : T(0);
+    for (int c = 0; c < TT; ++c) v[h][c] = row < live && c0 + c < geo.t ? src[c] : T(0);
   }
   return live;
 }
@@ -335,11 +347,11 @@ __global__ void __launch_bounds__(32, max_warps(R)) block_trisolve_kernel(
     return static_cast<int>(min(static_cast<long long>(per_warp), geo.nb - tk * per_warp));
   };
 
-  T xn[R][TT];  // the next task's rows of x
+  T xn[R][TT];  // the next task's rows of x (its first chunk)
   int live_n = 0;
   if (task < tasks) {
     stage_tiles(base, l, geo, task * per_warp, here_of(task), wk);
-    live_n = load_x(xn, x, geo, task, b, r0);
+    live_n = load_x(xn, x, geo, task, b, r0, 0);
   }
   for (int s = 0; task < tasks; task += wstride, s ^= 1) {
     T acc[R][TT];
@@ -354,7 +366,7 @@ __global__ void __launch_bounds__(32, max_warps(R)) block_trisolve_kernel(
     T* const cur = base + (s ? geo.stage : 0);
     if (next < tasks) {
       stage_tiles(base + (s ? 0 : geo.stage), l, geo, next * per_warp, here_of(next), wk);
-      live_n = load_x(xn, x, geo, next, b, r0);
+      live_n = load_x(xn, x, geo, next, b, r0, 0);
     } else {
       asm volatile("cp.async.commit_group;\n" ::);
     }
@@ -373,49 +385,54 @@ __global__ void __launch_bounds__(32, max_warps(R)) block_trisolve_kernel(
     __syncwarp();  // the segment's reciprocals are in shared memory
 
     const int bv = (bs + vec - 1) / vec * vec;  // the forward steps, bs rounded up to VEC
-    // forward, L y = x
-    if constexpr (R == 1) {
-      forward<T, SEG, R, TT, 0>(acc, rcp, tile, rf, ra, ls, 0, bv);
-    } else {
-      forward<T, SEG, R, TT, 0>(acc, rcp, tile, rf, ra, ls, 0, 32);
-      forward<T, SEG, R, TT, 1>(acc, rcp, tile, rf, ra, ls, 32, bv);
-    }
-    finish(acc, inv);
-    // backward, Lᵀ z = y
-    if constexpr (R == 1) {
-      backward<T, SEG, R, TT, 0>(acc, rcp, tile, rb, ra, ls, 0, bs);
-    } else {
-      backward<T, SEG, R, TT, 1>(acc, rcp, tile, rb, ra, ls, 32, bs);
-      backward<T, SEG, R, TT, 0>(acc, rcp, tile, rb, ra, ls, 0, 32);
-    }
-    finish(acc, inv);
+    for (int ch = 0; ch < geo.chunks; ++ch) {
+      const int c0 = ch * TT;
+      if (ch > 0) load_x(acc, x, geo, task, b, r0, c0);
+      // forward, L y = x
+      if constexpr (R == 1) {
+        forward<T, SEG, R, TT, 0>(acc, rcp, tile, rf, ra, ls, 0, bv);
+      } else {
+        forward<T, SEG, R, TT, 0>(acc, rcp, tile, rf, ra, ls, 0, 32);
+        forward<T, SEG, R, TT, 1>(acc, rcp, tile, rf, ra, ls, 32, bv);
+      }
+      finish(acc, inv);
+      // backward, Lᵀ z = y
+      if constexpr (R == 1) {
+        backward<T, SEG, R, TT, 0>(acc, rcp, tile, rb, ra, ls, 0, bs);
+      } else {
+        backward<T, SEG, R, TT, 1>(acc, rcp, tile, rb, ra, ls, 32, bs);
+        backward<T, SEG, R, TT, 0>(acc, rcp, tile, rb, ra, ls, 0, 32);
+      }
+      finish(acc, inv);
 
-    if (b < here) {
-      int rows;
-      const long long start = block_rows(geo, task * per_warp + b, rows);
+      if (b < here) {
+        int rows;
+        const long long start = block_rows(geo, task * per_warp + b, rows);
 #pragma unroll
-      for (int h = 0; h < R; ++h) {
-        const int row = r0 + 32 * h;
-        if (row >= live) continue;
-        T* dst = y + (start + row) * geo.t;
-        if constexpr (TT % vec == 0) {
-          if (geo.vec_xy) {
+        for (int h = 0; h < R; ++h) {
+          const int row = r0 + 32 * h;
+          if (row >= live) continue;
+          T* dst = y + (start + row) * geo.t + c0;
+          if constexpr (TT % vec == 0) {
+            if (geo.vec_xy) {
 #pragma unroll
-            for (int c = 0; c < TT; c += vec) {
-              VT u;
-              if constexpr (vec == 2) {
-                u = VT{acc[h][c], acc[h][c + 1]};
-              } else {
-                u = VT{acc[h][c], acc[h][c + 1], acc[h][c + 2], acc[h][c + 3]};
+              for (int c = 0; c < TT; c += vec) {
+                if (c0 + c >= geo.t) continue;
+                VT u;
+                if constexpr (vec == 2) {
+                  u = VT{acc[h][c], acc[h][c + 1]};
+                } else {
+                  u = VT{acc[h][c], acc[h][c + 1], acc[h][c + 2], acc[h][c + 3]};
+                }
+                *reinterpret_cast<VT*>(dst + c) = u;
               }
-              *reinterpret_cast<VT*>(dst + c) = u;
+              continue;
             }
-            continue;
           }
-        }
 #pragma unroll
-        for (int c = 0; c < TT; ++c) {
-          if (c < geo.t) dst[c] = acc[h][c];
+          for (int c = 0; c < TT; ++c) {
+            if (c0 + c < geo.t) dst[c] = acc[h][c];
+          }
         }
       }
     }
@@ -439,8 +456,9 @@ int launch_k(const void* l, const void* x, void* y, const Plan& p, long long nb,
   const long long grid = std::min(static_cast<long long>(sms) * p.warps, p.tasks);
   const auto aligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
   const bool vec_l = bs % vec == 0 && aligned(l);
-  const bool vec_xy = t == TT && t % vec == 0 && aligned(x) && aligned(y);
-  const Geometry geo{nb, nb_rank, rmax, bs, t, p.per_warp, p.ls, p.tp, p.stage, vec_l, vec_xy};
+  const bool vec_xy = (t == TT || p.chunks > 1) && t % vec == 0 && aligned(x) && aligned(y);
+  const Geometry geo{nb,      nb_rank, rmax, bs,      t,     p.chunks, p.per_warp,
+                     p.ls,    p.tp,    p.stage, vec_l, vec_xy};
   kernel<<<static_cast<unsigned>(grid), 32, static_cast<size_t>(p.warp_smem),
            static_cast<cudaStream_t>(stream)>>>(static_cast<const T*>(l), static_cast<const T*>(x),
                                                 static_cast<T*>(y), geo, p.tasks);
@@ -462,7 +480,7 @@ int launch_t(const void* l, const void* x, void* y, const Plan& p, long long nb,
 template <typename T>
 int launch(const void* l, const void* x, void* y, long long nb, int bs, int t,
            long long nb_rank, long long rmax, void* stream) {
-  if (bs < 1 || bs > 64 || t < 1 || t > 16 || nb_rank < 1 || nb % nb_rank) {
+  if (bs < 1 || bs > 64 || t < 1 || t > 32 || nb_rank < 1 || nb % nb_rank) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (nb == 0) return 0;

@@ -25,7 +25,7 @@
 // no barrier.  Two paths, chosen by the wrapper from the shape
 // (``kernels/bsr_spmbv/ops.py`` ``spmbv_plan``):
 //
-// * mma (float64, br ∈ {8, 16}, bc ∈ {4, 8, 16}, t ≤ 16, 16-byte aligned
+// * mma (float64, br ∈ {8, 16}, bc ∈ {4, 8, 16}, t ≤ 32, 16-byte aligned
 //   tiles): the product runs on the f64 tensor cores,
 //   mma.sync.m8n8k4 (A = an 8x4 slice of a tile, B = a 4x8 slice of V).
 //   The depth index is permuted so that lane q's S = bc/4 depth values are
@@ -35,12 +35,14 @@
 //   values V[col·bc + q·S + s][8n + g].  The warp loads the row's column
 //   ids once (one lane each, then __shfl_sync) and issues every tile and V
 //   load of up to KU slots (all 10 at Example 2.1) before the first mma, so
-//   ~40 independent loads per lane are in flight.  Tiles are read once and
-//   are loaded streaming (ld.global.cs), so that V, which neighbouring block
-//   rows gather again, stays in L2.  Each lane ends with two outputs per
-//   (m, n) tile, stored as one 16-byte write when t is even.
+//   ~40 independent loads per lane are in flight (KU falls as the NT =
+//   cdiv(t, 8) column tiles grow, so that a lane holds ~40 loaded values:
+//   KU = 10, 5 and 4 slots at NT = 1, 3 and 4 on 8x8 tiles).  Tiles are
+//   read once and are loaded streaming (ld.global.cs), so that V, which
+//   neighbouring block rows gather again, stays in L2.  Each lane ends with
+//   two outputs per (m, n) tile, stored as one 16-byte write when t is even.
 // * fma (float32, and shapes the mma tiling does not take): one thread per
-//   output row, all t (≤ 16) sums in registers; each tile value is loaded
+//   output row, all t (≤ 32) sums in registers; each tile value is loaded
 //   once into a register and used for t multiply-adds, and the br threads of
 //   a block row share the V row through L1.
 //
@@ -76,7 +78,10 @@ __global__ void __launch_bounds__(kMmaThreads, 4) bsr_spmbv_mma(
     const double* __restrict__ v, double* __restrict__ w, long long nbr, int kmax,
     int t, long long n_v, long long n_w) {
   constexpr int BR = 8 * MT, BC = 4 * S;
-  constexpr int KU = (MT + NT) * S > 40 ? 1 : 40 / ((MT + NT) * S);
+  // values a lane loads before its mmas: 40, or 32 where the accumulators
+  // take 16 (MT·NT = 8; at 40 the 16x8 tile's instance spilled)
+  constexpr int kLoads = MT * NT >= 8 ? 32 : 40;
+  constexpr int KU = (MT + NT) * S > kLoads ? 1 : kLoads / ((MT + NT) * S);
   static_assert(KU <= 32, "one lane loads each column id of a chunk");
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
@@ -192,9 +197,15 @@ int launch_mma(const Args& a) {
   return repro::launch_status();
 }
 
+// NT = cdiv(t, 8) column tiles of 8
 template <int MT, int S>
 int launch_mma_nt(const Args& a) {
-  return a.t <= 8 ? launch_mma<MT, S, 1>(a) : launch_mma<MT, S, 2>(a);
+  switch ((a.t + 7) / 8) {
+    case 1: return launch_mma<MT, S, 1>(a);
+    case 2: return launch_mma<MT, S, 2>(a);
+    case 3: return launch_mma<MT, S, 3>(a);
+    default: return launch_mma<MT, S, 4>(a);
+  }
 }
 
 template <int MT>
@@ -209,7 +220,8 @@ int launch_mma_s(const Args& a) {
 
 template <typename T>
 int launch_fma(const Args& a) {
-  auto* kernel = a.t <= 8 ? bsr_spmbv_fma<T, 8> : bsr_spmbv_fma<T, 16>;
+  auto* kernel = a.t <= 8 ? bsr_spmbv_fma<T, 8> : a.t <= 16 ? bsr_spmbv_fma<T, 16>
+                                                           : bsr_spmbv_fma<T, 32>;
   kernel<<<a.grid, kFmaThreads, 0, a.stream>>>(
       static_cast<const T*>(a.blocks), static_cast<const int*>(a.indices),
       static_cast<const T*>(a.v), static_cast<T*>(a.w), a.nbr, a.kmax, a.br, a.bc,
@@ -225,7 +237,7 @@ REPRO_EXPORT int bsr_spmbv_f32(const void* blocks, const void* indices,
                                const void* v, void* w, long long nbr, int kmax,
                                int br, int bc, int t, long long n_v,
                                long long n_w, int use_mma, int grid, void* stream) {
-  if (use_mma || t < 1 || t > 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (use_mma || t < 1 || t > 32) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{blocks, indices, v, w, nbr, kmax, br, bc, t, n_v, n_w, grid,
                static_cast<cudaStream_t>(stream)};
   return launch_fma<float>(a);
@@ -235,7 +247,7 @@ REPRO_EXPORT int bsr_spmbv_f64(const void* blocks, const void* indices,
                                const void* v, void* w, long long nbr, int kmax,
                                int br, int bc, int t, long long n_v,
                                long long n_w, int use_mma, int grid, void* stream) {
-  if (t < 1 || t > 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (t < 1 || t > 32) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{blocks, indices, v, w, nbr, kmax, br, bc, t, n_v, n_w, grid,
                static_cast<cudaStream_t>(stream)};
   if (!use_mma) return launch_fma<double>(a);

@@ -14,20 +14,34 @@
 //
 // What bounds it on the H100: bytes.  Two (n, t) reads and two writes
 // against ~t² flops per row: at Example 2.1's full scale (n = 1 310 720,
-// t = 8, float64) 335 MB, ~0.100 ms at 3.35 TB/s.
+// float64) 335 MB at t = 8, ~0.100 ms at 3.35 TB/s; 0.250 ms at t = 20,
+// 0.401 ms at t = 32, 0.0125 ms at t = 1.
 //
-// Design: C (t² ≤ 256 values) is staged once per CTA in shared memory,
-// where every thread of a warp reads the same entry (a broadcast).  A warp
-// takes 32 consecutive rows of one block (Z's tiles, then AZ's: both blocks
-// in one launch), one thread per row.  The tile is one contiguous range of
-// 32·t values: the warp moves it between device memory and shared memory
-// lane after lane on consecutive addresses, and each thread then reads its
-// row from shared memory (rows padded to an odd length: no bank conflict).
-// (A thread loading its own row straight from device memory instead makes
-// requests that each touch 32 rows and use a part of every sector.)  The
-// row's t values stay in registers (t is a template parameter, so every
-// index is a constant).  The grid is one wave of the CTAs that fit on the
-// card, walking the tiles with a grid stride; no atomics.
+// Design, t >= 3 (the staged path): C (t² ≤ 1024 values) is staged once per
+// CTA in shared memory, where every thread of a warp reads the same entry
+// (a broadcast).  A warp takes 32 consecutive rows of one block (Z's tiles,
+// then AZ's: both blocks in one launch), one thread per row.  The tile is
+// one contiguous range of 32·t values: the warp moves it between device
+// memory and shared memory lane after lane on consecutive addresses, and
+// each thread then reads its row from shared memory (rows padded to an odd
+// length: no bank conflict).  (A thread loading its own row straight from
+// device memory instead makes requests that each touch 32 rows and use a
+// part of every sector.)  The row's t values stay in registers (t is a
+// template parameter, so every index is a constant; 64 registers at t = 32
+// in float64).  C and the warps' tiles are dynamic shared memory
+// (CholSmem): at t = 32 in float64 that is 75 776 bytes a CTA, above the
+// 48 KB a launch gets without opting in, so the launcher opts in.  The
+// grid is one wave of the CTAs that fit on the card, walking the tiles
+// with a grid stride; no atomics.
+//
+// Design, t <= 2 (the vector path): a row is t values, so a 16-byte vector
+// holds whole rows (2 or 1 rows in float64) and no staging is needed.  Each
+// thread issues kVecU 16-byte loads of M before its first division, then
+// solves and stores them; the grid is one wave with a grid stride.  (The
+// staged path moves 32 rows, 256 bytes at t = 1, between two __syncwarp()s
+// a warp: far too few bytes in flight.)  Both paths solve a row with the
+// same code (``substitute``), so they agree bit for bit.  Blocks whose
+// pointers are not 16-byte aligned take the staged path.
 
 // Two more kernel functions serve the adaptive solver (a ReductionPolicy):
 //
@@ -61,6 +75,7 @@
 // [rank, active count] for the iteration's one host copy.
 
 #include <algorithm>
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -81,18 +96,46 @@ __device__ __forceinline__ void tile_out(T* __restrict__ dst, const T* __restric
   for (int e = lane; e < n * TT; e += 32) dst[e] = b[(e / TT) * kStride + e % TT];
 }
 
+// Forward substitution y·C = m on one row, column by column: the sum over i
+// in ascending order, then the division.  c is C row-major (shared memory
+// or registers).
 template <typename T, int TT>
-__global__ void __launch_bounds__(repro::kThreads) chol_apply_kernel(
+__device__ __forceinline__ void substitute(T (&v)[TT], const T* __restrict__ c) {
+#pragma unroll
+  for (int j = 0; j < TT; ++j) {
+    T acc = v[j];
+#pragma unroll
+    for (int i = 0; i < j; ++i) acc -= v[i] * c[i * TT + j];
+    v[j] = acc / c[j * TT + j];
+  }
+}
+
+// chol_apply's shared memory, all of it dynamic: C (TT² values) and each
+// warp's tile buffer (32 rows of kStride values).
+template <typename T, int TT>
+struct CholSmem {
+  static constexpr int kStride = TT % 2 ? TT : TT + 1;  // odd: a lane's row meets no bank conflict
+  static constexpr int kWarps = repro::kThreads / 32;
+  static constexpr int kTile = 32 * kStride;
+  static constexpr size_t kBytes =
+      (static_cast<size_t>(TT) * TT + static_cast<size_t>(kWarps) * kTile) * sizeof(T);
+};
+
+// Above 16 columns the instances take 138-182 registers a thread unbounded,
+// one CTA an SM; at most 128 keep two.
+template <typename T, int TT>
+__global__ void __launch_bounds__(repro::kThreads, TT > 16 ? 2 : 1) chol_apply_kernel(
     const T* __restrict__ c, const T* __restrict__ m0, T* __restrict__ y0,
     const T* __restrict__ m1, T* __restrict__ y1, long long rows, int nmat) {
-  constexpr int kStride = TT % 2 ? TT : TT + 1;  // odd: a lane's row meets no bank conflict
-  __shared__ T sc[TT * TT];
-  __shared__ T buf[repro::kThreads / 32][32 * kStride];
+  using S = CholSmem<T, TT>;
+  constexpr int kStride = S::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sc = reinterpret_cast<T*>(smem_raw);
   for (int i = threadIdx.x; i < TT * TT; i += blockDim.x) sc[i] = c[i];
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
-  T* b = buf[threadIdx.x >> 5];
+  T* b = sc + TT * TT + (threadIdx.x >> 5) * S::kTile;
   const long long per = (rows + 31) / 32;  // warp tiles per block
   const long long tiles = nmat * per;
   const long long wstride = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
@@ -103,17 +146,10 @@ __global__ void __launch_bounds__(repro::kThreads) chol_apply_kernel(
     const int n = static_cast<int>(min(32LL, rows - r0));
     tile_in<T, TT, kStride>(b, (second ? m1 : m0) + r0 * TT, n, lane);
     __syncwarp();
-    // forward substitution y·C = m on this lane's row, column by column
     T v[TT];
 #pragma unroll
     for (int j = 0; j < TT; ++j) v[j] = b[lane * kStride + j];
-#pragma unroll
-    for (int j = 0; j < TT; ++j) {
-      T acc = v[j];
-#pragma unroll
-      for (int i = 0; i < j; ++i) acc -= v[i] * sc[i * TT + j];
-      v[j] = acc / sc[j * TT + j];
-    }
+    substitute<T, TT>(v, sc);
 #pragma unroll
     for (int j = 0; j < TT; ++j) b[lane * kStride + j] = v[j];
     __syncwarp();
@@ -122,27 +158,151 @@ __global__ void __launch_bounds__(repro::kThreads) chol_apply_kernel(
   }
 }
 
+template <typename T> struct Vec16;
+template <> struct Vec16<double> { using type = double2; };
+template <> struct Vec16<float> { using type = float4; };
+
+template <typename T>
+__device__ __forceinline__ void unpack(const typename Vec16<T>::type& x, T (&e)[16 / sizeof(T)]) {
+  if constexpr (sizeof(T) == 8) {
+    e[0] = x.x; e[1] = x.y;
+  } else {
+    e[0] = x.x; e[1] = x.y; e[2] = x.z; e[3] = x.w;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ typename Vec16<T>::type pack(const T (&e)[16 / sizeof(T)]) {
+  if constexpr (sizeof(T) == 8) {
+    return double2{e[0], e[1]};
+  } else {
+    return float4{e[0], e[1], e[2], e[3]};
+  }
+}
+
+constexpr int kVecU = 4;  // 16-byte vectors a thread loads before its first division
+
+// The vector path, TT <= 2: both blocks as one sequence of 16-byte vectors
+// (block 0's whole vectors, then block 1's), each holding kVec / TT whole
+// rows; the rows past the last whole vector of a block (fewer than a
+// vector's) are solved one by one after the loop.
+template <typename T, int TT>
+__global__ void __launch_bounds__(repro::kThreads) chol_apply_vec_kernel(
+    const T* __restrict__ c, const T* __restrict__ m0, T* __restrict__ y0,
+    const T* __restrict__ m1, T* __restrict__ y1, long long rows, int nmat) {
+  using V = typename Vec16<T>::type;
+  constexpr int kVec = 16 / sizeof(T);  // values per vector
+  constexpr int kRows = kVec / TT;      // rows per vector
+  T cr[TT * TT];
+#pragma unroll
+  for (int i = 0; i < TT * TT; ++i) cr[i] = __ldg(c + i);
+  const long long nvec = rows / kRows;  // whole vectors per block
+  const long long total = nmat * nvec;
+  const long long threads = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long gid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (long long base = gid; base < total; base += kVecU * threads) {
+    V x[kVecU];
+#pragma unroll
+    for (int u = 0; u < kVecU; ++u) {
+      const long long i = base + u * threads;
+      if (i < total) {
+        const bool second = i >= nvec;
+        x[u] = __ldcs(reinterpret_cast<const V*>(second ? m1 : m0) + (second ? i - nvec : i));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kVecU; ++u) {
+      const long long i = base + u * threads;
+      if (i < total) {
+        const bool second = i >= nvec;
+        T e[kVec];
+        unpack<T>(x[u], e);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          T v[TT];
+#pragma unroll
+          for (int j = 0; j < TT; ++j) v[j] = e[r * TT + j];
+          substitute<T, TT>(v, cr);
+#pragma unroll
+          for (int j = 0; j < TT; ++j) e[r * TT + j] = v[j];
+        }
+        reinterpret_cast<V*>(second ? y1 : y0)[second ? i - nvec : i] = pack<T>(e);
+      }
+    }
+  }
+  const long long tail = rows - nvec * kRows;  // rows per block past the whole vectors
+  if (gid < nmat * tail) {
+    const bool second = gid >= tail;
+    const long long r = nvec * kRows + (second ? gid - tail : gid);
+    const T* src = (second ? m1 : m0) + r * TT;
+    T v[TT];
+#pragma unroll
+    for (int j = 0; j < TT; ++j) v[j] = src[j];
+    substitute<T, TT>(v, cr);
+    T* dst = (second ? y1 : y0) + r * TT;
+#pragma unroll
+    for (int j = 0; j < TT; ++j) dst[j] = v[j];
+  }
+}
+
+// resident CTAs per SM of ``kernel`` with ``smem`` bytes of dynamic shared memory
+template <typename K>
+int ctas_per_sm(K kernel, size_t smem) {
+  int n = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, repro::kThreads, smem) ==
+                 cudaSuccess && n > 0
+             ? n
+             : 1;
+}
+
+int multiprocessors(int& sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return static_cast<int>(e);
+}
+
+// opt ``kernel`` in to ``smem`` bytes of dynamic shared memory where that is
+// above the 48 KB a launch gets without
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  return smem > 48 * 1024 ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem))
+                          : cudaSuccess;
+}
+
 template <typename T, int TT>
 int launch_t(const void* c, const void* m0, void* y0, const void* m1, void* y1,
              long long rows, void* stream) {
-  auto kernel = chol_apply_kernel<T, TT>;
-  // resident CTAs per SM for this instance, asked once
-  static const int per_sm = [&] {
-    int n = 0;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, repro::kThreads, 0) ==
-                   cudaSuccess && n > 0
-               ? n
-               : 1;
-  }();
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
   const int nmat = m1 ? 2 : 1;
+  int sms = 0;
+  if (const int e = multiprocessors(sms)) return e;
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if constexpr (TT <= 2) {
+    if (aligned(m0) && aligned(y0) && (nmat == 1 || (aligned(m1) && aligned(y1)))) {
+      auto kernel = chol_apply_vec_kernel<T, TT>;
+      static const int per_sm = ctas_per_sm(kernel, 0);  // asked once per instance
+      constexpr int kRows = 16 / static_cast<int>(sizeof(T)) / TT;
+      const long long vecs = nmat * (rows / kRows);
+      const long long grid = std::max(1LL, std::min(repro::cdiv(vecs, repro::kThreads * kVecU),
+                                                    static_cast<long long>(sms) * per_sm));
+      kernel<<<static_cast<unsigned>(grid), repro::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(c), static_cast<const T*>(m0), static_cast<T*>(y0),
+          static_cast<const T*>(m1), static_cast<T*>(y1), rows, nmat);
+      return repro::launch_status();
+    }
+  }
+  auto kernel = chol_apply_kernel<T, TT>;
+  constexpr size_t smem = CholSmem<T, TT>::kBytes;
+  // opt in to the dynamic shared memory, then ask for the resident CTAs
+  // per SM at that size; both once per instance
+  static const cudaError_t opt_in = allow_smem(kernel, smem);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  static const int per_sm = ctas_per_sm(kernel, smem);
   const long long warps = nmat * repro::cdiv(rows, 32);
   const long long grid = std::min(repro::cdiv(warps, repro::kThreads / 32),
                                   static_cast<long long>(sms) * per_sm);
-  kernel<<<static_cast<unsigned>(grid), repro::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned>(grid), repro::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(c), static_cast<const T*>(m0), static_cast<T*>(y0),
       static_cast<const T*>(m1), static_cast<T*>(y1), rows, nmat);
   return repro::launch_status();
@@ -160,6 +320,10 @@ int launch(const void* c, const void* m0, void* y0, const void* m1, void* y1,
     REPRO_CHOL_T(5) REPRO_CHOL_T(6) REPRO_CHOL_T(7) REPRO_CHOL_T(8)
     REPRO_CHOL_T(9) REPRO_CHOL_T(10) REPRO_CHOL_T(11) REPRO_CHOL_T(12)
     REPRO_CHOL_T(13) REPRO_CHOL_T(14) REPRO_CHOL_T(15) REPRO_CHOL_T(16)
+    REPRO_CHOL_T(17) REPRO_CHOL_T(18) REPRO_CHOL_T(19) REPRO_CHOL_T(20)
+    REPRO_CHOL_T(21) REPRO_CHOL_T(22) REPRO_CHOL_T(23) REPRO_CHOL_T(24)
+    REPRO_CHOL_T(25) REPRO_CHOL_T(26) REPRO_CHOL_T(27) REPRO_CHOL_T(28)
+    REPRO_CHOL_T(29) REPRO_CHOL_T(30) REPRO_CHOL_T(31) REPRO_CHOL_T(32)
 #undef REPRO_CHOL_T
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -168,7 +332,7 @@ int launch(const void* c, const void* m0, void* y0, const void* m1, void* y1,
 }  // namespace
 
 // c: (t, t) upper factor; m0, y0 and (when m1 is not null) m1, y1: (rows, t)
-// row-major; 1 <= t <= 16.
+// row-major; 1 <= t <= 32.
 REPRO_EXPORT int chol_apply_f32(const void* c, const void* m0, void* y0, const void* m1,
                                 void* y1, long long rows, int t, void* stream) {
   return launch<float>(c, m0, y0, m1, y1, rows, t, stream);
@@ -414,24 +578,13 @@ int launch_rank_t(const void* g, const void* m0, void* y0, const void* m1, void*
                   long long rows, double rtol, void* rank, void* perm, void* stream) {
   auto kernel = rank_apply_kernel<T, TT>;
   constexpr size_t smem = RankSmem<T, TT>::kBytes;
-  // opt in to the dynamic shared memory above 48 KB, then ask for the
-  // resident CTAs per SM at that size; both once per instance
-  static const cudaError_t opt_in =
-      smem > 48 * 1024 ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                              static_cast<int>(smem))
-                       : cudaSuccess;
+  // opt in to the dynamic shared memory, then ask for the resident CTAs
+  // per SM at that size; both once per instance
+  static const cudaError_t opt_in = allow_smem(kernel, smem);
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  static const int per_sm = [&] {
-    int n = 0;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, repro::kThreads, smem) ==
-                   cudaSuccess && n > 0
-               ? n
-               : 1;
-  }();
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  static const int per_sm = ctas_per_sm(kernel, smem);
+  int sms = 0;
+  if (const int e = multiprocessors(sms)) return e;
   const int nmat = m1 ? 2 : 1;
   const long long warps = nmat * repro::cdiv(rows, 32);
   // at least one CTA: it writes rank and perm even for an empty block

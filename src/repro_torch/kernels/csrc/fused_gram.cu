@@ -12,8 +12,9 @@
 // the mesh then sums (one psum, as the reference's shard_map does).
 //
 // What bounds it on the H100: bytes.  It reads 4·n·t values and does
-// 6·n·t² flops (t ≤ 16), far below the compute line; at Example 2.1's full
-// scale (n = 1 310 720, t = 8, f64) the floor is the 336 MB read, ~0.10 ms.
+// 6·n·t² flops (t ≤ 32), far below the compute line; at Example 2.1's full
+// scale (n = 1 310 720, t = 8, f64) the floor is the 336 MB read, ~0.10 ms
+// (0.250 ms at t = 20, 0.401 ms at t = 32).
 // A kernel reaches it only with enough loads in flight and no on-chip
 // traffic per multiply-add; a design that stages rows in shared memory
 // behind barriers and reads two shared values per multiply-add does not.
@@ -33,9 +34,14 @@
 //   B = Y[row + q][g]: the same address, a coalesced 256-byte warp-load at
 //   t = 8.  So per four rows a lane loads one value each of P, R, AP and
 //   AP_old and issues three mmas (PᵀR, APᵀAP with one register as A and B,
-//   AP_oldᵀAP); t ≤ 16 takes a 2x2 set of 8x8 tiles per product and t < 8
-//   loads zeros.  Each warp of a 4-warp CTA loads U four-row steps (32
-//   rows) before their mmas and walks the CTA's rows by 4 warps·32.
+//   AP_oldᵀAP); t ≤ 8·MT takes an MT x MT set of 8x8 tiles per product
+//   (MT = cdiv(t, 8) ≤ 4) and the columns past t load zeros.  Each warp of
+//   a 4-warp CTA holds all 3·MT² tiles, loads U four-row steps before their
+//   mmas and walks the CTA's rows by 4 warps·4U: U = 8, 4, 2 at MT = 1, 2,
+//   3, and 1 at MT = 4, where the 96 accumulator pairs and one step's 16
+//   loads take 250 registers a lane.  (Splitting the MT = 4 tiles among the
+//   warps, each then reading R and AP again from L1, ran at 44-61% of the
+//   bound on the H100; this at 78%.)
 // * fma path (float32, since the f32 tensor-core mma would round to TF32):
 //   each thread owns a 4x4 tile of one product, loads 4 + 4 row values into
 //   registers per row and does 16 multiply-adds with them; groups of
@@ -44,7 +50,9 @@
 //   sums stay within the plain float32 product's accuracy.
 //
 // Each CTA sums its warps' (or groups') accumulators in a fixed order
-// through shared memory and writes one float64 partial per output.  Pass 2
+// (for the mma path warp after warp into one shared buffer, between
+// barriers, so the buffer is one warp's 3·MT²·2 values a lane) and writes
+// one float64 partial per output.  Pass 2
 // sums each output's `parts` partials (one per pass-1 CTA of the rank,
 // stored contiguously): one warp per output, lanes over the partials in
 // order, then a fixed warp-shuffle tree.
@@ -65,15 +73,15 @@ __device__ __forceinline__ long long partial_at(int o, int n_out) {
   return (static_cast<long long>(blockIdx.y) * n_out + o) * gridDim.x + blockIdx.x;
 }
 
-// MT = 1 for t ≤ 8, 2 for t ≤ 16 (an MT x MT set of 8x8 tiles per product)
+// MT = cdiv(t, 8): an MT x MT set of 8x8 tiles per product
 template <int MT>
 __global__ void __launch_bounds__(kMmaThreads) fused_gram_mma(
     const double* __restrict__ p, const double* __restrict__ r,
     const double* __restrict__ ap, const double* __restrict__ apo,
     double* __restrict__ partials, long long n, int t, long long rows_per_part) {
-  constexpr int U = 8 / MT;            // four-row steps loaded before their mmas
-  constexpr int E = 3 * MT * MT * 2;   // accumulator values per lane
-  __shared__ double red[kMmaWarps][E][32];
+  constexpr int U = MT < 4 ? 8 / MT : 1;  // four-row steps loaded before their mmas
+  constexpr int E = 3 * MT * MT * 2;      // accumulator values per lane
+  __shared__ double red[E][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
   const long long first = static_cast<long long>(blockIdx.y) * n * t;
@@ -113,25 +121,31 @@ __global__ void __launch_bounds__(kMmaThreads) fused_gram_mma(
         }
   }
 
-  // the CTA's partial: the warps' fragments summed in warp order
+  // the CTA's partial: the warps' fragments summed in warp order, each warp
+  // in turn between barriers
+#pragma unroll 1
+  for (int w = 0; w < kMmaWarps; ++w) {
+    if (warp == w) {
 #pragma unroll
-  for (int s = 0; s < 3; ++s)
+      for (int s = 0; s < 3; ++s)
 #pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
+        for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < MT; ++ni)
+          for (int ni = 0; ni < MT; ++ni)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) red[warp][((s * MT + mi) * MT + ni) * 2 + h][lane] = acc[s][mi][ni][h];
-  __syncthreads();
+            for (int h = 0; h < 2; ++h) {
+              double& slot = red[((s * MT + mi) * MT + ni) * 2 + h][lane];
+              slot = w == 0 ? acc[s][mi][ni][h] : slot + acc[s][mi][ni][h];
+            }
+    }
+    __syncthreads();
+  }
   const int n_out = 3 * t * t;
   for (int i = threadIdx.x; i < E * 32; i += kMmaThreads) {
     const int e = i >> 5, l = i & 31;
-    double sum = red[0][e][l];
-#pragma unroll
-    for (int wi = 1; wi < kMmaWarps; ++wi) sum += red[wi][e][l];
     const int h = e & 1, ni = (e >> 1) % MT, mi = (e >> 1) / MT % MT, s = (e >> 1) / (MT * MT);
     const int a = 8 * mi + (l >> 2), b = 8 * ni + 2 * (l & 3) + h;
-    if (a < t && b < t) partials[partial_at(a * 3 * t + s * t + b, n_out)] = sum;
+    if (a < t && b < t) partials[partial_at(a * 3 * t + s * t + b, n_out)] = red[e][l];
   }
 }
 
@@ -210,14 +224,17 @@ template <typename T>
 int launch(const void* p, const void* r, const void* ap, const void* apo, void* partials,
            void* out, int ranks, long long n, int t, int parts, long long rows_per_part,
            void* stream) {
-  if (t < 1 || t > 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (t < 1 || t > 32) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(parts, ranks);
   const T *tp = static_cast<const T*>(p), *tr = static_cast<const T*>(r);
   const T *tap = static_cast<const T*>(ap), *tapo = static_cast<const T*>(apo);
   double* part = static_cast<double*>(partials);
   if constexpr (std::is_same_v<T, double>) {
-    auto* kernel = t <= 8 ? fused_gram_mma<1> : fused_gram_mma<2>;
+    auto* kernel = t <= 8    ? fused_gram_mma<1>
+                   : t <= 16 ? fused_gram_mma<2>
+                   : t <= 24 ? fused_gram_mma<3>
+                             : fused_gram_mma<4>;
     kernel<<<grid, kMmaThreads, 0, s>>>(tp, tr, tap, tapo, part, n, t, rows_per_part);
   } else {
     fused_gram_fma<T><<<grid, kFmaThreads, 0, s>>>(tp, tr, tap, tapo, part, n, t, rows_per_part);

@@ -18,7 +18,7 @@ from repro_torch.kernels.dispatch import use_kernel
 from repro_torch.kernels.fused_gram.ref import fused_gram_ref
 
 #: largest block width the kernel takes
-MAX_T = 16
+MAX_T = 32
 _CTAS_PER_SM = 4     # pass-1 CTAs per streaming multiprocessor, all ranks together
 _MMA_THREADS = 128   # csrc/fused_gram.cu kMmaWarps = 4
 _FMA_THREADS = 256   # kFmaThreads
@@ -38,7 +38,8 @@ class GramPlan(NamedTuple):
 def rows_per_step(t: int, path: str) -> int:
     """Rows one pass-1 CTA covers in one round of its loop."""
     if path == "mma":
-        return 4 * 4 * (8 if t <= 8 else 4)  # 4 warps x U four-row steps
+        mt = -(-t // 8)  # MT x MT tiles of 8 a side per product (fused_gram_mma<MT>)
+        return 4 * 4 * (8 // mt if mt < 4 else 1)  # 4 warps x U four-row steps
     ta = -(-t // 4)
     return _FMA_ROWS * (_FMA_THREADS // (3 * ta * ta))  # kRows x thread groups
 

@@ -81,7 +81,7 @@ from repro_torch.adaptive.reduce import resolve_policy
 from repro_torch.core.cg import SolveResult
 from repro_torch.core.ecg import finalize_result, make_ecg_runner
 from repro_torch.kernels.block_update.ops import ecg_tail
-from repro_torch.kernels.bsr_spmbv.ops import MAX_T, block_ell_arrays, make_block_ell_apply_from_arrays
+from repro_torch.kernels.bsr_spmbv.ops import block_ell_arrays, make_block_ell_apply_from_arrays
 from repro_torch.kernels.chol_apply.ops import MAX_RANK_T
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.fused_gram.ops import fused_gram
@@ -98,6 +98,26 @@ from repro_torch.sparse.spmbv import _make_distributed_spmbv
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
+
+
+def _check_card_width(device: torch.device, cfg: SolverConfig) -> None:
+    """On the card every kernel takes at most ``MAX_RANK_T`` (32) columns:
+    refuse a configuration whose widest block is wider before any device
+    work.  The widest block is t (every candidate of ``t="auto"``), s·t
+    under s-step (``rank_apply`` factors its s·t-column blocks).  The plain
+    versions on the CPU take any width, as the reference does."""
+    if device.type != "cuda":
+        return
+    ts = cfg.adaptive.t_candidates if isinstance(cfg.t, str) else (cfg.t,)
+    widest = cfg.method.s * max(ts)
+    if widest > MAX_RANK_T:
+        what = f"t={cfg.t}" if not isinstance(cfg.t, str) else f"t='auto' candidates up to {max(ts)}"
+        if cfg.method.s > 1:
+            what += f" at s={cfg.method.s}"
+        raise NotImplementedError(
+            f"{what} makes blocks of {widest} columns; the card's kernels take at most "
+            f"{MAX_RANK_T} (ROADMAP.md §3, fault E); solve with a smaller t or s, or on the CPU"
+        )
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -200,9 +220,10 @@ class ECGSolver:
                 raise ValueError(f"device {device!r} differs from the mesh's {mesh.device}")
         else:
             self.device = resolve_device("cuda" if device is None else device)
+        self.config = SolverConfig.coerce(config)
+        _check_card_width(self.device, self.config)
         self.a = a.to(self.device)
         self.mesh = mesh
-        self.config = SolverConfig.coerce(config)
         self._tracer = coerce_tracer(tracer)
         self.stats = SolverStats()
         self.selection = None
@@ -725,24 +746,15 @@ class ECGSolver:
         return runner
 
     def _check_pack(self, spec: GroupSpec) -> None:
-        """On the card, a pack must fit the kernels it runs: with
-        ``backend="pallas"`` ``bsr_spmbv``, ``fused_gram`` and ``ecg_tail``
-        take at most ``MAX_T`` columns, and every backend's ``rank_apply``
-        and ``drop_mask`` at most ``MAX_RANK_T``.  Raised before any device
-        work; a wider pack never falls back to the plain versions."""
-        if self.device.type != "cuda":
-            return
-        if self.config.kernel.backend == "pallas" and spec.width > MAX_T:
+        """On the card, a pack must fit the kernels it runs: every kernel,
+        ``rank_apply`` and ``drop_mask`` among them, takes at most
+        ``MAX_RANK_T`` columns.  Raised before any device work; a wider pack
+        never falls back to the plain versions."""
+        if self.device.type == "cuda" and spec.width > MAX_RANK_T:
             raise NotImplementedError(
                 f"a pack of width {spec.width} ({spec.n_groups} requests × t={spec.t_each}) "
-                f"exceeds the {MAX_T} columns bsr_spmbv, fused_gram and ecg_tail take on "
-                f"the card; lower max_pack_width to {MAX_T}, or see ROADMAP.md queue 2 "
-                "item 4 (widen those kernels to 32 columns)"
-            )
-        if spec.width > MAX_RANK_T:
-            raise NotImplementedError(
-                f"a pack of width {spec.width} exceeds the {MAX_RANK_T} columns rank_apply "
-                f"and drop_mask take on the card; lower max_pack_width to {MAX_RANK_T}"
+                f"exceeds the {MAX_RANK_T} columns rank_apply and the other kernels take on "
+                f"the card; lower max_pack_width to {MAX_RANK_T}"
             )
 
     def _device_block(self, vs, dtype=None) -> torch.Tensor:
@@ -932,6 +944,7 @@ class ECGSolver:
         spellings of :meth:`SolverConfig.replace`.
         """
         new_cfg = self.config.replace(**overrides)
+        _check_card_width(self.device, new_cfg)
         clone = ECGSolver.__new__(ECGSolver)
         clone.a, clone.config = self.a, new_cfg
         clone.device, clone.mesh = self.device, self.mesh

@@ -45,7 +45,7 @@ from repro_torch.sparse import csr_spmbv, dg_laplace_2d, fd_laplace_2d, random_s
 pytestmark = pytest.mark.cuda
 
 DTYPES = [torch.float32, torch.float64]
-WIDTHS = [1, 2, 3, 4, 8, 16]
+WIDTHS = [1, 2, 3, 4, 8, 16, 20, 24, 32]
 
 
 @pytest.fixture
@@ -91,7 +91,7 @@ SPMBV_TILES = [(8, 8), (8, 4), (8, 16), (16, 4), (16, 8), (16, 16), (4, 8), (5, 
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("t", [1, 3, 5, 8, 12, 16])
+@pytest.mark.parametrize("t", [1, 3, 5, 8, 12, 16, 20, 32])
 @pytest.mark.parametrize("tile", SPMBV_TILES)
 def test_bsr_spmbv_paths_match_plain_and_are_deterministic(cuda, tile, t, dtype):
     from repro_torch.kernels.bsr_spmbv.ops import spmbv_plan
@@ -134,7 +134,7 @@ def test_bsr_spmbv_ranked_layout_of_the_virtual_mesh(cuda, t):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("ranks", [1, 3, 8])
-@pytest.mark.parametrize("t", [1, 3, 8, 12, 16])
+@pytest.mark.parametrize("t", [1, 3, 8, 12, 16, 20, 32])
 @pytest.mark.parametrize("n", [1, 3, 37, 70001])
 def test_fused_gram_paths_match_plain_and_are_deterministic(cuda, n, t, ranks, dtype):
     shape = (n, t) if ranks == 1 else (ranks, n, t)
@@ -191,13 +191,13 @@ def test_launch_counters_and_input_checks(cuda):
         kernels.bsr_spmbv(blocks, indices, v.float())
     with pytest.raises(ValueError, match="contiguous"):
         kernels.fused_gram(v.T.contiguous().T, v, v, v)
-    with pytest.raises(ValueError, match="t <= 16"):
-        w = torch.randn(64, 17, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="t <= 32"):
+        w = torch.randn(64, 33, dtype=torch.float64, device=cuda)
         kernels.fused_gram(w, w, w, w)
     assert kernels.launch_counts() == _counts(bsr_spmbv=1, fused_gram=1, ecg_tail=1)
 
 
-@pytest.mark.parametrize("t", [1, 4, 8])
+@pytest.mark.parametrize("t", [1, 4, 8, 20])
 def test_solve_on_card_matches_cpu(cuda, t):
     a = fd_laplace_2d(24, device="cpu")
     b = np.random.default_rng(0).standard_normal(a.shape[0])
@@ -383,7 +383,7 @@ def _trisolve_tol(dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("t", [1, 3, 8, 16])
+@pytest.mark.parametrize("t", [1, 3, 8, 16, 20, 32])
 @pytest.mark.parametrize("bs", [4, 5, 8, 16, 32, 64])
 def test_block_trisolve_matches_plain(cuda, bs, t, dtype):
     nb = 300
@@ -423,7 +423,8 @@ def test_block_trisolve_odd_blocks_and_row_pairs(cuda, bs):
     """Blocks of one row, blocks that fill part of a warp's segment, two
     rows a lane (bs > 32), odd widths (t below the width the kernel is built
     for) and a ragged last task."""
-    for t, dtype in ((5, torch.float64), (3, torch.float32), (16, torch.float64)):
+    for t, dtype in ((5, torch.float64), (3, torch.float32), (16, torch.float64),
+                     (19, torch.float64), (27, torch.float32)):
         nb = 2 * 33 + 1
         l = _factors(nb, bs, dtype, seed=bs)
         x = torch.randn(nb, bs, t, dtype=dtype)
@@ -457,7 +458,7 @@ def _upper(t, dtype, seed=0):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("t", [1, 2, 3, 4, 5, 8, 12, 16])
+@pytest.mark.parametrize("t", [1, 2, 3, 4, 5, 8, 12, 16, 17, 20, 24, 32])
 @pytest.mark.parametrize("rows", [1, 530, 70001])
 def test_chol_apply_matches_plain(cuda, rows, t, dtype):
     c = _upper(t, dtype, seed=t)
@@ -487,19 +488,26 @@ def test_chol_apply_nan_factor_counts_and_checks(cuda):
     kernels.reset_launch_counts()
     p, ap = kernels.chol_apply(torch.full_like(c, float("nan")), z, az)
     assert bool(torch.isnan(p).all()) and bool(torch.isnan(ap).all())
-    # an offset view: a base address that is not 16-byte aligned gives the same result
-    zz = torch.randn(1000 * 8 + 1, dtype=torch.float64, device=cuda)[1:].view(1000, 8)
-    got = kernels.chol_apply(c, zz)[0]
-    torch.testing.assert_close(got.cpu(), chol_apply_ref(c.cpu(), zz.cpu())[0], rtol=1e-12, atol=1e-12)
-    assert kernels.launch_counts() == _counts(chol_apply=2)
-    with pytest.raises(ValueError, match="t <= 16"):
-        w = torch.randn(10, 17, dtype=torch.float64, device=cuda)
-        kernels.chol_apply(torch.eye(17, dtype=torch.float64, device=cuda), w)
+    # an offset view: a base address that is not 16-byte aligned gives the
+    # same result (at t <= 2 it takes the staged path, not the vector one),
+    # and the vector path equals the staged one bit for bit
+    for t in (8, 1, 2):
+        ct = _upper(t, torch.float64, seed=t).to(cuda)
+        zz = torch.randn(1001 * t + 1, dtype=torch.float64, device=cuda)[1:].view(1001, t)
+        got = kernels.chol_apply(ct, zz)[0]
+        torch.testing.assert_close(got.cpu(), chol_apply_ref(ct.cpu(), zz.cpu())[0], rtol=1e-12,
+                                   atol=1e-12)
+        if t <= 2:
+            assert torch.equal(kernels.chol_apply(ct, zz.contiguous().clone())[0], got)
+    assert kernels.launch_counts() == _counts(chol_apply=6)
+    with pytest.raises(ValueError, match="t <= 32"):
+        w = torch.randn(10, 33, dtype=torch.float64, device=cuda)
+        kernels.chol_apply(torch.eye(33, dtype=torch.float64, device=cuda), w)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.chol_apply(c.T, z)
     with pytest.raises(TypeError, match="one dtype"):
         kernels.chol_apply(c, z, az.float())
-    assert kernels.launch_counts() == _counts(chol_apply=2)
+    assert kernels.launch_counts() == _counts(chol_apply=6)
 
 
 def _gram_case(rows, t, rank, dtype, seed=0):
@@ -701,6 +709,36 @@ def test_preconditioned_solve_on_card_matches_cpu(cuda, kind, mesh_shape):
         assert np.abs(x_g - x_c).max() <= 1e-5 * np.abs(x_c).max()
 
 
+@pytest.mark.parametrize("precondition", [None, "block_jacobi"])
+@pytest.mark.parametrize("mesh_shape", [None, (2, 4)])
+def test_t20_solve_on_card_matches_cpu(cuda, mesh_shape, precondition):
+    """t = 20 (the paper's widest), through the kernels' wide instances:
+    classic and block-Jacobi at the default block (32), sequential and on
+    the mesh, against the CPU's plain versions."""
+    a = fd_laplace_2d(24, device="cpu")
+    b = np.random.default_rng(0).standard_normal(a.shape[0])
+    cfg = SolverConfig(t=20, tol=1e-8 * np.linalg.norm(b), max_iters=2000, kernel="pallas",
+                       precondition=precondition, comm=CommConfig(strategy="optimal"))
+
+    def build(device):
+        if mesh_shape is None:
+            return ECGSolver.build(a, config=cfg, device=device)
+        return ECGSolver.build(a, VirtualMesh(*mesh_shape, device=device), cfg)
+
+    solver = build(cuda)
+    kernels.reset_launch_counts()
+    gpu = solver.solve(b)
+    counts = kernels.launch_counts()
+    cpu = build("cpu").solve(b)
+    k = gpu.n_iters
+    assert gpu.converged and k == cpu.n_iters
+    bj = precondition == "block_jacobi"
+    assert counts["chol_apply"] == counts["ecg_tail"] == k and counts["bsr_spmbv"] == k + 1
+    assert counts["fused_gram"] == (0 if bj else k) and counts["block_trisolve"] == (k + 1 if bj else 0)
+    x_g, x_c = solver.unshard(gpu.x), solver.unshard(cpu.x)
+    assert np.abs(x_g - x_c).max() <= 1e-8 * np.abs(x_c).max()
+
+
 # ------------------------------------- s-step widths, schemes and overlap
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("t,rank", [(17, 17), (24, 24), (24, 13), (31, 30), (32, 32), (32, 20),
@@ -871,6 +909,6 @@ def test_solve_packed_on_card_launch_counts(cuda, mesh_shape):
     assert counts == _counts(bsr_spmbv=k + 1, fused_gram=k, ecg_tail=k, rank_apply=k, drop_mask=k,
                              halo_pack=halo, halo_unpack=halo)
     kernels.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="queue 2 item 4"):
-        ECGSolver.build(a, mesh, cfg.replace(t=8), device=None if mesh else cuda).solve_packed(bs)
+    with pytest.raises(NotImplementedError, match="rank_apply"):  # width 40
+        ECGSolver.build(a, mesh, cfg.replace(t=10), device=None if mesh else cuda).solve_packed(bs)
     assert kernels.launch_counts() == _counts()

@@ -36,7 +36,7 @@ ref_ops = importlib.import_module("repro.kernels.bsr_spmbv.ops")
 port_ops = importlib.import_module("repro_torch.kernels.bsr_spmbv.ops")
 
 DTYPES = ["float32", "float64"]
-WIDTHS = [1, 2, 4, 8, 16]
+WIDTHS = [1, 2, 4, 8, 16, 20, 32]
 
 
 def _tol(dtype):

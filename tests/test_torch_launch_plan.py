@@ -88,7 +88,7 @@ def test_spmbv_plan_path_by_dtype_tile_and_alignment(br, bc, dtype, aligned, pat
 
 
 @pytest.mark.parametrize("kwargs,error", [
-    (dict(t=0), ValueError), (dict(t=17), ValueError), (dict(n_w=8 * 64 + 1), ValueError),
+    (dict(t=0), ValueError), (dict(t=33), ValueError), (dict(n_w=8 * 64 + 1), ValueError),
     (dict(n_w=-1), ValueError), (dict(br=0), ValueError), (dict(dtype=torch.float16), TypeError),
     (dict(dtype=torch.int32), TypeError),
 ])
@@ -198,7 +198,7 @@ def test_gram_plan_fills_the_card_at_the_main_path_shapes(sms, ranks, n, t):
 
 
 @pytest.mark.parametrize("kwargs,error", [
-    (dict(t=0), ValueError), (dict(t=17), ValueError), (dict(ranks=0), ValueError),
+    (dict(t=0), ValueError), (dict(t=33), ValueError), (dict(ranks=0), ValueError),
     (dict(n=-1), ValueError), (dict(dtype=torch.float16), TypeError),
 ])
 def test_gram_plan_raises_on_what_the_kernel_does_not_take(kwargs, error):
@@ -231,7 +231,7 @@ def test_gram_constants_mirror_the_cuda_source():
     assert 32 * _cuda_constant("fused_gram.cu", "kMmaWarps") == gops._MMA_THREADS
     assert _cuda_constant("fused_gram.cu", "kFmaThreads") == gops._FMA_THREADS
     assert _cuda_constant("fused_gram.cu", "kRows") == gops._FMA_ROWS
-    assert "constexpr int U = 8 / MT;" in (CSRC / "fused_gram.cu").read_text()
+    assert "constexpr int U = MT < 4 ? 8 / MT : 1;" in (CSRC / "fused_gram.cu").read_text()
 
 
 # ------------------------------------------------------------- block_trisolve
@@ -330,7 +330,7 @@ def test_trisolve_factor_reads_meet_no_bank_conflict(bs, dtype):
 
 @pytest.mark.parametrize("kwargs,error", [
     (dict(bs=0), ValueError), (dict(bs=65), ValueError), (dict(t=0), ValueError),
-    (dict(t=17), ValueError), (dict(dtype=torch.float16), TypeError),
+    (dict(t=33), ValueError), (dict(dtype=torch.float16), TypeError),
 ])
 def test_trisolve_plan_raises_on_what_the_kernel_does_not_take(kwargs, error):
     args = dict(nb=100, bs=16, t=8, dtype=F64, sms=132) | kwargs

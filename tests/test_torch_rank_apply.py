@@ -245,9 +245,9 @@ def test_rank_plan_fits_shared_memory_and_mirrors_the_source():
     with pytest.raises(ValueError, match="1 <= t <= 32"):
         cops._check_kernel_operands("rank_apply", g, [torch.zeros(4, 33, dtype=torch.float64)],
                                     cops.MAX_RANK_T)
-    with pytest.raises(ValueError, match="1 <= t <= 16"):
-        cops._check_kernel_operands("chol_apply", g[:17, :17],
-                                    [torch.zeros(4, 17, dtype=torch.float64)], cops.MAX_T)
+    with pytest.raises(ValueError, match="1 <= t <= 32"):
+        cops._check_kernel_operands("chol_apply", g, [torch.zeros(4, 33, dtype=torch.float64)],
+                                    cops.MAX_T)
 
 
 # ------------------------------- drop_mask on s-step's (t, s·t) coefficients

@@ -440,22 +440,24 @@ def test_request_and_packing_errors_equal_the_reference(operators, port_ops):
 
 
 def test_wide_pack_is_refused_on_the_card_before_device_work(port_ops):
-    """On CUDA a pack wider than the 16-column kernels raises before any
-    device work; on the CPU (the plain versions) it runs."""
+    """On CUDA a pack wider than the kernels' 32 columns raises before any
+    device work, under both backends; a width-32 pack passes the check; on
+    the CPU (the plain versions) it runs."""
+    from repro_torch.adaptive.groups import GroupSpec
     from repro_torch.solver import ECGSolver
 
     rng = np.random.default_rng(4)
-    bs = [rng.standard_normal(port_ops[0].shape[0]) for _ in range(4)]
-    for backend, limit in (("pallas", "queue 2 item 4"), ("jnp", "rank_apply")):
+    bs = [rng.standard_normal(port_ops[0].shape[0]) for _ in range(5)]
+    for backend in ("pallas", "jnp"):
         solver = ECGSolver.build(port_ops[0], config=_port_cfg(
             t=8, tol=1e-8, adaptive="rankrev", kernel=backend), device="cpu")
-        res = solver.solve_packed(bs)  # width 32 on the CPU
+        res = solver.solve_packed(bs[:4])  # width 32 on the CPU
         assert res[0].pack["width"] == 32 and all(r.converged for r in res)
         solver.device = torch.device("cuda")  # the check reads the handle's device only
+        solver._check_pack(GroupSpec(t_each=8, tols=(1e-8,) * 4))  # width 32 fits the kernels
         solves = solver.stats.solves
-        wide = bs if backend == "pallas" else bs * 2  # jnp: past rank_apply's 32
-        with pytest.raises(NotImplementedError, match=limit):
-            solver.solve_packed(wide)
+        with pytest.raises(NotImplementedError, match="rank_apply"):
+            solver.solve_packed(bs)  # width 40
         assert solver.stats.solves == solves
 
 
