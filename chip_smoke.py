@@ -21,8 +21,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    CUDA-event times of the kernel, the plain version and one PyTorch library
    call of the same function (a yardstick only; the port never calls it),
    beside the least time the card could take (bytes over 3.35 TB/s or flops
-   over the peak rate).  Two calls of ``bsr_spmbv`` and ``fused_gram`` at
-   the main path's shapes, and at t = 20, must be bit-identical.
+   over the peak rate).  Two calls of ``bsr_spmbv``, ``fused_gram`` and
+   ``ecg_tail`` at the main path's shapes and at t = 20 (``ecg_tail`` also
+   at 32) must be bit-identical; ``ecg_tail`` also runs at t = 20 on blocks
+   one value off a 16-byte boundary (its 8-byte copies) and in f32 at
+   t = 1, 4, 16, 20 and 32.
    ``chol_apply`` (P = Z·C⁻¹ and AP = AZ·C⁻¹ in one launch) on the factor
    C of a real gram1 ZᵀAZ of this operator, at (n, 8) float64, at t = 1 and
    in float32: within 2·t·eps·κ(C)·max|y| (the forward error bound of a
@@ -456,6 +459,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.block_trisolve.ref import block_trisolve_ref
     from repro_torch.kernels.block_update.ref import block_update_ref, ecg_tail_ref
+    from repro_torch.kernels.block_update.ops import tail_plan
     from repro_torch.kernels.bsr_spmbv.ops import spmbv_plan
     from repro_torch.kernels.bsr_spmbv.ref import bsr_spmbv_ref
     from repro_torch.adaptive import (
@@ -567,9 +571,14 @@ def main() -> int:
                 (4 * n * t + 3 * t * t) * p.element_size(), 6 * n * t * t, [n, t],
                 gram_plan(1, n, t, dtype, sms).path)
 
-    def check_tail(t, dtype):
-        ops = tuple(randn(n, t, dtype=dtype) for _ in range(5)) + tuple(
-            randn(t, t, dtype=dtype) for _ in range(3))
+    def check_tail(t, dtype, offset=False):
+        def block():
+            m = randn(n, t, dtype=dtype)
+            if not offset:
+                return m
+            return torch.empty(n * t + 1, dtype=dtype, device=dev)[1:].view(n, t).copy_(m)
+
+        ops = tuple(block() for _ in range(5)) + tuple(randn(t, t, dtype=dtype) for _ in range(3))
         x, r, p, ap, po, c, d, do = ops
         kernel = lambda: kernels.ecg_tail(*ops)
         pcat, dcat = torch.cat([p, po], dim=1), torch.cat([d, do], dim=0)
@@ -578,7 +587,9 @@ def main() -> int:
         bound = (x.abs() + p.abs() @ c.abs(), r.abs() + ap.abs() @ c.abs(),
                  ap.abs() + p.abs() @ d.abs() + po.abs() @ do.abs())
         return (ecg_tail_ref, ops, kernel, library, bound, 2 * t + 1,
-                (8 * n * t + 3 * t * t) * x.element_size(), 8 * n * t * t, [n, t], None)
+                (8 * n * t + 3 * t * t) * x.element_size(), 8 * n * t * t,
+                [n, t] + (["offset by one value"] if offset else []),
+                tail_plan(t, dtype, not offset, sms).path)
 
     def tup(x):
         return x if isinstance(x, tuple) else (x,)
@@ -628,7 +639,7 @@ def main() -> int:
         # same inputs must agree bit for bit
         made = make(t, torch.float64)
         kernel, shape = made[2], made[8]
-        same = torch.equal(kernel(), kernel())
+        same = all(torch.equal(a, b) for a, b in zip(tup(kernel()), tup(kernel())))
         log({"phase": "repeat_check", "name": name, "shape": shape, "bit_identical": same})
         if not same:
             raise AssertionError(f"{name}: two calls on the same inputs differ")
@@ -642,10 +653,13 @@ def main() -> int:
         run_check(name, make, 1, torch.float64)
         run_check(name, make, T, torch.float32)
         width_rows[name] = {w: run_check(name, make, w, torch.float64) for w in (T_SERVE, 16) + WIDE}
-        if name != "ecg_tail":
-            repeat_check(name, make, T)
-            repeat_check(name, make, T_WIDE)
+        repeat_check(name, make, T)
+        repeat_check(name, make, T_WIDE)
         torch.cuda.empty_cache()
+    repeat_check("ecg_tail", check_tail, 32)
+    run_check("ecg_tail", lambda t, dtype: check_tail(t, dtype, offset=True), T_WIDE, torch.float64)
+    for w in (1, T_SERVE, 16) + WIDE:  # float32 at the float64 rows' widths
+        run_check("ecg_tail", check_tail, w, torch.float32)
     csr_by_dtype.clear()
     torch.cuda.empty_cache()
 

@@ -9,6 +9,8 @@ solve path calls it, in the reference or here.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.kernels import _build
@@ -18,6 +20,63 @@ from repro_torch.kernels.dispatch import use_kernel
 #: largest block width the kernel takes (c, d, d_old live in dynamic shared
 #: memory: 24.6 KB at t = 32 in float64)
 MAX_T = 32
+#: the launcher's constants in ``csrc/ecg_tail.cu``: float64 widths from
+#: _MMA_MIN_T take the mma kernel (kMmaMinT), the rest one thread an element;
+#: the mma kernel's tile rows (kTileRows), tiles in flight a CTA (kStages)
+#: and warps a CTA (kMmaWarps)
+_MMA_MIN_T, _TILE_ROWS, _STAGES, _MMA_WARPS = 9, 32, 4, 8
+#: threads of the element kernel's CTAs (repro::kThreads) and the dynamic
+#: shared memory a launch gets without opting in
+_THREADS, _SMEM_DEFAULT = 256, 48 * 1024
+
+
+def tail_ls(t: int) -> int:
+    """Values in one staged row of the mma kernel (``tail_ls``): the least
+    ls >= 4·cdiv(t, 4) with ls ≡ 4 (mod 8)."""
+    return (t + 3) // 8 * 8 + 4
+
+
+@dataclasses.dataclass(frozen=True)
+class TailPlan:
+    """How ``ecg_tail`` launches at width t (``launch`` in
+    ``csrc/ecg_tail.cu``): the mma kernel (float64 from _MMA_MIN_T columns)
+    or one thread an element."""
+
+    path: str          # "mma" or "element"
+    t: int
+    copy_bytes: int    # mma: bytes one cp.async moves (16 where t is even and every block 16-byte aligned, else 8); else 0
+    rows: int          # mma: rows of a staged tile; else 0
+    stages: int        # mma: tiles in flight a CTA; else 0
+    ls: int            # mma: values a staged row; else 0
+    threads: int       # threads a CTA
+    smem_bytes: int    # dynamic shared memory a CTA
+    opt_in: bool       # above the 48 KB default: the launcher opts in
+    sms: int           # the card's multiprocessors
+
+    def grid(self, n: int, per_sm: int) -> int:
+        """CTAs of a launch over n >= 1 rows, where the runtime holds
+        ``per_sm`` CTAs of the kernel an SM (the launcher asks it: shared
+        memory and registers decide).  The mma kernel takes at most one wave
+        and walks the rest with a grid stride; the element kernel takes a
+        CTA per ``threads`` elements, at most 65535·16."""
+        if self.path == "element":
+            return min(-(-n * self.t // self.threads), 65535 * 16)
+        return min(-(-n // self.rows), self.sms * per_sm)
+
+
+def tail_plan(t: int, dtype, aligned: bool = True, sms: int = 132) -> TailPlan:
+    """The launch geometry of ``ecg_tail`` at width ``t`` (the C launcher
+    owns the choice; this mirrors it for the tests and reports).
+    ``aligned``: every block's pointer 16-byte aligned."""
+    if not 1 <= t <= MAX_T:
+        raise ValueError(f"ecg_tail: kernel takes 1 <= t <= {MAX_T}, got t={t}")
+    es = {torch.float32: 4, torch.float64: 8}[dtype]
+    if dtype == torch.float64 and t >= _MMA_MIN_T:
+        ks, nt, ls = -(-t // 4), -(-t // 8), tail_ls(t)
+        smem = (3 * ks * nt * 32 + _STAGES * 3 * _TILE_ROWS * ls) * es
+        return TailPlan("mma", t, 16 if aligned and t % 2 == 0 else 8, _TILE_ROWS, _STAGES, ls,
+                        32 * _MMA_WARPS, smem, smem > _SMEM_DEFAULT, sms)
+    return TailPlan("element", t, 0, 0, 0, 0, _THREADS, 3 * t * t * es, False, sms)
 
 
 def ecg_tail(x, r, p, ap, p_old, c, d, d_old):

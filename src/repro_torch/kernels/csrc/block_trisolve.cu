@@ -129,20 +129,6 @@ __device__ __forceinline__ T lane_of(const typename Vec<T>::type& v, int k) {
   }
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-template <int kBytes>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-                 "n"(kBytes));
-  }
-}
-
 struct Geometry {
   long long nb, nb_rank, rmax;
   int bs, t, chunks, per_warp, ls, tp, stage;
@@ -192,18 +178,18 @@ __device__ __forceinline__ void stage_tiles(T* dst, const T* __restrict__ l, con
     if (geo.vec_l) {  // wk walks rows of bs / vec chunks
       for (int r = wk.row; r < bs; r += wk.rows_per) {
         for (int c = wk.col; c < bs / vec; c += wk.cols_per) {
-          cp_async<16>(d + r * ls + c * vec, src + r * bs + c * vec);
+          repro::cp_async<16>(d + r * ls + c * vec, src + r * bs + c * vec);
         }
       }
     } else {  // wk walks rows of bs values
       for (int r = wk.row; r < bs; r += wk.rows_per) {
         for (int c = wk.col; c < bs; c += wk.cols_per) {
-          cp_async<sizeof(T)>(d + r * ls + c, src + r * bs + c);
+          repro::cp_async<sizeof(T)>(d + r * ls + c, src + r * bs + c);
         }
       }
     }
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+  repro::cp_async_commit();
 }
 
 // This lane's rows of x for the block it solves in task ``task``: rows
@@ -368,9 +354,9 @@ __global__ void __launch_bounds__(32, max_warps(R)) block_trisolve_kernel(
       stage_tiles(base + (s ? 0 : geo.stage), l, geo, next * per_warp, here_of(next), wk);
       live_n = load_x(xn, x, geo, next, b, r0, 0);
     } else {
-      asm volatile("cp.async.commit_group;\n" ::);
+      repro::cp_async_commit();
     }
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    repro::cp_async_wait<1>();
     __syncwarp();
 
     const int here = here_of(task);
@@ -438,7 +424,7 @@ __global__ void __launch_bounds__(32, max_warps(R)) block_trisolve_kernel(
     }
     __syncwarp();  // every lane is done with this stage and the reciprocals
   }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  repro::cp_async_wait<0>();
 }
 
 template <typename T, int SEG, int R, int TT>

@@ -245,43 +245,17 @@ __global__ void __launch_bounds__(repro::kThreads) chol_apply_vec_kernel(
   }
 }
 
-// resident CTAs per SM of ``kernel`` with ``smem`` bytes of dynamic shared memory
-template <typename K>
-int ctas_per_sm(K kernel, size_t smem) {
-  int n = 0;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, repro::kThreads, smem) ==
-                 cudaSuccess && n > 0
-             ? n
-             : 1;
-}
-
-int multiprocessors(int& sms) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return static_cast<int>(e);
-}
-
-// opt ``kernel`` in to ``smem`` bytes of dynamic shared memory where that is
-// above the 48 KB a launch gets without
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  return smem > 48 * 1024 ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem))
-                          : cudaSuccess;
-}
-
 template <typename T, int TT>
 int launch_t(const void* c, const void* m0, void* y0, const void* m1, void* y1,
              long long rows, void* stream) {
   const int nmat = m1 ? 2 : 1;
   int sms = 0;
-  if (const int e = multiprocessors(sms)) return e;
+  if (const int e = repro::multiprocessors(sms)) return e;
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   if constexpr (TT <= 2) {
     if (aligned(m0) && aligned(y0) && (nmat == 1 || (aligned(m1) && aligned(y1)))) {
       auto kernel = chol_apply_vec_kernel<T, TT>;
-      static const int per_sm = ctas_per_sm(kernel, 0);  // asked once per instance
+      static const int per_sm = repro::ctas_per_sm(kernel, repro::kThreads, 0);  // asked once per instance
       constexpr int kRows = 16 / static_cast<int>(sizeof(T)) / TT;
       const long long vecs = nmat * (rows / kRows);
       const long long grid = std::max(1LL, std::min(repro::cdiv(vecs, repro::kThreads * kVecU),
@@ -296,9 +270,9 @@ int launch_t(const void* c, const void* m0, void* y0, const void* m1, void* y1,
   constexpr size_t smem = CholSmem<T, TT>::kBytes;
   // opt in to the dynamic shared memory, then ask for the resident CTAs
   // per SM at that size; both once per instance
-  static const cudaError_t opt_in = allow_smem(kernel, smem);
+  static const cudaError_t opt_in = repro::allow_smem(kernel, smem);
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  static const int per_sm = ctas_per_sm(kernel, smem);
+  static const int per_sm = repro::ctas_per_sm(kernel, repro::kThreads, smem);
   const long long warps = nmat * repro::cdiv(rows, 32);
   const long long grid = std::min(repro::cdiv(warps, repro::kThreads / 32),
                                   static_cast<long long>(sms) * per_sm);
@@ -580,11 +554,11 @@ int launch_rank_t(const void* g, const void* m0, void* y0, const void* m1, void*
   constexpr size_t smem = RankSmem<T, TT>::kBytes;
   // opt in to the dynamic shared memory, then ask for the resident CTAs
   // per SM at that size; both once per instance
-  static const cudaError_t opt_in = allow_smem(kernel, smem);
+  static const cudaError_t opt_in = repro::allow_smem(kernel, smem);
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  static const int per_sm = ctas_per_sm(kernel, smem);
+  static const int per_sm = repro::ctas_per_sm(kernel, repro::kThreads, smem);
   int sms = 0;
-  if (const int e = multiprocessors(sms)) return e;
+  if (const int e = repro::multiprocessors(sms)) return e;
   const int nmat = m1 ? 2 : 1;
   const long long warps = nmat * repro::cdiv(rows, 32);
   // at least one CTA: it writes rank and perm even for an empty block

@@ -17,33 +17,59 @@
 // What bounds it on the H100: bytes.  Five (n, t) reads and three (n, t)
 // writes against 8·n·t² flops (t ≤ 32); at Example 2.1's full scale
 // (n = 1 310 720, t = 8, f64) that is ~671 MB, ~0.20 ms at 3.35 TB/s;
-// 0.501 ms at t = 20, 0.801 ms at t = 32.
+// 0.401 ms at t = 16, 0.501 ms at t = 20, 0.801 ms at t = 32.  The flops,
+// 5.4e9 multiply-adds at t = 32, take ~0.16 ms on the f64 tensor cores.
 //
-// Design, t < kTiledMinT (17): row-parallel, one thread per output element
-// (row, j), consecutive threads on consecutive elements so the row-major
-// loads and stores of a warp coalesce.  The t values of P, AP and P_old on a
-// thread's row are shared by the t threads of that row and come from L1;
-// c, d and d_old (3·t² values, at most 24.6 KB at t = 32) sit in dynamic
-// shared memory.  Each output element reads 3·t row values from L1 and 3·t
-// coefficients from shared memory: above t = 16 that on-chip traffic, not
-// the bytes, bounds it (on the H100 1.15 ms at t = 20 and 2.29 ms at t = 32
-// against bounds of 0.50 and 0.80).
+// Design, float64 at t >= kMmaMinT (the mma kernel): the work is three
+// tall-skinny products over row tiles, P·c, AP·c and [P | P_old]·[d ; d_old].
+// A persistent grid (one wave of CTAs) walks tiles of kTileRows rows with a
+// grid stride.  A tile of a row-major (n, t) block is one contiguous span,
+// which the CTA copies into shared memory with cp.async (16 bytes a copy
+// where t is even and every block 16-byte aligned, else 8), kStages tiles in
+// flight: the copy of tile i + kStages − 1 is issued before tile i is
+// computed.  Staged rows are ls = tail_ls(t) values long, ls ≡ 4 (mod 8),
+// and the columns past t are zero: an mma A fragment (8 rows × 4 columns)
+// then touches 16 distinct bank pairs in each half-warp, and the k loop
+// needs no mask.  c, d and d_old are staged once a CTA in the mma's B
+// fragment order (zero past t), so a lane reads its B value with one
+// conflict-free load.  Each warp owns 8-row m-tiles and all cdiv(t, 8)
+// n-tiles of the three outputs, with three accumulators per n-tile (P·c,
+// AP·c, and P·d then P_old·d_old into the same one), and runs
+// repro::mma_f64 (m8n8k4) over k = 0, 4, 8, ....  A lane's D fragment is
+// two consecutive columns of one row: it loads X and R with one 16-byte
+// load per n-tile before the k loop, takes AP for Z' from the staged tile
+// (AP is read from device memory once), and stores 16 bytes per n-tile and
+// output.
 //
-// Design, t >= kTiledMinT (register-tiled): a thread owns kRR rows and the
-// kJ columns j = s + i·S (i < kJ) of its strip s (S = cdiv(t, kJ) strips a
-// row, so the S threads of a row write consecutive columns).  Per m it
-// loads kRR values of each of P, AP, P_old and kJ coefficients of each of
-// c, d, d_old (rows padded with zeros to kJ·S columns, so the inner loop has
-// no mask), and does 4·kRR·kJ multiply-adds with them: each loaded value
-// serves kJ or kRR outputs instead of one (0.93 ms at t = 20, 1.72 ms at
-// t = 32 with kJ = 2, kRR = 4; of the tilings tried, 4 x 2 and 8 x 1 were
-// no better over t = 20..32, and at t ≤ 16 none beat the one-element design
-// by more than 4%, at t = 12 each was slower).
+// The constants are the fastest of the variants of tools/kernel_variants.py
+// timed on the H100 (PERF.md §6 has the times).  All eight warps issue the
+// copies and the first kTileRows / 8 compute: the 8-byte copies of odd
+// widths want the issue rate of eight.  Four stages beat two only at 32
+// columns, where the tiles leave room for one CTA an SM.  X and R staged
+// with the tile, and CUDA-core FMAs in place of the tensor cores, were
+// slower at every width from 9.  At t <= 8 one thread an element is faster,
+// so kMmaMinT = 9.
 //
-// Both designs sum over m = 0..t-1 in order and finish each output the same
-// way, so they give the same bits, from call to call.
+// Design, float64 at t < kMmaMinT and float32 at every width (the element
+// kernel): row-parallel, one thread per output element (row, j),
+// consecutive threads on consecutive elements so the row-major loads and
+// stores of a warp coalesce; the t values of P, AP and P_old on a row come
+// from L1, c, d and d_old from shared memory.  Above t = 8 that on-chip
+// traffic, not the bytes, bounds it; in float32 it still beats a
+// register-tiled kernel (a thread owning 4 rows × 2 columns) at every width
+// from 17 to 32 (PERF.md §6).
+//
+// Order of sums: both kernels sum in a fixed order without atomics, so
+// two calls on the same inputs give the same bits.  The element kernel
+// sums over m = 0..t-1 in order, as the plain version's products do, and
+// once matched it bit for bit; the mma kernel's sums run in the
+// tensor cores' order (and Z's two products into one accumulator), so it
+// no longer equals the plain version to the last bit.  It is held to the
+// forward error bound of a (2t + 1)-term sum, 2·(2t + 1)·eps·Σ|terms|.
 
 #include <algorithm>
+#include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -121,78 +147,191 @@ __global__ void __launch_bounds__(repro::kThreads) block_update_kernel(
   }
 }
 
-constexpr int kTiledMinT = 17;  // widths that take the register-tiled kernel
-constexpr int kJ = 2;           // columns a thread owns in the tiled kernel
-constexpr int kRR = 4;          // rows a thread owns in the tiled kernel
+constexpr int kMmaMinT = 9;     // float64 widths that take the mma kernel
+constexpr int kTileRows = 32;   // rows of one staged tile (a multiple of 8)
+constexpr int kStages = 4;      // tiles a CTA has in flight
+constexpr int kMmaWarps = 8;    // warps a CTA of the mma kernel (all copy; kTileRows / 8 compute)
+constexpr int kMmaThreads = 32 * kMmaWarps;
 
-template <typename T>
-__global__ void __launch_bounds__(repro::kThreads) ecg_tail_tiled_kernel(
-    const T* __restrict__ x, const T* __restrict__ r, const T* __restrict__ p,
-    const T* __restrict__ ap, const T* __restrict__ po,
-    const T* __restrict__ c, const T* __restrict__ d,
-    const T* __restrict__ d_old, T* __restrict__ xo, T* __restrict__ ro,
-    T* __restrict__ zo, long long n, int t) {
-  const int S = (t + kJ - 1) / kJ;  // strips a row
-  const int ts = kJ * S;            // padded coefficient row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sc = reinterpret_cast<T*>(smem_raw);
-  T* sd = sc + t * ts;
-  T* sdo = sd + t * ts;
-  for (int i = threadIdx.x; i < t * ts; i += blockDim.x) {
-    const int m = i / ts, j = i - m * ts;
-    const bool in = j < t;
-    sc[i] = in ? c[m * t + j] : T(0);
-    sd[i] = in ? d[m * t + j] : T(0);
-    sdo[i] = in ? d_old[m * t + j] : T(0);
-  }
-  __syncthreads();
+// Values in one staged row: the least ls >= 4·cdiv(t, 4) with ls ≡ 4 (mod 8),
+// so the 4 rows of an A fragment's half-warp start 4 bank pairs apart.
+__host__ __device__ constexpr int tail_ls(int t) { return (t + 3) / 8 * 8 + 4; }
 
-  const int groups = blockDim.x / S;  // row groups a CTA; the threads past them idle
-  const int s = threadIdx.x % S, grp = threadIdx.x / S;
-  if (grp >= groups) return;
-  const long long pass = static_cast<long long>(groups) * kRR;  // rows a CTA takes at once
-  for (long long base = static_cast<long long>(blockIdx.x) * pass; base < n;
-       base += static_cast<long long>(gridDim.x) * pass) {
-    long long row[kRR];
+// Dynamic shared memory of ecg_tail_mma_kernel<TT>: c, d and d_old in B
+// fragment order (kFrag values each), then kStages stages of the P, AP and
+// P_old tiles (kMat values each).
+template <int TT>
+struct TailSmem {
+  static constexpr int KS = (TT + 3) / 4;  // k-steps of 4
+  static constexpr int NT = (TT + 7) / 8;  // n-tiles of 8 columns
+  static constexpr int LS = tail_ls(TT);
+  static constexpr int kFrag = KS * NT * 32;
+  static constexpr int kMat = kTileRows * LS;
+  static constexpr int kStage = 3 * kMat;
+  static constexpr size_t kBytes =
+      (3 * static_cast<size_t>(kFrag) + kStages * static_cast<size_t>(kStage)) * sizeof(double);
+};
+
+// Issue the copies of tile ``tile`` of P, AP and P_old into ``dst`` (rows
+// of LS values) and commit them as one group; a
+// tile past the end commits an empty group, so every thread counts the same
+// groups.
+template <int TT>
+__device__ __forceinline__ void stage_tile(double* dst, const double* __restrict__ p,
+                                           const double* __restrict__ ap,
+                                           const double* __restrict__ po, long long tile,
+                                           long long tiles, long long n, bool vec) {
+  using S = TailSmem<TT>;
+  if (tile < tiles) {
+    const long long row0 = tile * kTileRows;
+    const int rows = static_cast<int>(min(static_cast<long long>(kTileRows), n - row0));
+    const double* src[3] = {p + row0 * TT, ap + row0 * TT, po + row0 * TT};
+    if (TT % 2 == 0 && vec) {
+      constexpr int per_row = TT / 2 > 0 ? TT / 2 : 1;  // 16-byte chunks a row
+      const int chunks = rows * per_row;
 #pragma unroll
-    for (int k = 0; k < kRR; ++k) row[k] = base + grp + static_cast<long long>(k) * groups;
-    T pc[kRR][kJ] = {}, apc[kRR][kJ] = {}, pd[kRR][kJ] = {}, pod[kRR][kJ] = {};
-    for (int m = 0; m < t; ++m) {
-      T pm[kRR], apm[kRR], pom[kRR];
-#pragma unroll
-      for (int k = 0; k < kRR; ++k) {
-        const bool ok = row[k] < n;
-        pm[k] = ok ? p[row[k] * t + m] : T(0);
-        apm[k] = ok ? ap[row[k] * t + m] : T(0);
-        pom[k] = ok ? po[row[k] * t + m] : T(0);
+      for (int m = 0; m < 3; ++m) {
+        for (int i = threadIdx.x; i < chunks; i += kMmaThreads) {
+          const int row = i / per_row, chunk = i - row * per_row;
+          repro::cp_async<16>(dst + m * S::kMat + row * S::LS + 2 * chunk, src[m] + 2 * i);
+        }
       }
+    } else {
+      const int elems = rows * TT;
 #pragma unroll
-      for (int jj = 0; jj < kJ; ++jj) {
-        const int at = m * ts + s + jj * S;
-        const T cm = sc[at], dm = sd[at], dom = sdo[at];
-#pragma unroll
-        for (int k = 0; k < kRR; ++k) {
-          pc[k][jj] += pm[k] * cm;
-          apc[k][jj] += apm[k] * cm;
-          pd[k][jj] += pm[k] * dm;
-          pod[k][jj] += pom[k] * dom;
+      for (int m = 0; m < 3; ++m) {
+        for (int i = threadIdx.x; i < elems; i += kMmaThreads) {
+          const int row = i / TT, col = i - row * TT;
+          repro::cp_async<8>(dst + m * S::kMat + row * S::LS + col, src[m] + i);
         }
       }
     }
-#pragma unroll
-    for (int k = 0; k < kRR; ++k) {
-      if (row[k] >= n) continue;
-#pragma unroll
-      for (int jj = 0; jj < kJ; ++jj) {
-        const int j = s + jj * S;
-        if (j >= t) continue;
-        const long long e = row[k] * t + j;
-        xo[e] = x[e] + pc[k][jj];
-        ro[e] = r[e] - apc[k][jj];
-        zo[e] = (ap[e] - pd[k][jj]) - pod[k][jj];
-      }
+  }
+  repro::cp_async_commit();
+}
+
+// Two consecutive values of one row (columns col, col + 1), zero past t or
+// for a row past n; one 16-byte load where ``vec``.
+template <int TT>
+__device__ __forceinline__ void load_pair(double (&v)[2], const double* __restrict__ a,
+                                          long long row, int col, bool live, bool vec) {
+  v[0] = v[1] = 0.0;
+  if (!live || col >= TT) return;
+  const double* src = a + row * TT + col;
+  if (TT % 2 == 0 && vec) {
+    const double2 w = *reinterpret_cast<const double2*>(src);
+    v[0] = w.x;
+    v[1] = w.y;
+  } else {
+    v[0] = src[0];
+    if (col + 1 < TT) v[1] = src[1];
+  }
+}
+
+template <int TT>
+__global__ void __launch_bounds__(kMmaThreads) ecg_tail_mma_kernel(
+    const double* __restrict__ x, const double* __restrict__ r, const double* __restrict__ p,
+    const double* __restrict__ ap, const double* __restrict__ po,
+    const double* __restrict__ c, const double* __restrict__ d,
+    const double* __restrict__ d_old, double* __restrict__ xo, double* __restrict__ ro,
+    double* __restrict__ zo, long long n, bool vec) {
+  using S = TailSmem<TT>;
+  constexpr int KS = S::KS, NT = S::NT, LS = S::LS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* frag = reinterpret_cast<double*>(smem_raw);  // c, d, d_old, kFrag values each
+  double* stages = frag + 3 * S::kFrag;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+
+  // B fragments: value (k·NT + nt)·32 + l of a matrix is B[4k + l % 4][8nt + l / 4]
+  for (int i = tid; i < 3 * S::kFrag; i += kMmaThreads) {
+    const int mat = i / S::kFrag, f = i - mat * S::kFrag;
+    const int kn = f / 32, l = f % 32;
+    const int k = kn / NT, nt = kn - k * NT;
+    const int row = 4 * k + (l & 3), col = 8 * nt + (l >> 2);
+    const double* src = mat == 0 ? c : mat == 1 ? d : d_old;
+    frag[i] = row < TT && col < TT ? src[row * TT + col] : 0.0;
+  }
+  // the staged rows' columns past t: zero once, the copies never write them
+  if constexpr (LS > TT) {
+    for (int i = tid; i < kStages * 3 * kTileRows * (LS - TT); i += kMmaThreads) {
+      const int row = i / (LS - TT);
+      stages[row * LS + TT + (i - row * (LS - TT))] = 0.0;
     }
   }
+  // (the first __syncthreads of the tile loop orders these stores before any read)
+
+  const long long tiles = repro::cdiv(n, kTileRows);
+  const long long step = gridDim.x;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    stage_tile<TT>(stages + s * S::kStage, p, ap, po, blockIdx.x + s * step, tiles, n, vec);
+  }
+  int s = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += step) {
+    const int ahead = (s + kStages - 1) % kStages;
+    stage_tile<TT>(stages + ahead * S::kStage, p, ap, po, tile + (kStages - 1) * step, tiles, n,
+                   vec);
+    repro::cp_async_wait<kStages - 1>();  // this thread's copies of tile ``tile`` landed ...
+    __syncthreads();                      // ... and every thread's
+    const double* sp = stages + s * S::kStage;
+    const double* sap = sp + S::kMat;
+    const double* spo = sap + S::kMat;
+    const long long row0 = tile * kTileRows;
+    for (int mt = warp; mt < kTileRows / 8 && row0 + 8 * mt < n; mt += kMmaWarps) {
+      const int srow = 8 * mt + g;  // this lane's row in the tile
+      const long long row = row0 + srow;
+      const bool live = row < n;
+      double xv[NT][2], rv[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        load_pair<TT>(xv[nt], x, row, 8 * nt + 2 * q, live, vec);
+        load_pair<TT>(rv[nt], r, row, 8 * nt + 2 * q, live, vec);
+      }
+      double ax[NT][2] = {}, ar[NT][2] = {}, az[NT][2] = {};
+#pragma unroll
+      for (int k = 0; k < KS; ++k) {
+        const int at = srow * LS + 4 * k + q;
+        const double a_p = sp[at], a_ap = sap[at], a_po = spo[at];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const double* f = frag + (k * NT + nt) * 32 + lane;
+          repro::mma_f64(ax[nt], a_p, f[0]);
+          repro::mma_f64(ar[nt], a_ap, f[0]);
+          repro::mma_f64(az[nt], a_p, f[S::kFrag]);
+          repro::mma_f64(az[nt], a_po, f[2 * S::kFrag]);
+        }
+      }
+      if (live) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int col = 8 * nt + 2 * q;
+          if (col >= TT) continue;
+          const long long e = row * TT + col;
+          const double* apv = sap + srow * LS + col;
+          if (TT % 2 == 0 && vec) {
+            const double2 a2 = *reinterpret_cast<const double2*>(apv);
+            *reinterpret_cast<double2*>(xo + e) =
+                make_double2(xv[nt][0] + ax[nt][0], xv[nt][1] + ax[nt][1]);
+            *reinterpret_cast<double2*>(ro + e) =
+                make_double2(rv[nt][0] - ar[nt][0], rv[nt][1] - ar[nt][1]);
+            *reinterpret_cast<double2*>(zo + e) = make_double2(a2.x - az[nt][0], a2.y - az[nt][1]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              if (col + j >= TT) break;
+              xo[e + j] = xv[nt][j] + ax[nt][j];
+              ro[e + j] = rv[nt][j] - ar[nt][j];
+              zo[e + j] = apv[j] - az[nt][j];
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // stage s is free for the copy issued next round
+    s = (s + 1) % kStages;
+  }
+  repro::cp_async_wait<0>();  // no copy (of a tile past the end: none) outlives the CTA
 }
 
 unsigned row_grid(long long n, int t) {
@@ -213,37 +352,51 @@ int launch_update(const void* x, const void* r, const void* p, const void* ap,
   return repro::launch_status();
 }
 
+template <int TT>
+int launch_mma(const void* x, const void* r, const void* p, const void* ap, const void* po,
+               const void* c, const void* d, const void* d_old, void* xo, void* ro, void* zo,
+               long long n, bool vec, void* stream) {
+  auto kernel = ecg_tail_mma_kernel<TT>;
+  constexpr size_t smem = TailSmem<TT>::kBytes;
+  // opt in to the dynamic shared memory, then ask for the resident CTAs
+  // per SM at that size; both once per instance
+  static const cudaError_t opt_in = repro::allow_smem(kernel, smem);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  static const int per_sm = repro::ctas_per_sm(kernel, kMmaThreads, smem);
+  int sms = 0;
+  if (const int e = repro::multiprocessors(sms)) return e;
+  const long long grid = std::min(repro::cdiv(n, kTileRows), static_cast<long long>(sms) * per_sm);
+  kernel<<<static_cast<unsigned>(grid), kMmaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(x), static_cast<const double*>(r),
+      static_cast<const double*>(p), static_cast<const double*>(ap),
+      static_cast<const double*>(po), static_cast<const double*>(c),
+      static_cast<const double*>(d), static_cast<const double*>(d_old),
+      static_cast<double*>(xo), static_cast<double*>(ro), static_cast<double*>(zo), n, vec);
+  return repro::launch_status();
+}
+
 template <typename T>
 int launch(const void* x, const void* r, const void* p, const void* ap,
            const void* po, const void* c, const void* d, const void* d_old,
            void* xo, void* ro, void* zo, long long n, int t, void* stream) {
-  if (t >= kTiledMinT) {
-    // one wave of CTAs walking the rows with a grid stride, so each CTA
-    // stages the coefficients once; the CTAs an SM holds at the widest
-    // coefficients (t = 32), asked once
-    auto kernel = ecg_tail_tiled_kernel<T>;
-    static const int per_sm = [&] {
-      int b = 0;
-      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                 &b, kernel, repro::kThreads, 3 * 32 * 32 * sizeof(T)) == cudaSuccess && b > 0
-                 ? b
-                 : 1;
-    }();
-    int dev = 0, sms = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const int S = (t + kJ - 1) / kJ;
-    const size_t smem = 3 * static_cast<size_t>(t) * kJ * S * sizeof(T);
-    const long long pass = static_cast<long long>(repro::kThreads / S) * kRR;
-    const long long grid = std::min(repro::cdiv(n, pass), static_cast<long long>(sms) * per_sm);
-    kernel<<<static_cast<unsigned>(grid), repro::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(x), static_cast<const T*>(r),
-        static_cast<const T*>(p), static_cast<const T*>(ap),
-        static_cast<const T*>(po), static_cast<const T*>(c),
-        static_cast<const T*>(d), static_cast<const T*>(d_old),
-        static_cast<T*>(xo), static_cast<T*>(ro), static_cast<T*>(zo), n, t);
-    return repro::launch_status();
+  if constexpr (std::is_same_v<T, double>) {
+    if (t >= kMmaMinT) {
+      const auto aligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
+      const bool vec = t % 2 == 0 && aligned(x) && aligned(r) && aligned(p) && aligned(ap) &&
+                       aligned(po) && aligned(xo) && aligned(ro) && aligned(zo);
+      switch (t) {
+#define REPRO_TAIL_T(TT) \
+  case TT: return launch_mma<TT>(x, r, p, ap, po, c, d, d_old, xo, ro, zo, n, vec, stream);
+        REPRO_TAIL_T(9) REPRO_TAIL_T(10) REPRO_TAIL_T(11) REPRO_TAIL_T(12)
+        REPRO_TAIL_T(13) REPRO_TAIL_T(14) REPRO_TAIL_T(15) REPRO_TAIL_T(16)
+        REPRO_TAIL_T(17) REPRO_TAIL_T(18) REPRO_TAIL_T(19) REPRO_TAIL_T(20)
+        REPRO_TAIL_T(21) REPRO_TAIL_T(22) REPRO_TAIL_T(23) REPRO_TAIL_T(24)
+        REPRO_TAIL_T(25) REPRO_TAIL_T(26) REPRO_TAIL_T(27) REPRO_TAIL_T(28)
+        REPRO_TAIL_T(29) REPRO_TAIL_T(30) REPRO_TAIL_T(31) REPRO_TAIL_T(32)
+#undef REPRO_TAIL_T
+        default: return static_cast<int>(cudaErrorInvalidValue);
+      }
+    }
   }
   const size_t smem = 3 * static_cast<size_t>(t) * t * sizeof(T);
   ecg_tail_kernel<T><<<row_grid(n, t), repro::kThreads, smem,

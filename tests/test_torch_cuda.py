@@ -159,10 +159,18 @@ def test_fused_gram_matches_plain_and_is_deterministic(cuda, n, t, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("t", WIDTHS)
+@pytest.mark.parametrize("t", sorted(set(WIDTHS) | {12, 17, 31}))
 @pytest.mark.parametrize("n", [1, 530, 70001])
-def test_ecg_tail_matches_plain_and_leaves_inputs(cuda, n, t, dtype):
-    rows = [torch.randn(n, t, dtype=dtype, device=cuda) for _ in range(5)]
+@pytest.mark.parametrize("offset", [False, True])
+def test_ecg_tail_matches_plain_and_leaves_inputs(cuda, n, t, dtype, offset):
+    def block(*shape):
+        m = torch.randn(*shape, dtype=dtype, device=cuda)
+        if not offset:
+            return m
+        # one value off a 16-byte boundary: the mma kernel's 8-byte copies
+        return torch.empty(m.numel() + 1, dtype=dtype, device=cuda)[1:].view(shape).copy_(m)
+
+    rows = [block(n, t) for _ in range(5)]
     packed = torch.randn(t, 3 * t, dtype=dtype, device=cuda)
     coeffs = list(torch.split(packed, t, dim=1))  # column slices, as in the solver
     before = [m.clone() for m in rows]
@@ -172,6 +180,8 @@ def test_ecg_tail_matches_plain_and_leaves_inputs(cuda, n, t, dtype):
         torch.testing.assert_close(g.cpu(), w, **_tol(dtype))
     for m, m0 in zip(rows, before):
         assert torch.equal(m, m0)
+    again = kernels.ecg_tail(*rows, *coeffs)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))  # fixed summation order
 
 
 def test_launch_counters_and_input_checks(cuda):

@@ -1,9 +1,10 @@
-"""Launch geometry of the ``bsr_spmbv``, ``fused_gram`` and ``block_trisolve``
-CUDA kernels, on the CPU.
+"""Launch geometry of the ``bsr_spmbv``, ``fused_gram``, ``block_trisolve``
+and ``ecg_tail`` CUDA kernels, on the CPU.
 
 The wrappers take their grid, path and scratch sizes from the pure
-functions ``spmbv_plan`` and ``gram_plan``; ``block_trisolve``'s C launcher
-picks its own geometry, which ``trisolve_plan`` mirrors.  These tests replay each
+functions ``spmbv_plan`` and ``gram_plan``; ``block_trisolve``'s and
+``ecg_tail``'s C launchers pick their own geometry, which ``trisolve_plan``
+and ``tail_plan`` mirror.  These tests replay each
 kernel's loops over the plan in Python (which rows a warp, thread or CTA
 visits) and check that every row is visited exactly once, that no CTA or
 part is left without work, that the scratch sizes are right, that the
@@ -12,6 +13,7 @@ takes raise in the wrapper before anything is launched.
 """
 
 import importlib
+import importlib.util
 import re
 from pathlib import Path
 
@@ -23,6 +25,7 @@ from repro_torch.kernels import _build
 bops = importlib.import_module("repro_torch.kernels.bsr_spmbv.ops")
 gops = importlib.import_module("repro_torch.kernels.fused_gram.ops")
 tops = importlib.import_module("repro_torch.kernels.block_trisolve.ops")
+uops = importlib.import_module("repro_torch.kernels.block_update.ops")
 
 CSRC = Path(_build.CSRC)
 F32, F64 = torch.float32, torch.float64
@@ -355,9 +358,101 @@ def test_trisolve_constants_mirror_the_cuda_source():
     assert "p.warps = std::max(1, std::min(max_warps(p.rows), kSmemSm / (p.warp_smem + kSmemCta)));" in src
 
 
+# ------------------------------------------------------------------ ecg_tail
+def _tail_items(plan, n, grid):
+    """What the kernel of ``plan`` writes over n rows with ``grid`` CTAs, in
+    the order its loops visit it: rows (the mma kernel writes a row's t
+    columns together) or, for the element kernel, elements."""
+    if plan.path == "element":
+        # one thread an element: CTA b takes the runs of ``threads``
+        # elements b, b + grid, ...
+        e = torch.arange(n * plan.t)
+        run = e // plan.threads
+        return e[torch.argsort(run % grid * (run.max() + 1) + run, stable=True)]
+    # the mma kernel: CTA b takes tiles b, b + grid, ...; warp w of a tile
+    # its m-tiles w, w + warps, ... (those that start at or past n it
+    # skips); lane row g of an m-tile writes row row0 + 8·mt + g where that
+    # is below n
+    warps = plan.threads // 32
+    offs = torch.tensor([8 * mt + g for w in range(warps) for mt in range(w, plan.rows // 8, warps)
+                         for g in range(8)])
+    tiles = torch.cat([torch.arange(b, -(-n // plan.rows), grid) for b in range(grid)])
+    rows = (tiles[:, None] * plan.rows + offs[None]).flatten()
+    return rows[rows < n]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("t", range(1, 33))
+def test_tail_plan_mirrors_the_launcher_and_covers_every_row_once(t, dtype, aligned):
+    plan = uops.tail_plan(t, dtype, aligned, 132)
+    es = 8 if dtype == F64 else 4
+    want = "mma" if dtype == F64 and t >= _cuda_constant("ecg_tail.cu", "kMmaMinT") else "element"
+    assert plan.path == want and plan.t == t
+    if plan.path == "mma":
+        ks, nt = -(-t // 4), -(-t // 8)
+        # staged rows: every k-step's column inside, 4 bank pairs apart
+        assert plan.ls == uops.tail_ls(t) and plan.ls >= 4 * ks and plan.ls % 8 == 4
+        assert plan.copy_bytes == (16 if aligned and t % 2 == 0 else 8)
+        assert plan.rows % 8 == 0 and plan.threads == 32 * uops._MMA_WARPS
+        assert plan.smem_bytes == (3 * ks * nt * 32 + plan.stages * 3 * plan.rows * plan.ls) * es
+    else:
+        assert plan.copy_bytes == plan.rows == plan.stages == plan.ls == 0 and plan.threads == 256
+    assert plan.smem_bytes <= 227 * 1024 and plan.opt_in == (plan.smem_bytes > 48 * 1024)
+    for n in (1, 37, 530, 70001):
+        items = n * plan.t if plan.path == "element" else n
+        per_cta = plan.threads if plan.path == "element" else plan.rows
+        # the runtime's CTAs an SM (shared memory and registers) set the
+        # mma kernel's wave; every grid covers the rows
+        for per_sm in (1, 3, 8):
+            grid = plan.grid(n, per_sm)
+            assert 1 <= grid and (grid - 1) * per_cta < items  # no CTA without work
+            for g in sorted({grid, 1, min(grid, 3)}):
+                assert torch.equal(_tail_items(plan, n, g).sort().values, torch.arange(items)), (n, g)
+    with pytest.raises(ValueError, match="1 <= t <= 32"):
+        uops.tail_plan(33, dtype, aligned)
+
+
+def test_tail_constants_mirror_the_cuda_source():
+    src = (CSRC / "ecg_tail.cu").read_text()
+    assert _cuda_constant("ecg_tail.cu", "kMmaMinT") == uops._MMA_MIN_T
+    assert _cuda_constant("ecg_tail.cu", "kTileRows") == uops._TILE_ROWS
+    assert _cuda_constant("ecg_tail.cu", "kStages") == uops._STAGES
+    assert _cuda_constant("ecg_tail.cu", "kMmaWarps") == uops._MMA_WARPS
+    assert "return (t + 3) / 8 * 8 + 4;" in src and "static constexpr int kStage = 3 * kMat;" in src
+    assert ("(3 * static_cast<size_t>(kFrag) + kStages * static_cast<size_t>(kStage)) * "
+            "sizeof(double);") in src
+    # at the widths the solves run: the main path (one thread an element),
+    # Fig 3.2's t = 12, the width-16 pack, t = 20 and the width-32 pack
+    plans = {t: uops.tail_plan(t, F64) for t in (8, 12, 16, 20, 32)}
+    assert [p.path for p in plans.values()] == ["element"] + ["mma"] * 4
+    assert [p.smem_bytes for p in plans.values()][1:] == [41_472, 67_584, 72_960, 135_168]
+    assert [p.opt_in for p in plans.values()] == [False, False, True, True, True]
+
+
+def _kernel_variants():
+    spec = importlib.util.spec_from_file_location("kernel_variants", CSRC.parents[3] / "tools" / "kernel_variants.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", sorted(_kernel_variants().VARIANTS))
+def test_kernel_variants_patch_the_sources_as_they_stand(name):
+    # each variant is text substituted into today's sources: a substitution
+    # whose text is gone would raise on the card, after the build
+    kv = _kernel_variants()
+    changed = kv.variant_sources(name)
+    assert set(changed) <= {f.name for f in CSRC.glob("*.cu")}
+    assert (name == "base") == (not changed)
+    for fname, text in changed.items():
+        assert text != (CSRC / fname).read_text()
+
+
 # ---------------------------------------------------------------- the build
 @pytest.mark.parametrize("name", ["bsr_spmbv", "fused_gram", "halo_pack", "halo_unpack",
-                                  "block_trisolve", "chol_apply", "rank_apply", "drop_mask"])
+                                  "block_trisolve", "chol_apply", "rank_apply", "drop_mask",
+                                  "ecg_tail", "block_update"])
 def test_ctypes_signature_matches_the_c_entry_point(name):
     src = (CSRC / f"{_build.SOURCES[name]}.cu").read_text()
     for suffix in ("f32", "f64"):

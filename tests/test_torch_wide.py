@@ -217,7 +217,16 @@ def test_cuda_sources_hold_the_wide_instances():
     gram = (CSRC / "fused_gram.cu").read_text()
     assert "fused_gram_mma<3>" in gram and "fused_gram_mma<4>;" in gram
     tail = (CSRC / "ecg_tail.cu").read_text()
-    assert "constexpr int kTiledMinT = 17;" in tail and "ecg_tail_tiled_kernel<T>" in tail
+    # the mma kernel: an instance a width from kMmaMinT to 32, which float64
+    # takes; float32 and the narrow float64 widths one thread an element
+    uops = importlib.import_module("repro_torch.kernels.block_update.ops")
+    mma_min = uops._MMA_MIN_T
+    assert f"REPRO_TAIL_T({mma_min})" in tail and f"REPRO_TAIL_T({mma_min - 1})" not in tail
+    assert "REPRO_TAIL_T(32)" in tail and "REPRO_TAIL_T(33)" not in tail
+    assert "launch_mma<TT>(" in tail and "ecg_tail_mma_kernel<TT>;" in tail
+    assert f"constexpr int kMmaMinT = {mma_min};" in tail and 1 < mma_min <= 17
+    assert [uops.tail_plan(t, F64).path for t in (1, mma_min - 1, mma_min, 20, 32)] == ["element"] * 2 + ["mma"] * 3
+    assert {uops.tail_plan(t, F32).path for t in range(1, 33)} == {"element"}
     tri = (CSRC / "block_trisolve.cu").read_text()
     assert "p.chunks = (t + p.cols - 1) / p.cols;" in tri
     for src in (bsr, gram, tri):
