@@ -302,7 +302,8 @@ def iteration_cost(
     reproduces the original cost exactly).
 
     Returns ``(seconds, TunedConfig)`` — the config is the same object
-    ``make_distributed_spmbv(..., tune=cfg)`` would apply, so a ``t="auto"``
+    :func:`repro_torch.sparse.spmbv.make_distributed_spmbv` (``tune=cfg``)
+    would apply, so a ``t="auto"``
     choice and the executed plan can never drift apart.
     """
     from repro_torch.core.ecg import ECGOperationCounts

@@ -1,2 +1,2 @@
-"""Measurement helpers (port of ``repro.analysis``; only the timer that the
-tuner's measure mode uses is ported so far)."""
+"""Measurement helpers (port of ``repro.analysis``): the ECG hot-path
+benchmarks of :mod:`repro_torch.analysis.ecg_bench`."""

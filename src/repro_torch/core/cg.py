@@ -2,13 +2,15 @@
 
 Plain CG *is* enlarged CG at t=1 (the splitting is the identity, the block
 recurrences collapse to the scalar ones), so :func:`_cg_solve` runs the
-classic ECG method at width 1 and inherits its breakdown guard.
+classic ECG method at width 1 and inherits its breakdown guard;
+:func:`cg_solve` is its deprecated public spelling, as the reference's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Callable
 
 import numpy as np
@@ -157,15 +159,36 @@ def _cg_solve(
     """Plain CG = the classic ECG method at t=1 (internal spelling).
 
     ``a_apply`` is the *vector* SpMV — it is adapted to the engine's width-1
-    block shape here.
+    block shape here.  The t=1 Gram matrix is the 1×1 curvature pᵀAp, so
+    the engine's breakdown guard subsumes a zero-curvature guard.
     """
-    from repro_torch.core.ecg import finalize_result, make_ecg_runner  # ecg imports this module
+    from repro_torch.core.ecg import _ecg_solve  # ecg imports this module
 
-    runner = make_ecg_runner(
-        lambda v_block: a_apply(v_block[:, 0])[:, None], 1,
-        tol=tol, max_iters=max_iters,
+    res = _ecg_solve(
+        lambda v_block: a_apply(v_block[:, 0])[:, None],
+        b, 1, x0=x0, tol=tol, max_iters=max_iters,
     )
-    x0 = torch.zeros_like(b) if x0 is None else x0
-    out = runner.run(runner.init(b, x0))
-    res = finalize_result(out, x0=x0, t=1, tol=tol)
     return dataclasses.replace(res, t=None)  # plain CG has no enlarging factor
+
+
+def cg_solve(
+    a_apply: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    tol: float = 1e-8,
+    max_iters: int = 1000,
+) -> SolveResult:
+    """Solve A x = b with CG. ``a_apply`` is the (n,) -> (n,) SpMV.
+
+    .. deprecated::
+        Plain CG is enlarged CG at t=1; use the engine directly — a
+        :class:`repro_torch.solver.ECGSolver` handle with
+        ``SolverConfig(t=1)`` (build once, solve many), or this one-shot shim.
+    """
+    warnings.warn(
+        "cg_solve() now runs the classic ECG method at t=1; build a "
+        "repro.solver.ECGSolver handle with SolverConfig(t=1) instead",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    return _cg_solve(a_apply, b, x0=x0, tol=tol, max_iters=max_iters)

@@ -26,19 +26,34 @@ distributed handle hands in its own reductions through the hooks of
 :func:`make_ecg_runner`.  Every solve is
 breakdown-guarded: a non-finite iterate freezes the state at the last
 finite iteration and sets ``SolveResult.breakdown``.
+
+Two layers live here, as in the reference:
+
+* :func:`make_ecg_runner` builds the iteration machinery of one
+  configuration (an :class:`ECGRunner` with ``init``/``step``/``run``);
+  the :class:`repro_torch.solver.ECGSolver` handle caches one per width.
+* :func:`ecg_solve` is the legacy one-shot functional spelling (resolve
+  ``t="auto"`` and the policy, build a runner, run it, wrap a
+  :class:`SolveResult`); :func:`_ecg_solve` is its engine without the
+  deprecation warning.  Given the same apply, a one-shot solve and a
+  handle solve run the same runner on the same operands, so they agree
+  bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable
 
 import torch
 
+from repro_torch.adaptive.reduce import resolve_policy
 from repro_torch.core.cg import SolveResult, _guarded_while
 from repro_torch.core.enlarging import split_residual
 from repro_torch.core.methods import MethodContext, get_method
 from repro_torch.kernels.block_update.ops import ecg_tail
+from repro_torch.kernels.chol_apply.ops import MAX_RANK_T
 from repro_torch.kernels.fused_gram.ops import fused_gram
 
 
@@ -62,6 +77,26 @@ class ECGRunner:
     s: int = 1
 
 
+def check_card_width(device, t, s: int = 1, candidates=()) -> None:
+    """On the card every kernel takes at most ``MAX_RANK_T`` (32) columns:
+    refuse a solve whose widest block is wider before any device work.  The
+    widest block is t (every candidate of ``t="auto"``), s·t under s-step
+    (``rank_apply`` factors its s·t-column blocks).  The plain versions on
+    the CPU take any width, as the reference does."""
+    if torch.device(device).type != "cuda":
+        return
+    ts = tuple(candidates) if isinstance(t, str) else (t,)
+    widest = s * max(ts)
+    if widest > MAX_RANK_T:
+        what = f"t={t}" if not isinstance(t, str) else f"t='auto' candidates up to {max(ts)}"
+        if s > 1:
+            what += f" at s={s}"
+        raise NotImplementedError(
+            f"{what} makes blocks of {widest} columns; the card's kernels take at most "
+            f"{MAX_RANK_T} (ROADMAP.md §3, fault E); solve with a smaller t or s, or on the CPU"
+        )
+
+
 def _plain_gram2(p, r, ap, apo):
     return torch.cat([p.T @ r, ap.T @ ap, apo.T @ ap], dim=1)
 
@@ -76,8 +111,10 @@ def make_ecg_runner(
     *,
     tol: float = 1e-8,
     max_iters: int = 1000,
+    mapping: str = "contiguous",
     allreduce: Callable[[torch.Tensor], torch.Tensor] = lambda x: x,
     split: Callable[[torch.Tensor, int], torch.Tensor] | None = None,
+    chol_eps: float = 0.0,
     gram1: Callable | None = None,
     gram2: Callable | None = None,
     sqnorm: Callable | None = None,
@@ -122,8 +159,7 @@ def make_ecg_runner(
     solver (used only with a policy); with it, ``exit_below_width`` ends the
     loop once fewer than that many directions are active, so the caller can
     re-slice the exchange at the narrower width and resume from the carry.
-    The port has no ``chol_eps`` regularization, which the reference refuses
-    together with a policy.
+    A policy and ``chol_eps`` are refused together, as the reference does.
 
     ``method`` selects the iteration scheme ("classic" | "pipelined" |
     "sstep", see :mod:`repro_torch.core.methods`); ``s``/``reorth``/
@@ -142,6 +178,12 @@ def make_ecg_runner(
     scalar ``sqnorm`` in group mode (``allreduce`` of the local column sums
     by default; one psum of g floats on a mesh).
     """
+    if policy is not None and chol_eps:
+        raise ValueError(
+            "chol_eps regularization and adaptive= are mutually exclusive: the "
+            "rank-revealing factorization handles near-singular G structurally "
+            "(tune ReductionPolicy.rank_rtol instead of eps-jitter)"
+        )
     if backend not in ("jnp", "pallas"):
         raise ValueError(f"unknown backend {backend!r}")
     if not isinstance(s, int) or s < 1:
@@ -162,7 +204,7 @@ def make_ecg_runner(
         sqnorm = lambda v: allreduce(torch.dot(v, v))
     if tail is None:
         tail = ecg_tail if backend == "pallas" else _plain_tail
-    split_fn = split if split is not None else split_residual
+    split_fn = split if split is not None else (lambda r_, t_: split_residual(r_, t_, mapping))
     if groups is not None:
         if spec.name != "classic":
             raise ValueError(
@@ -195,7 +237,7 @@ def make_ecg_runner(
         gram1=gram1, gram2=gram2, sqnorm=sqnorm, tail=tail,
         precond=precond, gram2p=gram2p, precond_reseed=precond_reseed,
         policy=policy, use_mask=use_mask, a_apply_masked=a_apply_masked,
-        s=s, reorth=reorth, rank_rtol=rank_rtol,
+        chol_eps=chol_eps, s=s, reorth=reorth, rank_rtol=rank_rtol,
         groups=groups, sqnorm_cols=sqnorm_cols,
     )
     spec.validate(ctx)
@@ -225,7 +267,8 @@ def make_ecg_runner(
     )
 
 
-def finalize_result(out: dict, *, x0, t: int, tol: float, policy=None) -> SolveResult:
+def finalize_result(out: dict, *, x0, t: int, tol: float, policy=None,
+                    selection=None) -> SolveResult:
     """Convert a final loop carry into a :class:`SolveResult`."""
     x = x0 + out["X"].sum(dim=1)  # line 14: x = Σᵢ (X)ᵢ
     breakdown = bool(out["bd"])
@@ -238,9 +281,129 @@ def finalize_result(out: dict, *, x0, t: int, tol: float, policy=None) -> SolveR
         t=t,
         active_hist=out["ahist"] if policy is not None else None,
         restarts=int(out["restarts"]) if policy is not None else 0,
+        selection=selection,
         event_hist=out.get("evhist"),
         final_carry=out,
     )
+
+
+def _ecg_solve(
+    a_apply: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    t: int | str,
+    x0: torch.Tensor | None = None,
+    tol: float = 1e-8,
+    max_iters: int = 1000,
+    mapping: str = "contiguous",
+    allreduce: Callable[[torch.Tensor], torch.Tensor] = lambda x: x,
+    split: Callable[[torch.Tensor, int], torch.Tensor] | None = None,
+    chol_eps: float = 0.0,
+    gram1: Callable | None = None,
+    gram2: Callable | None = None,
+    sqnorm: Callable | None = None,
+    tail: Callable | None = None,
+    backend: str = "jnp",
+    tuned: object | None = None,
+    adaptive: object = None,
+    matrix: object = None,
+    select: object = None,
+    t_candidates: tuple = (1, 2, 4, 8, 16),
+    machine: object = None,
+    a_apply_masked: Callable | None = None,
+    exit_below_width: int | None = None,
+    resume_state: dict | None = None,
+    method: str = "classic",
+    s: int = 1,
+    reorth: bool = False,
+    rank_rtol: float | None = None,
+    precond: Callable | None = None,
+    gram2p: Callable | None = None,
+    precond_reseed: int | None = None,
+) -> SolveResult:
+    """One-shot functional ECG solve (the engine behind :func:`ecg_solve`).
+
+    Callers inside ``repro_torch`` use this (or a runner, or the
+    :class:`repro_torch.solver.ECGSolver` handle), so that only external
+    code goes through the deprecated public spelling.  On CUDA operands a
+    block wider than the kernels take is refused before any device work
+    (:func:`check_card_width`).
+    """
+    check_card_width(b.device, t, s, t_candidates)
+    selection = select
+    if isinstance(t, str):
+        from repro_torch.adaptive.select_t import resolve_auto_t
+
+        t, selection, adaptive = resolve_auto_t(
+            t, adaptive, a=matrix, b=b, select=select,
+            candidates=t_candidates, tol=tol, machine=machine, backend=backend,
+        )
+    policy = resolve_policy(adaptive)
+    if tuned is not None:
+        backend = getattr(tuned, "backend", backend)
+
+    runner = make_ecg_runner(
+        a_apply, t, tol=tol, max_iters=max_iters, mapping=mapping,
+        allreduce=allreduce, split=split, chol_eps=chol_eps, gram1=gram1,
+        gram2=gram2, sqnorm=sqnorm, tail=tail, backend=backend, policy=policy,
+        a_apply_masked=a_apply_masked, exit_below_width=exit_below_width,
+        method=method, s=s, reorth=reorth, rank_rtol=rank_rtol,
+        precond=precond, gram2p=gram2p, precond_reseed=precond_reseed,
+    )
+    x0 = torch.zeros_like(b) if x0 is None else x0
+    if resume_state is not None:
+        # continue a width-segmented solve from the carried loop state
+        out = runner.run(dict(resume_state))
+    else:
+        out = runner.run(runner.init(b, x0))
+    return finalize_result(out, x0=x0, t=t, tol=tol, policy=policy, selection=selection)
+
+
+def ecg_solve(a_apply, b, t, *args, **kwargs) -> SolveResult:
+    """Solve A x = b with ECG using enlarging factor ``t``.
+
+    .. deprecated::
+        ``ecg_solve`` is the legacy one-shot spelling: it re-derives the
+        whole configuration on every call.  Build a
+        :class:`repro_torch.solver.ECGSolver` handle instead —
+        ``ECGSolver.build(a, config=SolverConfig(t=4)).solve(b)`` — which
+        pays setup once and solves many right-hand sides.
+
+    a_apply:   SpMBV — maps (n, t) block vectors to (n, t) block vectors
+               (e.g. :func:`repro_torch.kernels.make_block_ell_apply`, or
+               ``lambda v: csr_spmbv(a, v)``).
+    b:         the (n,) right-hand side, a tensor on the device to solve on.
+    t:         enlarging factor, or ``"auto"`` to pick one from the
+               iterations-vs-cost model (needs ``matrix=`` — the CSRMatrix
+               behind ``a_apply`` — or a precomputed ``select=`` TSelection;
+               ``t_candidates``/``machine`` parameterize the model).
+    mapping:   the subdomains of T_{r,t}: ``"contiguous"`` or ``"round_robin"``.
+    chol_eps:  factor G + eps·I (classic and pipelined; refused with
+               ``adaptive=`` and under s-step).
+    allreduce, gram1, gram2, sqnorm, split, tail: the reduction and update
+               hooks of :func:`make_ecg_runner`.
+    backend:   "jnp" | "pallas" — see the module docstring.
+    tuned:     optional :class:`repro_torch.tune.TunedConfig`: adopts its
+               ``backend``.
+    adaptive:  None/"off", "rankrev", "reduce", "reduce+restart", or a
+               :class:`repro_torch.adaptive.ReductionPolicy`.
+    a_apply_masked, exit_below_width, resume_state: width-segmented
+               execution — ``(V, active) -> W`` replaces ``a_apply`` under a
+               policy, the loop exits once fewer than ``exit_below_width``
+               directions are active, and passing the result's
+               ``final_carry`` back as ``resume_state`` continues the solve.
+    method, s, reorth, rank_rtol: the iteration scheme (see
+               :mod:`repro_torch.core.methods`).
+    precond, gram2p, precond_reseed: the preconditioner apply and its
+               packed reduction (see :mod:`repro_torch.precondition`).
+    """
+    warnings.warn(
+        "ecg_solve() is the legacy one-shot spelling; build a "
+        "repro.solver.ECGSolver handle (compile-once / solve-many, typed "
+        "SolverConfig) instead",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    return _ecg_solve(a_apply, b, t, *args, **kwargs)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -38,3 +38,15 @@ def collapse(block: torch.Tensor) -> torch.Tensor:
     """Inverse direction of (2.3): sum block-vector columns back to a vector."""
     return block.sum(dim=1)
 
+
+
+def split_rank(r: torch.Tensor, t: int, mapping: str = "contiguous") -> torch.Tensor:
+    """Number of nonzero columns of T_{r,t}(r), a 0-dim integer tensor.
+
+    The columns of the splitting have disjoint supports, so they are linearly
+    independent iff nonzero — this is the exact rank of the initial enlarged
+    block, i.e. the width a breakdown-safe solve (:mod:`repro_torch.adaptive`)
+    reduces to on its first iteration when some subdomains carry no residual.
+    """
+    big = split_residual(r, t, mapping)
+    return torch.sum(torch.any(big != 0, dim=0))

@@ -17,16 +17,19 @@ import torch
 from repro_torch.kernels.chol_apply.ops import chol_apply
 
 
-def _chol_inv_apply(g: torch.Tensor, *mats: torch.Tensor):
+def _chol_inv_apply(g: torch.Tensor, *mats: torch.Tensor, eps: float = 0.0):
     """Given G = CᵀC, return [M C⁻¹ for M in mats].
 
-    As the reference's ``jnp.linalg.cholesky``: G is symmetrised first, and a
-    G that is not positive definite yields NaNs (``cholesky_ex`` reports it
-    in ``info`` instead of raising), which the loop's breakdown guard turns
-    into ``breakdown=True``.  Y·C = M is solved by the ``chol_apply`` op, two
-    blocks per call: one row-pass kernel launch on CUDA tensors, triangular
-    solves on CPU tensors.
+    ``eps > 0`` factors G + eps·I instead (the reference's ``chol_eps``
+    jitter).  As the reference's ``jnp.linalg.cholesky``: G is symmetrised
+    first, and a G that is not positive definite (after the jitter) yields
+    NaNs (``cholesky_ex`` reports it in ``info`` instead of raising), which
+    the loop's breakdown guard turns into ``breakdown=True``.  Y·C = M is
+    solved by the ``chol_apply`` op, two blocks per call: one row-pass
+    kernel launch on CUDA tensors, triangular solves on CPU tensors.
     """
+    if eps:
+        g = g + eps * torch.eye(g.shape[0], dtype=g.dtype, device=g.device)
     low, info = torch.linalg.cholesky_ex((g + g.mT) / 2)
     c = torch.where(info == 0, low.mT, torch.full_like(low, float("nan"))).contiguous()  # G = CᵀC
     return [y for i in range(0, len(mats), 2) for y in chol_apply(c, *mats[i:i + 2])]
@@ -61,6 +64,9 @@ class MethodContext:
     P_old d_old`` never re-reads the residual, so an iteration-varying M⁻¹ₖ
     needs this flexible restart (Notay, SISC 22(4), 2000).
 
+    ``chol_eps`` is the Cholesky jitter of the classic and pipelined
+    schemes (G + eps·I is factored; 0 = none).
+
     ``s``, ``reorth`` and ``rank_rtol`` parameterize the s-step scheme: its
     inner-step count, its per-block Cholesky-QR2 second pass and the pivot
     threshold of its rank-revealing factorization (None defers to the
@@ -90,6 +96,7 @@ class MethodContext:
     policy: object = None
     use_mask: bool = False
     a_apply_masked: Callable | None = None
+    chol_eps: float = 0.0
     s: int = 1
     reorth: bool = False
     rank_rtol: float | None = None

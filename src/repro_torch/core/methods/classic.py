@@ -89,6 +89,7 @@ class ClassicMethod(MethodSpec):
         precond, gram2p = ctx.precond, ctx.gram2p
         reseed = ctx.precond_reseed if precond is not None else None
         groups, sqnorm_cols = ctx.groups, ctx.sqnorm_cols
+        chol_eps = ctx.chol_eps
         # record rank-revealing drops (EV_RECOVERY) and flexible reseeds
         # (EV_RESEED) per iteration whenever either mechanism runs
         track_events = policy is not None or reseed is not None
@@ -147,7 +148,7 @@ class ClassicMethod(MethodSpec):
             g = gram1(z, az)  # reduction #1: t² floats
             ev = 0
             if policy is None:
-                p, ap = _chol_inv_apply(g, z, az)  # local chol + TRSMs
+                p, ap = _chol_inv_apply(g, z, az, eps=chol_eps)  # local chol + TRSMs
             else:
                 # pivoted rank-revealing factorization: dependent directions
                 # come out as zero-masked columns instead of NaNs; the rank

@@ -72,6 +72,7 @@ class PipelinedMethod(MethodSpec):
         a_apply, a_apply_masked, split_fn = ctx.a_apply, ctx.a_apply_masked, ctx.split_fn
         gram1, gram2, sqnorm, tail = ctx.gram1, ctx.gram2, ctx.sqnorm, ctx.tail
         precond, gram2p = ctx.precond, ctx.gram2p
+        chol_eps = ctx.chol_eps
 
         def iterate(carry):
             big_x, big_r, z, az = carry["X"], carry["R"], carry["Z"], carry["AZ"]
@@ -80,7 +81,7 @@ class PipelinedMethod(MethodSpec):
 
             g = gram1(z, az)  # reduction #1 (t²); AZ comes from the recurrence
             if policy is None:
-                p, ap = _chol_inv_apply(g, z, az)
+                p, ap = _chol_inv_apply(g, z, az, eps=chol_eps)
             else:
                 rtol = policy.rank_rtol
                 p, ap, rank, _perm = rank_apply(

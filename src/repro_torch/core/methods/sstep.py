@@ -57,6 +57,12 @@ class SStepMethod(MethodSpec):
     def validate(self, ctx: MethodContext) -> None:
         if ctx.s < 1:
             raise ValueError(f"s must be >= 1, got {ctx.s}")
+        if ctx.chol_eps:
+            raise ValueError(
+                "method 'sstep' always factorizes through the pivoted "
+                "rank-revealing Cholesky (the monomial basis demands it); "
+                "chol_eps jitter does not apply — tune rank_rtol instead"
+            )
 
     def iters_per_block(self, s: int = 1) -> int:
         return s

@@ -10,10 +10,13 @@ from repro_torch.kernels.block_trisolve.ops import block_trisolve
 from repro_torch.kernels.block_update.ops import block_update, ecg_tail
 from repro_torch.kernels.bsr_spmbv.ops import (
     block_ell_arrays,
+    block_ell_from_csr,
     block_ell_meta,
     bsr_spmbv,
+    bsr_to_block_ell,
     count_block_ell_tiles,
     csr_arrays_to_block_ell,
+    make_block_ell_apply,
     make_block_ell_apply_from_arrays,
 )
 from repro_torch.kernels.chol_apply.ops import chol_apply, drop_mask, rank_apply
@@ -38,10 +41,12 @@ def reset_launch_counts() -> None:
 __all__ = [
     "KERNEL_OPS",
     "block_ell_arrays",
+    "block_ell_from_csr",
     "block_ell_meta",
     "block_trisolve",
     "block_update",
     "bsr_spmbv",
+    "bsr_to_block_ell",
     "chol_apply",
     "count_block_ell_tiles",
     "csr_arrays_to_block_ell",
@@ -51,6 +56,7 @@ __all__ = [
     "halo_pack",
     "halo_unpack",
     "launch_counts",
+    "make_block_ell_apply",
     "make_block_ell_apply_from_arrays",
     "rank_apply",
     "reset_launch_counts",

@@ -12,7 +12,10 @@ conversion that puts the kernel on the solver's path:
 * :func:`block_ell_meta` / :func:`block_ell_arrays` split the conversion into
   the tile analysis and the fill, so persisted meta skips the analysis.
 * :func:`make_block_ell_apply_from_arrays` builds the sequential solver's
-  ``(n, t) -> (n, t)`` closure over converted arrays.
+  ``(n, t) -> (n, t)`` closure over converted arrays;
+  :func:`make_block_ell_apply` converts a CSR matrix
+  (:func:`block_ell_from_csr`) and builds it, the one-shot solvers'
+  operator; :func:`bsr_to_block_ell` converts a BSR matrix a caller holds.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from repro_torch.kernels.bsr_spmbv.ref import bsr_spmbv_ref
 from repro_torch.kernels.dispatch import use_kernel
 
 if TYPE_CHECKING:
-    from repro_torch.sparse.csr import CSRMatrix
+    from repro_torch.sparse.csr import BSRMatrix, CSRMatrix
 
 #: largest block width the kernel takes
 MAX_T = 32
@@ -77,6 +80,40 @@ def spmbv_plan(nbr: int, br: int, bc: int, t: int, n_w: int, dtype, sms: int,
 
 def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def bsr_to_block_ell(b: BSRMatrix, kmax: int | None = None):
+    """BSR -> Block-ELL (fixed tiles per block row; zero-padded).
+
+    Each block row's tiles fill its first slots in BSR order; unused slots
+    stay zero with block-column id 0.  ``kmax`` defaults to the fullest
+    block row.  Returns ``(blocks, indices)``: (nbr, kmax, br, bc) values and
+    (nbr, kmax) int32 block-column ids, tensors on ``b``'s device, equal to
+    the reference's arrays.
+    """
+    indptr = _host(b.block_indptr).astype(np.int64)
+    src_blocks = _host(b.blocks)
+    nbr = len(indptr) - 1
+    per_row = np.diff(indptr)
+    kmax = int(per_row.max()) if kmax is None else int(kmax)
+    if len(per_row) and int(per_row.max()) > kmax:
+        raise ValueError(f"block row {int(per_row.argmax())} overflows kmax={kmax}")
+    br, bc = src_blocks.shape[1:]
+    rows = np.repeat(np.arange(nbr, dtype=np.int64), per_row)
+    slot = np.arange(len(rows), dtype=np.int64) - indptr[rows]
+    blocks = np.zeros((nbr, kmax, br, bc), dtype=src_blocks.dtype)
+    indices = np.zeros((nbr, kmax), dtype=np.int32)
+    blocks[rows, slot] = src_blocks
+    indices[rows, slot] = _host(b.block_indices)
+    dev = b.blocks.device
+    return torch.as_tensor(blocks, device=dev), torch.as_tensor(indices, device=dev)
+
+
+def block_ell_from_csr(a: CSRMatrix, br: int, bc: int):
+    """CSR -> Block-ELL with (br, bc) tiles: ``(blocks, indices)``, the
+    arrays of :func:`block_ell_arrays` (equal to the reference's CSR -> BSR
+    -> Block-ELL), so a one-shot apply and a handle's are the same."""
+    return block_ell_arrays(a, br, bc)[:2]
 
 
 def _tile_keys(indptr: np.ndarray, indices: np.ndarray, n_rows: int, br: int, bc: int,
@@ -225,6 +262,34 @@ def make_block_ell_apply_from_arrays(blocks: torch.Tensor, indices: torch.Tensor
         return bsr_spmbv(blk, indices, v, n_rows=n)
 
     return apply
+
+
+def make_block_ell_apply(a: CSRMatrix, block: int | tuple[int, int] = 8,
+                         use_pallas: bool | None = None):
+    """Build the sequential solver's SpMBV closure over the Block-ELL kernel.
+
+    Converts ``a`` once (CSR -> Block-ELL, on the host) and returns
+    ``apply(V: (n, t)) -> (n, t)`` running :func:`bsr_spmbv` on ``a``'s
+    device: the kernel on CUDA tensors, the plain version on CPU tensors.
+    ``block`` is an int for square tiles or an explicit (br, bc) pair — e.g.
+    the ``ell_block`` a :class:`repro_torch.tune.TunedConfig` selected.
+
+    ``use_pallas`` is the reference's dispatch switch; the port's rule is
+    the operands' device, so ``None`` and ``True`` both take it.  ``False``
+    (the reference's unkernelled oracle) is refused rather than quietly
+    served by the plain version: the unkernelled product is the CSR one,
+    ``csr_spmbv`` (``backend="jnp"``).
+    """
+    if use_pallas is False:
+        raise ValueError(
+            "make_block_ell_apply: use_pallas=False has no counterpart in the port, "
+            "whose Block-ELL apply runs the bsr_spmbv kernel on CUDA tensors and its "
+            "plain version only on CPU tensors; for the unkernelled product use the "
+            "CSR SpMBV (backend='jnp', repro_torch.sparse.csr_spmbv)"
+        )
+    br, bc = (block, block) if isinstance(block, int) else block
+    blocks, indices = block_ell_from_csr(a, br, bc)
+    return make_block_ell_apply_from_arrays(blocks, indices, a.shape[0])
 
 
 def bsr_spmbv(blocks: torch.Tensor, indices: torch.Tensor, v: torch.Tensor,

@@ -10,6 +10,9 @@ executor (:mod:`repro_torch.sparse.spmbv`) and the solver handle use only
 the members below, so a process-group mesh (one rank per card, NCCL
 ``send``/``recv`` and ``all_reduce``, ``local_ranks == 1``) can take its
 place without touching them.
+
+:func:`make_solver_mesh` is the reference's mesh constructor for the solver,
+with the same shape rule.
 """
 
 from __future__ import annotations
@@ -90,3 +93,23 @@ class VirtualMesh:
 
     def __repr__(self) -> str:
         return f"VirtualMesh(n_nodes={self.n_nodes}, ppn={self.ppn}, device={str(self.device)!r})"
+
+
+def make_solver_mesh(*, multi_pod: bool = False, ppn: int = 16, n_ranks: int,
+                     device="cuda") -> VirtualMesh:
+    """Two-level ("node", "proc") grid for the distributed ECG solver.
+
+    The reference's shape rule: ``(2, n_ranks // 2)`` under ``multi_pod``
+    (two pods as the slow tier), else ``(n_ranks // ppn, ppn)`` (groups of
+    ``ppn`` ranks as the paper's nodes).  ``n_ranks`` takes the place of
+    the reference's device count: a :class:`VirtualMesh` stacks its ranks
+    on one device, so the count of cards says nothing about it.  A rank
+    count the shape does not cover raises, as ``jax.make_mesh`` does.
+    """
+    shape = (2, n_ranks // 2) if multi_pod else (n_ranks // ppn, ppn)
+    if shape[0] * shape[1] != n_ranks or min(shape) < 1:
+        raise ValueError(
+            f"mesh shape {shape} does not cover n_ranks={n_ranks} "
+            f"({'multi_pod' if multi_pod else f'ppn={ppn}'})"
+        )
+    return VirtualMesh(*shape, device=device)

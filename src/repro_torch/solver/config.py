@@ -6,29 +6,32 @@ with the reference's field names), so one ``SolverConfig`` serialises to
 the same dict in both packages.
 
 One frozen :class:`SolverConfig` replaces the ~20 loosely-typed keyword
-arguments that had accreted on ``ecg_solve``/``distributed_ecg``/
-``make_distributed_spmbv``.  It is composed of five orthogonal sub-configs,
-one per subsystem:
+arguments of the legacy one-shot spellings,
+:func:`repro_torch.core.ecg.ecg_solve`,
+:func:`repro_torch.sparse.spmbv.distributed_ecg` and
+:func:`repro_torch.sparse.spmbv.make_distributed_spmbv` (the last two map
+their arguments onto it in ``repro_torch.sparse.spmbv._build_legacy_solver``).
+It is composed of orthogonal sub-configs, one per subsystem:
 
 * :class:`CommConfig`   — the node-aware exchange (strategy, overlap,
-  col-split, machine parameters) → ``repro.core.node_aware`` + the
-  interior/boundary schedule of ``repro.sparse.spmbv``.
+  col-split, machine parameters) → ``repro_torch.core.node_aware`` + the
+  interior/boundary schedule of ``repro_torch.sparse.spmbv``.
 * :class:`KernelConfig` — the local compute formulation (backend, Block-ELL
-  tile) → ``repro.kernels``.
+  tile) → ``repro_torch.kernels``.
 * :class:`TuneConfig`   — setup-time autotuning (mode, or a precomputed
-  :class:`~repro.tune.TunedConfig`) → ``repro.tune``.
+  :class:`~repro_torch.tune.TunedConfig`) → ``repro_torch.tune``.
 * :class:`AdaptiveConfig` — the in-solve width controller and ``t="auto"``
-  selection knobs → ``repro.adaptive``.
+  selection knobs → ``repro_torch.adaptive``.
 * :class:`MethodConfig` — the iteration scheme (classic / pipelined /
-  s-step and its knobs) → ``repro.core.methods``.
-* :class:`~repro.precondition.PreconditionConfig` — the preconditioner
-  (none / block_jacobi / chebyshev / inexact) → ``repro.precondition``.
+  s-step and its knobs) → ``repro_torch.core.methods``.
+* :class:`~repro_torch.precondition.PreconditionConfig` — the preconditioner
+  (none / block_jacobi / chebyshev / inexact) → ``repro_torch.precondition``.
 
 Validation happens at construction: a bad strategy/backend/mode raises
 ``ValueError`` immediately, not three layers down inside a traced solve.
 String shorthands from the legacy API are *coerced* into their typed form
 (``adaptive="reduce"`` becomes a resolved
-:class:`~repro.adaptive.ReductionPolicy`; ``tune="model"`` becomes
+:class:`~repro_torch.adaptive.ReductionPolicy`; ``tune="model"`` becomes
 ``TuneConfig(mode="model")``), so after ``__post_init__`` every field holds
 exactly one well-typed value.
 

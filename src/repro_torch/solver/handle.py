@@ -79,7 +79,7 @@ import torch
 from repro_torch.adaptive.groups import GroupSpec
 from repro_torch.adaptive.reduce import resolve_policy
 from repro_torch.core.cg import SolveResult
-from repro_torch.core.ecg import finalize_result, make_ecg_runner
+from repro_torch.core.ecg import check_card_width, finalize_result, make_ecg_runner
 from repro_torch.kernels.block_update.ops import ecg_tail
 from repro_torch.kernels.bsr_spmbv.ops import block_ell_arrays, make_block_ell_apply_from_arrays
 from repro_torch.kernels.chol_apply.ops import MAX_RANK_T
@@ -98,26 +98,6 @@ from repro_torch.sparse.spmbv import _make_distributed_spmbv
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
-
-
-def _check_card_width(device: torch.device, cfg: SolverConfig) -> None:
-    """On the card every kernel takes at most ``MAX_RANK_T`` (32) columns:
-    refuse a configuration whose widest block is wider before any device
-    work.  The widest block is t (every candidate of ``t="auto"``), s·t
-    under s-step (``rank_apply`` factors its s·t-column blocks).  The plain
-    versions on the CPU take any width, as the reference does."""
-    if device.type != "cuda":
-        return
-    ts = cfg.adaptive.t_candidates if isinstance(cfg.t, str) else (cfg.t,)
-    widest = cfg.method.s * max(ts)
-    if widest > MAX_RANK_T:
-        what = f"t={cfg.t}" if not isinstance(cfg.t, str) else f"t='auto' candidates up to {max(ts)}"
-        if cfg.method.s > 1:
-            what += f" at s={cfg.method.s}"
-        raise NotImplementedError(
-            f"{what} makes blocks of {widest} columns; the card's kernels take at most "
-            f"{MAX_RANK_T} (ROADMAP.md §3, fault E); solve with a smaller t or s, or on the CPU"
-        )
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -220,8 +200,8 @@ class ECGSolver:
                 raise ValueError(f"device {device!r} differs from the mesh's {mesh.device}")
         else:
             self.device = resolve_device("cuda" if device is None else device)
-        self.config = SolverConfig.coerce(config)
-        _check_card_width(self.device, self.config)
+        self.config = cfg = SolverConfig.coerce(config)
+        check_card_width(self.device, cfg.t, cfg.method.s, cfg.adaptive.t_candidates)
         self.a = a.to(self.device)
         self.mesh = mesh
         self._tracer = coerce_tracer(tracer)
@@ -600,9 +580,8 @@ class ECGSolver:
 
     def _result(self, carry, x0_dev, segments=None):
         result = finalize_result(carry, x0=x0_dev, t=self.t, tol=self.config.tol,
-                                 policy=self.policy)
+                                 policy=self.policy, selection=self.selection)
         result.comm_segments = segments
-        result.selection = self.selection
         return result
 
     def solve(self, b, x0=None):
@@ -944,7 +923,7 @@ class ECGSolver:
         spellings of :meth:`SolverConfig.replace`.
         """
         new_cfg = self.config.replace(**overrides)
-        _check_card_width(self.device, new_cfg)
+        check_card_width(self.device, new_cfg.t, new_cfg.method.s, new_cfg.adaptive.t_candidates)
         clone = ECGSolver.__new__(ECGSolver)
         clone.a, clone.config = self.a, new_cfg
         clone.device, clone.mesh = self.device, self.mesh

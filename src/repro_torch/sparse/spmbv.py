@@ -52,11 +52,18 @@ the replay's event; on CPU tensors it is the same code with no streams.
 
 ``tune`` hands the strategy, the Block-ELL tile and the overlap to the
 setup-time autotuner (:mod:`repro_torch.tune`), as the reference does.
+
+:func:`make_distributed_spmbv` and :func:`distributed_ecg` are the
+reference's legacy spellings (each warns ``DeprecationWarning``): the first
+builds the bare operator, the second maps its argument list onto a
+:class:`~repro_torch.solver.SolverConfig`, builds an
+:class:`~repro_torch.solver.ECGSolver` handle and solves once.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -467,6 +474,40 @@ def _block_diagonal_csr(rebased, rmax, n_cols, dtype, device) -> CSRMatrix:
     )
 
 
+def make_distributed_spmbv(
+    a: CSRMatrix,
+    mesh,
+    strategy: str = "standard",
+    t: int = 1,
+    machine=None,
+    pm: PartitionedMatrix | None = None,
+    backend: str = "jnp",
+    overlap: bool = False,
+    ell_block: int | tuple[int, int] = 8,
+    tune: str | object = "off",
+    col_split: int | None = None,
+) -> DistributedSpMBV:
+    """Deprecated spelling of the operator build — the handle API owns it.
+
+    ``ECGSolver.build(a, mesh, SolverConfig(...))`` performs the same
+    partition + plan + tune + Block-ELL setup once and exposes the operator
+    as ``solver.op``; this function remains for external callers that only
+    want the bare SpMBV operator.  See :func:`_make_distributed_spmbv` for
+    the arguments.
+    """
+    warnings.warn(
+        "make_distributed_spmbv() is the legacy stringly-typed spelling; "
+        "build a repro.solver.ECGSolver handle (typed SolverConfig) and use "
+        "solver.op instead",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    return _make_distributed_spmbv(
+        a, mesh, strategy, t=t, machine=machine, pm=pm, backend=backend,
+        overlap=overlap, ell_block=ell_block, tune=tune, col_split=col_split,
+    )
+
+
 def _make_distributed_spmbv(
     a: CSRMatrix,
     mesh,
@@ -588,3 +629,81 @@ def _make_distributed_spmbv(
         split=split,
         tuned=tuned,
     )
+
+
+def distributed_ecg(
+    a: CSRMatrix,
+    b,
+    mesh,
+    t: int | str,
+    strategy: str = "standard",
+    tol: float = 1e-8,
+    max_iters: int = 500,
+    machine=None,
+    backend: str = "jnp",
+    overlap: bool = False,
+    ell_block: int | tuple[int, int] = 8,
+    tune: str | object = "off",
+    adaptive: object = None,
+    t_candidates: tuple = (1, 2, 4, 8, 16),
+):
+    """Distributed ECG solve with the selected node-aware SpMBV strategy.
+
+    Returns ``(SolveResult, operator)``; ``result.x`` is in the operator's
+    padded per-rank layout (``operator.unshard`` gives the global vector).
+    ``strategy="tuned"`` is shorthand for ``tune="model"``; ``t="auto"``
+    picks the enlarging factor at build time and runs the tuner's config
+    for it; ``adaptive`` selects the width controller (width-segmented
+    exchange on the mesh) — the handle's options, see
+    :class:`repro_torch.solver.ECGSolver`.  ``mesh`` is a
+    :class:`~repro_torch.launch.mesh.VirtualMesh`, and the solve runs on its
+    device.
+
+    .. deprecated::
+        This is the legacy stringly-typed spelling.  It builds a
+        :class:`repro_torch.solver.ECGSolver` handle, solves once, and
+        discards the handle — build the handle yourself to amortize setup
+        over many right-hand sides.
+    """
+    warnings.warn(
+        "distributed_ecg() is the legacy stringly-typed spelling; build a "
+        "repro.solver.ECGSolver handle (compile-once / solve-many, typed "
+        "SolverConfig) instead",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    solver = _build_legacy_solver(
+        a, mesh, t, strategy=strategy, tol=tol, max_iters=max_iters,
+        machine=machine, backend=backend, overlap=overlap,
+        ell_block=ell_block, tune=tune, adaptive=adaptive,
+        t_candidates=t_candidates, b=b,
+    )
+    return solver.solve(b), solver.op
+
+
+def _build_legacy_solver(
+    a, mesh, t, *, strategy="standard", tol=1e-8, max_iters=500, machine=None,
+    backend="jnp", overlap=False, ell_block=8, tune="off", adaptive=None,
+    t_candidates=(1, 2, 4, 8, 16), b=None,
+):
+    """Map the legacy ``distributed_ecg`` argument list onto a typed
+    :class:`~repro_torch.solver.SolverConfig` and build the handle."""
+    from repro_torch.solver import (
+        AdaptiveConfig, CommConfig, ECGSolver, KernelConfig, SolverConfig,
+        TuneConfig,
+    )
+
+    if strategy == "tuned":
+        strategy = "standard"
+        if tune is None or tune == "off":
+            tune = "model"
+    config = SolverConfig(
+        t=t,
+        tol=tol,
+        max_iters=max_iters,
+        comm=CommConfig(strategy=strategy, overlap=overlap, machine=machine),
+        kernel=KernelConfig(backend=backend, ell_block=ell_block),
+        tune=TuneConfig.coerce(None if tune == "off" else tune),
+        adaptive=AdaptiveConfig(policy=adaptive, t_candidates=tuple(t_candidates)),
+    )
+    return ECGSolver.build(a, mesh, config, b=b)

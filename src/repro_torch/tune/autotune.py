@@ -217,7 +217,8 @@ def tunedconfig_from_dict(d: dict) -> TunedConfig:
 # --------------------------------------------------------------- tile model
 def _rebased_local(pm: PartitionedMatrix):
     """Per-rank (indptr, indices, n_local) with halo columns rebased to rmax
-    — exactly the operand ``make_distributed_spmbv`` converts to Block-ELL
+    — exactly the operand :func:`repro_torch.sparse.spmbv.make_distributed_spmbv`
+    converts to Block-ELL
     (same helper, so the layouts cannot drift apart)."""
     return [(ptr, ix, n_local) for ptr, ix, _dat, n_local in rebased_local_csr(pm)]
 
@@ -225,7 +226,8 @@ def _rebased_local(pm: PartitionedMatrix):
 def tile_stats(pm: PartitionedMatrix, br: int, bc: int) -> TileStats:
     """Block-structure histogram of the per-rank [own ‖ halo] blocks for one
     candidate tile shape; mirrors the stacked Block-ELL conversion, so
-    ``TileStats.kmax`` equals the kmax ``make_distributed_spmbv`` will pad to.
+    ``TileStats.kmax`` equals the kmax
+    :func:`repro_torch.sparse.spmbv.make_distributed_spmbv` will pad to.
     Cached on the partition: the stats do not depend on t, and ``select_t``
     tunes once per candidate t (O(nnz) host work per tile).
     """

@@ -13,7 +13,8 @@ under the winning strategy, then blocking-vs-overlap for the winning pair —
 4 + |tiles| + 2 operator builds instead of 4·|tiles|·2.
 
 Port of ``repro/tune/microbench.py``.  Departures in form: the operators
-are built by the port's ``_make_distributed_spmbv`` on a
+are built by :func:`repro_torch.sparse.spmbv._make_distributed_spmbv` (the
+engine of ``make_distributed_spmbv``) on a
 :class:`~repro_torch.launch.mesh.VirtualMesh`; the four strategy candidates
 share one Block-ELL conversion (it depends on the partition and the tile
 alone), and each candidate is dropped before the next is built, since at

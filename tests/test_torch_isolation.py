@@ -46,7 +46,8 @@ def test_importing_the_port_loads_no_jax():
         "import sys, repro_torch, repro_torch.solver, repro_torch.launch.solve, "
         "repro_torch.kernels, repro_torch.sparse, repro_torch.tune, repro_torch.adaptive, "
         "repro_torch.core.models, repro_torch.serve, repro_torch.observe, "
-        "repro_torch.launch.serve\n"
+        "repro_torch.launch.serve, repro_torch.launch.perf, repro_torch.launch.mesh, "
+        "repro_torch.analysis.ecg_bench\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

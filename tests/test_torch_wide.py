@@ -38,6 +38,7 @@ import repro.sparse as ref_sparse
 from repro.kernels.block_trisolve.kernel import block_trisolve_pallas
 
 from repro_torch import kernels
+from repro_torch.core.ecg import check_card_width
 from repro_torch.kernels import _build
 from repro_torch.solver import ECGSolver, SolverConfig
 from repro_torch.sparse.csr import CSRMatrix
@@ -201,8 +202,8 @@ def test_wider_than_32_is_refused_on_the_card_before_device_work(system, monkeyp
     # 32 columns fit; on the CPU any width runs
     for fits in (SolverConfig(t=32), SolverConfig(t=8).replace(method="sstep", s=4),
                  SolverConfig(t="auto").replace(t_candidates=(1, 32))):
-        handle._check_card_width(torch.device("cuda"), fits)
-    handle._check_card_width(torch.device("cpu"), cfg)
+        check_card_width(torch.device("cuda"), fits.t, fits.method.s, fits.adaptive.t_candidates)
+    check_card_width(torch.device("cpu"), cfg.t, cfg.method.s, cfg.adaptive.t_candidates)
 
 
 # ------------------------------------------------------------ CUDA sources
