@@ -325,6 +325,26 @@ counts (and the mesh's counters) set to 0 just before its solve:
     ``overlap_vs_blocking_sweep`` on phase 4's operator (``optimal``, t = 8,
     pallas).
 
+49. ``process_mesh`` — the process-group mesh, one rank per process over
+    ``torch.distributed`` (NCCL; a ``file://`` rendezvous in a temporary
+    directory; each process is this script started with
+    ``--process-mesh-worker``, under a timeout, and each builds Example 2.1
+    from the same seed and keeps its own rank's rows).  (i) A world of 1 on
+    ``cuda:0``: the solve (``optimal``, t = 8, pallas, f64, tol 1e-8·‖b‖)
+    on ``ProcessGroupMesh(1, 1)`` against ``VirtualMesh(1, 1)`` on the same
+    card (the conversion reused): equal iterations, x equal bit for bit,
+    ``psum`` 3·n_iters + 1 (each one NCCL ``all_reduce``), the launch counts
+    of phase 4, true residual ≤ 10·tol; ms per iteration of both and the
+    exchange's share of an iteration.  (ii) With two cards or more, the
+    largest even world up to min(cards, 8), one process per card, on
+    ``ProcessGroupMesh(2, world/2)`` with ``standard`` and ``optimal``,
+    against ``VirtualMesh(2, world/2)`` on card 0: iterations within 1%,
+    ``psum`` 3·k + 1 and ``ppermute`` rotations·(k + 1) on every process,
+    the halo kernels len(plan.phases)·(k + 1) launches, true residual ≤
+    10·tol; ms per iteration and the share of an iteration the exchange
+    takes across cards.  On one card a line says that (ii) did not run and
+    why.
+
 The ``kernels`` line's ``bsr_spmbv``, ``fused_gram``, ``ecg_tail`` and
 ``rank_apply`` rows carry ``widths`` entries for t = 4 and 16 with their
 launches in phases 35 and 36; ``bsr_spmbv``, ``fused_gram``, ``ecg_tail``,
@@ -332,16 +352,22 @@ launches in phases 35 and 36; ``bsr_spmbv``, ``fused_gram``, ``ecg_tail``,
 with their launches in phases 40, 43 and 44 (0 where no solve runs the
 width), and ``chol_apply`` one for t = 1 with its launches in phase 16.
 Every row also carries ``oneshot_launches``: its launches in each of phases
-45-48.
+45-48, and ``process_mesh_launches``: its launches in phase 49's solves on
+the process-group mesh (rank 0's).
+
+``python3 chip_smoke.py --process-mesh-worker DIR RANK WORLD`` is one rank
+of phase 49's world (the script starts these itself).
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -735,6 +761,223 @@ def oneshot_phases(torch, dev, a, b, tol, seq_iters, x4, dist_iters) -> dict:
     gate("overlap_vs_blocking_full", len(ovb) == 2 and all(r_["us"] > 0 for r_ in ovb), f"rows {ovb}")
     launches["overlap_vs_blocking_full"] = got
     torch.cuda.empty_cache()
+    return launches
+
+
+def process_mesh_worker(out_dir: Path, rank: int, world: int) -> int:
+    """One rank of phase 49's NCCL world, on card ``rank``: Example 2.1's
+    solve on ``ProcessGroupMesh`` (a world of 1: (1, 1) with ``optimal``;
+    else (2, world/2) with ``standard`` and ``optimal``), each with the
+    launch counts and the mesh's counters set to 0 just before it, and the
+    SpMBV and the exchange alone timed after it.  Rank 0 then, with the
+    group gone, solves the same systems on ``VirtualMesh`` on its card.
+    Writes ``rank<r>.json``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import ProcessGroupMesh, VirtualMesh
+    from repro_torch.solver import CommConfig, ECGSolver, KernelConfig, SolverConfig
+    from repro_torch.sparse import csr_spmv, dg_laplace_2d
+
+    torch.cuda.set_device(rank)  # NCCL: the card before the group
+    dev = torch.device("cuda", rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"file://{out_dir / 'rendezvous'}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=60))
+    shape = (1, 1) if world == 1 else (2, world // 2)
+    strategies = ("optimal",) if world == 1 else ("standard", "optimal")
+    t0 = time.perf_counter()
+    a = dg_laplace_2d(ELEMENTS, block=BLOCK, device=dev)
+    b = np.random.default_rng(0).standard_normal(a.shape[0])
+    tol = 1e-8 * float(np.linalg.norm(b))
+    b_dev = torch.as_tensor(b, device=dev)
+    gen_s = time.perf_counter() - t0
+
+    def counted_solve(solver, mesh):
+        kernels.reset_launch_counts()
+        mesh.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solver.solve(b)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        run = {"n_iters": res.n_iters, "converged": res.converged, "solve_s": secs,
+               "ms_per_iter": secs * 1e3 / max(res.n_iters, 1), "launches": kernels.launch_counts(),
+               "psum": mesh.psum_calls, "ppermute": mesh.ppermute_calls,
+               "ppermute_elements": mesh.ppermute_elements}
+        x = solver.unshard(res.x)  # every process: one all_gather
+        run["true_residual"] = float(torch.linalg.norm(
+            b_dev - csr_spmv(a, torch.as_tensor(x, device=dev))))
+        return run, x
+
+    def apply_and_exchange_ms(solver, mesh, reps=50):
+        """ms of one SpMBV, of its exchange alone and of one psum of the
+        packed Gram payload, (t, 3t) (mean of ``reps``)."""
+        op = solver.op
+        v = torch.randn(op.n_padded, T, dtype=torch.float64, device=dev)
+        apply, ex = op.matvec_fn(), op.exchange(op.plan, T, torch.float64)
+        v3 = v.reshape(mesh.local_ranks, op.rmax, T)
+        g = torch.randn(mesh.local_ranks, T, 3 * T, dtype=torch.float64, device=dev)
+        out = {}
+        for name, fn in (("spmbv_ms", lambda: apply(v)), ("exchange_ms", lambda: ex.run(v3)),
+                         ("psum_ms", lambda: mesh.psum(g))):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            out[name] = (time.perf_counter() - t0) * 1e3 / reps
+        return out
+
+    rows, keep, pm, conversion = [], [], None, None
+    try:
+        mesh = ProcessGroupMesh(*shape)
+        for strategy in strategies:
+            cfg = SolverConfig(t=T, tol=tol, max_iters=MAX_ITERS, comm=CommConfig(strategy=strategy),
+                               kernel=KernelConfig(backend="pallas"))
+            t0 = time.perf_counter()
+            # the second strategy reuses the first's partition and own tiles
+            solver = ECGSolver.build(a, mesh, cfg, pm=pm, conversion=conversion)
+            pm, conversion = solver.partition, solver.conversion
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            run, x = counted_solve(solver, mesh)
+            plan = solver.op.plan
+            rows.append({"strategy": strategy, "mesh": list(shape), "rank": rank, "device": str(dev),
+                         "backend": mesh.backend, "tol": tol, "generate_s": gen_s, "build_s": build_s,
+                         "blocks": list(solver.op.ell["blocks"].shape), "n_phases": len(plan.phases),
+                         "rotations": sum(1 for st in plan.steps if st.offset), **run,
+                         **apply_and_exchange_ms(solver, mesh)})
+            keep.append((cfg, x))
+            del solver
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    # the same solves with every rank stacked on this card; a world of 1
+    # reuses its own tiles (one rank's layout is the stacked one)
+    conversion = conversion if world == 1 else None
+    if rank == 0:
+        for row, (cfg, x) in zip(rows, keep):
+            vm = VirtualMesh(*shape, device=dev)
+            vsolver = ECGSolver.build(a, vm, cfg, pm=pm, conversion=conversion)
+            conversion = vsolver.conversion
+            vrun, vx = counted_solve(vsolver, vm)
+            row["virtual"] = {**vrun, **apply_and_exchange_ms(vsolver, vm),
+                              "conversion_reused": vsolver.stats.conv_reused}
+            row["bit_identical_to_virtual"] = bool(np.array_equal(x, vx))
+            row["max_abs_diff_to_virtual"] = float(np.abs(x - vx).max())
+            del vsolver
+            torch.cuda.empty_cache()
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(rows))
+    return 0
+
+
+def spawn_world(world: int, timeout_s: float) -> list[list[dict]]:
+    """Start ``world`` processes of :func:`process_mesh_worker`, one per
+    card, and return each rank's rows.  A process that fails or outlives
+    ``timeout_s`` fails the phase; every process is stopped before this
+    returns."""
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        env = dict(os.environ, NCCL_SOCKET_IFNAME=os.environ.get("NCCL_SOCKET_IFNAME", "lo"))
+        logs = [open(d / f"rank{r}.log", "w") for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--process-mesh-worker", str(d), str(r),
+             str(world)], env=env | {"RANK": str(r), "LOCAL_RANK": str(r), "WORLD_SIZE": str(world)},
+            stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+        try:
+            deadline = time.monotonic() + timeout_s
+            for p in procs:
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        failed = {r: (p.returncode, (d / f"rank{r}.log").read_text()[-3000:])
+                  for r, p in enumerate(procs) if p.returncode != 0}
+        gate("process_mesh", not failed, f"world of {world}: ranks failed or timed out: {failed}")
+        return [json.loads((d / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def process_mesh_phases(torch, seq_iters: int) -> dict:
+    """Phase 49: the process-group mesh on the card(s).  ``seq_iters`` is
+    phase 4's iteration count (logged beside).  Returns rank 0's launch
+    counts of each solve for the ``kernels`` line."""
+    launches = {}
+    count = torch.cuda.device_count()
+    world_ii = min(count, 8) // 2 * 2
+    for world, phase in ((1, "process_mesh_world1"), (world_ii, "process_mesh_multi_card")):
+        if world < 2 and phase == "process_mesh_multi_card":
+            log({"phase": phase, "ran": False, "cards": count,
+                 "why": f"torch.cuda.device_count() is {count}: NCCL puts at most one rank of a "
+                        "communicator on a card, so a 2 × k mesh needs two cards or more; "
+                        "(ii) did not run"})
+            continue
+        t0 = time.perf_counter()
+        per_rank = spawn_world(world, timeout_s=400)
+        secs = time.perf_counter() - t0
+        for i, row in enumerate(per_rank[0]):
+            k = row["n_iters"]
+            v = row["virtual"]
+            ranks = [r_[i] for r_ in per_rank]
+            n_ph, n_rot = row["n_phases"], row["rotations"]
+            want = {"bsr_spmbv": k + 1, "fused_gram": k, "ecg_tail": k, "chol_apply": k,
+                    "halo_pack": n_ph * (k + 1), "halo_unpack": n_ph * (k + 1),
+                    "block_trisolve": 0, "block_update": 0, "rank_apply": 0, "drop_mask": 0}
+            summary = {
+                "phase": phase, "ran": True, "world": world, "mesh": row["mesh"],
+                "strategy": row["strategy"], "backend": row["backend"], "n_iters": k,
+                "virtual_n_iters": v["n_iters"], "main_path_iters": seq_iters,
+                "ms_per_iter": row["ms_per_iter"], "virtual_ms_per_iter": v["ms_per_iter"],
+                "ms_per_iter_by_rank": [r_["ms_per_iter"] for r_ in ranks],
+                "spmbv_ms": row["spmbv_ms"], "exchange_ms": row["exchange_ms"],
+                "exchange_share": row["exchange_ms"] / row["ms_per_iter"],
+                "psum_ms": row["psum_ms"], "virtual_psum_ms": v["psum_ms"],
+                "virtual_spmbv_ms": v["spmbv_ms"], "virtual_exchange_ms": v["exchange_ms"],
+                "virtual_exchange_share": v["exchange_ms"] / v["ms_per_iter"],
+                "true_residual": row["true_residual"], "virtual_true_residual": v["true_residual"],
+                "tol": row["tol"],
+                "bit_identical_to_virtual": row["bit_identical_to_virtual"],
+                "max_abs_diff_to_virtual": row["max_abs_diff_to_virtual"],
+                "psum": [r_["psum"] for r_ in ranks], "ppermute": [r_["ppermute"] for r_ in ranks],
+                "ppermute_elements": sum(r_["ppermute_elements"] for r_ in ranks),
+                "virtual_ppermute_elements": v["ppermute_elements"],
+                "blocks": row["blocks"], "build_s": row["build_s"], "generate_s": row["generate_s"],
+                "conversion_reused_by_virtual": v["conversion_reused"],
+                "launches": row["launches"], "seconds": secs}
+            log(summary)
+            name = f"{phase} {row['strategy']}"
+            gate(name, all(r_["converged"] for r_ in ranks) and v["converged"],
+                 "a solve did not converge")
+            gate(name, all(r_["n_iters"] == k for r_ in ranks), "the ranks' iterations differ")
+            gate(name, all(r_["psum"] == 3 * k + 1 for r_ in ranks), f"psum {summary['psum']}, want 3·{k} + 1")
+            gate(name, all(r_["ppermute"] == n_rot * (k + 1) for r_ in ranks),
+                 f"ppermute {summary['ppermute']}, want {n_rot}·({k} + 1)")
+            gate(name, all(r_["launches"] == want for r_ in ranks), f"launch counts {row['launches']} != {want}")
+            gate(name, summary["ppermute_elements"] == v["ppermute_elements"],
+                 "the ranks' exchanged elements do not sum to the virtual mesh's")
+            gate(name, all(r_["true_residual"] <= 10 * r_["tol"] for r_ in ranks)
+                 and v["true_residual"] <= 10 * row["tol"], "a true residual over 10·tol")
+            if world == 1:
+                gate(name, k == v["n_iters"] and row["bit_identical_to_virtual"],
+                     f"{k} iterations, VirtualMesh(1, 1) {v['n_iters']}; x bit-identical: "
+                     f"{row['bit_identical_to_virtual']}")
+            else:
+                gate(name, abs(k - v["n_iters"]) <= max(1, 0.01 * v["n_iters"]),
+                     f"{k} iterations, VirtualMesh {v['n_iters']}")
+            launches[f"{phase}_{row['strategy']}"] = row["launches"]
     return launches
 
 
@@ -2646,6 +2889,9 @@ def main() -> int:
     # ------------------------------------------ 45.-48. the one-shot API, the sweeps
     oneshot = oneshot_phases(torch, dev, a, b, tol, seq["n_iters"], x4, d8["n_iters"])
 
+    # --------------------------------------------- 49. the process-group mesh
+    process_mesh = process_mesh_phases(torch, seq["n_iters"])
+
     # ------------------------------------------------------------------ result
     sources = {
         "bsr_spmbv": ("src/repro_torch/kernels/csrc/bsr_spmbv.cu", "src/repro/kernels/bsr_spmbv/kernel.py:43"),
@@ -2730,6 +2976,7 @@ def main() -> int:
     # and each kernel's launches in the one-shot and sweep phases (45-48)
     for row in rows:
         row["oneshot_launches"] = {ph: counts[row["name"]] for ph, counts in oneshot.items()}
+        row["process_mesh_launches"] = {ph: counts[row["name"]] for ph, counts in process_mesh.items()}
     log({"kernels": rows})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
@@ -2737,4 +2984,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--process-mesh-worker"]:
+        sys.exit(process_mesh_worker(Path(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])))
     sys.exit(main())

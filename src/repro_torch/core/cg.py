@@ -187,7 +187,7 @@ def cg_solve(
     """
     warnings.warn(
         "cg_solve() now runs the classic ECG method at t=1; build a "
-        "repro.solver.ECGSolver handle with SolverConfig(t=1) instead",
+        "repro_torch.solver.ECGSolver handle with SolverConfig(t=1) instead",
         DeprecationWarning,
         stacklevel=2,
     )

@@ -93,7 +93,8 @@ def check_card_width(device, t, s: int = 1, candidates=()) -> None:
             what += f" at s={s}"
         raise NotImplementedError(
             f"{what} makes blocks of {widest} columns; the card's kernels take at most "
-            f"{MAX_RANK_T} (ROADMAP.md §3, fault E); solve with a smaller t or s, or on the CPU"
+            f"{MAX_RANK_T} (ROADMAP.md queue 1 item 15, fault E's remainder); solve with a "
+            "smaller t or s, or on the CPU"
         )
 
 
@@ -398,7 +399,7 @@ def ecg_solve(a_apply, b, t, *args, **kwargs) -> SolveResult:
     """
     warnings.warn(
         "ecg_solve() is the legacy one-shot spelling; build a "
-        "repro.solver.ECGSolver handle (compile-once / solve-many, typed "
+        "repro_torch.solver.ECGSolver handle (compile-once / solve-many, typed "
         "SolverConfig) instead",
         DeprecationWarning,
         stacklevel=2,

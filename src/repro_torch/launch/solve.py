@@ -10,6 +10,9 @@
         --strategy optimal --devices 8 --ppn 4 --method sstep --s 2 [--reorth] [--overlap]
     PYTHONPATH=src python -m repro_torch.launch.solve --backend pallas --devices 8 \
         [--strategy tuned] [--tune model|model:structural|measure|off] [--t auto]
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 8 \
+        -m repro_torch.launch.solve --devices 8 --ppn 4 --strategy optimal \
+        --backend pallas [--device cpu]
 
 The flags and the summary lines are the reference CLI's
 (``python -m repro.launch.solve``).  ``--backend pallas`` runs the Block-ELL
@@ -17,7 +20,12 @@ SpMBV, fused Gram and fused tail CUDA kernels; ``--backend jnp`` plain torch
 ops.  ``--device`` (default ``cuda``) selects the card, or ``cpu`` for the
 kernels' plain versions.  ``--devices N --ppn K`` runs the distributed
 node-aware solver on a ``VirtualMesh(N // K, K)``: all N ranks on that one
-device (no re-exec, unlike the reference's forced host devices).
+device (no re-exec, unlike the reference's forced host devices).  Under
+``torch.distributed.run`` (``WORLD_SIZE`` set, and equal to ``--devices``)
+it runs one rank per process on a ``ProcessGroupMesh(N // K, K)``
+instead: NCCL on ``cuda:LOCAL_RANK``, or gloo with ``--device cpu``; only
+rank 0 prints.  The overlap schedule, ``--tune measure`` and ``--t auto``
+raise there (ROADMAP.md queue 1 item 5b, remainder).
 ``--precondition block_jacobi|chebyshev|inexact`` runs the preconditioned
 solve (block-Jacobi through the ``block_trisolve`` CUDA kernel).
 ``--adaptive rankrev|reduce|reduce+restart`` runs the in-solve width
@@ -48,6 +56,9 @@ Chrome/Perfetto trace, or an append-only event log for ``*.jsonl``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import os
 import time
 
 
@@ -130,6 +141,12 @@ def main(argv=None):
             ap.error("--reorth only applies to --method sstep")
     if args.devices and args.devices % args.ppn:
         ap.error(f"--devices {args.devices} is not a multiple of --ppn {args.ppn}")
+    world = int(os.environ.get("WORLD_SIZE", 0))  # set by torch.distributed.run
+    if world and args.devices != world:
+        ap.error(f"--devices {args.devices} must equal the WORLD_SIZE {world} of "
+                 "torch.distributed.run: one rank per process")
+    if world and args.trace:
+        ap.error("--trace writes one file: run it without torch.distributed.run")
     if args.t == "auto" and args.tune == "off":
         ap.error("--t auto composes the tuner's cost models and cannot run "
                  "with --tune off; use --tune model (or --tune measure — the "
@@ -140,6 +157,9 @@ def main(argv=None):
               "--tune measure calibrates the distributed operator tuning only")
     if args.tune is None:
         args.tune = "model" if (args.strategy == "tuned" or args.t == "auto") else "off"
+    if world:
+        _run_in_world(args)
+        return
     if args.trace is None:
         _run(args)
         return
@@ -157,7 +177,34 @@ def main(argv=None):
     print(f"# trace written to {args.trace}")
 
 
-def _run(args):
+def _run_in_world(args):
+    """One process of a ``torch.distributed.run`` world: join (or reuse) the
+    process group, solve on a ``ProcessGroupMesh``, print on rank 0 only."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import ProcessGroupMesh
+
+    own_group = not dist.is_initialized()
+    if own_group:
+        cuda = args.device != "cpu"
+        if cuda:  # NCCL: the card before the group
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl" if cuda else "gloo",
+                                timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = ProcessGroupMesh(args.devices // args.ppn, args.ppn)
+        quiet = contextlib.redirect_stdout(io.StringIO()) if mesh.rank else contextlib.nullcontext()
+        with quiet:
+            _run(args, mesh)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _run(args, mesh=None):
     import numpy as np
     import torch
 
@@ -172,7 +219,7 @@ def _run(args):
     )
     from repro_torch.sparse import csr_spmv, dg_laplace_2d, fd_laplace_2d, random_spd
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     a = {
         "dg": lambda: dg_laplace_2d((args.elements, args.elements), block=args.block,
                                     device=device),
@@ -225,7 +272,8 @@ def _run(args):
         print(f"reference CG:  iters={res_cg.n_iters}")
         return
 
-    mesh = VirtualMesh(args.devices // args.ppn, args.ppn, device=device)
+    if mesh is None:
+        mesh = VirtualMesh(args.devices // args.ppn, args.ppn, device=device)
     t0 = time.time()
     solver = ECGSolver.build(a, mesh, config, b=b)
     res = solver.solve(b)
@@ -240,9 +288,10 @@ def _run(args):
     x = solver.a.data.new_tensor(solver.unshard(res.x))
     b_dev = solver.a.data.new_tensor(b)
     relres = float(torch.linalg.norm(b_dev - csr_spmv(solver.a, x)) / torch.linalg.norm(b_dev))
+    where = "devices" if mesh.capturable else "processes"
     print(
         f"distributed ECG[{mtag}/{strategy}/{args.backend}"
-        f"{'/overlap' if solver.op.overlap else ''}] t={res.t} on {mesh.p} devices: "
+        f"{'/overlap' if solver.op.overlap else ''}] t={res.t} on {mesh.p} {where}: "
         f"iters={res.n_iters} converged={res.converged} relres={relres:.2e} "
         f"{time.time()-t0:.1f}s"
     )

@@ -17,7 +17,10 @@ own counter instead: :func:`bytes_drift` applies the width-``w`` operator
 once and takes ``VirtualMesh.ppermute_elements`` × itemsize, the elements
 every rank handed to a rotation (each rotation buffer whole, padding
 included, as the reference's buffer shapes are), against
-``plan.at_width(w).wire_bytes``.
+``plan.at_width(w).wire_bytes``.  On a ``ProcessGroupMesh`` each process
+counts its own rank's elements; :func:`bytes_drift` sums them over the
+group (one ``all_gather`` of the counts, outside any solve), so it returns
+the whole exchange's bytes on every process, as on the virtual mesh.
 
 :func:`calibrated_drift` normalizes each row's time drift by the median
 drift across rows: one scalar (the machine's true speed against the
@@ -92,7 +95,8 @@ def bytes_drift(solver, width: int | None = None, dtype=torch.float64) -> dict:
     the first and every later apply count the same).  Returns
     ``dict(width, plan_bytes, moved_bytes, ratio)``; ``ratio`` is
     moved/plan, ≥ 1 (a rotation moves its whole buffer, the plan counts
-    the halo rows it delivers).
+    the halo rows it delivers).  On a process-group mesh every process
+    calls it, and ``moved_bytes`` is the sum over the processes.
     """
     if solver.op is None:
         raise ValueError("bytes drift needs a distributed handle (mesh=)")
@@ -103,7 +107,11 @@ def bytes_drift(solver, width: int | None = None, dtype=torch.float64) -> dict:
     v = torch.zeros((op.n_padded, w), dtype=dtype, device=op.device)
     before = mesh.ppermute_elements
     op.matvec_fn(t_active=w)(v)
-    moved = int(mesh.ppermute_elements - before) * f
+    moved = int(mesh.ppermute_elements - before)
+    if mesh.local_ranks != mesh.p:  # each process counted its own rank's
+        counts = torch.tensor([[moved]], dtype=torch.int64, device=mesh.device)
+        moved = int(mesh.all_gather(counts).sum())
+    moved *= f
     return dict(width=w, plan_bytes=plan_bytes, moved_bytes=moved,
                 ratio=(moved / plan_bytes) if plan_bytes else None)
 

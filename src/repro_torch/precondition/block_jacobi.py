@@ -79,7 +79,8 @@ def rank_slot_layout(true_row_of_slot: np.ndarray, p: int, block: int) -> np.nda
     """Distributed slot layout: each rank's ``rmax`` slots padded (with -1
     identity slots) to a multiple of ``block`` so no block straddles ranks.
 
-    true_row_of_slot: (p * rmax,) from ``DistributedSpMBV.true_row_of_slot``.
+    true_row_of_slot: (p * rmax,) from ``DistributedSpMBV.true_row_of_slot``,
+    p the ranks the process holds.
     Returns (p * rmax_pad,) row-of-slot in the padded per-rank order.
     """
     rmax = true_row_of_slot.shape[0] // p

@@ -99,9 +99,12 @@ def build_distributed_preconditioner(a, cfg: PreconditionConfig, op, mesh, a_app
     """Preconditioner for the distributed handle (``None`` when inactive).
 
     Block-Jacobi blocks are carved inside each rank's padded slot range
-    (identity on padding slots, blocks never straddle ranks), the p ranks'
-    factors stacked as (p·nb_rank, bs, bs) and applied in one launch.
-    Chebyshev/inexact compose the distributed SpMBV.
+    (identity on padding slots, blocks never straddle ranks), the factors
+    of the ranks this process holds (``mesh.ranks``: all p on a virtual
+    mesh, its own on a process-group mesh) stacked as (ranks·nb_rank, bs,
+    bs) and applied in one launch.  Chebyshev/inexact compose the
+    distributed SpMBV (the power iteration's vectors go through
+    ``op.shard_vector``/``op.unshard``, global on every process).
     """
     if not cfg.active:
         return None
@@ -114,5 +117,5 @@ def build_distributed_preconditioner(a, cfg: PreconditionConfig, op, mesh, a_app
     if cfg.kind == "inexact":
         diag = extract_diagonal(a, row_of_slot=op.true_row_of_slot())
         return make_inexact_apply(a_apply, diag, cfg.omega, cfg.sweeps)
-    row_of_slot = rank_slot_layout(op.true_row_of_slot(), op.p, cfg.block)
+    row_of_slot = rank_slot_layout(op.true_row_of_slot(), mesh.local_ranks, cfg.block)
     return BlockJacobiApply(a, row_of_slot, cfg.block, mesh.local_ranks, mesh.device)

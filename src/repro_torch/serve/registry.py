@@ -39,6 +39,7 @@ import dataclasses
 import time
 from collections import OrderedDict
 
+from repro_torch.launch.mesh import refuse_unstacked
 from repro_torch.observe.tracer import coerce_tracer
 from repro_torch.serve.cache import WarmStartCache, config_digest, mesh_tag
 from repro_torch.serve.config import ServeConfig
@@ -68,6 +69,8 @@ class OperatorRegistry:
 
     def __init__(self, config: ServeConfig | None = None, mesh=None,
                  tracer=None, device=None):
+        # the server's batches and packs stack every rank on one device
+        refuse_unstacked(mesh, "the serving layer")
         self.config = ServeConfig.coerce(config)
         self.mesh = mesh
         # every session is built on this device (the mesh's with a mesh;

@@ -14,6 +14,11 @@ Port of ``repro/solver/handle.py``, sequential and distributed:
         t=8, comm=CommConfig(strategy="optimal"), kernel="pallas"))
     x = dist.unshard(dist.solve(b).x)
 
+    # one rank per process (torch.distributed initialised, 8 processes)
+    pg = ECGSolver.build(a, ProcessGroupMesh(2, 4), SolverConfig(
+        t=8, comm=CommConfig(strategy="optimal"), kernel="pallas"))
+    x = pg.unshard(pg.solve(b).x)   # every process calls it
+
     adaptive = ECGSolver.build(a, VirtualMesh(2, 4), SolverConfig(
         t=8, adaptive="reduce", comm=CommConfig(strategy="optimal"), kernel="pallas"))
     res = adaptive.solve(b)   # res.active_hist, res.comm_segments
@@ -52,6 +57,17 @@ sequential handle never segments.  Options whose machinery is not ported
 yet raise ``NotImplementedError`` naming the ROADMAP.md item that brings
 them.
 
+On a :class:`~repro_torch.launch.mesh.ProcessGroupMesh` every process
+builds the handle from the same global matrix and config and holds only
+its own rank's rows; every reduction is one ``all_reduce``, so each
+process reads the same residual norm, rank and active count and takes the
+same branch.  ``solve`` takes the global ``b`` on every process and
+``unshard`` gathers the global ``x`` on every process.  The overlap
+schedule, ``tune`` mode ``"measure"``, ``t="auto"``, ``solve_packed`` and
+the serving layer need every rank stacked on one device and raise
+``NotImplementedError`` there (ROADMAP.md queue 1 item 5b, remainder)
+before any device work.
+
 :meth:`ECGSolver.solve_packed` solves k right-hand sides as ONE enlarged
 block solve of width k·t, each request retiring against its own tolerance
 (the serving layer's width packing, :mod:`repro_torch.serve`); on a mesh
@@ -85,6 +101,7 @@ from repro_torch.kernels.bsr_spmbv.ops import block_ell_arrays, make_block_ell_a
 from repro_torch.kernels.chol_apply.ops import MAX_RANK_T
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.fused_gram.ops import fused_gram
+from repro_torch.launch.mesh import PROCESS_MESH_ITEM, refuse_unstacked
 from repro_torch.observe.tracer import coerce_tracer
 from repro_torch.precondition import (
     build_distributed_preconditioner,
@@ -98,6 +115,18 @@ from repro_torch.sparse.spmbv import _make_distributed_spmbv
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
+
+
+def check_process_mesh(mesh, cfg: SolverConfig) -> None:
+    """Refuse, before any device work, the options that need every rank
+    stacked on one device when ``mesh`` holds only some (a
+    :class:`~repro_torch.launch.mesh.ProcessGroupMesh`)."""
+    if cfg.comm.overlap:
+        refuse_unstacked(mesh, "the overlap schedule (CommConfig(overlap=True))")
+    if cfg.tune.mode == "measure":
+        refuse_unstacked(mesh, 'tune mode "measure"')
+    if isinstance(cfg.t, str):
+        refuse_unstacked(mesh, 't="auto"')
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -128,7 +157,8 @@ class ECGSolver:
     device:  the torch device every solve runs on.
     tuned:   the applied :class:`~repro_torch.tune.TunedConfig` (None untuned).
     selection: the :class:`~repro_torch.adaptive.TSelection` when ``t="auto"``.
-    mesh:    the :class:`~repro_torch.launch.mesh.VirtualMesh` (None for a
+    mesh:    the :class:`~repro_torch.launch.mesh.VirtualMesh` or
+             :class:`~repro_torch.launch.mesh.ProcessGroupMesh` (None for a
              sequential handle).
     policy:  the resolved adaptive
              :class:`~repro_torch.adaptive.ReductionPolicy` (None = fixed
@@ -159,8 +189,9 @@ class ECGSolver:
 
         a:          :class:`~repro_torch.sparse.csr.CSRMatrix` (SPD); it is
                     moved to ``device`` if it lies elsewhere.
-        mesh:       a :class:`~repro_torch.launch.mesh.VirtualMesh` for the
-                    distributed node-aware solver, or None for the
+        mesh:       a :class:`~repro_torch.launch.mesh.VirtualMesh` or
+                    :class:`~repro_torch.launch.mesh.ProcessGroupMesh` for
+                    the distributed node-aware solver, or None for the
                     sequential solver.
         config:     a :class:`SolverConfig` (or dict of its fields).
         b:          optional probe right-hand side for ``t="auto"`` (defaults
@@ -186,12 +217,13 @@ class ECGSolver:
                     tracer, normally the free null tracer).
         """
         if mesh is not None and not all(
-            hasattr(mesh, m) for m in ("ppermute", "psum", "local_ranks", "shape", "device")
+            hasattr(mesh, m) for m in ("ppermute", "psum", "all_gather", "local_ranks", "ranks",
+                                       "shape", "device", "capturable")
         ):
             _not_ported(
                 f"a mesh of type {type(mesh).__name__}: the distributed solver runs on a "
-                "repro_torch.launch.mesh.VirtualMesh; a process-group mesh",
-                "queue 1 item 5b",
+                "repro_torch.launch.mesh.VirtualMesh or ProcessGroupMesh; any other mesh",
+                PROCESS_MESH_ITEM,
             )
         self = cls.__new__(cls)
         if mesh is not None:
@@ -202,6 +234,7 @@ class ECGSolver:
             self.device = resolve_device("cuda" if device is None else device)
         self.config = cfg = SolverConfig.coerce(config)
         check_card_width(self.device, cfg.t, cfg.method.s, cfg.adaptive.t_candidates)
+        check_process_mesh(mesh, cfg)
         self.a = a.to(self.device)
         self.mesh = mesh
         self._tracer = coerce_tracer(tracer)
@@ -771,6 +804,7 @@ class ECGSolver:
         synchronous, so the ``solve_packed/dispatch`` span covers it.
         """
         cfg = self.config
+        refuse_unstacked(self.mesh, "solve_packed")
         if len(bs) == 0:
             raise ValueError("solve_packed needs at least one right-hand side")
         if cfg.method.name != "classic":
@@ -924,6 +958,7 @@ class ECGSolver:
         """
         new_cfg = self.config.replace(**overrides)
         check_card_width(self.device, new_cfg.t, new_cfg.method.s, new_cfg.adaptive.t_candidates)
+        check_process_mesh(self.mesh, new_cfg)
         clone = ECGSolver.__new__(ECGSolver)
         clone.a, clone.config = self.a, new_cfg
         clone.device, clone.mesh = self.device, self.mesh

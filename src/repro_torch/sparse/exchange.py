@@ -19,7 +19,9 @@ capture), captures it into a CUDA graph the second time, and replays that
 graph from then on, so an exchange costs the host one graph launch instead
 of some thirty kernel launches.  A capture that fails raises; there is no
 eager fallback.  On CPU tensors every run is eager, through the plain
-versions.  :meth:`HaloExchange.start` is :meth:`run` for the overlap
+versions, and so is every run on a mesh whose ``capturable`` is False (a
+``ProcessGroupMesh``: its NCCL point-to-point calls are not captured),
+decided by the mesh's type and not by a failed capture.  :meth:`HaloExchange.start` is :meth:`run` for the overlap
 schedule: it replays the graph on a given side stream, after the caller's
 stream has copied in the own rows, and hands back an event that the
 boundary product waits on.
@@ -159,8 +161,9 @@ class HaloExchange:
 
     def run(self, v3: torch.Tensor) -> torch.Tensor:
         """``xfull`` with ``v3`` (p, rmax, t) as its own rows and their
-        exchanged halo: eager at the first run and on the CPU, captured at
-        the second run on CUDA and replayed from then on.  ``v3`` must lie
+        exchanged halo: eager at the first run, on the CPU and on a mesh
+        that cannot be captured, captured at the second run on CUDA and
+        replayed from then on.  ``v3`` must lie
         on the exchange's device, in its dtype and shape."""
         return self.start(v3)[0]
 
@@ -176,7 +179,7 @@ class HaloExchange:
             raise ValueError(f"exchange of {tuple(own.shape)} {own.dtype} on {own.device} "
                              f"got {tuple(v3.shape)} {v3.dtype} on {v3.device}")
         own.copy_(v3)
-        if self.graph is None and self.runs and self.xfull.is_cuda:
+        if self.graph is None and self.runs and self.xfull.is_cuda and self.mesh.capturable:
             self.capture()
         done = None
         if self.graph is None:

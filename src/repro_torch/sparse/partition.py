@@ -128,14 +128,15 @@ def interior_boundary_split(
 
 
 def rebased_local_csr(
-    pm: PartitionedMatrix,
+    pm: PartitionedMatrix, ranks=None,
 ) -> list[tuple[np.ndarray, np.ndarray, np.ndarray, int]]:
-    """Per rank, (indptr, indices, data, n_local) with halo columns rebased
-    from n_local-relative to rmax-relative ids — the [own ‖ halo] operand
-    layout the distributed executor pads vectors to."""
+    """Per rank of ``ranks`` (default all), (indptr, indices, data,
+    n_local) with halo columns rebased from n_local-relative to
+    rmax-relative ids — the [own ‖ halo] operand layout the distributed
+    executor pads vectors to."""
     rmax = pm.part.max_local_rows
     out = []
-    for r in range(pm.p):
+    for r in range(pm.p) if ranks is None else ranks:
         lo, hi = pm.part.local_range(r)
         n_local = hi - lo
         ix = np.asarray(pm.local_indices[r], dtype=np.int64)

@@ -6,11 +6,12 @@ The halo exchange replays a static
 :class:`~repro_torch.core.node_aware.ExchangePlan`, then the local SpMBV runs
 on [own rows ‖ halo rows].
 
-The reference runs the per-rank program under ``shard_map``.  Here the mesh
-is a :class:`~repro_torch.launch.mesh.VirtualMesh`: every per-rank array is
-stacked along a leading rank axis, so a block vector in the padded per-rank
-layout is one (p·rmax, t) tensor, viewed as (p, rmax, t), and one kernel
-launch serves all p ranks:
+The reference runs the per-rank program under ``shard_map``.  Here every
+per-rank array is stacked along a leading rank axis over the ranks the
+process holds (all p on a :class:`~repro_torch.launch.mesh.VirtualMesh`,
+see below for one rank per process), so a block vector in the padded
+per-rank layout is one (p·rmax, t) tensor, viewed as (p, rmax, t), and one
+kernel launch serves all p ranks:
 
 * the exchange is *phase-packed*: each phase of the plan is ONE
   ``halo_pack`` launch (a fused gather into a contiguous send buffer for
@@ -30,9 +31,16 @@ launch serves all p ranks:
   block-diagonal CSR of the p local [own ‖ halo] blocks.
 
 The device program uses only ``mesh.local_ranks``, ``mesh.ppermute`` and
-``mesh.device``.  The host-side build stacks the arrays of all p ranks; a
-process-group mesh (one rank per process, ROADMAP.md queue 1 item 5b)
-keeps its own rank's slice of each.
+``mesh.device``.  Every process computes the partition and the exchange
+plan whole (they are equal bit for bit everywhere); the host-side build
+then converts and stacks only the ranks the process holds
+(``mesh.ranks``): all p on a :class:`~repro_torch.launch.mesh.VirtualMesh`,
+its own on a :class:`~repro_torch.launch.mesh.ProcessGroupMesh` (one rank
+per process), whose block vectors are (rmax, t) and whose exchange arrays
+are its own row of each phase's, padded over ranks as the plan pads them,
+so every send equals the matching receive in size.  ``unshard`` gathers
+every rank's rows there (``mesh.all_gather``).  The overlap schedule needs
+every rank stacked and is refused on a process-group mesh.
 
 Col-split plans (wide-halo payload splitting, nodal-optimal strategy) are
 transparent here: the exchange views the own rows ``(rmax, t)`` as
@@ -74,6 +82,7 @@ from repro_torch.kernels.bsr_spmbv.ops import (
     count_block_ell_tiles,
     csr_arrays_to_block_ell,
 )
+from repro_torch.launch.mesh import refuse_unstacked
 from repro_torch.sparse.csr import CSRMatrix, csr_spmbv
 from repro_torch.sparse.exchange import HaloExchange
 from repro_torch.sparse.partition import (
@@ -86,7 +95,9 @@ from repro_torch.sparse.partition import (
 
 @dataclasses.dataclass
 class DistributedSpMBV:
-    """Device-ready distributed SpMBV operator on a (virtual) mesh.
+    """Device-ready distributed SpMBV operator on a mesh.  Its device arrays
+    hold the ranks ``mesh.ranks`` names (below, p is their count: every
+    rank on a virtual mesh, one on a process-group mesh).
 
     ``backend`` selects the local SpMBV formulation (CSR gather/``index_add_``
     vs the Block-ELL CUDA kernel).  Only the representation the selected
@@ -99,6 +110,7 @@ class DistributedSpMBV:
     rmax: int              # padded rows per rank
     starts: np.ndarray     # (p+1,) partition row offsets (true global ids)
     # stacked per-PHASE exchange index arrays, (p, width) int32 on the device
+    # (widths padded over every rank of the mesh)
     gathers: list[torch.Tensor]
     scatters: list[torch.Tensor]
     backend: str = "jnp"
@@ -132,7 +144,9 @@ class DistributedSpMBV:
 
     @property
     def n_padded(self) -> int:
-        return self.p * self.rmax
+        """Rows of this process's padded layout: p·rmax on a virtual mesh,
+        rmax per rank it holds."""
+        return self.mesh.local_ranks * self.rmax
 
     @property
     def device(self) -> torch.device:
@@ -142,17 +156,22 @@ class DistributedSpMBV:
     def shard_vector(self, v, dtype=None) -> torch.Tensor:
         """Lay out a global (n,) or (n, t) array into the padded per-rank
         layout (rank r's block of rmax rows holds its partition rows, then
-        zeros), as a (p·rmax, ...) tensor on the mesh's device."""
+        zeros), as an (n_padded, ...) tensor on the mesh's device holding
+        the ranks of ``mesh.ranks``."""
         v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
         out = np.zeros((self.n_padded,) + v.shape[1:], v.dtype)
-        for r in range(self.p):
+        for i, r in enumerate(self.mesh.ranks):
             lo, hi = self.starts[r], self.starts[r + 1]
-            out[r * self.rmax : r * self.rmax + (hi - lo)] = v[lo:hi]
+            out[i * self.rmax : i * self.rmax + (hi - lo)] = v[lo:hi]
         return torch.as_tensor(out, device=self.device, dtype=dtype)
 
     def unshard(self, w) -> np.ndarray:
-        """Inverse of :meth:`shard_vector`: a global (n, ...) numpy array."""
-        w = w.detach().cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
+        """Inverse of :meth:`shard_vector`: a global (n, ...) numpy array,
+        from every rank's padded rows (``mesh.all_gather``: on a
+        process-group mesh every process calls it and gets the whole)."""
+        w = torch.as_tensor(w, device=self.device)
+        w = self.mesh.all_gather(w.reshape((self.mesh.local_ranks, self.rmax) + w.shape[1:]))
+        w = w.reshape((self.p * self.rmax,) + w.shape[2:]).detach().cpu().numpy()
         out = np.zeros((self.n,) + w.shape[1:], w.dtype)
         for r in range(self.p):
             lo, hi = self.starts[r], self.starts[r + 1]
@@ -164,11 +183,12 @@ class DistributedSpMBV:
         return (self.true_row_of_slot() >= 0).astype(np.float64)
 
     def true_row_of_slot(self) -> np.ndarray:
-        """(n_padded,) true global row id per padded slot (-1 for pads)."""
+        """(n_padded,) true global row id per padded slot of this process
+        (-1 for pads)."""
         m = np.full(self.n_padded, -1, dtype=np.int64)
-        for r in range(self.p):
+        for i, r in enumerate(self.mesh.ranks):
             lo, hi = self.starts[r], self.starts[r + 1]
-            m[r * self.rmax : r * self.rmax + (hi - lo)] = np.arange(lo, hi)
+            m[i * self.rmax : i * self.rmax + (hi - lo)] = np.arange(lo, hi)
         return m
 
     # ------------------------------------------------------------ exchange
@@ -200,8 +220,8 @@ class DistributedSpMBV:
         return hit
 
     def _local_spmbv(self, xfull: torch.Tensor) -> torch.Tensor:
-        """The p local [own ‖ halo] products of ``xfull`` (p, m_pad, t);
-        returns (p, rmax, t)."""
+        """The local [own ‖ halo] products of ``xfull`` (p, m_pad, t), p the
+        ranks this process holds; returns (p, rmax, t)."""
         p, m_pad, t = xfull.shape
         if self.backend == "pallas":
             blocks = self._tiles("ell", self.ell["blocks"], xfull.dtype)
@@ -304,7 +324,7 @@ class DistributedSpMBV:
         key = (plan.t, plan.col_split)
         hit = self._width_arrays.get(key)
         if hit is None:
-            hit = _phase_arrays(plan, self.rmax, self.device)
+            hit = _phase_arrays(plan, self.rmax, self.device, self.mesh.ranks)
             self._width_arrays[key] = hit
         return hit
 
@@ -351,11 +371,13 @@ class DistributedSpMBV:
         return apply
 
 
-def _phase_arrays(plan: ExchangePlan, rmax: int, device):
-    """Per-phase (p, width) int32 gather/scatter tensors on ``device``, each
-    checked once against the buffer it indexes (the kernels do not check)."""
+def _phase_arrays(plan: ExchangePlan, rmax: int, device, ranks: range | None = None):
+    """Per-phase (len(ranks), width) int32 gather/scatter tensors on
+    ``device``, the rows of ``ranks`` (default every rank), each checked
+    once against the buffer it indexes (the kernels do not check)."""
     src_rows = {"x": rmax * plan.col_split, "stage": plan.stage_size + 1}
     dst_rows = {"halo": plan.halo_size + 1, "stage": plan.stage_size + 1}
+    own = slice(None) if ranks is None else slice(ranks.start, ranks.stop)
     gathers, scatters = [], []
     for ph in plan.phases:
         for arr, bound, what in ((ph.gather_idx, src_rows[ph.src], "gather"),
@@ -363,8 +385,8 @@ def _phase_arrays(plan: ExchangePlan, rmax: int, device):
             if arr.size and not (0 <= arr.min() and arr.max() < bound):
                 raise ValueError(f"plan {what} index outside [0, {bound}) in phase "
                                  f"{ph.axis}:{ph.src}->{ph.dst}")
-        gathers.append(torch.as_tensor(np.ascontiguousarray(ph.gather_idx, np.int32), device=device))
-        scatters.append(torch.as_tensor(np.ascontiguousarray(ph.scatter_pos, np.int32), device=device))
+        gathers.append(torch.as_tensor(np.ascontiguousarray(ph.gather_idx[own], np.int32), device=device))
+        scatters.append(torch.as_tensor(np.ascontiguousarray(ph.scatter_pos[own], np.int32), device=device))
     return gathers, scatters
 
 
@@ -497,7 +519,7 @@ def make_distributed_spmbv(
     """
     warnings.warn(
         "make_distributed_spmbv() is the legacy stringly-typed spelling; "
-        "build a repro.solver.ECGSolver handle (typed SolverConfig) and use "
+        "build a repro_torch.solver.ECGSolver handle (typed SolverConfig) and use "
         "solver.op instead",
         DeprecationWarning,
         stacklevel=2,
@@ -547,9 +569,16 @@ def _make_distributed_spmbv(
 
     ``overlap=True`` builds the interior/boundary split instead of the
     whole local blocks (:attr:`DistributedSpMBV.split`, as the reference).
+
+    Only the ranks ``mesh.ranks`` holds are converted and put on the
+    device; on a process-group mesh ``overlap`` and ``tune="measure"``
+    raise ``NotImplementedError`` (the split and the microbenchmarks stack
+    every rank).
     """
     if backend not in ("jnp", "pallas"):
         raise ValueError(f"unknown backend {backend!r}")
+    if tune == "measure":
+        refuse_unstacked(mesh, 'tune mode "measure"')
     n_nodes, ppn = mesh.shape
     p = n_nodes * ppn
     pm = pm or partition_csr(a, p)
@@ -582,27 +611,32 @@ def _make_distributed_spmbv(
     plan = build_exchange_plan(
         pm, n_nodes, ppn, strategy, t=t, machine=machine, col_split=col_split
     )
+    if overlap:
+        refuse_unstacked(mesh, "the overlap schedule (overlap=True)")
     rmax = pm.part.max_local_rows
     val_dtype = np.asarray(pm.local_data[0]).dtype
-    # per-rank (indptr, indices-with-halo-at-rmax, data, n_local)
-    rebased = rebased_local_csr(pm)
+    # per held rank (indptr, indices-with-halo-at-rmax, data, n_local)
+    rebased = rebased_local_csr(pm, mesh.ranks)
     n_cols_full = rmax + plan.halo_rows
     br, bc = (ell_block, ell_block) if isinstance(ell_block, int) else tuple(ell_block)
 
     nbc_r = -(-n_cols_full // bc)  # block columns of one rank's operand
     operand_rows = nbc_r * bc if backend == "pallas" else n_cols_full
+    nbr = max(1, -(-rmax // br))  # block rows of one rank
     csr, split = None, {}
     if overlap:
         ell = {}
         split = {k_: torch.as_tensor(v_, device=mesh.device) for k_, v_ in _build_split(
             pm, rebased, rmax, n_cols_full, backend, br, bc, val_dtype).items()}
     elif backend == "pallas" and ell:
-        if ell["m_pad"] != operand_rows or tuple(ell["blocks"].shape[-2:]) != (br, bc):
-            raise ValueError("the supplied Block-ELL arrays do not fit this partition and tile")
+        if (ell["m_pad"] != operand_rows or tuple(ell["blocks"].shape[-2:]) != (br, bc)
+                or ell["blocks"].shape[0] != mesh.local_ranks * nbr):
+            raise ValueError("the supplied Block-ELL arrays do not fit this partition, tile and mesh")
     elif backend == "pallas":
+        # the held ranks' tiles, their block-column ids offset by position
         per_rank = [(np.arange(n_local), ptr, ix, dat) for ptr, ix, dat, n_local in rebased]
         blocks, idx = _stack_block_ell(per_rank, rmax, n_cols_full, br, bc, val_dtype)
-        idx = idx + (np.arange(p, dtype=np.int32) * nbc_r)[:, None, None]
+        idx = idx + (np.arange(len(rebased), dtype=np.int32) * nbc_r)[:, None, None]
         ell = {
             "blocks": torch.as_tensor(blocks.reshape((-1,) + blocks.shape[2:]), device=mesh.device),
             "indices": torch.as_tensor(idx.reshape(-1, idx.shape[-1]), device=mesh.device),
@@ -612,7 +646,7 @@ def _make_distributed_spmbv(
         ell = {}
         csr = _block_diagonal_csr(rebased, rmax, n_cols_full, val_dtype, mesh.device)
 
-    gathers, scatters = _phase_arrays(plan, rmax, mesh.device)
+    gathers, scatters = _phase_arrays(plan, rmax, mesh.device, mesh.ranks)
     return DistributedSpMBV(
         mesh=mesh,
         plan=plan,
@@ -656,8 +690,9 @@ def distributed_ecg(
     for it; ``adaptive`` selects the width controller (width-segmented
     exchange on the mesh) — the handle's options, see
     :class:`repro_torch.solver.ECGSolver`.  ``mesh`` is a
-    :class:`~repro_torch.launch.mesh.VirtualMesh`, and the solve runs on its
-    device.
+    :class:`~repro_torch.launch.mesh.VirtualMesh` or a
+    :class:`~repro_torch.launch.mesh.ProcessGroupMesh` (every process
+    calls it), and the solve runs on its device.
 
     .. deprecated::
         This is the legacy stringly-typed spelling.  It builds a
@@ -667,7 +702,7 @@ def distributed_ecg(
     """
     warnings.warn(
         "distributed_ecg() is the legacy stringly-typed spelling; build a "
-        "repro.solver.ECGSolver handle (compile-once / solve-many, typed "
+        "repro_torch.solver.ECGSolver handle (compile-once / solve-many, typed "
         "SolverConfig) instead",
         DeprecationWarning,
         stacklevel=2,

@@ -8,7 +8,8 @@ The same numpy inputs (the reference's generators, carried over with
   block=4)`` under both mappings, t ∈ {1, 4, 8}, backends jnp (the CSR
   product) and pallas (``make_block_ell_apply``), with ``chol_eps`` under
   classic and pipelined, ``t="auto"`` with ``matrix=``: iteration counts
-  equal, x within 1e-10 of max|x|, the same ``DeprecationWarning`` text.
+  equal, x within 1e-10 of max|x|, the same ``DeprecationWarning`` text
+  but for the handle it names (``repro_torch.solver.ECGSolver``).
   DG solves stop at 1e-6·‖b‖, before rounding is amplified (ROADMAP §3).
   A width-segmented ``exit_below_width``/``resume_state`` run equals the
   monolithic one bit for bit;
@@ -84,13 +85,19 @@ def _warned(fn, *args, **kw):
     return out, [str(w.message) for w in caught if w.category is DeprecationWarning]
 
 
+def _ported(msgs):
+    """The reference's warning texts as the port words them: the handle
+    they name is the port's own."""
+    return [m.replace("repro.solver.ECGSolver", "repro_torch.solver.ECGSolver") for m in msgs]
+
+
 def _both(ra, b, t, backend="jnp", **kw):
     """The reference's and the port's one-shot solves and warning texts."""
     a = _port(ra)
     ref_apply, port_apply = _applies(ra, a, backend)
     want, w_msgs = _warned(ref_ecg_solve, ref_apply, jnp.asarray(b), t, backend=backend, **kw)
     got, g_msgs = _warned(ecg_solve, port_apply, torch.as_tensor(b), t, backend=backend, **kw)
-    assert g_msgs == w_msgs and len(g_msgs) == 1
+    assert g_msgs == _ported(w_msgs) and len(g_msgs) == 1
     return want, got
 
 
@@ -155,7 +162,7 @@ def test_auto_t_matches_reference():
                            "auto", tol=tol, max_iters=MAX_ITERS, matrix=ra, machine=RM)
     got, g_msgs = _warned(ecg_solve, lambda v: csr_spmbv(a, v), torch.as_tensor(b), "auto",
                           tol=tol, max_iters=MAX_ITERS, matrix=a, machine=M)
-    assert g_msgs == w_msgs
+    assert g_msgs == _ported(w_msgs)
     sel, ref_sel = got.selection, want.selection
     assert got.t == want.t == sel.t == ref_sel.t
     assert sel.table.keys() == ref_sel.table.keys()
@@ -226,7 +233,7 @@ def test_cg_solve_matches_reference():
                            tol=tol, max_iters=MAX_ITERS)
     got, g_msgs = _warned(cg_solve, lambda v: csr_spmv(a, v), torch.as_tensor(b),
                           tol=tol, max_iters=MAX_ITERS)
-    assert g_msgs == w_msgs and len(g_msgs) == 1
+    assert g_msgs == _ported(w_msgs) and len(g_msgs) == 1
     assert got.t is None and want.t is None and got.converged
     _assert_same_solve(want, got)
 
@@ -319,7 +326,7 @@ def test_distributed_ecg_equals_handle_and_reference(dist_system):
     (res, op), msgs = _warned(distributed_ecg, a, b, mesh, 4, strategy="optimal", tol=tol,
                               max_iters=MAX_ITERS, backend="pallas")
     assert msgs == ["distributed_ecg() is the legacy stringly-typed spelling; build a "
-                    "repro.solver.ECGSolver handle (compile-once / solve-many, typed "
+                    "repro_torch.solver.ECGSolver handle (compile-once / solve-many, typed "
                     "SolverConfig) instead"]
     handle = ECGSolver.build(a, VirtualMesh(2, 4, device="cpu"), SolverConfig(
         t=4, tol=tol, max_iters=MAX_ITERS, comm=CommConfig(strategy="optimal"),

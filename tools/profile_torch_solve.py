@@ -10,6 +10,8 @@
     PYTHONPATH=src python tools/profile_torch_solve.py --method pipelined --devices 8 --ppn 4 \
         --overlap
     PYTHONPATH=src python tools/profile_torch_solve.py --pack 4 --t 4 [--devices 8 --ppn 4]
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        tools/profile_torch_solve.py --devices 4 --ppn 2 --strategy optimal
 
 Builds the main path of ``chip_smoke.py`` (``dg_laplace_2d(elements,
 block=16)``, t = 8, float64, ``backend="pallas"``) on the GPU, steps the
@@ -46,6 +48,13 @@ times the packed scheme's own passes on the iteration's own (n, G·t)
 blocks, each by name (``group_passes_ms``: the per-group reshape-sum of R,
 every iteration; the restart, once per retirement), beside the
 single-request residual sum the first stands in for (``solo_passes_ms``).  ``--trace PATH`` also writes the Chrome trace.
+
+Under ``torch.distributed.run`` (``WORLD_SIZE`` set, equal to
+``--devices``) each process profiles its own rank of a
+``ProcessGroupMesh(N // K, K)`` over NCCL on ``cuda:LOCAL_RANK`` and
+prints its own line (``rank``); rank 0 alone prints the kernel lines.
+NCCL's kernels wait on the device for their peers, so their time
+(``nccl_ms_per_iter``) counts as busy though part of it is waiting.
 """
 
 from __future__ import annotations
@@ -205,6 +214,9 @@ def main(argv=None) -> int:
         ap.error("--pack profiles the classic scheme's packed solve alone")
     if args.pack and args.adaptive is None:
         args.adaptive = "rankrev"  # solve_packed needs a rank-revealing policy
+    world = int(os.environ.get("WORLD_SIZE", 0))  # set by torch.distributed.run
+    if world and args.devices != world:
+        ap.error(f"--devices {args.devices} must equal WORLD_SIZE {world}: one rank per process")
 
     import numpy as np
     import torch
@@ -216,7 +228,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.adaptive.groups import GroupSpec
-    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.launch.mesh import ProcessGroupMesh, VirtualMesh
     from repro_torch.solver import CommConfig, ECGSolver, KernelConfig, SolverConfig
     from repro_torch.sparse import dg_laplace_2d
 
@@ -224,7 +236,14 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    dev = torch.device("cuda", 0)
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    if world:
+        import datetime
+
+        import torch.distributed as dist
+
+        torch.cuda.set_device(dev)  # NCCL: the card before the group
+        dist.init_process_group("nccl", timeout=datetime.timedelta(seconds=60))
     a = dg_laplace_2d(tuple(args.elements), block=16, device=dev)
     n = a.shape[0]
     b = np.random.default_rng(0).standard_normal(n)
@@ -238,7 +257,8 @@ def main(argv=None) -> int:
         adaptive=args.adaptive, method=args.method,
     ).replace(s=args.s, reorth=args.reorth)
     if args.devices:
-        mesh = VirtualMesh(args.devices // args.ppn, args.ppn, device=dev)
+        mesh = (ProcessGroupMesh(args.devices // args.ppn, args.ppn) if world
+                else VirtualMesh(args.devices // args.ppn, args.ppn, device=dev))
         solver = ECGSolver.build(a, mesh, config)
     else:
         solver = ECGSolver.build(a, config=config, device=dev)
@@ -294,9 +314,12 @@ def main(argv=None) -> int:
     rows.sort(key=lambda r: -r[2])
     busy_ms = sum(r[2] for r in rows)
     passes = group_passes(torch, carry, args.pack, args.t, args.iters) if args.pack else None
-    print(smi)
+    rank = mesh.rank if world else 0
+    if rank == 0:
+        print(smi)
     print(json.dumps({
         "n": a.shape[0], "t": args.t, "iters": args.iters, "pack": args.pack or None,
+        "process_group": bool(world), "rank": rank,
         "width": args.t * (args.pack or 1),
         "mesh": list(mesh.shape) if args.devices else None,
         "strategy": args.strategy if args.devices else "sequential",
@@ -319,10 +342,13 @@ def main(argv=None) -> int:
         "host_launches_per_iter": sum(calls.values()) / args.iters,
         "host_launch_calls_per_iter": {k: v / args.iters for k, v in sorted(calls.items())},
         "device_ops_per_iter": sum(r[1] for r in rows),
+        "nccl_ms_per_iter": sum(r[2] for r in rows if r[0].startswith("nccl")),
         **(passes or {}),
-    }))
-    for name, calls, ms in rows:
+    }), flush=True)
+    for name, calls, ms in rows if rank == 0 else ():
         print(json.dumps({"kernel": name[:120], "calls_per_iter": calls, "device_ms_per_iter": ms}))
+    if world:
+        dist.destroy_process_group()
     return 0
 
 
