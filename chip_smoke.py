@@ -211,8 +211,9 @@ on the card, at the same full scale:
     phase 3's format: the path (mma/fma), the error against the plain
     version and its tolerance, ms against the bound (the stored tiles and V
     over 3.35 TB/s) and against ``torch.sparse.mm``, kmax, the fill (stored
-    elements over nonzeros) and the conversion's seconds.  The ``kernels``
-    line's ``bsr_spmbv`` row gains these times.
+    elements over nonzeros) and the conversion's seconds (null at (8, 8):
+    phase 2's handle's arrays are reused).  The ``kernels`` line's
+    ``bsr_spmbv`` row gains these times.
 31. ``tuned_sequential`` — the handle with ``tune="model"`` (the H100's
     constants): the chosen tile and kmax, the build's seconds, the model's
     local time per tile, and the solve: converged, true residual ≤ 10·tol,
@@ -344,6 +345,33 @@ counts (and the mesh's counters) set to 0 just before its solve:
     10·tol; ms per iteration and the share of an iteration the exchange
     takes across cards.  On one card a line says that (ii) did not run and
     why.
+50. ``lm`` — the LM half's dense decoder, stablelm-1.6b at full width
+    (24 layers, d = 2048, vocab 100352) in float32, on ``cuda:0``, through
+    ``repro_torch.launch.train`` and ``repro_torch.train``: (1) the
+    trainer's CLI at ``--preset full`` for 2 steps (its printed lines, loss
+    and gnorm finite), then the model built as the trainer builds it, its
+    parameter elements beside ``param_count()``; (2) three trainer steps
+    at batch 8 × seq 256: loss, grad_norm and lr finite, synchronized ms a
+    step, tokens/s, peak memory; (3) one step at batch 1 × seq 4096 plain
+    and one with ``attn_chunk = loss_chunk = 512`` on the same parameters
+    (lr 0): losses and grad norms within 1e-4 relative, the peak memory of
+    each; (4) f32 decode of 16 tokens from position 0 into a 4096-slot
+    cache, each position's logits within 1e-3 relative of one forward over
+    those tokens, on the same model with every weight of two dims or more
+    redrawn from N(0, 0.02) (the initialiser's rule saturates attention, so
+    float32 rounding grows over the layers: its errors are logged beside);
+    (5) a 2-layer model of the full width (N(0, 0.02) weights), batch 1 ×
+    seq 64, one step on the card and one on the CPU from the same weights:
+    loss and grad_norm within 1e-4 relative, the first moments (0.1 × the
+    clipped gradients) within 1e-4 of each leaf's max, updated parameters
+    within 1e-5 of max|p| wherever the two gradients agree to a tenth of
+    themselves (AdamW's first step is sign(g) for |g| >> eps, so where
+    rounding sets the sign the two may differ by the largest step-1 move,
+    2·lr·(1 + wd·max|p|), which is the bound there); (6) bf16 decode (the config's own dtype, N(0, 0.02)
+    weights) at batch 1 with a 32768-slot cache: ms a token, peak memory.
+    The LM half has no
+    Pallas kernel, so no port kernel runs here: every row's
+    ``lm_launches`` is 0.  The phase prints its seconds.
 
 The ``kernels`` line's ``bsr_spmbv``, ``fused_gram``, ``ecg_tail`` and
 ``rank_apply`` rows carry ``widths`` entries for t = 4 and 16 with their
@@ -352,8 +380,9 @@ launches in phases 35 and 36; ``bsr_spmbv``, ``fused_gram``, ``ecg_tail``,
 with their launches in phases 40, 43 and 44 (0 where no solve runs the
 width), and ``chol_apply`` one for t = 1 with its launches in phase 16.
 Every row also carries ``oneshot_launches``: its launches in each of phases
-45-48, and ``process_mesh_launches``: its launches in phase 49's solves on
-the process-group mesh (rank 0's).
+45-48, ``process_mesh_launches``: its launches in phase 49's solves on
+the process-group mesh (rank 0's), and ``lm_launches``: its launches in
+phase 50.
 
 ``python3 chip_smoke.py --process-mesh-worker DIR RANK WORLD`` is one rank
 of phase 49's world (the script starts these itself).
@@ -978,6 +1007,244 @@ def process_mesh_phases(torch, seq_iters: int) -> dict:
                 gate(name, abs(k - v["n_iters"]) <= max(1, 0.01 * v["n_iters"]),
                      f"{k} iterations, VirtualMesh {v['n_iters']}")
             launches[f"{phase}_{row['strategy']}"] = row["launches"]
+    return launches
+
+
+def lm_phases(torch) -> dict:
+    """Phase 50: stablelm-1.6b at full width on ``cuda:0`` (module
+    docstring).  Returns the kernel launch counts of the phase."""
+    import contextlib
+    import io
+
+    from repro_torch import kernels
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import model_api
+    from repro_torch.train import (
+        AdamWConfig,
+        DataConfig,
+        batch_at,
+        build_serve_step,
+        build_train_step,
+        init_opt_state,
+    )
+
+    dev = torch.device("cuda", 0)
+    gib = 2.0 ** 30
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    resident = torch.cuda.memory_allocated(dev)
+
+    def rel(a, b) -> float:
+        return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+    def peak_reset():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    # ---------------------- 50.1 the trainer's CLI, then its model on the card
+    argv = ["--arch", "stablelm_1_6b", "--preset", "full", "--steps", "2", "--log-every", "1"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        train_cli.main(argv)
+    cli_s = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    steps = [ln.split() for ln in lines if ln.startswith("step ")]
+    log({"phase": "lm_cli", "argv": argv, "lines": lines, "seconds": cli_s})
+    gate("lm_cli", lines[0] == "arch=stablelm-1.6b params=1644.2M preset=full" and lines[-1] == "done"
+         and len(steps) == 2 and all(math.isfinite(float(s[3])) and math.isfinite(float(s[5]))
+                                     for s in steps), f"printed {lines}")
+    peak_reset()
+
+    cfg = train_cli.preset_config("stablelm_1_6b", "full").with_(dtype=torch.float32)
+    api = model_api(cfg)
+    t0 = time.perf_counter()
+    model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    opt = init_opt_state(model)
+    torch.cuda.synchronize()
+    elements = sum(p.numel() for p in model.parameters())
+    # param_count() leaves out the norms and the padded vocab rows
+    want = (cfg.param_count() + 2 * (cfg.vocab_padded - cfg.vocab) * cfg.d_model
+            + (2 * cfg.n_layers + 1) * cfg.d_model)
+    log({"phase": "lm_build", "arch": cfg.name, "dtype": "float32", "param_elements": elements,
+         "param_count": cfg.param_count(), "norm_and_pad_elements": elements - cfg.param_count(),
+         "layers": len(model.layers), "build_s": time.perf_counter() - t0,
+         "resident_before_gib": resident / gib,
+         "params_and_state_gib": torch.cuda.memory_allocated(dev) / gib - resident / gib})
+    gate("lm_build", cfg.param_count() == 1_644_167_168 and elements == want,
+         f"{elements} elements, want {want}")
+
+    # ------------------------------------- 50.2 three steps at batch 8 x seq 256
+    batch, seq, n_steps = 8, 256, 3
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=n_steps)  # the trainer's
+    step_fn = build_train_step(cfg, opt_cfg, batch=batch, seq=seq, device=dev).step_fn
+    dcfg = DataConfig(vocab=cfg.vocab, batch=batch, seq=seq)
+    rows = []
+    for step in range(n_steps):
+        data = batch_at(dcfg, step, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step_fn(model, opt, data)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append({"step": step + 1, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "lr": m["lr"], "ms": ms, "tokens_per_s": batch * seq / ms * 1e3})
+        log({"phase": "lm_train_step", "batch": batch, "seq": seq, **rows[-1]})
+    peak = torch.cuda.max_memory_allocated(dev)
+    log({"phase": "lm_train", "batch": batch, "seq": seq, "steps": rows,
+         "ms_per_step_after_first": statistics.mean(r_["ms"] for r_ in rows[1:]),
+         "tokens_per_s_after_first": statistics.mean(r_["tokens_per_s"] for r_ in rows[1:]),
+         "max_memory_allocated_gib": peak / gib})
+    gate("lm_train", all(math.isfinite(r_[k]) for r_ in rows for k in ("loss", "grad_norm", "lr"))
+         and int(opt["step"]) == n_steps, f"steps {rows}")
+
+    # ------------------- 50.3 batch 1 x seq 4096: plain against the two levers
+    seq_long = 4096
+    data = batch_at(DataConfig(vocab=cfg.vocab, batch=1, seq=seq_long), 0, device=dev)
+    long_rows = {}
+    for name, c in (("plain", cfg), ("chunked", cfg.with_(attn_chunk=512, loss_chunk=512))):
+        # lr 0 (no weight decay either): both steps start from the same parameters
+        fn = build_train_step(c, AdamWConfig(lr=0.0, weight_decay=0.0), batch=1, seq=seq_long,
+                              device=dev).step_fn
+        peak_reset()
+        t0 = time.perf_counter()
+        m = fn(model, opt, data)
+        torch.cuda.synchronize()
+        long_rows[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                           "ms": (time.perf_counter() - t0) * 1e3,
+                           "max_memory_allocated_gib": torch.cuda.max_memory_allocated(dev) / gib}
+    r_loss = rel(long_rows["chunked"]["loss"], long_rows["plain"]["loss"])
+    r_gn = rel(long_rows["chunked"]["grad_norm"], long_rows["plain"]["grad_norm"])
+    log({"phase": "lm_train_4k", "batch": 1, "seq": seq_long, **long_rows,
+         "loss_rel_diff": r_loss, "grad_norm_rel_diff": r_gn})
+    gate("lm_train_4k", all(math.isfinite(v["loss"]) and math.isfinite(v["grad_norm"])
+                            for v in long_rows.values()) and r_loss <= 1e-4 and r_gn <= 1e-4,
+         f"plain against chunked: {long_rows}")
+
+    # ----------------------------- 50.4 f32 decode against one forward (16 tokens)
+    del opt, fn, step_fn
+    peak_reset()
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def n002(mdl):
+        """Every weight of two dims or more from N(0, 0.02), norms kept: the
+        initialiser's rule makes wq/wk/wv N(0, n_heads^-1/2) and wo
+        N(0, d_head^-1/2), so attention saturates and float32 rounding
+        grows from layer to layer (``init_rule_rel_err``)."""
+        with torch.no_grad():
+            for p_ in mdl.parameters():
+                if p_.dim() >= 2:
+                    p_.normal_(0.0, 0.02, generator=gen)
+
+    n_tok, slots = 16, 4096
+    toks = torch.randint(0, cfg.vocab, (1, n_tok), generator=gen, device=dev, dtype=torch.int32)
+    serve, info = build_serve_step(cfg, 1, slots, device=dev)
+
+    def decode_errs(mdl):
+        with torch.no_grad():
+            full = T.logits_from_hidden(cfg, mdl, T.forward(cfg, mdl, toks))
+        cache = info["init_cache"]()
+        errs = []
+        for i in range(n_tok):
+            pos = torch.full((1,), i, dtype=torch.int32, device=dev)
+            logits, cache = serve(mdl, cache, {"token": toks[:, i], "pos": pos})
+            errs.append(float((logits - full[:, i]).abs().max() / full[:, i].abs().max()))
+        return errs
+
+    with torch.no_grad():  # the initialiser's embedding is all ones
+        model.emb.normal_(0.0, 0.02, generator=gen)
+    rule_errs = decode_errs(model)
+    n002(model)
+    errs = decode_errs(model)
+    log({"phase": "lm_decode_f32", "tokens": n_tok, "cache_slots": slots, "weights": "N(0, 0.02)",
+         "max_rel_err": max(errs), "rel_err": errs, "init_rule_rel_err": rule_errs,
+         "max_memory_allocated_gib": torch.cuda.max_memory_allocated(dev) / gib})
+    gate("lm_decode_f32", max(errs) <= 1e-3, f"decode against forward: {errs}")
+    del model
+
+    # ------------- 50.5 the card against the CPU: 2 layers of the full width
+    peak_reset()
+    cfg2 = cfg.with_(n_layers=2)
+    gpu = api.init_params(cfg2, torch.Generator(device=dev).manual_seed(2), dev)
+    n002(gpu)  # under the rule's weights wq/wk gradients are ~1e-8, rounding noise
+    cpu = T.params_from_reference(T.params_to_reference(gpu), device="cpu")
+    data = batch_at(DataConfig(vocab=cfg.vocab, batch=1, seq=64), 0)
+    opt_cfg2 = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=n_steps)
+    res, opts = {}, {}
+    for name, mdl, d in (("cuda", gpu, dev), ("cpu", cpu, torch.device("cpu"))):
+        opts[name] = init_opt_state(mdl)
+        t0 = time.perf_counter()
+        m = build_train_step(cfg2, opt_cfg2, batch=1, seq=64, device=d).step_fn(
+            mdl, opts[name], {k: v.to(d) for k, v in data.items()})
+        res[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "seconds": time.perf_counter() - t0}
+    # After one step mu = 0.1·scale·g: the moments compare the gradients.  An
+    # entry whose gradient differs between the two by over a tenth of itself
+    # is rounding noise, and its step-1 update lr·g/(|g| + eps) has a sign set
+    # by rounding (AdamW's first step is sign(g) for |g| >> eps): there the
+    # two may differ by up to the largest step-1 move, 2·lr·(1 + wd·max|p|);
+    # everywhere else within 1e-5 of max|p|.
+    lr1 = opt_cfg2.lr / opt_cfg2.warmup_steps
+    p_max = max(float(p_.detach().abs().max()) for p_ in cpu.parameters())
+    per_leaf, worst = {}, {"mu_rel": 0.0, "p_conditioned": 0.0, "p_rest": 0.0, "rest_entries": 0}
+    for (pname, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        mu_c, mu_g = opts["cpu"]["mu"][pname], opts["cuda"]["mu"][pname].cpu()
+        d_mu = (mu_g - mu_c).abs()
+        dp = (pg.detach().cpu() - pc.detach()).abs()
+        well = d_mu <= 0.1 * mu_c.abs()
+        row = {"mu_rel": float(d_mu.max()) / max(float(mu_c.abs().max()), 1e-30),
+               "p_conditioned": float(dp[well].max()) if bool(well.any()) else 0.0,
+               "p_rest": float(dp[~well].max()) if not bool(well.all()) else 0.0,
+               "rest_entries": int((~well).sum())}
+        per_leaf[pname] = row
+        worst = {k: worst[k] + row[k] if k == "rest_entries" else max(worst[k], row[k]) for k in worst}
+        del mu_g, d_mu, dp, well
+    r_loss, r_gn = (rel(res["cuda"][k], res["cpu"][k]) for k in ("loss", "grad_norm"))
+    log({"phase": "lm_card_vs_cpu", "layers": 2, "batch": 1, "seq": 64, "weights": "N(0, 0.02)", **res,
+         "loss_rel_diff": r_loss, "grad_norm_rel_diff": r_gn, "max_abs_p": p_max, "lr_step1": lr1,
+         "worst": worst, "per_leaf": per_leaf})
+    gate("lm_card_vs_cpu", r_loss <= 1e-4 and r_gn <= 1e-4 and worst["mu_rel"] <= 1e-4
+         and worst["p_conditioned"] <= 1e-5 * p_max
+         and worst["p_rest"] <= 2 * lr1 * (1 + opt_cfg2.weight_decay * p_max),
+         f"card {res['cuda']}, CPU {res['cpu']}, worst {worst}")
+    del gpu, cpu, opts
+
+    # -------------------------- 50.6 bf16 decode, batch 1, a 32768-slot cache
+    peak_reset()
+    cfg16 = train_cli.preset_config("stablelm_1_6b", "full")  # the config's own bfloat16
+    model = api.init_params(cfg16, torch.Generator(device=dev).manual_seed(3), dev)
+    n002(model)
+    slots, n_warm, n_timed = 32768, 2, 16
+    serve, info = build_serve_step(cfg16, 1, slots, device=dev)
+    cache = info["init_cache"]()
+    toks = torch.randint(0, cfg.vocab, (n_warm + n_timed,), generator=gen, device=dev, dtype=torch.int32)
+
+    def decode(i):
+        return serve(model, cache, {"token": toks[i:i + 1],
+                                    "pos": torch.full((1,), i, dtype=torch.int32, device=dev)})[0]
+
+    for i in range(n_warm):
+        decode(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_warm, n_warm + n_timed):
+        logits = decode(i)
+    torch.cuda.synchronize()
+    ms_tok = (time.perf_counter() - t0) * 1e3 / n_timed
+    kv_gib = sum(v.numel() * v.element_size() for v in cache.values()) / gib
+    log({"phase": "lm_decode_bf16", "cache_slots": slots, "batch": 1, "ms_per_token": ms_tok,
+         "tokens_timed": n_timed, "kv_cache_gib": kv_gib,
+         "weights_gib": sum(p.numel() * p.element_size() for p in model.parameters()) / gib,
+         "max_memory_allocated_gib": torch.cuda.max_memory_allocated(dev) / gib,
+         "logits_finite": bool(torch.isfinite(logits).all())})
+    gate("lm_decode_bf16", bool(torch.isfinite(logits).all()), "non-finite logits")
+    del model, cache, logits
+    torch.cuda.empty_cache()
+    launches = kernels.launch_counts()
+    log({"phase": "lm", "seconds": time.perf_counter() - t_phase, "launches": launches})
     return launches
 
 
@@ -2396,11 +2663,16 @@ def main() -> int:
     from repro_torch.sparse.spmbv import _make_distributed_spmbv
 
     tile_rows = []
+    main_arrays = solver.conversion["arrays"]
     for br, bc in DEFAULT_TILES:
         t0 = time.perf_counter()
-        tblk, tidx, _, tmeta, _ = block_ell_arrays(a, br, bc)
-        torch.cuda.synchronize()
-        convert_s = time.perf_counter() - t0
+        if (br, bc) == (main_arrays["br"], main_arrays["bc"]):  # phase 2's tile: its arrays
+            tblk, tidx, tmeta = main_arrays["blocks"], main_arrays["indices"], main_arrays["meta"]
+            convert_s = None
+        else:
+            tblk, tidx, _, tmeta, _ = block_ell_arrays(a, br, bc)
+            torch.cuda.synchronize()
+            convert_s = time.perf_counter() - t0
 
         def check_tile(t, dtype, tblk=tblk, tidx=tidx):
             blk = tblk.to(dtype)
@@ -2892,6 +3164,9 @@ def main() -> int:
     # --------------------------------------------- 49. the process-group mesh
     process_mesh = process_mesh_phases(torch, seq["n_iters"])
 
+    # ----------------------------------------------------------- 50. the LM
+    lm_launches = lm_phases(torch)
+
     # ------------------------------------------------------------------ result
     sources = {
         "bsr_spmbv": ("src/repro_torch/kernels/csrc/bsr_spmbv.cu", "src/repro/kernels/bsr_spmbv/kernel.py:43"),
@@ -2977,6 +3252,7 @@ def main() -> int:
     for row in rows:
         row["oneshot_launches"] = {ph: counts[row["name"]] for ph, counts in oneshot.items()}
         row["process_mesh_launches"] = {ph: counts[row["name"]] for ph, counts in process_mesh.items()}
+        row["lm_launches"] = lm_launches[row["name"]]
     log({"kernels": rows})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

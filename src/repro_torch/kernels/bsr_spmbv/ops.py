@@ -161,25 +161,39 @@ def csr_arrays_to_block_ell(
     nnz = int(indptr[min(n_rows, len(indptr) - 1)])
     if nnz == 0:
         return blocks, ell_idx
-    rows = np.repeat(np.arange(n_rows, dtype=np.int64), np.diff(indptr[: n_rows + 1]))
+    # Few passes over the ~1e8 nonzeros, in place where numpy allows: each
+    # pass and each fresh nnz-long temporary costs ~0.1 s at full scale.
+    counts = np.diff(indptr[: n_rows + 1])
+    r = np.arange(n_rows, dtype=np.int64)
     nbc = (n_cols + bc - 1) // bc
     cols = indices[:nnz]
-    key = (rows // br) * nbc + cols // bc
+    key = np.repeat(r // br * nbc, counts)  # tile key: block row · nbc + block column
+    key += cols // bc
     order = np.argsort(key, kind="stable")
-    key_s = key[order]
-    first = np.ones(nnz, dtype=bool)
-    first[1:] = key_s[1:] != key_s[:-1]
-    uniq = key_s[first]
-    tile_of = np.cumsum(first) - 1  # tile id of every sorted nonzero
+    key = key[order]
+    first = np.empty(nnz, dtype=bool)
+    first[0] = True
+    np.not_equal(key[1:], key[:-1], out=first[1:])
+    uniq = key[first]
+    del key
     bi, bj = uniq // nbc, uniq % nbc
     slot = np.arange(len(uniq)) - np.searchsorted(bi, bi, side="left")
     over = np.flatnonzero(slot >= kmax)
     if len(over):
         raise ValueError(f"block row {int(bi[over[0]])} overflows kmax={kmax}")
     ell_idx[bi, slot] = bj
-    blocks[bi[tile_of], slot[tile_of], (rows % br)[order], (cols % bc)[order]] = (
-        data[:nnz][order]
-    )
+    # the flat index into ``blocks`` of every nonzero, in sorted order: one
+    # single-index scatter in place of a four-index one
+    tile = np.cumsum(first)
+    del first
+    tile -= 1
+    lin = (bi * kmax + slot)[tile]
+    del tile
+    lin *= br
+    lin += np.repeat(r % br, counts)[order]
+    lin *= bc
+    lin += (cols % bc)[order]
+    blocks.reshape(-1)[lin] = data[:nnz][order]
     return blocks, ell_idx
 
 

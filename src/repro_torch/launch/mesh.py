@@ -311,3 +311,12 @@ def make_solver_mesh(*, multi_pod: bool = False, ppn: int = 16, n_ranks: int | N
     if n_ranks is None:
         return ProcessGroupMesh(*shape, device=device)
     return VirtualMesh(*shape, device="cuda" if device is None else device)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's ("data", "model") 16 × 16 LM training mesh (two pods
+    under ``multi_pod``): the sharded LM layout, not ported yet (the LM
+    half runs on one device)."""
+    from repro_torch.models.common import not_ported
+
+    not_ported("the LM production mesh (make_production_mesh) and its 2-D FSDP x TP layout")

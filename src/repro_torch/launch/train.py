@@ -1,0 +1,113 @@
+"""End-to-end training driver on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm_1_6b \
+        --preset full --steps 200 [--device cuda] [--ckpt-dir DIR] [--resume]
+
+Port of ``repro/launch/train.py``: the same flags, presets and printed
+lines, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain CPU
+path and must be asked for).  Presets: ``smoke`` uses the per-arch reduced
+config; ``tiny``/``100m`` scale a dense config to the requested size;
+``full`` is the config at its own widths.  Every preset is cast to float32,
+as the reference's driver does, and runs on one device: the reference's
+``full`` runs on its 16 × 16 production mesh, which is ROADMAP.md queue 1
+item 13's remainder, as are the non-dense families.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import get_config, get_smoke
+from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.models.registry import model_api
+from repro_torch.train import (
+    AdamWConfig,
+    DataConfig,
+    batch_at,
+    build_train_step,
+    init_opt_state,
+    install_preemption_handler,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
+
+
+def preset_config(arch: str, preset: str):
+    if preset == "smoke":
+        return get_smoke(arch)
+    cfg = get_config(arch)
+    if preset == "tiny":  # ~5M params, CI-speed
+        return cfg.with_(n_layers=2, d_model=128, n_heads=4, n_kv_heads=max(1, min(4, cfg.n_kv_heads)),
+                         d_ff=512, vocab=2048, remat=False)
+    if preset == "100m":  # ~100M params
+        return cfg.with_(n_layers=12, d_model=768, n_heads=12,
+                         n_kv_heads=12 if cfg.n_kv_heads >= cfg.n_heads else 4,
+                         d_ff=3072, vocab=32768, remat=False)
+    if preset == "full":
+        return cfg
+    raise ValueError(preset)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="stablelm_1_6b")
+    ap.add_argument("--preset", default="tiny", choices=["smoke", "tiny", "100m", "full"])
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = preset_config(args.arch, args.preset).with_(dtype=torch.float32)
+    api = model_api(cfg)  # refuses the non-dense families before any device work
+    dev = resolve_device(args.device)
+    print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M preset={args.preset}")
+
+    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(10, args.steps // 20), total_steps=args.steps)
+    bundle = build_train_step(cfg, opt_cfg, batch=args.batch, seq=args.seq, device=dev)
+    dcfg = DataConfig(vocab=cfg.vocab, batch=args.batch, seq=args.seq)
+
+    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    opt = init_opt_state(params)
+    start = 0
+    if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
+        state, meta = restore_checkpoint(args.ckpt_dir, {"params": params, "opt": opt})
+        params, opt, start = state["params"], state["opt"], meta["step"]
+        print(f"resumed from step {start}")
+
+    cur = {"step": start}
+    if args.ckpt_dir:
+        install_preemption_handler(
+            lambda: save_checkpoint(args.ckpt_dir, cur["step"], {"params": params, "opt": opt})
+        )
+
+    t0 = time.time()
+    for step in range(start, args.steps):
+        batch = batch_at(dcfg, step, device=dev)
+        metrics = bundle.step_fn(params, opt, batch)
+        cur["step"] = step + 1
+        if (step + 1) % args.log_every == 0:
+            print(
+                f"step {step+1:5d} loss {float(metrics['loss']):.4f} "
+                f"gnorm {float(metrics['grad_norm']):.3f} lr {float(metrics['lr']):.2e} "
+                f"({(time.time()-t0)/(step-start+1)*1e3:.0f} ms/step)",
+                flush=True,
+            )
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            save_checkpoint(args.ckpt_dir, step + 1, {"params": params, "opt": opt})
+    if args.ckpt_dir:
+        save_checkpoint(args.ckpt_dir, args.steps, {"params": params, "opt": opt})
+    print("done")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,125 @@
+"""Core transformer building blocks.
+
+Port of ``repro/models/layers.py`` on one device: the same math in the
+same order, without the reference's sharding constraints.  ``p`` is any
+mapping of the layer's weights (a dict of tensors, or a
+:class:`~repro_torch.models.transformer.DecoderLayer`).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models.common import ArchConfig
+
+
+def rms_norm(x, scale, eps):
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
+
+
+def rope(q, positions, theta, dtype=None):
+    """Rotary embedding over the last dim of (..., S, H, dh): half-split
+    (not interleaved), angles in float32."""
+    dh = q.shape[-1]
+    half = dh // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=q.device) / half))
+    angles = positions[..., None].float() * freqs  # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    q1, q2 = q[..., :half].float(), q[..., half:].float()
+    out = torch.cat([q1 * cos - q2 * sin, q1 * sin + q2 * cos], dim=-1)
+    return out.to(dtype or q.dtype)
+
+
+def attention(cfg: ArchConfig, q, k, v, mask, mask_kind: str | None = None):
+    """GQA attention.  q (B, Sq, H, dh), k and v (B, Sk, KV, dh); ``mask``
+    broadcastable to (B, H, Sq, Sk) bool, or None; ``mask_kind``
+    ("causal" or None) lets the chunked path mask from positions."""
+    rep = cfg.n_heads // cfg.n_kv_heads
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    if cfg.attn_chunk and q.shape[1] > 1 and k.shape[1] > cfg.attn_chunk:
+        return _chunked_attention(cfg, q, k, v, mask_kind or "full")
+    scale = cfg.head_dim ** -0.5
+    logits = torch.einsum("bqhe,bkhe->bhqk", q, k) * scale
+    if cfg.attn_logits_f32:
+        logits = logits.float()
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhe->bqhe", probs, v)
+
+
+def _chunk_step(q, k_i, v_i, m, l, acc, k_pos, q_pos, scale, causal: bool):
+    """One KV chunk of the online softmax: the new (m, l, acc)."""
+    s = torch.einsum("bqhe,bkhe->bhqk", q, k_i).float() * scale
+    if causal:
+        msk = k_pos[None, :] <= q_pos[:, None]
+        s = torch.where(msk[None, None], s, float("-inf"))
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    # all--inf rows (fully masked chunk) keep m = -inf; guard the exps
+    safe_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
+    p = torch.exp(s - safe_m[..., None])
+    p = torch.where(torch.isfinite(s), p, 0.0)
+    corr = torch.where(torch.isfinite(m), torch.exp(m - safe_m), 0.0)
+    l = l * corr + p.sum(dim=-1)
+    pv = torch.einsum("bhqk,bkhe->bqhe", p.to(q.dtype), v_i).float()
+    acc = acc * corr.transpose(1, 2)[..., None] + pv
+    return m_new, l, acc
+
+
+def _chunked_attention(cfg: ArchConfig, q, k, v, mask_kind: str):
+    """Online-softmax attention over ``attn_chunk``-wide KV chunks: the
+    (Sq, Sk) score matrix never exists as a whole.  Masked scores are
+    -inf here (not ``finfo.min``), with the reference's three ``isfinite``
+    guards.  Under autograd each chunk is recomputed in the backward pass,
+    so only the running (m, l, acc) are kept between chunks."""
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    c = cfg.attn_chunk
+    if sk % c:
+        raise ValueError(f"attn_chunk {c} must divide the key length {sk}")
+    if mask_kind not in ("causal", "full"):
+        raise ValueError(f"mask_kind {mask_kind!r}")
+    scale = dh ** -0.5
+    q_pos = torch.arange(sq, device=q.device)
+    m = torch.full((b, h, sq), float("-inf"), dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, h, dh), dtype=torch.float32, device=q.device)
+    for ci in range(sk // c):
+        args = (q, k[:, ci * c:(ci + 1) * c], v[:, ci * c:(ci + 1) * c], m, l, acc,
+                ci * c + torch.arange(c, device=q.device), q_pos, scale, mask_kind == "causal")
+        if torch.is_grad_enabled():
+            m, l, acc = checkpoint(_chunk_step, *args, use_reentrant=False)
+        else:
+            m, l, acc = _chunk_step(*args)
+    out = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
+    return out.to(q.dtype)
+
+
+def causal_mask(s: int, device=None):
+    return torch.tril(torch.ones((s, s), dtype=torch.bool, device=device))[None, None]
+
+
+def mlp_block(cfg: ArchConfig, x, p):
+    if cfg.mlp == "swiglu":
+        g = torch.einsum("bsd,df->bsf", x, p["wg"])
+        u = torch.einsum("bsd,df->bsf", x, p["wu"])
+        h = F.silu(g) * u
+    else:  # gelu: jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(torch.einsum("bsd,df->bsf", x, p["wu"]), approximate="tanh")
+    return torch.einsum("bsf,fd->bsd", h, p["wd"])
+
+
+def qkv(cfg: ArchConfig, x, p, positions):
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
+    k = torch.einsum("bsd,dhe->bshe", x, p["wk"])
+    v = torch.einsum("bsd,dhe->bshe", x, p["wv"])
+    if positions is not None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v

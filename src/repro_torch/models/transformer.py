@@ -1,0 +1,319 @@
+"""Decoder-only transformer, the dense family, on one device.
+
+Port of the dense path of ``repro/models/transformer.py`` (phi3-medium-14b,
+stablelm-1.6b, granite-20b/8b).  The reference stacks each per-layer weight
+as one ``(n_layers, …)`` array and scans over it; the port keeps one
+:class:`DecoderLayer` module a layer in an ``nn.ModuleList`` and loops: a
+stacked parameter indexed per layer makes autograd build a full-size zero
+gradient for every layer it is indexed in.  :func:`params_to_reference` and
+:func:`params_from_reference` convert between the port's module and the
+reference's nested dict of stacked arrays (weights carried across in tests,
+and the checkpoint layout).
+
+The MoE and VLM branches, the sharded layout (``param_specs``,
+``cache_specs``) and the other families are ROADMAP.md queue 1 item 13's
+remainder and raise ``NotImplementedError`` before any device work.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import layers as L
+from repro_torch.models.common import ArchConfig, not_ported
+
+
+def check_dense(cfg: ArchConfig) -> None:
+    """Refuse every family but ``dense`` before any device work."""
+    if cfg.family != "dense":
+        not_ported(f"the {cfg.family} family ({cfg.name})")
+
+
+# ------------------------------------------------------------------ params
+def layer_shapes(cfg: ArchConfig) -> dict[str, tuple]:
+    check_dense(cfg)
+    d, f, h, kv, dh, n = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    shapes = {
+        "ln1": (n, d),
+        "wq": (n, d, h, dh),
+        "wk": (n, d, kv, dh),
+        "wv": (n, d, kv, dh),
+        "wo": (n, h, dh, d),
+        "ln2": (n, d),
+        "wg": (n, d, f),
+        "wu": (n, d, f),
+        "wd": (n, f, d),
+    }
+    if cfg.mlp != "swiglu":
+        shapes.pop("wg")
+    return shapes
+
+
+def param_shapes(cfg: ArchConfig) -> dict[str, Any]:
+    shapes = {
+        "emb": (cfg.vocab_padded, cfg.d_model),
+        "final_ln": (cfg.d_model,),
+        "layers": layer_shapes(cfg),
+    }
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (cfg.d_model, cfg.vocab_padded)
+    return shapes
+
+
+def param_specs(cfg: ArchConfig, axes=None):
+    not_ported("the 2-D FSDP x TP parameter layout (param_specs)")
+
+
+def cache_specs(cfg: ArchConfig, axes=None, batch: int = 0, seq: int = 0):
+    not_ported("the sharded KV-cache layout (cache_specs)")
+
+
+class _Weights(nn.Module):
+    """Parameters by name, read as ``p["name"]`` like the reference's dicts."""
+
+    def __init__(self, shapes: dict[str, tuple], device, dtype):
+        super().__init__()
+        for name, shape in shapes.items():
+            self.register_parameter(name, nn.Parameter(torch.empty(shape, device=device, dtype=dtype)))
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return getattr(self, name)
+
+
+class DecoderLayer(_Weights):
+    """One layer's ``ln1, wq, wk, wv, wo, ln2, wg, wu, wd`` in the
+    reference's per-layer shapes."""
+
+
+class Transformer(_Weights):
+    """``emb``, ``final_ln``, ``lm_head`` (unless tied) and ``layers``, an
+    ``nn.ModuleList`` of :class:`DecoderLayer`, from the reference's
+    stacked ``shapes`` (:func:`param_shapes`).  Values are uninitialised:
+    :func:`init_params` or :func:`params_from_reference` fill them."""
+
+    def __init__(self, shapes: dict[str, Any], device=None, dtype=None):
+        super().__init__({k: v for k, v in shapes.items() if k != "layers"}, device, dtype)
+        per_layer = {k: s[1:] for k, s in shapes["layers"].items()}
+        n = next(iter(shapes["layers"].values()))[0]
+        self.layers = nn.ModuleList(DecoderLayer(per_layer, device, dtype) for _ in range(n))
+
+
+def _flat_shapes(tree, prefix=()):
+    """(path, shape) in the reference's flatten order (dict keys sorted)."""
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            yield from _flat_shapes(tree[key], prefix + (key,))
+        else:
+            yield prefix + (key,), tree[key]
+
+
+@torch.no_grad()
+def _assign(model: Transformer, path: tuple, value: torch.Tensor) -> None:
+    """Copy a value in the reference's stacked layout into ``model``."""
+    if path[0] == "layers":
+        for i, layer in enumerate(model.layers):
+            layer[path[1]].copy_(value[i])
+    else:
+        model[path[0]].copy_(value)
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator, device=None) -> Transformer:
+    """The reference's rule on the stacked shapes: norms (and every other
+    leaf of at most two dims whose last is ``d_model``, ``emb`` among them)
+    are ones; other 2-D weights N(0, 0.02); the rest N(0, fan_in^-1/2) with
+    fan_in = ``shape[-2]`` of the stacked shape.  Draws on ``generator``'s
+    device, leaf by leaf in the reference's order; the values differ from
+    ``jax.random``'s."""
+    shapes = param_shapes(cfg)
+    device = torch.device(device) if device is not None else generator.device
+    model = Transformer(shapes, device=device, dtype=cfg.dtype)
+    for path, shape in _flat_shapes(shapes):
+        fan_in = shape[-2] if len(shape) > 1 else shape[-1]
+        if len(shape) <= 2 and shape[-1] == cfg.d_model:  # norms
+            value = torch.ones(shape, device=device, dtype=cfg.dtype)
+        else:
+            value = torch.randn(shape, generator=generator, device=generator.device)
+            value = (value * (0.02 if len(shape) <= 2 else fan_in ** -0.5)).to(device, cfg.dtype)
+        _assign(model, path, value)
+        del value
+    return model
+
+
+# -------------------------------------------- the reference's stacked layout
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def stack_named(named: dict[str, torch.Tensor]) -> dict[str, Any]:
+    """Tensors by parameter name (``"emb"``, ``"layers.3.wq"``) → the
+    reference's nested dict of numpy arrays, per-layer entries stacked to
+    ``(n_layers, …)`` (bfloat16 as float32: numpy has no bfloat16)."""
+    out, per_layer = {}, {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            per_layer.setdefault(parts[2], {})[int(parts[1])] = t
+        else:
+            out[name] = _to_numpy(t)
+    if per_layer:
+        out["layers"] = {k: np.stack([_to_numpy(v[i]) for i in range(len(v))])
+                         for k, v in per_layer.items()}
+    return out
+
+
+def unstack_named(tree: dict[str, Any]) -> dict[str, np.ndarray]:
+    """The inverse of :func:`stack_named`."""
+    named = {k: np.asarray(v) for k, v in tree.items() if k != "layers"}
+    for key, arr in tree.get("layers", {}).items():
+        for i in range(arr.shape[0]):
+            named[f"layers.{i}.{key}"] = np.asarray(arr[i])
+    return named
+
+
+def params_to_reference(model: Transformer) -> dict[str, Any]:
+    """The port's module → the reference's params tree (numpy)."""
+    return stack_named(dict(model.named_parameters()))
+
+
+def params_from_reference(tree, device="cpu", dtype=None) -> Transformer:
+    """The reference's params tree (numpy or JAX arrays) → a
+    :class:`Transformer` on ``device``, in ``dtype`` (default: the arrays')."""
+    named = unstack_named(tree)
+    shapes = {k: tuple(np.shape(v)) for k, v in tree.items() if k != "layers"}
+    shapes["layers"] = {k: tuple(np.shape(v)) for k, v in tree["layers"].items()}
+    dtype = dtype or torch.from_numpy(np.asarray(tree["final_ln"])[:1].copy()).dtype
+    model = Transformer(shapes, device=device, dtype=dtype)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(torch.from_numpy(np.ascontiguousarray(named[name])))
+    return model
+
+
+# ----------------------------------------------------------------- forward
+def decoder_layer(cfg: ArchConfig, x, p, positions, mask, mask_kind: str = "causal"):
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = L.qkv(cfg, h, p, positions)
+    o = L.attention(cfg, q, k, v, mask, mask_kind=mask_kind)
+    x = x + torch.einsum("bshe,hed->bsd", o, p["wo"])
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.mlp_block(cfg, h, p)
+
+
+def forward(cfg: ArchConfig, params: Transformer, tokens, positions=None):
+    """Token forward to the final hidden states (B, S, D).  With
+    ``cfg.remat`` each layer is recomputed in the backward pass.  As in
+    the reference, ``attn_chunk`` drops the S × S mask; a sequence no
+    longer than the chunk then runs the plain path unmasked."""
+    check_dense(cfg)
+    x = params["emb"][tokens].to(cfg.dtype)
+    s = x.shape[1]
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    mask = None if cfg.attn_chunk else L.causal_mask(s, device=x.device)
+    for layer in params.layers:
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(decoder_layer, cfg, x, layer, positions, mask, use_reentrant=False)
+        else:
+            x = decoder_layer(cfg, x, layer, positions, mask)
+    return L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+
+
+def logits_from_hidden(cfg: ArchConfig, params: Transformer, x):
+    head = params["emb"].T if cfg.tie_embeddings else params["lm_head"]
+    return torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
+
+
+def cross_entropy(cfg: ArchConfig, logits, labels, mask=None):
+    """Stable CE over the padded vocab (pad ids masked to -inf)."""
+    vp = logits.shape[-1]
+    valid = (torch.arange(vp, device=logits.device) < cfg.vocab)[None, None, :]
+    logits = torch.where(valid, logits.float(), float("-inf"))
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - picked
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()
+
+
+def lm_loss(cfg: ArchConfig, params: Transformer, x, labels):
+    """Projection + CE, optionally over ``loss_chunk``-long sequence
+    chunks; under autograd each chunk's logits are recomputed in the
+    backward pass, so the fp32 (B, S, V) logits never exist at once."""
+    if not cfg.loss_chunk or x.shape[1] % cfg.loss_chunk:
+        return cross_entropy(cfg, logits_from_hidden(cfg, params, x), labels)
+    c = cfg.loss_chunk
+
+    def chunk_ce(xc, lc):
+        return cross_entropy(cfg, logits_from_hidden(cfg, params, xc), lc)
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(x.shape[1] // c):
+        xc, lc = x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        ce = (checkpoint(chunk_ce, xc, lc, use_reentrant=False) if torch.is_grad_enabled()
+              else chunk_ce(xc, lc))
+        tot = tot + ce * lc.numel()
+    return tot / labels.numel()
+
+
+def loss_fn(cfg: ArchConfig):
+    """``f(params, batch) -> loss`` with batch ``{"tokens", "labels"}``."""
+    check_dense(cfg)
+
+    def f(params, batch):
+        x = forward(cfg, params, batch["tokens"])
+        return lm_loss(cfg, params, x, batch["labels"])
+
+    return f
+
+
+# ------------------------------------------------------------------ decode
+def cache_shapes(cfg: ArchConfig, batch: int, seq: int):
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    return {
+        "k": (cfg.n_layers, batch, seq, kv, dh),
+        "v": (cfg.n_layers, batch, seq, kv, dh),
+    }
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq: int, device=None):
+    return {k: torch.zeros(s, dtype=cfg.dtype, device=device)
+            for k, s in cache_shapes(cfg, batch, seq).items()}
+
+
+def decode_step(cfg: ArchConfig):
+    """One-token decode against a (B, S_cache) KV cache:
+    ``f(params, cache, token, pos) -> (logits, cache)`` with ``token`` and
+    ``pos`` (B,) integer tensors.  Each layer's new K/V row is written into
+    ``cache`` in place (the reference blends a one-hot row, which equals
+    the write for finite values); attention runs over the whole cache with
+    the mask ``arange(S) <= pos``."""
+    check_dense(cfg)
+
+    @torch.no_grad()
+    def f(params, cache, token, pos):
+        b = token.shape[0]
+        x = params["emb"][token][:, None].to(cfg.dtype)  # (B, 1, D)
+        s_cache = cache["k"].shape[2]
+        rows = torch.arange(b, device=x.device)
+        mask = torch.arange(s_cache, device=x.device)[None, None, None, :] <= pos[:, None, None, None]
+        for i, lp in enumerate(params.layers):
+            h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = L.qkv(cfg, h, lp, pos[:, None])
+            cache["k"][i][rows, pos] = k[:, 0]
+            cache["v"][i][rows, pos] = v[:, 0]
+            o = L.attention(cfg, q, cache["k"][i], cache["v"][i], mask)
+            x = x + torch.einsum("bshe,hed->bsd", o, lp["wo"])
+            h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + L.mlp_block(cfg, h, lp)
+        x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+        return logits_from_hidden(cfg, params, x)[:, 0], cache
+
+    return f

@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""Where a train step and a decode token of the port's LM spend their time
+on the card.
+
+    PYTHONPATH=src python tools/profile_torch_lm.py [--mode train|decode|both] \
+        [--arch stablelm_1_6b] [--batch 8] [--seq 256] [--steps 3] \
+        [--slots 32768] [--tokens 8] [--top 20] [--trace PATH]
+
+``train`` builds the config at full width in float32 as ``python -m
+repro_torch.launch.train --preset full`` does, warms up one step, times
+``--steps`` steps of ``build_train_step`` at ``--batch`` × ``--seq`` on
+the host clock around synchronized work, then runs them again under
+``torch.profiler``.  ``decode`` builds the config in its own dtype
+(bfloat16) with a ``--slots`` KV cache at batch 1, warms up two tokens,
+times ``--tokens`` tokens of ``build_serve_step``'s step, then profiles
+them.  Each mode prints one JSON line (the card, wall and device-busy ms
+a step or token, the device's idle share, the host's launch calls, peak
+memory) and then one line per kernel name, the ``--top`` by device time.
+It refuses to run without CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def profile_fn(torch, fn, n: int, top: int, trace: str | None) -> tuple[dict, list[dict]]:
+    """Wall ms per call of ``fn`` over ``n`` calls, then the same under
+    ``torch.profiler``: busy ms per call (the union of kernel intervals),
+    the idle share, launch calls and the ``top`` kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    from profile_torch_solve import kernel_events, launch_calls, timeline
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    if trace:
+        prof.export_chrome_trace(trace)
+    busy_ms = timeline(kernel_events(prof))["busy_us"] / 1e3 / n
+    averages = prof.key_averages()
+    dev_us = lambda e: getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+    rows = sorted(({"kernel": e.key[:120], "calls_per_call": e.count / n,
+                    "device_ms_per_call": dev_us(e) / 1e3 / n}
+                   for e in averages if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r["device_ms_per_call"])
+    calls = launch_calls(averages)
+    line = {"wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / prof_wall_ms,
+            "device_kernels_per_call": sum(r["calls_per_call"] for r in rows),
+            "host_launches_per_call": sum(calls.values()) / n}
+    return line, rows[:top]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", choices=["train", "decode", "both"], default="both")
+    ap.add_argument("--arch", default="stablelm_1_6b")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--slots", type=int, default=32768)
+    ap.add_argument("--tokens", type=int, default=8)
+    ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--trace", default=None, help="also write the Chrome trace(s) to PATH")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_lm: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.train import preset_config
+    from repro_torch.models.registry import model_api
+    from repro_torch.train import (AdamWConfig, DataConfig, batch_at, build_serve_step,
+                                   build_train_step, init_opt_state)
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.init()
+    gib = 2.0 ** 30
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    modes = ["train", "decode"] if args.mode == "both" else [args.mode]
+    for mode in modes:
+        trace = args.trace and args.trace.replace(".json", f".{mode}.json")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        if mode == "train":
+            cfg = preset_config(args.arch, "full").with_(dtype=torch.float32)
+            api = model_api(cfg)
+            model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+            opt = init_opt_state(model)
+            step_fn = build_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=10), batch=args.batch,
+                                       seq=args.seq, device=dev).step_fn
+            data = batch_at(DataConfig(vocab=cfg.vocab, batch=args.batch, seq=args.seq), 0, device=dev)
+            step_fn(model, opt, data)  # warm-up
+            line, rows = profile_fn(torch, lambda: step_fn(model, opt, data), args.steps, args.top, trace)
+            line = {"mode": "train", "arch": cfg.name, "dtype": "float32", "batch": args.batch,
+                    "seq": args.seq, "steps": args.steps,
+                    "tokens_per_s": args.batch * args.seq / line["wall_ms"] * 1e3, **line}
+            del model, opt
+        else:
+            cfg = preset_config(args.arch, "full")
+            api = model_api(cfg)
+            model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+            serve, info = build_serve_step(cfg, 1, args.slots, device=dev)
+            cache = info["init_cache"]()
+            token = torch.zeros((1,), dtype=torch.int32, device=dev)
+            pos = torch.zeros((1,), dtype=torch.int32, device=dev)
+
+            def decode():
+                serve(model, cache, {"token": token, "pos": pos})
+                pos.add_(1)
+
+            decode(), decode()  # warm-up
+            line, rows = profile_fn(torch, decode, args.tokens, args.top, trace)
+            line = {"mode": "decode", "arch": cfg.name, "dtype": str(cfg.dtype).removeprefix("torch."),
+                    "batch": 1, "cache_slots": args.slots, "tokens": args.tokens, **line}
+            del model, cache
+        line["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated(dev) / gib
+        print(json.dumps(line), flush=True)
+        for r in rows:
+            print(json.dumps({"mode": mode, **r}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
