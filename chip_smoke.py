@@ -207,15 +207,20 @@ on the card, at the same full scale:
     the committed ``repro_torch.core.machines.H100`` constants, one JSON
     line; every value must be finite and positive.
 30. ``bsr_spmbv_tiles`` — ``bsr_spmbv`` at every tile of the tuner's
-    ``DEFAULT_TILES`` on Example 2.1 (sequential Block-ELL, f64, t = 8), in
-    phase 3's format: the path (mma/fma), the error against the plain
-    version and its tolerance, ms against the bound (the stored tiles and V
-    over 3.35 TB/s) and against ``torch.sparse.mm``, kmax, the fill (stored
-    elements over nonzeros) and the conversion's seconds (null at (8, 8):
-    phase 2's handle's arrays are reused).  The ``kernels`` line's
-    ``bsr_spmbv`` row gains these times.
+    ``DEFAULT_TILES`` (sequential Block-ELL, f64, t = 8), in phase 3's
+    format: the path (mma/fma), the error against the plain version and
+    its tolerance, ms against the bound (the stored tiles and V over 3.35
+    TB/s) and against ``torch.sparse.mm``, kmax, the fill (stored elements
+    over nonzeros) and the conversion's seconds (null at (8, 8): phase 2's
+    handle's arrays are reused).  The tiles a solve runs, (8, 8), (16, 16)
+    and (8, 16), run on Example 2.1; the three no default solve runs, (4,
+    4), (16, 8) and (32, 32), on phase 5's (64, 64)-element operator (each
+    full-scale conversion takes 11–20 s of host time).  Each row names its
+    operator; the ``kernels`` line's ``bsr_spmbv`` row gains these times.
 31. ``tuned_sequential`` — the handle with ``tune="model"`` (the H100's
-    constants): the chosen tile and kmax, the build's seconds, the model's
+    constants), handed phase 30's (16, 16) arrays (used where the model
+    picks that tile, ``conv_reused``; ignored otherwise): the chosen tile
+    and kmax, the build's seconds, the model's
     local time per tile, and the solve: converged, true residual ≤ 10·tol,
     ``bsr_spmbv`` n_iters + 1 launches on the tuned tile; ms per iteration
     beside phase 4's.
@@ -227,7 +232,8 @@ on the card, at the same full scale:
     per SpMBV, two with overlap, ``psum`` 3·k + 1), and its ``TunedConfig``,
     through ``to_json``/``from_json``, rebuilds the same operator: strategy,
     tile, overlap, col_split and the plan's wire bytes.
-33. ``auto_t`` — ``SolverConfig(t="auto")`` sequential: the ``TSelection``
+33. ``auto_t`` — ``SolverConfig(t="auto")`` sequential, handed phase
+    30's (16, 16) arrays as phase 31: the ``TSelection``
     table, ``probe_iters_used``, the chosen t and tile, the build's seconds;
     the solve converges to ≤ 10·tol at the chosen t, with the launch counts
     of a ``rankrev`` solve at that t (``rank_apply`` and ``drop_mask`` one
@@ -372,6 +378,30 @@ counts (and the mesh's counters) set to 0 just before its solve:
     The LM half has no
     Pallas kernel, so no port kernel runs here: every row's
     ``lm_launches`` is 0.  The phase prints its seconds.
+51. ``ssm`` — the LM half's SSM families at full width in float32 on
+    ``cuda:0``, for mamba2-780m (48 layers, d = 1536, d_state 128) and
+    then zamba2-1.2b (38 layers, d = 2048, one shared attention block
+    before every 6 layers: 7 applications): (1) the trainer's CLI at
+    ``--preset full`` for 2 steps (its first line names the arch and
+    ``param_count()``, the last ``done``, loss and gnorm finite); (2) the
+    model built as the trainer builds it: 780 382 464 and 1 104 937 856
+    elements, ``param_count()`` plus the leaves it leaves out (the padded
+    vocab rows, ``conv_b``, ``dt_bias``, the norms); (3) two trainer steps
+    at batch 1 × seq 4096 (train_4k's sequence: 32 SSD chunks a layer):
+    loss, grad_norm and lr finite, ms a step, tokens/s, peak memory; (4)
+    f32 decode of 16 tokens from position 0 (zamba2 into a 4096-slot
+    cache), each position's logits within 1e-3 relative of one forward over
+    those tokens (zamba2's shared block redrawn from N(0, 0.02) as in phase
+    50, the initialiser's own errors logged beside); (5) a 2-layer model of
+    the full width (zamba2: one shared application), batch 1 × seq 128 (one
+    chunk), one step on the card and one on the CPU from the same weights,
+    held to phase 50 (5)'s gates (``card_vs_cpu``); (6) bf16 decode (the
+    config's own dtype) at batch 1, zamba2 with a 32768-slot cache (its
+    K/V float32 by the reference's cache rule): ms a token, peak memory,
+    and the cache's and the logits' dtypes as the reference's rule makes
+    them (mamba2: bf16 logits and ``conv``; zamba2: float32 logits and a
+    float32 ``conv`` after the step).  No port kernel runs here either.
+    The phase prints its seconds.
 
 The ``kernels`` line's ``bsr_spmbv``, ``fused_gram``, ``ecg_tail`` and
 ``rank_apply`` rows carry ``widths`` entries for t = 4 and 16 with their
@@ -382,7 +412,7 @@ width), and ``chol_apply`` one for t = 1 with its launches in phase 16.
 Every row also carries ``oneshot_launches``: its launches in each of phases
 45-48, ``process_mesh_launches``: its launches in phase 49's solves on
 the process-group mesh (rank 0's), and ``lm_launches``: its launches in
-phase 50.
+phases 50-51.
 
 ``python3 chip_smoke.py --process-mesh-worker DIR RANK WORLD`` is one rank
 of phase 49's world (the script starts these itself).
@@ -1010,6 +1040,55 @@ def process_mesh_phases(torch, seq_iters: int) -> dict:
     return launches
 
 
+def card_vs_cpu(torch, phase, cfg, gpu, cpu, data, opt_cfg, **logged) -> None:
+    """One trainer step of ``cfg`` on ``cuda:0`` (model ``gpu``) and on the
+    CPU (``cpu``, the same weights) on ``data``, held to phase 50 (5)'s
+    gates.  After one step mu = 0.1·scale·g: the moments compare the
+    gradients.  An entry whose gradient differs between the two by over a
+    tenth of itself is rounding noise, and its step-1 update
+    lr·g/(|g| + eps) has a sign set by rounding (AdamW's first step is
+    sign(g) for |g| >> eps): there the two may differ by up to the largest
+    step-1 move, 2·lr·(1 + wd·max|p|); everywhere else within 1e-5 of
+    max|p|.  Loss and grad_norm within 1e-4 relative, the moments within
+    1e-4 of each leaf's max."""
+    from repro_torch.train import build_train_step, init_opt_state
+
+    rel = lambda a, b: abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+    dev = torch.device("cuda", 0)
+    seq = data["tokens"].shape[1]
+    res, opts = {}, {}
+    for name, mdl, d in (("cuda", gpu, dev), ("cpu", cpu, torch.device("cpu"))):
+        opts[name] = init_opt_state(mdl)
+        t0 = time.perf_counter()
+        m = build_train_step(cfg, opt_cfg, batch=1, seq=seq, device=d).step_fn(
+            mdl, opts[name], {k: v.to(d) for k, v in data.items()})
+        res[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "seconds": time.perf_counter() - t0}
+    lr1 = opt_cfg.lr / opt_cfg.warmup_steps
+    p_max = max(float(p_.detach().abs().max()) for p_ in cpu.parameters())
+    per_leaf, worst = {}, {"mu_rel": 0.0, "p_conditioned": 0.0, "p_rest": 0.0, "rest_entries": 0}
+    for (pname, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        mu_c, mu_g = opts["cpu"]["mu"][pname], opts["cuda"]["mu"][pname].cpu()
+        d_mu = (mu_g - mu_c).abs()
+        dp = (pg.detach().cpu() - pc.detach()).abs()
+        well = d_mu <= 0.1 * mu_c.abs()
+        row = {"mu_rel": float(d_mu.max()) / max(float(mu_c.abs().max()), 1e-30),
+               "p_conditioned": float(dp[well].max()) if bool(well.any()) else 0.0,
+               "p_rest": float(dp[~well].max()) if not bool(well.all()) else 0.0,
+               "rest_entries": int((~well).sum())}
+        per_leaf[pname] = row
+        worst = {k: worst[k] + row[k] if k == "rest_entries" else max(worst[k], row[k]) for k in worst}
+        del mu_g, d_mu, dp, well
+    r_loss, r_gn = (rel(res["cuda"][k], res["cpu"][k]) for k in ("loss", "grad_norm"))
+    log({"phase": phase, "arch": cfg.name, "layers": cfg.n_layers, "batch": 1, "seq": seq, **logged,
+         **res, "loss_rel_diff": r_loss, "grad_norm_rel_diff": r_gn, "max_abs_p": p_max,
+         "lr_step1": lr1, "worst": worst, "per_leaf": per_leaf})
+    gate(phase, r_loss <= 1e-4 and r_gn <= 1e-4 and worst["mu_rel"] <= 1e-4
+         and worst["p_conditioned"] <= 1e-5 * p_max
+         and worst["p_rest"] <= 2 * lr1 * (1 + opt_cfg.weight_decay * p_max),
+         f"card {res['cuda']}, CPU {res['cpu']}, worst {worst}")
+
+
 def lm_phases(torch) -> dict:
     """Phase 50: stablelm-1.6b at full width on ``cuda:0`` (module
     docstring).  Returns the kernel launch counts of the phase."""
@@ -1173,44 +1252,8 @@ def lm_phases(torch) -> dict:
     cpu = T.params_from_reference(T.params_to_reference(gpu), device="cpu")
     data = batch_at(DataConfig(vocab=cfg.vocab, batch=1, seq=64), 0)
     opt_cfg2 = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=n_steps)
-    res, opts = {}, {}
-    for name, mdl, d in (("cuda", gpu, dev), ("cpu", cpu, torch.device("cpu"))):
-        opts[name] = init_opt_state(mdl)
-        t0 = time.perf_counter()
-        m = build_train_step(cfg2, opt_cfg2, batch=1, seq=64, device=d).step_fn(
-            mdl, opts[name], {k: v.to(d) for k, v in data.items()})
-        res[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-                     "seconds": time.perf_counter() - t0}
-    # After one step mu = 0.1·scale·g: the moments compare the gradients.  An
-    # entry whose gradient differs between the two by over a tenth of itself
-    # is rounding noise, and its step-1 update lr·g/(|g| + eps) has a sign set
-    # by rounding (AdamW's first step is sign(g) for |g| >> eps): there the
-    # two may differ by up to the largest step-1 move, 2·lr·(1 + wd·max|p|);
-    # everywhere else within 1e-5 of max|p|.
-    lr1 = opt_cfg2.lr / opt_cfg2.warmup_steps
-    p_max = max(float(p_.detach().abs().max()) for p_ in cpu.parameters())
-    per_leaf, worst = {}, {"mu_rel": 0.0, "p_conditioned": 0.0, "p_rest": 0.0, "rest_entries": 0}
-    for (pname, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
-        mu_c, mu_g = opts["cpu"]["mu"][pname], opts["cuda"]["mu"][pname].cpu()
-        d_mu = (mu_g - mu_c).abs()
-        dp = (pg.detach().cpu() - pc.detach()).abs()
-        well = d_mu <= 0.1 * mu_c.abs()
-        row = {"mu_rel": float(d_mu.max()) / max(float(mu_c.abs().max()), 1e-30),
-               "p_conditioned": float(dp[well].max()) if bool(well.any()) else 0.0,
-               "p_rest": float(dp[~well].max()) if not bool(well.all()) else 0.0,
-               "rest_entries": int((~well).sum())}
-        per_leaf[pname] = row
-        worst = {k: worst[k] + row[k] if k == "rest_entries" else max(worst[k], row[k]) for k in worst}
-        del mu_g, d_mu, dp, well
-    r_loss, r_gn = (rel(res["cuda"][k], res["cpu"][k]) for k in ("loss", "grad_norm"))
-    log({"phase": "lm_card_vs_cpu", "layers": 2, "batch": 1, "seq": 64, "weights": "N(0, 0.02)", **res,
-         "loss_rel_diff": r_loss, "grad_norm_rel_diff": r_gn, "max_abs_p": p_max, "lr_step1": lr1,
-         "worst": worst, "per_leaf": per_leaf})
-    gate("lm_card_vs_cpu", r_loss <= 1e-4 and r_gn <= 1e-4 and worst["mu_rel"] <= 1e-4
-         and worst["p_conditioned"] <= 1e-5 * p_max
-         and worst["p_rest"] <= 2 * lr1 * (1 + opt_cfg2.weight_decay * p_max),
-         f"card {res['cuda']}, CPU {res['cpu']}, worst {worst}")
-    del gpu, cpu, opts
+    card_vs_cpu(torch, "lm_card_vs_cpu", cfg2, gpu, cpu, data, opt_cfg2, weights="N(0, 0.02)")
+    del gpu, cpu
 
     # -------------------------- 50.6 bf16 decode, batch 1, a 32768-slot cache
     peak_reset()
@@ -1245,6 +1288,197 @@ def lm_phases(torch) -> dict:
     torch.cuda.empty_cache()
     launches = kernels.launch_counts()
     log({"phase": "lm", "seconds": time.perf_counter() - t_phase, "launches": launches})
+    return launches
+
+
+def ssm_phases(torch) -> dict:
+    """Phase 51: mamba2-780m and zamba2-1.2b at full width on ``cuda:0``
+    (module docstring).  Returns the kernel launch counts of the phase."""
+    import contextlib
+    import io
+
+    from repro_torch import kernels
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import ssm as S
+    from repro_torch.models.registry import model_api
+    from repro_torch.train import (
+        AdamWConfig,
+        DataConfig,
+        batch_at,
+        build_serve_step,
+        build_train_step,
+        init_opt_state,
+    )
+
+    dev = torch.device("cuda", 0)
+    gib = 2.0 ** 30
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    resident = torch.cuda.memory_allocated(dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def peak_reset():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def shared_n002(mdl):
+        """The hybrid's shared block: every weight of two dims or more from
+        N(0, 0.02), norms kept (the initialiser's rule makes wq/wk/wv
+        N(0, n_heads^-1/2) and saturates attention, as in phase 50)."""
+        if mdl.shared is not None:
+            with torch.no_grad():
+                for p_ in mdl.shared.parameters():
+                    if p_.dim() >= 2:
+                        p_.normal_(0.0, 0.02, generator=gen)
+
+    want = {"mamba2_780m": ("mamba2-780m", "779.9M", 780_382_464),
+            "zamba2_1_2b": ("zamba2-1.2b", "1104.7M", 1_104_937_856)}
+    dtypes = {"mamba2_780m": ("bfloat16", {"conv": "bfloat16", "ssm": "float32"}),
+              "zamba2_1_2b": ("float32", {"conv": "float32", "ssm": "float32", "k": "float32",
+                                          "v": "float32"})}
+    name_of = lambda d: str(d).removeprefix("torch.")
+    for arch, (label, shown, n_elements) in want.items():
+        # ------------------------------------------------------- 51.1 the CLI
+        argv = ["--arch", arch, "--preset", "full", "--steps", "2", "--log-every", "1"]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            train_cli.main(argv)
+        lines = out.getvalue().splitlines()
+        steps = [ln.split() for ln in lines if ln.startswith("step ")]
+        log({"phase": "ssm_cli", "argv": argv, "lines": lines, "seconds": time.perf_counter() - t0})
+        gate("ssm_cli", lines[0] == f"arch={label} params={shown} preset=full" and lines[-1] == "done"
+             and len(steps) == 2 and all(math.isfinite(float(s_[3])) and math.isfinite(float(s_[5]))
+                                         for s_ in steps), f"printed {lines}")
+        peak_reset()
+
+        # ------------------------------------------------------ 51.2 the build
+        cfg = train_cli.preset_config(arch, "full").with_(dtype=torch.float32)
+        api = model_api(cfg)
+        t0 = time.perf_counter()
+        model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        opt = init_opt_state(model)
+        torch.cuda.synchronize()
+        elements = sum(p_.numel() for p_ in model.parameters())
+        # param_count() leaves out the padded vocab rows, conv_b, dt_bias and
+        # the norms (ln, final_ln; the hybrid's ln1, ln2)
+        gap = {"vocab_padded": (cfg.vocab_padded - cfg.vocab) * cfg.d_model,
+               "conv_b": cfg.n_layers * (cfg.d_inner + 2 * cfg.d_state),
+               "dt_bias": cfg.n_layers * cfg.n_ssm_heads,
+               "ln": cfg.n_layers * cfg.d_model, "final_ln": cfg.d_model,
+               "ln1_ln2": 2 * cfg.d_model if cfg.family == "hybrid" else 0}
+        log({"phase": "ssm_build", "arch": cfg.name, "dtype": "float32", "param_elements": elements,
+             "param_count": cfg.param_count(), "gap": gap, "layers": len(model.layers),
+             "shared_block": model.shared is not None, "build_s": time.perf_counter() - t0,
+             "resident_before_gib": resident / gib,
+             "params_and_state_gib": (torch.cuda.memory_allocated(dev) - resident) / gib})
+        gate("ssm_build", elements == n_elements == cfg.param_count() + sum(gap.values()),
+             f"{elements} elements, want {n_elements} = {cfg.param_count()} + {gap}")
+
+        # ------------------------------------- 51.3 two steps at batch 1 x seq 4096
+        seq_long, n_steps = 4096, 2
+        opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=n_steps)  # the trainer's
+        step_fn = build_train_step(cfg, opt_cfg, batch=1, seq=seq_long, device=dev).step_fn
+        dcfg = DataConfig(vocab=cfg.vocab, batch=1, seq=seq_long)
+        peak_reset()
+        rows = []
+        for step in range(n_steps):
+            data = batch_at(dcfg, step, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step_fn(model, opt, data)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rows.append({"step": step + 1, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                         "lr": m["lr"], "ms": ms, "tokens_per_s": seq_long / ms * 1e3})
+        log({"phase": "ssm_train_4k", "arch": cfg.name, "batch": 1, "seq": seq_long,
+             "ssd_chunks_a_layer": seq_long // 128, "steps": rows,
+             "max_memory_allocated_gib": torch.cuda.max_memory_allocated(dev) / gib})
+        gate("ssm_train_4k", all(math.isfinite(r_[k]) for r_ in rows for k in ("loss", "grad_norm", "lr"))
+             and int(opt["step"]) == n_steps, f"steps {rows}")
+        del opt, step_fn, data
+        peak_reset()
+
+        # ----------------------------- 51.4 f32 decode against one forward (16 tokens)
+        n_tok, slots = 16, 4096
+        toks = torch.randint(0, cfg.vocab, (1, n_tok), generator=gen, device=dev, dtype=torch.int32)
+        serve, info = build_serve_step(cfg, 1, slots, device=dev)
+
+        def decode_errs(mdl):
+            with torch.no_grad():
+                full = S.logits_from_hidden(cfg, mdl, S.forward(cfg, mdl, toks))
+            cache = info["init_cache"]()
+            errs = []
+            for i in range(n_tok):
+                pos = torch.full((1,), i, dtype=torch.int32, device=dev)
+                logits, cache = serve(mdl, cache, {"token": toks[:, i], "pos": pos})
+                errs.append(float((logits - full[:, i]).abs().max() / full[:, i].abs().max()))
+            return errs
+
+        rule_errs = decode_errs(model) if model.shared is not None else None
+        shared_n002(model)
+        errs = decode_errs(model)
+        log({"phase": "ssm_decode_f32", "arch": cfg.name, "tokens": n_tok, "cache_slots": slots,
+             "weights": "the initialiser's" + (", shared block N(0, 0.02)" if model.shared is not None else ""),
+             "max_rel_err": max(errs), "rel_err": errs, "init_rule_rel_err": rule_errs,
+             "max_memory_allocated_gib": torch.cuda.max_memory_allocated(dev) / gib})
+        gate("ssm_decode_f32", max(errs) <= 1e-3, f"decode against forward: {errs}")
+        del model
+
+        # ------------- 51.5 the card against the CPU: 2 layers of the full width
+        peak_reset()
+        cfg2 = cfg.with_(n_layers=2)  # the hybrid: one shared application
+        gpu = api.init_params(cfg2, torch.Generator(device=dev).manual_seed(2), dev)
+        shared_n002(gpu)
+        cpu = S.params_from_reference(S.params_to_reference(gpu), device="cpu")
+        card_vs_cpu(torch, "ssm_card_vs_cpu", cfg2, gpu, cpu,
+                    batch_at(DataConfig(vocab=cfg.vocab, batch=1, seq=128), 0),
+                    AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=2),
+                    weights="the initialiser's" + (", shared block N(0, 0.02)" if gpu.shared is not None else ""))
+        del gpu, cpu
+
+        # ------------------------------------ 51.6 bf16 decode at batch 1
+        peak_reset()
+        cfg16 = train_cli.preset_config(arch, "full")  # the config's own bfloat16
+        model = api.init_params(cfg16, torch.Generator(device=dev).manual_seed(3), dev)
+        shared_n002(model)
+        slots, n_warm, n_timed = 32768, 2, 16  # decode_32k's length (the hybrid's K/V)
+        serve, info = build_serve_step(cfg16, 1, slots, device=dev)
+        cache = info["init_cache"]()
+        before = {k: name_of(v.dtype) for k, v in cache.items()}
+        toks = torch.randint(0, cfg.vocab, (n_warm + n_timed,), generator=gen, device=dev, dtype=torch.int32)
+
+        def decode(i):
+            return serve(model, cache, {"token": toks[i:i + 1],
+                                        "pos": torch.full((1,), i, dtype=torch.int32, device=dev)})
+
+        for i in range(n_warm):
+            logits, cache = decode(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_warm, n_warm + n_timed):
+            logits, cache = decode(i)
+        torch.cuda.synchronize()
+        ms_tok = (time.perf_counter() - t0) * 1e3 / n_timed
+        after = {k: name_of(v.dtype) for k, v in cache.items()}
+        log({"phase": "ssm_decode_bf16", "arch": cfg16.name, "cache_slots": slots, "batch": 1,
+             "ms_per_token": ms_tok, "tokens_timed": n_timed,
+             "cache_gib": sum(v.numel() * v.element_size() for v in cache.values()) / gib,
+             "cache_dtypes_before": before, "cache_dtypes_after": after,
+             "logits_dtype": name_of(logits.dtype),
+             "weights_gib": sum(p_.numel() * p_.element_size() for p_ in model.parameters()) / gib,
+             "max_memory_allocated_gib": torch.cuda.max_memory_allocated(dev) / gib,
+             "logits_finite": bool(torch.isfinite(logits).all())})
+        want_before = {k: "float32" if k != "conv" else "bfloat16" for k in after}
+        gate("ssm_decode_bf16", bool(torch.isfinite(logits).all()) and before == want_before
+             and (name_of(logits.dtype), after) == dtypes[arch],
+             f"logits {name_of(logits.dtype)}, cache {before} -> {after}, want {dtypes[arch]}")
+        del model, cache, logits
+        torch.cuda.empty_cache()
+    launches = kernels.launch_counts()
+    log({"phase": "ssm", "seconds": time.perf_counter() - t_phase, "launches": launches})
     return launches
 
 
@@ -2662,52 +2896,70 @@ def main() -> int:
     from repro_torch.kernels.bsr_spmbv.ops import block_ell_arrays
     from repro_torch.sparse.spmbv import _make_distributed_spmbv
 
-    tile_rows = []
+    # The tiles no default solve runs (PERF.md §6: launches 0) are held to
+    # their plain version on phase 5's (64, 64)-element operator; their
+    # full-scale times stay in PERF.md §6.  Example 2.1 is converted at the two
+    # tiles the tuner picks, beside phase 2's (8, 8) arrays.
+    small_tiles = {(4, 4), (16, 8), (32, 32)}
+    # the H100 model's tile (PERF.md §6): phases 31 and 33 build on it and
+    # are handed its arrays (a handle ignores arrays of another tile)
+    tile_rows, model_tile = [], {}
     main_arrays = solver.conversion["arrays"]
     for br, bc in DEFAULT_TILES:
+        op = a2 if (br, bc) in small_tiles else a
+        nt_ = op.shape[0]
         t0 = time.perf_counter()
         if (br, bc) == (main_arrays["br"], main_arrays["bc"]):  # phase 2's tile: its arrays
             tblk, tidx, tmeta = main_arrays["blocks"], main_arrays["indices"], main_arrays["meta"]
             convert_s = None
         else:
-            tblk, tidx, _, tmeta, _ = block_ell_arrays(a, br, bc)
+            tblk, tidx, _, tmeta, _ = block_ell_arrays(op, br, bc)
             torch.cuda.synchronize()
             convert_s = time.perf_counter() - t0
+            if (br, bc) == (16, 16):
+                model_tile["arrays"] = dict(main_arrays, blocks=tblk, indices=tidx, m_pad=tmeta["m_pad"],
+                                            br=br, bc=bc, meta=tmeta)
 
-        def check_tile(t, dtype, tblk=tblk, tidx=tidx):
+        def check_tile(t, dtype, tblk=tblk, tidx=tidx, op=op, n=nt_, tmeta=tmeta):
             blk = tblk.to(dtype)
             v = randn(n, t, dtype=dtype)
             nbr, kmax, br_, bc_ = blk.shape
             plain = lambda blk_, v_: bsr_spmbv_ref(blk_, tidx, torch.nn.functional.pad(
                 v_, (0, 0, 0, tmeta["m_pad"] - n)))[:n]
             es = blk.element_size()
+            csr = library_csr(dtype) if op is a else torch.sparse_csr_tensor(
+                op.indptr, op.indices, op.data.to(dtype), size=op.shape)
             return (plain, (blk, v), lambda: kernels.bsr_spmbv(blk, tidx, v, n_rows=n),
-                    lambda: torch.sparse.mm(library_csr(dtype), v), plain(blk.abs(), v.abs()),
+                    lambda: torch.sparse.mm(csr, v), plain(blk.abs(), v.abs()),
                     kmax * bc_, blk.numel() * es + tidx.numel() * 4 + 2 * n * t * es,
                     2 * blk.numel() * t, list(blk.shape) + [t],
                     spmbv_plan(nbr, br_, bc_, t, n, dtype, sms).path)
 
         row = run_check("bsr_spmbv", check_tile, T, torch.float64)
         row.update(phase="bsr_spmbv_tiles", tile=[br, bc], kmax=tmeta["kmax"],
-                   fill=tblk.numel() / a.nnz, convert_s=convert_s)
+                   fill=tblk.numel() / op.nnz, convert_s=convert_s,
+                   operator="Example 2.1" if op is a else "(64, 64) elements (phase 5)")
         log(row)
         tile_rows.append(row)
         del tblk, tidx, check_tile
         torch.cuda.empty_cache()
     csr_by_dtype.clear()
-    best_tile = min(tile_rows, key=lambda r_: r_["kernel_ms"])["tile"]
+    best_tile = min((r_ for r_ in tile_rows if r_["operator"] == "Example 2.1"),
+                    key=lambda r_: r_["kernel_ms"])["tile"]
     log({"phase": "bsr_spmbv_tiles", "summary": {f"{r_['tile'][0]}x{r_['tile'][1]}": {
-        k_: r_[k_] for k_ in ("path", "kernel_ms", "bound_ms", "library_ms", "kmax", "fill")}
-        for r_ in tile_rows}, "fastest": best_tile})
+        k_: r_[k_] for k_ in ("operator", "path", "kernel_ms", "bound_ms", "library_ms", "kmax", "fill")}
+        for r_ in tile_rows}, "fastest_at_full_scale": best_tile})
 
     # ------------------------------------------- 31. tuned, sequential (model)
     t0 = time.perf_counter()
-    tsolver = ECGSolver.build(a, config=config.replace(tune_mode="model"), device=dev)
+    tsolver = ECGSolver.build(a, config=config.replace(tune_mode="model"), device=dev,
+                              conversion=model_tile)
     torch.cuda.synchronize()
     tuned_build_s = time.perf_counter() - t0
     tcfg = tsolver.tuned
     r, got, _, row = scheme_solve(tsolver, "tuned_sequential", tile=list(tcfg.ell_block),
                                   kmax=tcfg.kmax, machine=tcfg.machine.name, build_s=tuned_build_s,
+                                  conv_reused=tsolver.stats.conv_reused,
                                   model_local_us={k_: v_ * 1e6 for k_, v_ in tcfg.predicted["local"].items()},
                                   untuned_ms_per_iter=seq["ms_per_iter"], untuned_n_iters=seq["n_iters"])
     k_ = r.n_iters
@@ -2777,11 +3029,13 @@ def main() -> int:
 
     # ------------------------------------------------- 33. t="auto", sequential
     t0 = time.perf_counter()
-    asolver = ECGSolver.build(a, config=config.replace(t="auto"), b=b, device=dev)
+    asolver = ECGSolver.build(a, config=config.replace(t="auto"), b=b, device=dev,
+                              conversion=model_tile)
     torch.cuda.synchronize()
     auto_build_s = time.perf_counter() - t0
     sel = asolver.selection
     log({"phase": "auto_t_selection", "t": sel.t, "build_s": auto_build_s,
+         "conv_reused": asolver.stats.conv_reused,
          "probe_iters_used": {str(t_): v_ for t_, v_ in sel.probe_iters_used.items()},
          "table": {str(t_): row_ for t_, row_ in sel.table.items()}, "tile": list(asolver.tuned.ell_block),
          "summary": sel.summary()})
@@ -2792,7 +3046,7 @@ def main() -> int:
     gate("auto_t", r.t == sel.t == asolver.t and r.selection is sel, f"solved at t={r.t}, chose {sel.t}")
     gate("auto_t", got == want_launches(bsr_spmbv=k_ + 1, fused_gram=k_, ecg_tail=k_, rank_apply=k_,
                                         drop_mask=k_), f"launch counts {got}")
-    del asolver, r
+    del asolver, r, model_tile
     torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- 34. serve_build
@@ -3167,6 +3421,9 @@ def main() -> int:
     # ----------------------------------------------------------- 50. the LM
     lm_launches = lm_phases(torch)
 
+    # ------------------------------------------------------ 51. the SSM LMs
+    ssm_launches = ssm_phases(torch)
+
     # ------------------------------------------------------------------ result
     sources = {
         "bsr_spmbv": ("src/repro_torch/kernels/csrc/bsr_spmbv.cu", "src/repro/kernels/bsr_spmbv/kernel.py:43"),
@@ -3205,7 +3462,8 @@ def main() -> int:
     # bsr_spmbv also at every tile the tuner weighs (phase 30), with its
     # launches in the tuned sequential solve (phase 31) at the tuned tile
     rows[0]["tiles"] = [
-        {"tile": r_["tile"], "path": r_["path"], "kmax": r_["kmax"], "fill": r_["fill"],
+        {"tile": r_["tile"], "operator": r_["operator"], "path": r_["path"], "kmax": r_["kmax"],
+         "fill": r_["fill"],
          "launches": tuned_launches["bsr_spmbv"] if tuple(r_["tile"]) == tcfg.ell_block else 0,
          **{k_: r_[k_] for k_ in ("max_abs_err", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "ms": r_["kernel_ms"]} for r_ in tile_rows]
@@ -3252,7 +3510,7 @@ def main() -> int:
     for row in rows:
         row["oneshot_launches"] = {ph: counts[row["name"]] for ph, counts in oneshot.items()}
         row["process_mesh_launches"] = {ph: counts[row["name"]] for ph, counts in process_mesh.items()}
-        row["lm_launches"] = lm_launches[row["name"]]
+        row["lm_launches"] = lm_launches[row["name"]] + ssm_launches[row["name"]]  # phases 50-51
     log({"kernels": rows})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -10,7 +10,8 @@ config; ``tiny``/``100m`` scale a dense config to the requested size;
 ``full`` is the config at its own widths.  Every preset is cast to float32,
 as the reference's driver does, and runs on one device: the reference's
 ``full`` runs on its 16 × 16 production mesh, which is ROADMAP.md queue 1
-item 13's remainder, as are the non-dense families.
+item 13's remainder, as are the ``moe``, ``vlm`` and ``encdec`` families
+(the ``dense``, ``ssm`` and ``hybrid`` families train).
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = preset_config(args.arch, args.preset).with_(dtype=torch.float32)
-    api = model_api(cfg)  # refuses the non-dense families before any device work
+    api = model_api(cfg)  # refuses moe, vlm and encdec before any device work
     dev = resolve_device(args.device)
     print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M preset={args.preset}")
 

@@ -1,2 +1,2 @@
-"""The LM half's models (port of ``repro/models``): the dense decoder-only
-transformer on one device."""
+"""The LM half's models (port of ``repro/models``) on one device: the
+dense decoder-only transformer, and Mamba2 with the Zamba2 hybrid."""

@@ -2,8 +2,10 @@
 
 Port of ``repro/models/layers.py`` on one device: the same math in the
 same order, without the reference's sharding constraints.  ``p`` is any
-mapping of the layer's weights (a dict of tensors, or a
-:class:`~repro_torch.models.transformer.DecoderLayer`).
+mapping of the layer's weights (a dict of tensors, or a module of
+:class:`~repro_torch.models.transformer._Weights`).  Contractions go
+through :func:`einsum`, which promotes mixed dtypes as ``jnp.einsum``
+does (zamba2's bfloat16 decode attends over a float32 K/V cache).
 """
 
 from __future__ import annotations
@@ -15,8 +17,20 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.common import ArchConfig
 
 
+def einsum(eq: str, *ops):
+    """``torch.einsum`` with ``jnp.einsum``'s dtype promotion: operands of
+    different float dtypes are cast to the wider one first (``torch.einsum``
+    refuses mixed dtypes)."""
+    dtype = ops[0].dtype
+    for o in ops[1:]:
+        dtype = torch.promote_types(dtype, o.dtype)
+    return torch.einsum(eq, *(o if o.dtype == dtype else o.to(dtype) for o in ops))
+
+
 def rms_norm(x, scale, eps):
-    var = x.float().square().mean(dim=-1, keepdim=True)
+    """The variance in float32 (float64 for float64 ``x``: the reference
+    casts to float32 there too, and a float64 run stays float64 here)."""
+    var = x.to(torch.promote_types(x.dtype, torch.float32)).square().mean(dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
 
 
@@ -45,18 +59,18 @@ def attention(cfg: ArchConfig, q, k, v, mask, mask_kind: str | None = None):
     if cfg.attn_chunk and q.shape[1] > 1 and k.shape[1] > cfg.attn_chunk:
         return _chunked_attention(cfg, q, k, v, mask_kind or "full")
     scale = cfg.head_dim ** -0.5
-    logits = torch.einsum("bqhe,bkhe->bhqk", q, k) * scale
+    logits = einsum("bqhe,bkhe->bhqk", q, k) * scale
     if cfg.attn_logits_f32:
         logits = logits.float()
     if mask is not None:
         logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhe->bqhe", probs, v)
+    return einsum("bhqk,bkhe->bqhe", probs, v)
 
 
 def _chunk_step(q, k_i, v_i, m, l, acc, k_pos, q_pos, scale, causal: bool):
     """One KV chunk of the online softmax: the new (m, l, acc)."""
-    s = torch.einsum("bqhe,bkhe->bhqk", q, k_i).float() * scale
+    s = einsum("bqhe,bkhe->bhqk", q, k_i).float() * scale
     if causal:
         msk = k_pos[None, :] <= q_pos[:, None]
         s = torch.where(msk[None, None], s, float("-inf"))
@@ -67,7 +81,7 @@ def _chunk_step(q, k_i, v_i, m, l, acc, k_pos, q_pos, scale, causal: bool):
     p = torch.where(torch.isfinite(s), p, 0.0)
     corr = torch.where(torch.isfinite(m), torch.exp(m - safe_m), 0.0)
     l = l * corr + p.sum(dim=-1)
-    pv = torch.einsum("bhqk,bkhe->bqhe", p.to(q.dtype), v_i).float()
+    pv = einsum("bhqk,bkhe->bqhe", p.to(q.dtype), v_i).float()
     acc = acc * corr.transpose(1, 2)[..., None] + pv
     return m_new, l, acc
 
@@ -107,18 +121,18 @@ def causal_mask(s: int, device=None):
 
 def mlp_block(cfg: ArchConfig, x, p):
     if cfg.mlp == "swiglu":
-        g = torch.einsum("bsd,df->bsf", x, p["wg"])
-        u = torch.einsum("bsd,df->bsf", x, p["wu"])
+        g = einsum("bsd,df->bsf", x, p["wg"])
+        u = einsum("bsd,df->bsf", x, p["wu"])
         h = F.silu(g) * u
     else:  # gelu: jax.nn.gelu's default is the tanh approximation
-        h = F.gelu(torch.einsum("bsd,df->bsf", x, p["wu"]), approximate="tanh")
-    return torch.einsum("bsf,fd->bsd", h, p["wd"])
+        h = F.gelu(einsum("bsd,df->bsf", x, p["wu"]), approximate="tanh")
+    return einsum("bsf,fd->bsd", h, p["wd"])
 
 
 def qkv(cfg: ArchConfig, x, p, positions):
-    q = torch.einsum("bsd,dhe->bshe", x, p["wq"])
-    k = torch.einsum("bsd,dhe->bshe", x, p["wk"])
-    v = torch.einsum("bsd,dhe->bshe", x, p["wv"])
+    q = einsum("bsd,dhe->bshe", x, p["wq"])
+    k = einsum("bsd,dhe->bshe", x, p["wk"])
+    v = einsum("bsd,dhe->bshe", x, p["wv"])
     if positions is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)

@@ -1,0 +1,409 @@
+"""Mamba2 (SSD, state-space duality) and the Zamba2 hybrid, on one device.
+
+Port of ``repro/models/ssm.py``.  Training runs the chunked matmul form of
+SSD (the intra-chunk quadratic term and the inter-chunk state recurrence,
+a loop over chunks where the reference runs ``lax.scan``); decode is the
+O(1) per-token state update.  Zamba2 is a Mamba2 backbone with ONE shared
+attention + MLP block applied before every ``attn_period`` layers (its
+parameters shared across the applications; the reference omits the
+per-application LoRA deltas, and so does the port).
+
+As in :mod:`repro_torch.models.transformer`, each layer's weights are one
+module (:class:`SSMLayer`) in an ``nn.ModuleList``, and the hybrid's shared
+block is one more (:class:`SharedBlock`, named ``shared``);
+:func:`params_to_reference` and :func:`params_from_reference` convert to
+and from the reference's nested dict of stacked arrays.  ``jnp.einsum``
+and ``jnp.concatenate`` promote mixed dtypes where ``torch`` refuses them
+or would not: the port casts at those points, so zamba2's bfloat16 decode
+(whose K/V cache is float32 by the reference's cache rule) returns float32
+logits and a float32 ``conv`` state, as the reference's does.  The sharded
+layout (``param_specs``, ``cache_specs``) is ROADMAP.md queue 1 item 13's
+remainder.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import layers as L
+from repro_torch.models.common import ArchConfig, not_ported
+from repro_torch.models.transformer import (
+    _Weights,
+    _assign,
+    _flat_shapes,
+    lm_loss,
+    logits_from_hidden,
+    model_from_reference,
+    params_to_reference,
+)
+
+#: leaves the reference's initialiser sets to ones
+_ONES = ("ln", "out_ln", "final_ln", "ln1", "ln2", "conv_b", "D_skip")
+
+
+# ------------------------------------------------------------------ params
+def ssm_layer_shapes(cfg: ArchConfig, n: int) -> dict[str, tuple]:
+    d, di, nst, h = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.n_ssm_heads
+    conv_dim = di + 2 * nst
+    return {
+        "ln": (n, d),
+        "in_proj": (n, d, 2 * di + 2 * nst + h),
+        "conv_w": (n, cfg.conv_width, conv_dim),
+        "conv_b": (n, conv_dim),
+        "A_log": (n, h),
+        "D_skip": (n, h),
+        "dt_bias": (n, h),
+        "out_ln": (n, di),
+        "out_proj": (n, di, d),
+    }
+
+
+def param_shapes(cfg: ArchConfig) -> dict[str, Any]:
+    shapes = {
+        "emb": (cfg.vocab_padded, cfg.d_model),
+        "final_ln": (cfg.d_model,),
+        "layers": ssm_layer_shapes(cfg, cfg.n_layers),
+    }
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (cfg.d_model, cfg.vocab_padded)
+    if cfg.family == "hybrid":
+        d, f, h, kv, dh = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        shapes["shared"] = {
+            "ln1": (d,), "ln2": (d,),
+            "wq": (d, h, dh), "wk": (d, kv, dh), "wv": (d, kv, dh), "wo": (h, dh, d),
+            "wg": (d, f), "wu": (d, f), "wd": (f, d),
+        }
+    return shapes
+
+
+def param_specs(cfg: ArchConfig, axes=None):
+    not_ported("the 2-D FSDP x TP parameter layout (param_specs)")
+
+
+def cache_specs(cfg: ArchConfig, axes=None, batch: int = 0, seq: int = 0):
+    not_ported("the sharded conv/SSM/KV-cache layout (cache_specs)")
+
+
+class SSMLayer(_Weights):
+    """One Mamba2 layer's ``ln, in_proj, conv_w, conv_b, A_log, D_skip,
+    dt_bias, out_ln, out_proj`` in the reference's per-layer shapes."""
+
+
+class SharedBlock(_Weights):
+    """The hybrid's one attention + MLP block (``ln1, wq, wk, wv, wo, ln2,
+    wg, wu, wd``), applied before every ``attn_period`` layers."""
+
+
+class SSMModel(_Weights):
+    """``emb``, ``final_ln``, ``lm_head`` (unless tied), ``layers`` (an
+    ``nn.ModuleList`` of :class:`SSMLayer`) and, for the hybrid,
+    ``shared`` (a :class:`SharedBlock`), from the reference's stacked
+    ``shapes`` (:func:`param_shapes`).  Values are uninitialised:
+    :func:`init_params` or :func:`params_from_reference` fill them."""
+
+    def __init__(self, shapes: dict[str, Any], device=None, dtype=None):
+        super().__init__({k: v for k, v in shapes.items() if k not in ("layers", "shared")},
+                         device, dtype)
+        per_layer = {k: s[1:] for k, s in shapes["layers"].items()}
+        n = next(iter(shapes["layers"].values()))[0]
+        self.layers = nn.ModuleList(SSMLayer(per_layer, device, dtype) for _ in range(n))
+        self.shared = SharedBlock(shapes["shared"], device, dtype) if "shared" in shapes else None
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator, device=None) -> SSMModel:
+    """The reference's rule on the stacked shapes: ones for the norms,
+    ``conv_b`` and ``D_skip``; ``A_log = log(1 … h)``; ``dt_bias = -1``;
+    every other leaf (``emb`` among them) N(0, fan_in^-1/2) with fan_in =
+    ``shape[-2]`` of the stacked shape.  Draws on ``generator``'s device,
+    leaf by leaf in the reference's order; the values differ from
+    ``jax.random``'s."""
+    shapes = param_shapes(cfg)
+    device = torch.device(device) if device is not None else generator.device
+    model = SSMModel(shapes, device=device, dtype=cfg.dtype)
+    for path, shape in _flat_shapes(shapes):
+        name = path[-1]
+        if name in _ONES:
+            value = torch.ones(shape, device=device, dtype=cfg.dtype)
+        elif name == "A_log":
+            h = torch.arange(1, shape[-1] + 1, dtype=torch.float32, device=device)
+            value = torch.log(h.expand(shape)).to(cfg.dtype)
+        elif name == "dt_bias":
+            value = torch.full(shape, -1.0, device=device, dtype=cfg.dtype)
+        else:
+            fan_in = shape[-2] if len(shape) > 1 else shape[-1]
+            value = torch.randn(shape, generator=generator, device=generator.device)
+            value = (value * fan_in ** -0.5).to(device, cfg.dtype)
+        _assign(model, path, value)
+        del value
+    return model
+
+
+def params_from_reference(tree, device="cpu", dtype=None) -> SSMModel:
+    """The reference's params tree (numpy or JAX arrays) → an
+    :class:`SSMModel` on ``device``, in ``dtype`` (default: the arrays');
+    :func:`params_to_reference` is the transformer's."""
+    return model_from_reference(SSMModel, tree, device, dtype)
+
+
+# --------------------------------------------------------------------- SSD
+def _state_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The scan's precision: float32 for bfloat16 and float32 inputs (the
+    reference's), float64 for float64 (where the reference's scan refuses
+    a float64 carry)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _softplus(x):
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``; ``F.softplus`` returns x
+    above its threshold)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv, x (B, S, C), w (W, C)."""
+    ww = w.shape[0]
+    xp = F.pad(x, (0, 0, ww - 1, 0))
+    out = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(ww))
+    return out + b
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int):
+    """Chunked SSD scan.
+
+    x: (b, s, h, p)   dt: (b, s, h)   A: (h,) negative
+    B, C: (b, s, n)   returns y (b, s, h, p) and the final state
+    (b, h, p, n), both at least float32 (the state's precision; callers
+    cast activations back down).  The inter-chunk recurrence is a loop
+    over the s / chunk chunks.
+    """
+    x = x.to(_state_dtype(x.dtype))
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    nc = s // chunk
+    xr = x.reshape(b, nc, chunk, h, p)
+    dtr = dt.reshape(b, nc, chunk, h)
+    Br = B.reshape(b, nc, chunk, n)
+    Cr = C.reshape(b, nc, chunk, n)
+
+    la = dtr * A  # (b, nc, q, h) log-decay per step (negative)
+    cum = torch.cumsum(la, dim=2)  # inclusive
+    xbar = xr * dtr[..., None]
+
+    # intra-chunk quadratic term.  Mask the EXPONENT, not the result: exp()
+    # of the (positive) anti-causal entries overflows, and inf·0 poisons the
+    # gradients through the where.  li[q, j] = la[j+1] + … + la[q] is summed
+    # as a segment (Mamba2's ``segsum``), not as cum[q] − cum[j]: the same
+    # values, rounded to |li|·eps where the difference rounds to |cum|·eps
+    # (a float32 cum reaches ~1e3 over a chunk of zamba2's fastest heads).
+    ones = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device)
+    later = torch.tril(ones, diagonal=-1)[None, None, :, :, None]  # step k after j
+    causal = torch.tril(ones)[None, None, :, :, None]
+    seg = torch.where(later, la[:, :, :, None, :], 0.0)  # [k, j]: la[k] for k > j
+    li = torch.cumsum(seg, dim=2)  # (b, nc, q, j, h): Σ_{j<k≤q} la[k]
+    li = torch.where(causal, torch.clamp(li, max=0.0), float("-inf"))
+    decay = torch.exp(li)
+    cb = L.einsum("bcqn,bcjn->bcqj", Cr, Br)  # (b, nc, q, j)
+    y_intra = L.einsum("bcqjh,bcjhp->bcqhp", cb[..., None] * decay, xbar)
+
+    # inter-chunk recurrence over states
+    sum_la = cum[:, :, -1, :]  # (b, nc, h)
+    # each chunk's contribution to its end-state; sum_la − cum[j] as the
+    # segment Σ_{k>j} la[k] (a suffix sum), for the same reason
+    to_end = F.pad(torch.flip(torch.cumsum(torch.flip(la[:, :, 1:], [2]), dim=2), [2]), (0, 0, 0, 1))
+    chunk_in = L.einsum("bcjhp,bcjn->bchpn", xbar * torch.exp(to_end)[..., None], Br)
+    state = torch.zeros((b, h, p, n), dtype=chunk_in.dtype, device=x.device)
+    entering = []  # the state *entering* each chunk
+    for c in range(nc):
+        entering.append(state)
+        state = state * torch.exp(sum_la[:, c])[..., None, None] + chunk_in[:, c]
+    entering = torch.stack(entering, dim=1)  # (b, nc, h, p, n)
+    y_inter = L.einsum("bcqn,bchpn->bcqhp", Cr, entering) * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(b, s, h, p)
+    return y, state
+
+
+def ssm_layer(cfg: ArchConfig, x, p, chunk: int = 128):
+    """One Mamba2 block (training path).  x: (B, S, D).  The chunk is
+    ``min(chunk, S)`` and must divide S (the reference's reshape fails
+    otherwise)."""
+    b, s, d = x.shape
+    di, nst, h, hd = cfg.d_inner, cfg.d_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"the SSD chunk {q} must divide the sequence length {s}")
+    sd = _state_dtype(x.dtype)
+    res = x
+    xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    zxbcdt = L.einsum("bsd,dk->bsk", xn, p["in_proj"])
+    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * nst, h], dim=-1)
+    xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+    xs, B, C = torch.split(xbc, [di, nst, nst], dim=-1)
+    xs = xs.reshape(b, s, h, hd)
+    dt = _softplus(dt.to(sd) + p["dt_bias"].to(sd))
+    A = -torch.exp(p["A_log"].to(sd))
+    y, _ = ssd_chunked(xs, dt, A, B.to(sd), C.to(sd), chunk=q)
+    y = y.to(x.dtype) + xs * p["D_skip"].to(x.dtype)[None, None, :, None]
+    y = y.reshape(b, s, di) * F.silu(z)
+    y = L.rms_norm(y, p["out_ln"], cfg.norm_eps)
+    return res + L.einsum("bsk,kd->bsd", y, p["out_proj"])
+
+
+def ssm_decode_layer(cfg: ArchConfig, x, p, state):
+    """One-token decode.  x: (B, 1, D); ``state`` {conv: (B, W-1, convdim),
+    ssm: (B, H, P, N)} → (y, new_state), the new state in new tensors."""
+    b = x.shape[0]
+    di, nst, h, hd = cfg.d_inner, cfg.d_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    sd = _state_dtype(x.dtype)
+    res = x
+    xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    zxbcdt = L.einsum("bsd,dk->bsk", xn, p["in_proj"])[:, 0]
+    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * nst, h], dim=-1)
+    wdt = torch.promote_types(state["conv"].dtype, xbc.dtype)  # jnp.concatenate promotes
+    window = torch.cat([state["conv"].to(wdt), xbc[:, None].to(wdt)], dim=1)  # (B, W, convdim)
+    xbc = F.silu(L.einsum("bwc,wc->bc", window, p["conv_w"]) + p["conv_b"])
+    new_conv = window[:, 1:]
+    xs, B, C = torch.split(xbc, [di, nst, nst], dim=-1)
+    xs = xs.reshape(b, h, hd)
+    dt = _softplus(dt.to(sd) + p["dt_bias"].to(sd))
+    A = -torch.exp(p["A_log"].to(sd))
+    da = torch.exp(dt * A)  # (B, H)
+    ssm = state["ssm"]
+    s_new = ssm * da[..., None, None].to(ssm.dtype) + L.einsum(
+        "bhp,bn,bh->bhpn", xs.to(sd), B.to(sd), dt).to(ssm.dtype)
+    y = L.einsum("bn,bhpn->bhp", C.to(s_new.dtype), s_new).to(x.dtype) \
+        + xs * p["D_skip"].to(x.dtype)[None, :, None]
+    y = y.reshape(b, di) * F.silu(z)
+    y = L.rms_norm(y, p["out_ln"], cfg.norm_eps)
+    out = res + L.einsum("bk,kd->bd", y, p["out_proj"])[:, None].to(res.dtype)
+    return out, {"conv": new_conv.to(res.dtype), "ssm": s_new}
+
+
+# ---------------------------------------------------------------- forwards
+def _shared_attn_block(cfg: ArchConfig, x, sp, positions):
+    h = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
+    q, k, v = L.qkv(cfg, h, sp, positions)
+    mask = None if cfg.attn_chunk else L.causal_mask(x.shape[1], device=x.device)
+    o = L.attention(cfg, q, k, v, mask, mask_kind="causal")
+    x = x + L.einsum("bshe,hed->bsd", o, sp["wo"])
+    h = L.rms_norm(x, sp["ln2"], cfg.norm_eps)
+    return x + L.mlp_block(cfg, h, sp)
+
+
+def _segments(cfg: ArchConfig):
+    """(start, end) of each run of layers; the hybrid applies its shared
+    block before each run of ``attn_period`` layers."""
+    n = cfg.n_layers
+    if cfg.family == "hybrid" and cfg.attn_period:
+        return [(s0, min(s0 + cfg.attn_period, n)) for s0 in range(0, n, cfg.attn_period)]
+    return [(0, n)]
+
+
+def _hybrid(cfg: ArchConfig) -> bool:
+    return cfg.family == "hybrid" and bool(cfg.attn_period)
+
+
+def forward(cfg: ArchConfig, params: SSMModel, tokens):
+    """Token forward to the final hidden states (B, S, D).  With
+    ``cfg.remat`` each layer, and each application of the shared block, is
+    recomputed in the backward pass."""
+    x = params["emb"][tokens].to(cfg.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def run(fn, *args):
+        return checkpoint(fn, cfg, *args, use_reentrant=False) if remat else fn(cfg, *args)
+
+    for s0, e0 in _segments(cfg):
+        if _hybrid(cfg):
+            x = run(_shared_attn_block, x, params.shared, positions)
+        for layer in params.layers[s0:e0]:
+            x = run(ssm_layer, x, layer)
+    return L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+
+
+def loss_fn(cfg: ArchConfig):
+    """``f(params, batch) -> loss`` with batch ``{"tokens", "labels"}``."""
+
+    def f(params, batch):
+        x = forward(cfg, params, batch["tokens"])
+        return lm_loss(cfg, params, x, batch["labels"])
+
+    return f
+
+
+# ------------------------------------------------------------------ decode
+def cache_shapes(cfg: ArchConfig, batch: int, seq: int):
+    di, nst, h, hd = cfg.d_inner, cfg.d_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    conv_dim = di + 2 * nst
+    shapes = {
+        "conv": (cfg.n_layers, batch, cfg.conv_width - 1, conv_dim),
+        "ssm": (cfg.n_layers, batch, h, hd, nst),
+    }
+    if _hybrid(cfg):
+        n_apps = math.ceil(cfg.n_layers / cfg.attn_period)
+        kv, dh = cfg.n_kv_heads, cfg.head_dim
+        shapes |= {
+            "k": (n_apps, batch, seq, kv, dh),
+            "v": (n_apps, batch, seq, kv, dh),
+        }
+    return shapes
+
+
+def cache_dtype(cfg: ArchConfig, shape: tuple) -> torch.dtype:
+    """The reference's rule: float32 for every 5-D leaf whose last dim is
+    ``d_state`` (the SSM state; also zamba2's K/V, whose ``head_dim``
+    equals ``d_state``), the config's dtype otherwise."""
+    return torch.float32 if len(shape) == 5 and shape[-1] == cfg.d_state else cfg.dtype
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq: int, device=None):
+    return {k: torch.zeros(s, dtype=cache_dtype(cfg, s), device=device)
+            for k, s in cache_shapes(cfg, batch, seq).items()}
+
+
+def decode_step(cfg: ArchConfig):
+    """One-token decode: ``f(params, cache, token, pos) -> (logits, cache)``
+    with ``token`` and ``pos`` (B,) integer tensors.  Each layer's conv
+    window and SSM state, and each shared application's K/V row, are
+    written into ``cache`` in place.  Where the hidden state's dtype is not
+    the ``conv`` cache's (zamba2 in bfloat16, whose float32 K/V make the
+    hidden state float32 from the first shared block on), ``cache["conv"]``
+    is first replaced by a copy in that dtype, as the reference's step
+    returns it."""
+
+    @torch.no_grad()
+    def f(params, cache, token, pos):
+        b = token.shape[0]
+        x = params["emb"][token][:, None].to(cfg.dtype)  # (B, 1, D)
+        rows = torch.arange(b, device=x.device)
+        if _hybrid(cfg):
+            s_cache = cache["k"].shape[2]
+            mask = torch.arange(s_cache, device=x.device)[None, None, None, :] <= pos[:, None, None, None]
+        for app, (s0, e0) in enumerate(_segments(cfg)):
+            if _hybrid(cfg):
+                sp = params.shared
+                h = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
+                q, k, v = L.qkv(cfg, h, sp, pos[:, None])
+                cache["k"][app][rows, pos] = k[:, 0].to(cache["k"].dtype)
+                cache["v"][app][rows, pos] = v[:, 0].to(cache["v"].dtype)
+                o = L.attention(cfg, q, cache["k"][app], cache["v"][app], mask)
+                x = x + L.einsum("bshe,hed->bsd", o, sp["wo"])
+                h = L.rms_norm(x, sp["ln2"], cfg.norm_eps)
+                x = x + L.mlp_block(cfg, h, sp)
+            for i in range(s0, e0):
+                x, ns = ssm_decode_layer(cfg, x, params.layers[i],
+                                         {"conv": cache["conv"][i], "ssm": cache["ssm"][i]})
+                if cache["conv"].dtype != ns["conv"].dtype:
+                    cache["conv"] = cache["conv"].to(ns["conv"].dtype)
+                cache["conv"][i].copy_(ns["conv"])
+                cache["ssm"][i].copy_(ns["ssm"])
+        x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+        return logits_from_hidden(cfg, params, x)[:, 0], cache
+
+    return f

@@ -11,8 +11,10 @@ reference's nested dict of stacked arrays (weights carried across in tests,
 and the checkpoint layout).
 
 The MoE and VLM branches, the sharded layout (``param_specs``,
-``cache_specs``) and the other families are ROADMAP.md queue 1 item 13's
-remainder and raise ``NotImplementedError`` before any device work.
+``cache_specs``) and the encdec family are ROADMAP.md queue 1 item 13's
+remainder and raise ``NotImplementedError`` before any device work; the
+ssm and hybrid families are :mod:`repro_torch.models.ssm`'s (this module's
+functions refuse them too).
 """
 
 from __future__ import annotations
@@ -113,13 +115,17 @@ def _flat_shapes(tree, prefix=()):
 
 
 @torch.no_grad()
-def _assign(model: Transformer, path: tuple, value: torch.Tensor) -> None:
-    """Copy a value in the reference's stacked layout into ``model``."""
+def _assign(model: _Weights, path: tuple, value: torch.Tensor) -> None:
+    """Copy a value in the reference's stacked layout into ``model``
+    (``("layers", w)`` into every layer, other paths by name)."""
     if path[0] == "layers":
         for i, layer in enumerate(model.layers):
             layer[path[1]].copy_(value[i])
     else:
-        model[path[0]].copy_(value)
+        node = model
+        for key in path[:-1]:
+            node = node[key]
+        node[path[-1]].copy_(value)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, device=None) -> Transformer:
@@ -151,28 +157,39 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def stack_named(named: dict[str, torch.Tensor]) -> dict[str, Any]:
-    """Tensors by parameter name (``"emb"``, ``"layers.3.wq"``) → the
-    reference's nested dict of numpy arrays, per-layer entries stacked to
-    ``(n_layers, …)`` (bfloat16 as float32: numpy has no bfloat16)."""
+    """Tensors by parameter name (``"emb"``, ``"layers.3.wq"``,
+    ``"shared.wq"``) → the reference's nested dict of numpy arrays:
+    per-layer entries stacked to ``(n_layers, …)``, any other dotted name
+    nested (``{"shared": {"wq": …}}``); bfloat16 as float32 (numpy has no
+    bfloat16)."""
     out, per_layer = {}, {}
     for name, t in named.items():
         parts = name.split(".")
         if parts[0] == "layers":
             per_layer.setdefault(parts[2], {})[int(parts[1])] = t
         else:
-            out[name] = _to_numpy(t)
+            node = out
+            for key in parts[:-1]:
+                node = node.setdefault(key, {})
+            node[parts[-1]] = _to_numpy(t)
     if per_layer:
         out["layers"] = {k: np.stack([_to_numpy(v[i]) for i in range(len(v))])
                          for k, v in per_layer.items()}
     return out
 
 
-def unstack_named(tree: dict[str, Any]) -> dict[str, np.ndarray]:
+def unstack_named(tree: dict[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
     """The inverse of :func:`stack_named`."""
-    named = {k: np.asarray(v) for k, v in tree.items() if k != "layers"}
-    for key, arr in tree.get("layers", {}).items():
-        for i in range(arr.shape[0]):
-            named[f"layers.{i}.{key}"] = np.asarray(arr[i])
+    named = {}
+    for key, v in tree.items():
+        if key == "layers" and not prefix:
+            for w, arr in v.items():
+                for i in range(arr.shape[0]):
+                    named[f"layers.{i}.{w}"] = np.asarray(arr[i])
+        elif isinstance(v, dict):
+            named |= unstack_named(v, f"{prefix}{key}.")
+        else:
+            named[prefix + key] = np.asarray(v)
     return named
 
 
@@ -184,11 +201,18 @@ def params_to_reference(model: Transformer) -> dict[str, Any]:
 def params_from_reference(tree, device="cpu", dtype=None) -> Transformer:
     """The reference's params tree (numpy or JAX arrays) → a
     :class:`Transformer` on ``device``, in ``dtype`` (default: the arrays')."""
-    named = unstack_named(tree)
-    shapes = {k: tuple(np.shape(v)) for k, v in tree.items() if k != "layers"}
-    shapes["layers"] = {k: tuple(np.shape(v)) for k, v in tree["layers"].items()}
+    return model_from_reference(Transformer, tree, device, dtype)
+
+
+def model_from_reference(cls, tree, device="cpu", dtype=None):
+    """A ``cls`` module (built from the reference's stacked shapes) holding
+    the values of the reference's params tree, on ``device``, in ``dtype``
+    (default: the arrays')."""
+    shapes = {k: ({n: tuple(np.shape(a)) for n, a in v.items()} if isinstance(v, dict)
+                  else tuple(np.shape(v))) for k, v in tree.items()}
     dtype = dtype or torch.from_numpy(np.asarray(tree["final_ln"])[:1].copy()).dtype
-    model = Transformer(shapes, device=device, dtype=dtype)
+    model = cls(shapes, device=device, dtype=dtype)
+    named = unstack_named(tree)
     with torch.no_grad():
         for name, p in model.named_parameters():
             p.copy_(torch.from_numpy(np.ascontiguousarray(named[name])))

@@ -8,8 +8,9 @@ a checkpoint written by either package restores in the other:
 * ``leaves.npz`` holds ``leaf_<i>`` in the reference's flatten order (dict
   keys sorted), with a module's per-layer parameters, and any dict of
   tensors by parameter name (the optimizer moments), stacked back to the
-  reference's ``(n_layers, …)`` arrays; ``meta.json`` holds the step, the
-  leaf count and ``extra``;
+  reference's ``(n_layers, …)`` arrays and other dotted names nested (the
+  hybrid's ``shared.<w>`` as ``{"shared": {"<w>": …}}``); ``meta.json``
+  holds the step, the leaf count and ``extra``;
 * ``install_preemption_handler`` checkpoints on SIGTERM before exiting.
 
 A tree is nested dicts whose leaves are modules, tensors or numpy values.
@@ -31,8 +32,9 @@ from repro_torch.models.transformer import _to_numpy, stack_named, unstack_named
 
 
 def _is_named(d: dict) -> bool:
-    """A dict of tensors by parameter name (``"layers.<i>.<w>"`` keys)."""
-    return any(isinstance(k, str) and k.startswith("layers.") for k in d)
+    """A dict of tensors by parameter name (dotted keys: ``"layers.<i>.<w>"``,
+    ``"shared.<w>"``)."""
+    return any(isinstance(k, str) and "." in k for k in d)
 
 
 def _to_reference(obj):
@@ -47,13 +49,16 @@ def _to_reference(obj):
 
 
 def _named_keys(names) -> dict:
+    """:func:`stack_named`'s keys for parameter names (leaves None)."""
     keys = {}
     for name in names:
         parts = name.split(".")
         if parts[0] == "layers":
-            keys.setdefault("layers", {})[parts[2]] = None
-        else:
-            keys[name] = None
+            parts = ["layers", parts[2]]
+        node = keys
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = None
     return keys
 
 

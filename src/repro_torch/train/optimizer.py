@@ -2,7 +2,7 @@
 
 Port of ``repro/train/optimizer.py``: the reference's math and order, not
 ``torch.optim.AdamW`` (whose decay and eps placement differ).  Parameters
-are a :class:`~repro_torch.models.transformer.Transformer` or a dict of
+are a model module (the transformer's or the SSM model's) or a dict of
 tensors by name; the moments are float32 dicts by the same names (the
 reference's stacked layout through
 :func:`~repro_torch.models.transformer.stack_named`).  The ZeRO-1 state

@@ -69,7 +69,8 @@ def build_train_step(
 
 
 def build_serve_step(cfg: ArchConfig, batch: int, seq: int, device="cuda"):
-    """The one-device decode step for a (``batch``, ``seq``) KV cache:
+    """The one-device decode step for a (``batch``, ``seq``) cache (K/V;
+    for the SSM families the conv and SSM states, and the hybrid's K/V):
     ``step_fn(params, cache, {"token", "pos"}) -> (logits, cache)`` (the
     cache written in place), and ``{"cache_shapes", "init_cache"}``."""
     api = model_api(cfg)

@@ -31,6 +31,26 @@ CSRC = Path(_build.CSRC)
 F32, F64 = torch.float32, torch.float64
 
 
+def _strided(starts, stop, step):
+    """Every ``start + k·step < stop`` for each of ``starts`` (one loop
+    ``for i in range(start, stop, step)`` a start), concatenated."""
+    starts = torch.as_tensor(starts, dtype=torch.int64)
+    if starts.numel() == 0:
+        return starts
+    k = torch.arange(max(-(-(stop - int(starts.min())) // step), 0), dtype=torch.int64)
+    idx = starts[:, None] + step * k[None, :]
+    return idx[idx < stop]
+
+
+def _once(idx, n) -> bool:
+    """``idx`` holds each of 0 … n − 1 exactly once (``sorted(idx) ==
+    list(range(n))``), by counting instead of sorting."""
+    if idx.numel() != n:
+        return False
+    return n == 0 or (int(idx.min()) >= 0 and torch.equal(torch.bincount(idx, minlength=n),
+                                                           torch.ones(n, dtype=torch.int64)))
+
+
 def _cuda_constant(source: str, name: str) -> int:
     m = re.search(rf"constexpr int {name} = (\d+);", (CSRC / source).read_text())
     assert m, f"{name} not found in {source}"
@@ -71,9 +91,8 @@ def test_spmbv_plan_covers_every_output_row_once(nbr, br, bc, t, n_w, dtype, sms
     assert 1 <= plan.grid <= sms * cap
     workers = plan.grid * per_cta
     # the kernel's persistent loop: worker w takes items w, w + workers, ...
-    visits = torch.zeros(plan.rows, dtype=torch.int64)
-    for w in range(min(workers, plan.rows)):
-        visits[w::workers] += 1
+    items = _strided(torch.arange(min(workers, plan.rows)), plan.rows, workers)
+    visits = torch.bincount(items, minlength=plan.rows)
     assert bool((visits == 1).all())
     assert (plan.grid - 1) * per_cta < max(plan.rows, 1)  # no CTA without work
 
@@ -146,22 +165,18 @@ def _mma_rows(begin, end, t, threads):
     """Rows pass 1's mma loop visits in one CTA (base, then 4-row steps u)."""
     u_steps = 8 if t <= 8 else 4
     warps = threads // 32
-    rows = []
-    for w in range(warps):
-        for base in range(begin + w * 4 * u_steps, end, warps * 4 * u_steps):
-            rows += [r for r in range(base, base + 4 * u_steps) if r < end]
-    return rows
+    bases = _strided(begin + torch.arange(warps) * 4 * u_steps, end, warps * 4 * u_steps)
+    rows = (bases[:, None] + torch.arange(4 * u_steps)[None, :]).flatten()
+    return rows[rows < end]
 
 
 def _fma_rows(begin, end, t, threads, k_rows=4):
     """Rows pass 1's fma loop visits for one tile of one CTA (all groups)."""
     ta = -(-t // 4)
     groups = threads // (3 * ta * ta)
-    rows = []
-    for grp in range(groups):
-        for row0 in range(begin + grp, end, k_rows * groups):
-            rows += [row0 + k * groups for k in range(k_rows) if row0 + k * groups < end]
-    return rows
+    row0 = _strided(begin + torch.arange(groups), end, k_rows * groups)
+    rows = (row0[:, None] + torch.arange(k_rows)[None, :] * groups).flatten()
+    return rows[rows < end]
 
 
 @pytest.mark.parametrize("dtype", [F32, F64])
@@ -177,11 +192,9 @@ def test_gram_plan_parts_cover_every_row_once(n, t, ranks, dtype):
     if n:
         assert (plan.parts - 1) * plan.rows_per_part < n <= plan.parts * plan.rows_per_part  # none empty
     walk = _mma_rows if plan.path == "mma" else _fma_rows
-    visited = []
-    for part in range(plan.parts):
-        begin = part * plan.rows_per_part
-        visited += walk(begin, min(n, begin + plan.rows_per_part), t, plan.threads)
-    assert sorted(visited) == list(range(n))
+    visited = torch.cat([walk(begin, min(n, begin + plan.rows_per_part), t, plan.threads)
+                         for begin in range(0, plan.parts * plan.rows_per_part, plan.rows_per_part)])
+    assert torch.equal(torch.sort(visited).values, torch.arange(n))
     assert plan.partials == ranks * 3 * t * t * plan.parts
 
 
@@ -269,10 +282,9 @@ def test_trisolve_plan_fits_shared_memory_and_covers_every_block_once(bs, t, dty
         assert plan.grid == min(132 * plan.warps, plan.tasks)  # no CTA without work
         # the kernel's walk: CTA w takes tasks w, w + grid, ..., each task
         # per_warp consecutive blocks
-        visits = torch.zeros(plan.tasks * plan.per_warp, dtype=torch.int64)
-        for w in range(plan.grid):
-            for task in range(w, plan.tasks, plan.grid):
-                visits[task * plan.per_warp:(task + 1) * plan.per_warp] += 1
+        tasks = _strided(torch.arange(plan.grid), plan.tasks, plan.grid)
+        blocks = (tasks[:, None] * plan.per_warp + torch.arange(plan.per_warp)[None, :]).flatten()
+        visits = torch.bincount(blocks, minlength=plan.tasks * plan.per_warp)
         assert bool((visits[:nb] == 1).all())
 
 
@@ -366,9 +378,9 @@ def _tail_items(plan, n, grid):
     if plan.path == "element":
         # one thread an element: CTA b takes the runs of ``threads``
         # elements b, b + grid, ...
-        e = torch.arange(n * plan.t)
-        run = e // plan.threads
-        return e[torch.argsort(run % grid * (run.max() + 1) + run, stable=True)]
+        runs = _strided(torch.arange(grid), -(-n * plan.t // plan.threads), grid)
+        e = (runs[:, None] * plan.threads + torch.arange(plan.threads)[None, :]).flatten()
+        return e[e < n * plan.t]
     # the mma kernel: CTA b takes tiles b, b + grid, ...; warp w of a tile
     # its m-tiles w, w + warps, ... (those that start at or past n it
     # skips); lane row g of an m-tile writes row row0 + 8·mt + g where that
@@ -376,7 +388,7 @@ def _tail_items(plan, n, grid):
     warps = plan.threads // 32
     offs = torch.tensor([8 * mt + g for w in range(warps) for mt in range(w, plan.rows // 8, warps)
                          for g in range(8)])
-    tiles = torch.cat([torch.arange(b, -(-n // plan.rows), grid) for b in range(grid)])
+    tiles = _strided(torch.arange(grid), -(-n // plan.rows), grid)
     rows = (tiles[:, None] * plan.rows + offs[None]).flatten()
     return rows[rows < n]
 
@@ -408,7 +420,7 @@ def test_tail_plan_mirrors_the_launcher_and_covers_every_row_once(t, dtype, alig
             grid = plan.grid(n, per_sm)
             assert 1 <= grid and (grid - 1) * per_cta < items  # no CTA without work
             for g in sorted({grid, 1, min(grid, 3)}):
-                assert torch.equal(_tail_items(plan, n, g).sort().values, torch.arange(items)), (n, g)
+                assert _once(_tail_items(plan, n, g), items), (n, g)
     with pytest.raises(ValueError, match="1 <= t <= 32"):
         uops.tail_plan(33, dtype, aligned)
 

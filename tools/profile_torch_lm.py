@@ -11,7 +11,9 @@ repro_torch.launch.train --preset full`` does, warms up one step, times
 ``--steps`` steps of ``build_train_step`` at ``--batch`` × ``--seq`` on
 the host clock around synchronized work, then runs them again under
 ``torch.profiler``.  ``decode`` builds the config in its own dtype
-(bfloat16) with a ``--slots`` KV cache at batch 1, warms up two tokens,
+(bfloat16) with a ``--slots`` cache at batch 1 (K/V; for ``mamba2_780m``
+the conv and SSM states, which do not grow with it; for ``zamba2_1_2b``
+both), warms up two tokens,
 times ``--tokens`` tokens of ``build_serve_step``'s step, then profiles
 them.  Each mode prints one JSON line (the card, wall and device-busy ms
 a step or token, the device's idle share, the host's launch calls, peak
