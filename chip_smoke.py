@@ -402,6 +402,34 @@ counts (and the mesh's counters) set to 0 just before its solve:
     them (mamba2: bf16 logits and ``conv``; zamba2: float32 logits and a
     float32 ``conv`` after the step).  No port kernel runs here either.
     The phase prints its seconds.
+52. ``encdec_vlm`` — the encoder-decoder and VLM-prefix LMs at full width
+    in float32 on ``cuda:0``: whisper-medium (24 + 24 layers, d = 1024,
+    1500 encoder frames) and then paligemma-3b (18 layers, d = 2048, MQA,
+    d_head 256, vocab 257 216, 256 image patches): (1) the trainer's CLI at
+    ``--preset full`` for 2 steps (frames and patch embeddings drawn by
+    ``batch_at``; loss finite, gnorm finite or, where the initialiser's
+    gradients overflow float32's sum of squares as the reference's do,
+    +inf, never NaN); (2) the model built as the trainer builds it:
+    759 519 232 and 2 508 793 856 elements, ``param_count()`` plus the
+    padded vocab rows, the norms and whisper's ``enc_pos``; (3) on its
+    weights redrawn from N(0, 0.02), two trainer steps at
+    batch 1 × seq 4096 (whisper: 4096 decoder tokens against 1500 frames;
+    paligemma: 256 patches + 4096 text tokens, 4352 positions): loss,
+    grad_norm and lr finite, ms a step, tokens/s, peak memory; for
+    paligemma one step plain and one with ``attn_chunk = 256`` (the
+    ``prefix:256`` chunked path) and ``loss_chunk = 512`` on the same
+    parameters (lr 0): losses and grad norms within 1e-4 relative; (4) f32
+    decode of 16 tokens from position 0 into a 4096-slot cache (whisper's
+    cross K/V from ``prefill_cross_cache`` of the step's frames), each
+    position's logits within 1e-3 relative of one forward over those
+    tokens, on those weights (a fresh model's under the initialiser's rule
+    logged beside); (5) a 2-layer model of the full width (whisper 2 + 2
+    layers, 1500 frames; paligemma 256 patches), batch 1 × 64 tokens, held
+    to phase 50 (5)'s gates (``card_vs_cpu``); (6) bf16 decode (the
+    config's own dtype) at batch 1 with a 32768-slot cache: ms a token,
+    peak memory, every cache leaf and the logits bfloat16 (the reference's
+    ``abstract_cache`` and ``jnp`` promotion).  No port kernel runs here.
+    The phase prints its seconds.
 
 The ``kernels`` line's ``bsr_spmbv``, ``fused_gram``, ``ecg_tail`` and
 ``rank_apply`` rows carry ``widths`` entries for t = 4 and 16 with their
@@ -412,7 +440,7 @@ width), and ``chol_apply`` one for t = 1 with its launches in phase 16.
 Every row also carries ``oneshot_launches``: its launches in each of phases
 45-48, ``process_mesh_launches``: its launches in phase 49's solves on
 the process-group mesh (rank 0's), and ``lm_launches``: its launches in
-phases 50-51.
+phases 50-52.
 
 ``python3 chip_smoke.py --process-mesh-worker DIR RANK WORLD`` is one rank
 of phase 49's world (the script starts these itself).
@@ -1479,6 +1507,248 @@ def ssm_phases(torch) -> dict:
         torch.cuda.empty_cache()
     launches = kernels.launch_counts()
     log({"phase": "ssm", "seconds": time.perf_counter() - t_phase, "launches": launches})
+    return launches
+
+
+def encdec_vlm_phases(torch) -> dict:
+    """Phase 52: whisper-medium and paligemma-3b at full width on
+    ``cuda:0`` (module docstring).  Returns the kernel launch counts of the
+    phase."""
+    import contextlib
+    import io
+
+    from repro_torch import kernels
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import encdec as E
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import model_api
+    from repro_torch.train import (
+        AdamWConfig,
+        DataConfig,
+        batch_at,
+        build_serve_step,
+        build_train_step,
+        init_opt_state,
+    )
+
+    dev = torch.device("cuda", 0)
+    gib = 2.0 ** 30
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    resident = torch.cuda.memory_allocated(dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def rel(a, b) -> float:
+        return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+    def peak_reset():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def n002(mdl):
+        """Every weight of two dims or more from N(0, 0.02), norms kept: the
+        initialiser's rule makes wq/wk/wv N(0, n_heads^-1/2) and saturates
+        attention, as in phase 50."""
+        with torch.no_grad():
+            for p_ in mdl.parameters():
+                if p_.dim() >= 2:
+                    p_.normal_(0.0, 0.02, generator=gen)
+
+    def extra_of(specs):
+        return {k: v for k, v in specs.items() if k not in ("tokens", "labels")}
+
+    # label, param_count() as the CLI prints it, elements, and the elements
+    # param_count() leaves out (the padded vocab rows, the norms; whisper's
+    # learned encoder positions)
+    want = {"whisper_medium": ("whisper-medium", "757.8M", 759_519_232),
+            "paligemma_3b": ("paligemma-3b", "2508.6M", 2_508_793_856)}
+    name_of = lambda d: str(d).removeprefix("torch.")
+    for arch, (label, shown, n_elements) in want.items():
+        encdec = arch == "whisper_medium"
+        mod = E if encdec else T
+        # ------------------------------------------------------- 52.1 the CLI
+        argv = ["--arch", arch, "--preset", "full", "--steps", "2", "--log-every", "1"]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            train_cli.main(argv)
+        lines = out.getvalue().splitlines()
+        steps = [ln.split() for ln in lines if ln.startswith("step ")]
+        # under the reference's initialiser (wq/wk/wv N(0, n_heads^-1/2))
+        # attention saturates and the gradients grow layer by layer: at
+        # whisper's 24 + 24 layers their float32 sum of squares overflows,
+        # in the reference as here (ROADMAP §3), so the clip scale is 0 and
+        # the step only decays the weights; a NaN would be a fault
+        overflow = [s_[1] for s_ in steps if float(s_[5]) == math.inf]
+        log({"phase": "encdec_vlm_cli", "argv": argv, "lines": lines, "gnorm_overflow_steps": overflow,
+             "seconds": time.perf_counter() - t0})
+        gate("encdec_vlm_cli", lines[0] == f"arch={label} params={shown} preset=full" and lines[-1] == "done"
+             and len(steps) == 2 and all(math.isfinite(float(s_[3])) and not math.isnan(float(s_[5]))
+                                         for s_ in steps), f"printed {lines}")
+        peak_reset()
+
+        # ------------------------------------------------------ 52.2 the build
+        cfg = train_cli.preset_config(arch, "full").with_(dtype=torch.float32)
+        api = model_api(cfg)
+        t0 = time.perf_counter()
+        model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        opt = init_opt_state(model)
+        torch.cuda.synchronize()
+        elements = sum(p_.numel() for p_ in model.parameters())
+        gap = {"vocab_padded": (cfg.vocab_padded - cfg.vocab) * cfg.d_model,
+               "norms": ((2 * cfg.n_enc_layers + 3 * cfg.n_layers + 2) if encdec
+                         else (2 * cfg.n_layers + 1)) * cfg.d_model,
+               "enc_pos": cfg.enc_ctx * cfg.d_model if encdec else 0}
+        log({"phase": "encdec_vlm_build", "arch": cfg.name, "dtype": "float32", "param_elements": elements,
+             "param_count": cfg.param_count(), "gap": gap, "build_s": time.perf_counter() - t0,
+             "resident_before_gib": resident / gib,
+             "params_and_state_gib": (torch.cuda.memory_allocated(dev) - resident) / gib})
+        gate("encdec_vlm_build", elements == n_elements == cfg.param_count() + sum(gap.values()),
+             f"{elements} elements, want {n_elements} = {cfg.param_count()} + {gap}")
+
+        # ------------------------------------- 52.3 two steps at batch 1 x seq 4096
+        # on N(0, 0.02) weights: under the initialiser's the gradient norm
+        # overflows (52.1)
+        n002(model)
+        seq_long, n_steps = 4096, 2
+        opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=n_steps)  # the trainer's
+        bundle = build_train_step(cfg, opt_cfg, batch=1, seq=seq_long, device=dev)
+        extra = extra_of(bundle.input_specs)
+        dcfg = DataConfig(vocab=cfg.vocab, batch=1, seq=seq_long)
+        positions = seq_long + (0 if encdec else cfg.n_patches)
+        peak_reset()
+        rows = []
+        for step in range(n_steps):
+            data = batch_at(dcfg, step, extra=extra, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = bundle.step_fn(model, opt, data)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rows.append({"step": step + 1, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                         "lr": m["lr"], "ms": ms, "tokens_per_s": seq_long / ms * 1e3})
+        log({"phase": "encdec_vlm_train_4k", "arch": cfg.name, "batch": 1, "seq": seq_long,
+             "weights": "N(0, 0.02)", "positions": positions, "extra": {k: list(v[0]) for k, v in extra.items()}, "steps": rows,
+             "max_memory_allocated_gib": torch.cuda.max_memory_allocated(dev) / gib})
+        gate("encdec_vlm_train_4k", all(math.isfinite(r_[k]) for r_ in rows for k in ("loss", "grad_norm", "lr"))
+             and int(opt["step"]) == n_steps, f"steps {rows}")
+        if not encdec:
+            # the prefix:<n> chunked path on the card: 17 chunks of 256 over
+            # the 4352 positions, the loss over 8 chunks of 512 text tokens;
+            # lr 0 (no weight decay either): both steps on the same parameters
+            long_rows = {}
+            for name, c in (("plain", cfg), ("chunked", cfg.with_(attn_chunk=256, loss_chunk=512))):
+                fn = build_train_step(c, AdamWConfig(lr=0.0, weight_decay=0.0), batch=1, seq=seq_long,
+                                      device=dev).step_fn
+                peak_reset()
+                t0 = time.perf_counter()
+                m = fn(model, opt, data)
+                torch.cuda.synchronize()
+                long_rows[name] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                                   "ms": (time.perf_counter() - t0) * 1e3,
+                                   "max_memory_allocated_gib": torch.cuda.max_memory_allocated(dev) / gib}
+                del fn
+            r_loss = rel(long_rows["chunked"]["loss"], long_rows["plain"]["loss"])
+            r_gn = rel(long_rows["chunked"]["grad_norm"], long_rows["plain"]["grad_norm"])
+            log({"phase": "encdec_vlm_train_4k_chunked", "arch": cfg.name, "positions": positions,
+                 **long_rows, "loss_rel_diff": r_loss, "grad_norm_rel_diff": r_gn})
+            gate("encdec_vlm_train_4k_chunked",
+                 all(math.isfinite(v["loss"]) and math.isfinite(v["grad_norm"]) for v in long_rows.values())
+                 and r_loss <= 1e-4 and r_gn <= 1e-4, f"plain against chunked: {long_rows}")
+        frames = data.get("frames")
+        del opt, bundle, m
+        peak_reset()
+
+        # ----------------------------- 52.4 f32 decode against one forward (16 tokens)
+        n_tok, slots = 16, 4096
+        toks = torch.randint(0, cfg.vocab, (1, n_tok), generator=gen, device=dev, dtype=torch.int32)
+        serve, info = build_serve_step(cfg, 1, slots, device=dev)
+
+        def decode_errs(mdl):
+            with torch.no_grad():
+                if encdec:
+                    x = E.decode_train(cfg, mdl, toks, E.encode(cfg, mdl, frames))
+                else:
+                    x = T.forward(cfg, mdl, toks)
+                full = T.logits_from_hidden(cfg, mdl, x)
+            cache = info["prefill"](mdl, frames) if encdec else info["init_cache"]()
+            errs = []
+            for i in range(n_tok):
+                pos = torch.full((1,), i, dtype=torch.int32, device=dev)
+                logits, cache = serve(mdl, cache, {"token": toks[:, i], "pos": pos})
+                errs.append(float((logits - full[:, i]).abs().max() / full[:, i].abs().max()))
+            return errs
+
+        errs = decode_errs(model)
+        del model
+        model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        rule_errs = decode_errs(model)
+        log({"phase": "encdec_vlm_decode_f32", "arch": cfg.name, "tokens": n_tok, "cache_slots": slots,
+             "cross_cache": "prefill_cross_cache of the step's frames" if encdec else None,
+             "weights": "N(0, 0.02), after the two steps", "max_rel_err": max(errs), "rel_err": errs,
+             "init_rule_rel_err": rule_errs,
+             "max_memory_allocated_gib": torch.cuda.max_memory_allocated(dev) / gib})
+        gate("encdec_vlm_decode_f32", max(errs) <= 1e-3, f"decode against forward: {errs}")
+        del model
+
+        # ------------- 52.5 the card against the CPU: 2 layers of the full width
+        peak_reset()
+        cfg2 = cfg.with_(n_layers=2, n_enc_layers=2) if encdec else cfg.with_(n_layers=2)
+        gpu = api.init_params(cfg2, torch.Generator(device=dev).manual_seed(2), dev)
+        n002(gpu)
+        cpu = mod.params_from_reference(mod.params_to_reference(gpu), device="cpu")
+        seq2 = 64
+        data2 = batch_at(DataConfig(vocab=cfg.vocab, batch=1, seq=seq2), 0,
+                         extra=extra_of(api.train_input_specs(cfg2, 1, seq2)))
+        card_vs_cpu(torch, "encdec_vlm_card_vs_cpu", cfg2, gpu, cpu, data2,
+                    AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=2), weights="N(0, 0.02)",
+                    extra={k: list(v.shape) for k, v in data2.items() if k not in ("tokens", "labels")})
+        del gpu, cpu, data2
+
+        # ------------------------------------ 52.6 bf16 decode at batch 1
+        peak_reset()
+        cfg16 = train_cli.preset_config(arch, "full")  # the config's own bfloat16
+        model = api.init_params(cfg16, torch.Generator(device=dev).manual_seed(3), dev)
+        n002(model)
+        slots, n_warm, n_timed = 32768, 2, 16  # decode_32k's length
+        serve, info = build_serve_step(cfg16, 1, slots, device=dev)
+        cache = info["prefill"](model, frames.to(cfg16.dtype)) if encdec else info["init_cache"]()
+        before = {k: name_of(v.dtype) for k, v in cache.items()}
+        toks = torch.randint(0, cfg.vocab, (n_warm + n_timed,), generator=gen, device=dev, dtype=torch.int32)
+
+        def decode(i):
+            return serve(model, cache, {"token": toks[i:i + 1],
+                                        "pos": torch.full((1,), i, dtype=torch.int32, device=dev)})
+
+        for i in range(n_warm):
+            logits, cache = decode(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_warm, n_warm + n_timed):
+            logits, cache = decode(i)
+        torch.cuda.synchronize()
+        ms_tok = (time.perf_counter() - t0) * 1e3 / n_timed
+        after = {k: name_of(v.dtype) for k, v in cache.items()}
+        log({"phase": "encdec_vlm_decode_bf16", "arch": cfg16.name, "cache_slots": slots, "batch": 1,
+             "ms_per_token": ms_tok, "tokens_timed": n_timed,
+             "cache_gib": sum(v.numel() * v.element_size() for v in cache.values()) / gib,
+             "cache_dtypes_before": before, "cache_dtypes_after": after,
+             "logits_dtype": name_of(logits.dtype),
+             "weights_gib": sum(p_.numel() * p_.element_size() for p_ in model.parameters()) / gib,
+             "max_memory_allocated_gib": torch.cuda.max_memory_allocated(dev) / gib,
+             "logits_finite": bool(torch.isfinite(logits).all())})
+        # the reference's abstract_cache: every leaf in the config's dtype;
+        # jnp promotion keeps the logits bfloat16
+        want_dtypes = {k: "bfloat16" for k in info["cache_shapes"]}
+        gate("encdec_vlm_decode_bf16", bool(torch.isfinite(logits).all()) and before == after == want_dtypes
+             and name_of(logits.dtype) == "bfloat16",
+             f"logits {name_of(logits.dtype)}, cache {before} -> {after}, want {want_dtypes}")
+        del model, cache, logits, frames, data
+        torch.cuda.empty_cache()
+    launches = kernels.launch_counts()
+    log({"phase": "encdec_vlm", "seconds": time.perf_counter() - t_phase, "launches": launches})
     return launches
 
 
@@ -3424,6 +3694,9 @@ def main() -> int:
     # ------------------------------------------------------ 51. the SSM LMs
     ssm_launches = ssm_phases(torch)
 
+    # ------------------------------- 52. the encoder-decoder and VLM-prefix LMs
+    ed_launches = encdec_vlm_phases(torch)
+
     # ------------------------------------------------------------------ result
     sources = {
         "bsr_spmbv": ("src/repro_torch/kernels/csrc/bsr_spmbv.cu", "src/repro/kernels/bsr_spmbv/kernel.py:43"),
@@ -3510,7 +3783,8 @@ def main() -> int:
     for row in rows:
         row["oneshot_launches"] = {ph: counts[row["name"]] for ph, counts in oneshot.items()}
         row["process_mesh_launches"] = {ph: counts[row["name"]] for ph, counts in process_mesh.items()}
-        row["lm_launches"] = lm_launches[row["name"]] + ssm_launches[row["name"]]  # phases 50-51
+        row["lm_launches"] = (lm_launches[row["name"]] + ssm_launches[row["name"]]
+                              + ed_launches[row["name"]])  # phases 50-52
     log({"kernels": rows})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

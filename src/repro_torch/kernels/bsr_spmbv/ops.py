@@ -1,14 +1,15 @@
 """Public op: Block-ELL SpMBV — the CUDA kernel on CUDA tensors, the plain
 torch version on CPU tensors.
 
-Besides the kernel wrapper this module carries the host-side (numpy)
-conversion that puts the kernel on the solver's path:
+Besides the kernel wrapper this module carries the conversion that puts
+the kernel on the solver's path:
 
 * :func:`csr_arrays_to_block_ell` / :func:`count_block_ell_tiles` convert raw
   CSR arrays into the fixed-``kmax`` Block-ELL layout the kernel consumes.
-  The per-tile fill is vectorised (one stable sort + fancy assignment), so
-  Example 2.1 at full scale converts without a Python loop over its ~1.6M
-  tiles; the layout is equal to the reference's.
+  The fill is vectorised torch work on the arrays' device (the card's for a
+  CSR matrix there, the host's for numpy arrays): only the runs of a row's
+  nonzeros in one tile are sorted, never the ~1e8 nonzeros of Example 2.1
+  at full scale, and the layout is equal to the reference's.
 * :func:`block_ell_meta` / :func:`block_ell_arrays` split the conversion into
   the tile analysis and the fill, so persisted meta skips the analysis.
 * :func:`make_block_ell_apply_from_arrays` builds the sequential solver's
@@ -116,31 +117,101 @@ def block_ell_from_csr(a: CSRMatrix, br: int, bc: int):
     return block_ell_arrays(a, br, bc)[:2]
 
 
-def _tile_keys(indptr: np.ndarray, indices: np.ndarray, n_rows: int, br: int, bc: int,
-               nbc: int) -> np.ndarray:
-    """Sorted distinct tile keys (block row · nbc + block column) of the
-    first ``n_rows`` CSR rows.  A nonzero whose tile equals the previous
-    nonzero's in the same row is dropped before the sort: its key is already
-    there, so the result is the same, and the sort sees a few entries per
-    row instead of every nonzero."""
+def _as_tensor(x) -> torch.Tensor:
+    """A tensor as it is; an array as a host tensor (a read-only array, as
+    JAX hands out, copied first)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    x = np.asarray(x)
+    return torch.from_numpy(x if x.flags.writeable else x.copy())
+
+
+def _csr_tensors(indptr, indices):
+    """indptr as int64 and indices as int32 or int64 tensors, on the device
+    they are on (numpy arrays: the host), without a copy where they are
+    already so."""
+    indptr = _as_tensor(indptr).long()
+    indices = _as_tensor(indices)
+    if indices.dtype not in (torch.int32, torch.int64):
+        indices = indices.long()
+    return indptr, indices
+
+
+def _tile_runs(indptr: torch.Tensor, indices: torch.Tensor, n_rows: int, br: int, bc: int,
+               nbc: int):
+    """The runs of the first ``n_rows`` CSR rows: maximal stretches of a
+    row's nonzeros in one tile.  Returns the runs' start offsets and their
+    tile keys (block row · nbc + block column).  A row's nonzeros in one
+    tile form one run where its column ids are sorted, so the keys are a
+    few a row, not one a nonzero."""
     nnz = int(indptr[n_rows])
-    rows = np.repeat(np.arange(n_rows, dtype=np.int64), np.diff(indptr[: n_rows + 1]))
     tcol = indices[:nnz] // bc
-    new = np.ones(nnz, dtype=bool)
-    new[1:] = (tcol[1:] != tcol[:-1]) | (rows[1:] != rows[:-1])
-    return np.unique((rows[new] // br) * nbc + tcol[new])
+    new = torch.empty(nnz, dtype=torch.bool, device=indices.device)
+    new[0] = True
+    torch.ne(tcol[1:], tcol[:-1], out=new[1:])
+    row_start = indptr[:n_rows]
+    new[row_start[row_start < nnz]] = True
+    starts = torch.nonzero(new).view(-1)
+    del new
+    brow = torch.searchsorted(indptr[: n_rows + 1], starts, right=True) - 1
+    return starts, brow // br * nbc + tcol[starts].long()
+
+
+def _tile_keys(indptr: torch.Tensor, indices: torch.Tensor, n_rows: int, br: int, bc: int,
+               nbc: int) -> torch.Tensor:
+    """Sorted distinct tile keys (block row · nbc + block column) of the
+    first ``n_rows`` CSR rows."""
+    return torch.unique(_tile_runs(indptr, indices, n_rows, br, bc, nbc)[1])
 
 
 def count_block_ell_tiles(indptr, indices, n_rows: int, n_cols: int, br: int, bc: int) -> int:
     """Max distinct (br x bc) tiles in any block row of a raw-CSR matrix."""
-    indptr = np.asarray(_host(indptr), dtype=np.int64)
-    indices = np.asarray(_host(indices), dtype=np.int64)
+    indptr, indices = _csr_tensors(indptr, indices)
     n_rows = min(n_rows, len(indptr) - 1)
     if int(indptr[n_rows]) == 0:
         return 0
     nbc = (n_cols + bc - 1) // bc
     tiles = _tile_keys(indptr, indices, n_rows, br, bc, nbc)
-    return int(np.bincount(tiles // nbc).max())
+    return int(torch.bincount(tiles // nbc).max())
+
+
+def _block_ell_fill(indptr, indices, data, n_rows: int, n_cols: int, br: int, bc: int,
+                    nbr: int, kmax: int):
+    """:func:`csr_arrays_to_block_ell` on tensors: ``(blocks, ell_idx)`` on
+    the device of ``data``."""
+    indptr, indices = _csr_tensors(indptr, indices)
+    data = _as_tensor(data)
+    dev = data.device
+    blocks = torch.zeros((nbr, kmax, br, bc), dtype=data.dtype, device=dev)
+    ell_idx = torch.zeros((nbr, kmax), dtype=torch.int32, device=dev)
+    n_rows = min(n_rows, len(indptr) - 1)
+    nnz = int(indptr[n_rows])
+    if nnz == 0:
+        return blocks, ell_idx
+    # A few passes over the ~1e8 nonzeros and no sort or permutation of
+    # them: only the runs' tile keys are sorted, and each nonzero takes its
+    # tile's slot from its run.
+    nbc = (n_cols + bc - 1) // bc
+    starts, run_key = _tile_runs(indptr, indices, n_rows, br, bc, nbc)
+    uniq, inv = torch.unique(run_key, sorted=True, return_inverse=True)
+    del run_key
+    bi, bj = uniq // nbc, uniq % nbc
+    slot = torch.arange(len(uniq), device=dev) - torch.searchsorted(bi, bi)
+    over = torch.nonzero(slot >= kmax).view(-1)
+    if len(over):
+        raise ValueError(f"block row {int(bi[over[0]])} overflows kmax={kmax}")
+    ell_idx[bi, slot] = bj.to(torch.int32)
+    # the flat index into ``blocks`` of every nonzero: its run's tile base,
+    # then its row and its column inside the tile
+    run_base = (bi * kmax + slot)[inv] * (br * bc)
+    lin = torch.repeat_interleave(run_base, torch.diff(starts, append=starts.new_tensor([nnz])),
+                                  output_size=nnz)
+    del run_base, starts
+    row_off = torch.arange(n_rows, device=dev) % br * bc
+    lin += torch.repeat_interleave(row_off, indptr[1: n_rows + 1] - indptr[:n_rows], output_size=nnz)
+    lin += indices[:nnz] % bc
+    blocks.view(-1)[lin] = data[:nnz]
+    return blocks, ell_idx
 
 
 def csr_arrays_to_block_ell(
@@ -151,50 +222,11 @@ def csr_arrays_to_block_ell(
 
     Tiles fill each block row's slots in ascending block-column order;
     unused slots stay zero with block-column id 0 (safe: zero tiles
-    contribute nothing).  Returns ``(blocks, ell_idx)``.
+    contribute nothing).  Returns ``(blocks, ell_idx)``.  The work runs on
+    the arrays' device (numpy arrays: the host).
     """
-    indptr = _host(indptr).astype(np.int64)
-    indices = _host(indices).astype(np.int64)
-    data = _host(data)
-    blocks = np.zeros((nbr, kmax, br, bc), dtype=data.dtype)
-    ell_idx = np.zeros((nbr, kmax), dtype=np.int32)
-    nnz = int(indptr[min(n_rows, len(indptr) - 1)])
-    if nnz == 0:
-        return blocks, ell_idx
-    # Few passes over the ~1e8 nonzeros, in place where numpy allows: each
-    # pass and each fresh nnz-long temporary costs ~0.1 s at full scale.
-    counts = np.diff(indptr[: n_rows + 1])
-    r = np.arange(n_rows, dtype=np.int64)
-    nbc = (n_cols + bc - 1) // bc
-    cols = indices[:nnz]
-    key = np.repeat(r // br * nbc, counts)  # tile key: block row · nbc + block column
-    key += cols // bc
-    order = np.argsort(key, kind="stable")
-    key = key[order]
-    first = np.empty(nnz, dtype=bool)
-    first[0] = True
-    np.not_equal(key[1:], key[:-1], out=first[1:])
-    uniq = key[first]
-    del key
-    bi, bj = uniq // nbc, uniq % nbc
-    slot = np.arange(len(uniq)) - np.searchsorted(bi, bi, side="left")
-    over = np.flatnonzero(slot >= kmax)
-    if len(over):
-        raise ValueError(f"block row {int(bi[over[0]])} overflows kmax={kmax}")
-    ell_idx[bi, slot] = bj
-    # the flat index into ``blocks`` of every nonzero, in sorted order: one
-    # single-index scatter in place of a four-index one
-    tile = np.cumsum(first)
-    del first
-    tile -= 1
-    lin = (bi * kmax + slot)[tile]
-    del tile
-    lin *= br
-    lin += np.repeat(r % br, counts)[order]
-    lin *= bc
-    lin += (cols % bc)[order]
-    blocks.reshape(-1)[lin] = data[:nnz][order]
-    return blocks, ell_idx
+    blocks, ell_idx = _block_ell_fill(indptr, indices, data, n_rows, n_cols, br, bc, nbr, kmax)
+    return blocks.cpu().numpy(), ell_idx.cpu().numpy()
 
 
 def block_ell_meta(a: CSRMatrix, br: int, bc: int) -> dict:
@@ -203,20 +235,22 @@ def block_ell_meta(a: CSRMatrix, br: int, bc: int) -> dict:
     ``pad_hist[k]`` counts block rows holding exactly k tiles — the padding
     histogram behind the ``kmax`` waste.  Equal to the reference's meta.
     """
-    indptr = _host(a.indptr).astype(np.int64)
-    indices = _host(a.indices).astype(np.int64)
+    indptr, indices = _csr_tensors(a.indptr, a.indices)
     n, m = a.shape
     n_pad = (n + br - 1) // br * br
     m_pad = (m + bc - 1) // bc * bc
     nbr, nbc = n_pad // br, m_pad // bc
-    tiles = _tile_keys(indptr, indices, n, br, bc, nbc)
-    per_row = np.bincount((tiles // nbc).astype(np.int64), minlength=nbr)
+    if int(indptr[n]) == 0:
+        tiles = indptr.new_zeros(0)
+    else:
+        tiles = _tile_keys(indptr, indices, n, br, bc, nbc)
+    per_row = torch.bincount(tiles // nbc, minlength=nbr)
     kmax = int(per_row.max()) if len(tiles) else 0
     return dict(
         br=int(br), bc=int(bc), shape=[int(n), int(m)], nnz=int(a.nnz),
         nbr=int(nbr), nbc=int(nbc), kmax=kmax,
         n_pad=int(n_pad), m_pad=int(m_pad),
-        pad_hist=np.bincount(per_row, minlength=kmax + 1).tolist(),
+        pad_hist=torch.bincount(per_row, minlength=kmax + 1).tolist(),
     )
 
 
@@ -248,15 +282,11 @@ def block_ell_arrays(a: CSRMatrix, br: int, bc: int, meta: dict | None = None):
     if analyzed:
         meta = block_ell_meta(a, br, bc)
     n, m = a.shape
-    blocks, indices = csr_arrays_to_block_ell(
+    blocks, indices = _block_ell_fill(
         a.indptr, a.indices, a.data, n, m, br, bc,
         nbr=int(meta["nbr"]), kmax=int(meta["kmax"]),
     )
-    return (
-        torch.as_tensor(blocks, device=a.device),
-        torch.as_tensor(indices, device=a.device),
-        int(meta["m_pad"]), meta, analyzed,
-    )
+    return blocks, indices, int(meta["m_pad"]), meta, analyzed
 
 
 def make_block_ell_apply_from_arrays(blocks: torch.Tensor, indices: torch.Tensor, n: int):

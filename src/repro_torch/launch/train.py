@@ -10,8 +10,10 @@ config; ``tiny``/``100m`` scale a dense config to the requested size;
 ``full`` is the config at its own widths.  Every preset is cast to float32,
 as the reference's driver does, and runs on one device: the reference's
 ``full`` runs on its 16 × 16 production mesh, which is ROADMAP.md queue 1
-item 13's remainder, as are the ``moe``, ``vlm`` and ``encdec`` families
-(the ``dense``, ``ssm`` and ``hybrid`` families train).
+item 13's remainder, as is the ``moe`` family (the ``dense``, ``vlm``,
+``ssm``, ``hybrid`` and ``encdec`` families train; the VLM's patch
+embeddings and the encoder-decoder's frames are drawn by ``batch_at``
+beside the tokens, as the reference's trainer draws them).
 """
 
 from __future__ import annotations
@@ -69,13 +71,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = preset_config(args.arch, args.preset).with_(dtype=torch.float32)
-    api = model_api(cfg)  # refuses moe, vlm and encdec before any device work
+    api = model_api(cfg)  # refuses moe before any device work
     dev = resolve_device(args.device)
     print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M preset={args.preset}")
 
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(10, args.steps // 20), total_steps=args.steps)
     bundle = build_train_step(cfg, opt_cfg, batch=args.batch, seq=args.seq, device=dev)
     dcfg = DataConfig(vocab=cfg.vocab, batch=args.batch, seq=args.seq)
+    extra = {k: v for k, v in bundle.input_specs.items() if k not in ("tokens", "labels")}
 
     params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     opt = init_opt_state(params)
@@ -93,7 +96,7 @@ def main(argv=None):
 
     t0 = time.time()
     for step in range(start, args.steps):
-        batch = batch_at(dcfg, step, device=dev)
+        batch = batch_at(dcfg, step, extra=extra, device=dev)
         metrics = bundle.step_fn(params, opt, batch)
         cur["step"] = step + 1
         if (step + 1) % args.log_every == 0:

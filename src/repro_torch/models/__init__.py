@@ -1,2 +1,3 @@
 """The LM half's models (port of ``repro/models``) on one device: the
-dense decoder-only transformer, and Mamba2 with the Zamba2 hybrid."""
+dense decoder-only transformer (with the VLM's image prefix), Mamba2 with
+the Zamba2 hybrid, and the Whisper-style encoder-decoder."""

@@ -3,14 +3,13 @@
 Port of ``repro/models/common.py``.  One ``ArchConfig`` covers every
 assigned family (dense / moe / ssm / hybrid / encdec / vlm) with the
 reference's fields, defaults and counts; ``dtype`` is a torch dtype.  The
-port runs the dense, ssm and hybrid families on one device.  The sharding knobs
-(``seq_parallel``, ``gqa_shard_fix``, ``attn_seq_shard``,
+port runs the dense, vlm, ssm, hybrid and encdec families on one device.
+The sharding knobs (``seq_parallel``, ``gqa_shard_fix``, ``attn_seq_shard``,
 ``dense_scatter_combine``, ``moe_scatter_combine``) stay as fields and change
 no value there: the reference's ``constrain`` is a layout hint, and its
 row-parallel ``shard_map`` at model size 1 sums one part.  The 2-D
 FSDP × TP layout (``MeshAxes``, the ``*_specs`` rules, ``constrain``) and the
-moe, vlm and encdec families are ROADMAP.md queue 1 item 13's remainder
-(:data:`LM_ITEM`);
+moe family are ROADMAP.md queue 1 item 13's remainder (:data:`LM_ITEM`);
 what needs them raises :func:`not_ported`.
 """
 

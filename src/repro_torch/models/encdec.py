@@ -1,0 +1,252 @@
+"""Whisper-style encoder-decoder backbone, on one device.
+
+Port of ``repro/models/encdec.py`` (whisper-medium).  As in the
+reference, the conv/mel frontend is a stub: the batch carries precomputed
+frame embeddings (B, enc_ctx, D).  The encoder adds learned positions and
+attends bidirectionally (no rope); the decoder runs rotary positions (the
+reference's departure from Whisper's learned decoder positions), causal
+self-attention, then cross-attention over the encoder's output.
+
+As in :mod:`repro_torch.models.transformer`, each layer's weights are one
+module in an ``nn.ModuleList`` (``enc_layers``, ``dec_layers``), and
+:func:`params_to_reference` and :func:`params_from_reference` convert to
+and from the reference's nested dict of stacked arrays.  ``attn_chunk``
+must divide every key length it chunks (the 1500 frames among them): the
+reference asserts, the port raises ``ValueError``.  The sharded layout is
+ROADMAP.md queue 1 item 13's remainder.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import layers as L
+from repro_torch.models.common import ArchConfig
+from repro_torch.models.transformer import (
+    _Weights,
+    _assign,
+    _flat_shapes,
+    lm_loss,
+    logits_from_hidden,
+    model_from_reference,
+    params_to_reference,
+)
+
+
+# ------------------------------------------------------------------ params
+def _attn_shapes(cfg: ArchConfig, n: int, pre=("wq", "wk", "wv", "wo")) -> dict[str, tuple]:
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v, o = pre
+    return {q: (n, d, h, dh), k: (n, d, kv, dh), v: (n, d, kv, dh), o: (n, h, dh, d)}
+
+
+def param_shapes(cfg: ArchConfig) -> dict[str, Any]:
+    d, f = cfg.d_model, cfg.d_ff
+    ne, nd = cfg.n_enc_layers, cfg.n_layers
+    enc = {"ln1": (ne, d), "ln2": (ne, d), "wu": (ne, d, f), "wd": (ne, f, d)} | _attn_shapes(cfg, ne)
+    dec = ({"ln1": (nd, d), "lnx": (nd, d), "ln2": (nd, d), "wu": (nd, d, f), "wd": (nd, f, d)}
+           | _attn_shapes(cfg, nd, ("xq", "xk", "xv", "xo")) | _attn_shapes(cfg, nd))
+    shapes = {
+        "enc_pos": (cfg.enc_ctx, d),
+        "enc_layers": enc,
+        "enc_final_ln": (d,),
+        "emb": (cfg.vocab_padded, d),
+        "dec_layers": dec,
+        "final_ln": (d,),
+    }
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, cfg.vocab_padded)
+    return shapes
+
+
+class EncoderLayer(_Weights):
+    """One encoder layer's ``ln1, wq, wk, wv, wo, ln2, wu, wd``."""
+
+
+class DecoderLayer(_Weights):
+    """One decoder layer's ``ln1, wq, wk, wv, wo`` (self-attention),
+    ``lnx, xq, xk, xv, xo`` (cross-attention), ``ln2, wu, wd``."""
+
+
+class EncDec(_Weights):
+    """``enc_pos``, ``enc_final_ln``, ``emb``, ``final_ln``, ``lm_head``
+    (unless tied: whisper ties it) and the ``enc_layers`` and
+    ``dec_layers`` ``nn.ModuleList``s, from the reference's stacked
+    ``shapes`` (:func:`param_shapes`).  Values are uninitialised:
+    :func:`init_params` or :func:`params_from_reference` fill them."""
+
+    def __init__(self, shapes: dict[str, Any], device=None, dtype=None):
+        groups = {"enc_layers": EncoderLayer, "dec_layers": DecoderLayer}
+        super().__init__({k: v for k, v in shapes.items() if k not in groups}, device, dtype)
+        for key, cls in groups.items():
+            per_layer = {k: s[1:] for k, s in shapes[key].items()}
+            n = next(iter(shapes[key].values()))[0]
+            setattr(self, key, nn.ModuleList(cls(per_layer, device, dtype) for _ in range(n)))
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator, device=None) -> EncDec:
+    """The reference's rule on the stacked shapes: every leaf whose name
+    holds ``ln`` is ones; every other leaf (``emb`` and ``enc_pos`` among
+    them) N(0, fan_in^-1/2) with fan_in = ``shape[-2]`` of the stacked
+    shape.  Draws on ``generator``'s device, leaf by leaf in the
+    reference's order; the values differ from ``jax.random``'s."""
+    shapes = param_shapes(cfg)
+    device = torch.device(device) if device is not None else generator.device
+    model = EncDec(shapes, device=device, dtype=cfg.dtype)
+    for path, shape in _flat_shapes(shapes):
+        if "ln" in path[-1]:
+            value = torch.ones(shape, device=device, dtype=cfg.dtype)
+        else:
+            fan_in = shape[-2] if len(shape) > 1 else shape[-1]
+            value = torch.randn(shape, generator=generator, device=generator.device)
+            value = (value * fan_in ** -0.5).to(device, cfg.dtype)
+        _assign(model, path, value)
+        del value
+    return model
+
+
+def params_from_reference(tree, device="cpu", dtype=None) -> EncDec:
+    """The reference's params tree (numpy or JAX arrays) → an
+    :class:`EncDec` on ``device``, in ``dtype`` (default: the arrays')."""
+    return model_from_reference(EncDec, tree, device, dtype)
+
+
+# ---------------------------------------------------------------- forwards
+def _run(cfg: ArchConfig, fn, *args):
+    """``fn(cfg, *args)``, recomputed in the backward pass under
+    ``cfg.remat``."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, cfg, *args, use_reentrant=False)
+    return fn(cfg, *args)
+
+
+def encoder_layer(cfg: ArchConfig, x, p):
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = L.qkv(cfg, h, p, None)  # no rope: learned encoder positions
+    o = L.attention(cfg, q, k, v, None)  # bidirectional
+    x = x + L.einsum("bshe,hed->bsd", o, p["wo"])
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.mlp_block(cfg, h, p)
+
+
+def encode(cfg: ArchConfig, params: EncDec, frames):
+    """frames: (B, enc_ctx, D) stub embeddings → the encoder's states."""
+    x = frames.to(cfg.dtype) + params["enc_pos"][None].to(cfg.dtype)
+    for layer in params.enc_layers:
+        x = _run(cfg, encoder_layer, x, layer)
+    return L.rms_norm(x, params["enc_final_ln"], cfg.norm_eps)
+
+
+def decoder_layer(cfg: ArchConfig, x, p, positions, mask, enc_out):
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = L.qkv(cfg, h, p, positions)
+    o = L.attention(cfg, q, k, v, mask, mask_kind="causal")
+    x = x + L.einsum("bshe,hed->bsd", o, p["wo"])
+    h = L.rms_norm(x, p["lnx"], cfg.norm_eps)
+    xq = L.einsum("bsd,dhe->bshe", h, p["xq"])
+    xk = L.einsum("bsd,dhe->bshe", enc_out, p["xk"])
+    xv = L.einsum("bsd,dhe->bshe", enc_out, p["xv"])
+    o = L.attention(cfg, xq, xk, xv, None)
+    x = x + L.einsum("bshe,hed->bsd", o, p["xo"])
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.mlp_block(cfg, h, p)
+
+
+def decode_train(cfg: ArchConfig, params: EncDec, tokens, enc_out):
+    """Teacher-forced decoder over ``tokens`` (B, S) against ``enc_out``
+    → the final hidden states (B, S, D)."""
+    x = params["emb"][tokens].to(cfg.dtype)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None, :]
+    mask = None if cfg.attn_chunk else L.causal_mask(s, device=x.device)
+    for layer in params.dec_layers:
+        x = _run(cfg, decoder_layer, x, layer, positions, mask, enc_out)
+    return L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+
+
+def loss_fn(cfg: ArchConfig):
+    """``f(params, batch) -> loss`` with batch ``{"frames", "tokens",
+    "labels"}``."""
+
+    def f(params, batch):
+        enc_out = encode(cfg, params, batch["frames"])
+        x = decode_train(cfg, params, batch["tokens"], enc_out)
+        return lm_loss(cfg, params, x, batch["labels"])
+
+    return f
+
+
+def train_input_specs(cfg: ArchConfig, batch: int, seq: int) -> dict[str, tuple]:
+    """The train step's inputs, ``{name: (shape, dtype)}``, frames first
+    (``batch_at`` draws them in this order)."""
+    return {
+        "frames": ((batch, cfg.enc_ctx, cfg.d_model), cfg.dtype),
+        "tokens": ((batch, seq), torch.int32),
+        "labels": ((batch, seq), torch.int32),
+    }
+
+
+# ------------------------------------------------------------------ decode
+def cache_shapes(cfg: ArchConfig, batch: int, seq: int):
+    kv, dh, nd = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    return {
+        "k": (nd, batch, seq, kv, dh),
+        "v": (nd, batch, seq, kv, dh),
+        "xk": (nd, batch, cfg.enc_ctx, kv, dh),
+        "xv": (nd, batch, cfg.enc_ctx, kv, dh),
+    }
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq: int, device=None):
+    return {k: torch.zeros(s, dtype=cfg.dtype, device=device)
+            for k, s in cache_shapes(cfg, batch, seq).items()}
+
+
+@torch.no_grad()
+def prefill_cross_cache(cfg: ArchConfig, params: EncDec, frames, batch: int, seq: int):
+    """Encode ``frames`` once and return a fresh (``batch``, ``seq``)
+    cache whose cross-attention K/V (``xk``, ``xv``) hold each decoder
+    layer's projections of the encoder's output."""
+    enc_out = encode(cfg, params, frames)
+    cache = init_cache(cfg, batch, seq, device=frames.device)
+    for i, lp in enumerate(params.dec_layers):
+        cache["xk"][i].copy_(L.einsum("bsd,dhe->bshe", enc_out, lp["xk"]))
+        cache["xv"][i].copy_(L.einsum("bsd,dhe->bshe", enc_out, lp["xv"]))
+    return cache
+
+
+def decode_step(cfg: ArchConfig):
+    """One-token decoder step: ``f(params, cache, token, pos) -> (logits,
+    cache)`` with ``token`` and ``pos`` (B,) integer tensors.  Each layer's
+    new self-attention K/V row is written into ``cache`` in place (as the
+    dense decode does); cross-attention reads ``xk``/``xv``
+    (:func:`prefill_cross_cache`)."""
+
+    @torch.no_grad()
+    def f(params, cache, token, pos):
+        b = token.shape[0]
+        x = params["emb"][token][:, None].to(cfg.dtype)  # (B, 1, D)
+        s_cache = cache["k"].shape[2]
+        rows = torch.arange(b, device=x.device)
+        mask = torch.arange(s_cache, device=x.device)[None, None, None, :] <= pos[:, None, None, None]
+        for i, lp in enumerate(params.dec_layers):
+            h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = L.qkv(cfg, h, lp, pos[:, None])
+            cache["k"][i][rows, pos] = k[:, 0]
+            cache["v"][i][rows, pos] = v[:, 0]
+            o = L.attention(cfg, q, cache["k"][i], cache["v"][i], mask)
+            x = x + L.einsum("bshe,hed->bsd", o, lp["wo"])
+            h = L.rms_norm(x, lp["lnx"], cfg.norm_eps)
+            xq = L.einsum("bsd,dhe->bshe", h, lp["xq"])
+            o = L.attention(cfg, xq, cache["xk"][i], cache["xv"][i], None)
+            x = x + L.einsum("bshe,hed->bsd", o, lp["xo"])
+            h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + L.mlp_block(cfg, h, lp)
+        x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+        return logits_from_hidden(cfg, params, x)[:, 0], cache
+
+    return f

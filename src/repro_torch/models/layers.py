@@ -10,6 +10,8 @@ does (zamba2's bfloat16 decode attends over a float32 K/V cache).
 
 from __future__ import annotations
 
+import re
+
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -51,7 +53,8 @@ def rope(q, positions, theta, dtype=None):
 def attention(cfg: ArchConfig, q, k, v, mask, mask_kind: str | None = None):
     """GQA attention.  q (B, Sq, H, dh), k and v (B, Sk, KV, dh); ``mask``
     broadcastable to (B, H, Sq, Sk) bool, or None; ``mask_kind``
-    ("causal" or None) lets the chunked path mask from positions."""
+    ("causal", "prefix:<n>" or None) lets the chunked path mask from
+    positions."""
     rep = cfg.n_heads // cfg.n_kv_heads
     if rep > 1:
         k = torch.repeat_interleave(k, rep, dim=2)
@@ -68,11 +71,23 @@ def attention(cfg: ArchConfig, q, k, v, mask, mask_kind: str | None = None):
     return einsum("bhqk,bkhe->bqhe", probs, v)
 
 
-def _chunk_step(q, k_i, v_i, m, l, acc, k_pos, q_pos, scale, causal: bool):
+def _chunk_mask(mask_kind: str, q_pos, k_pos):
+    """The (Sq, C) mask of one chunk from positions: causal; ``prefix:<n>``
+    causal or among the first n keys; None for "full" (and, as in the
+    reference, for "prefix:0")."""
+    if mask_kind == "causal":
+        return k_pos[None, :] <= q_pos[:, None]
+    prefix_len = int(mask_kind.split(":")[1]) if mask_kind.startswith("prefix") else 0
+    if prefix_len:
+        return (k_pos[None, :] <= q_pos[:, None]) | (k_pos[None, :] < prefix_len)
+    return None
+
+
+def _chunk_step(q, k_i, v_i, m, l, acc, k_pos, q_pos, scale, mask_kind: str):
     """One KV chunk of the online softmax: the new (m, l, acc)."""
     s = einsum("bqhe,bkhe->bhqk", q, k_i).float() * scale
-    if causal:
-        msk = k_pos[None, :] <= q_pos[:, None]
+    msk = _chunk_mask(mask_kind, q_pos, k_pos)
+    if msk is not None:
         s = torch.where(msk[None, None], s, float("-inf"))
     m_new = torch.maximum(m, s.amax(dim=-1))
     # all--inf rows (fully masked chunk) keep m = -inf; guard the exps
@@ -97,7 +112,7 @@ def _chunked_attention(cfg: ArchConfig, q, k, v, mask_kind: str):
     c = cfg.attn_chunk
     if sk % c:
         raise ValueError(f"attn_chunk {c} must divide the key length {sk}")
-    if mask_kind not in ("causal", "full"):
+    if mask_kind not in ("causal", "full") and not re.fullmatch(r"prefix:\d+", mask_kind):
         raise ValueError(f"mask_kind {mask_kind!r}")
     scale = dh ** -0.5
     q_pos = torch.arange(sq, device=q.device)
@@ -106,7 +121,7 @@ def _chunked_attention(cfg: ArchConfig, q, k, v, mask_kind: str):
     acc = torch.zeros((b, sq, h, dh), dtype=torch.float32, device=q.device)
     for ci in range(sk // c):
         args = (q, k[:, ci * c:(ci + 1) * c], v[:, ci * c:(ci + 1) * c], m, l, acc,
-                ci * c + torch.arange(c, device=q.device), q_pos, scale, mask_kind == "causal")
+                ci * c + torch.arange(c, device=q.device), q_pos, scale, mask_kind)
         if torch.is_grad_enabled():
             m, l, acc = checkpoint(_chunk_step, *args, use_reentrant=False)
         else:
@@ -117,6 +132,14 @@ def _chunked_attention(cfg: ArchConfig, q, k, v, mask_kind: str):
 
 def causal_mask(s: int, device=None):
     return torch.tril(torch.ones((s, s), dtype=torch.bool, device=device))[None, None]
+
+
+def prefix_lm_mask(s: int, prefix_len: int, device=None):
+    """Bidirectional over the first ``prefix_len`` positions, causal after
+    (PaliGemma-style image-prefix attention)."""
+    causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device=device))
+    prefix = torch.arange(s, device=device)[None, :] < prefix_len
+    return (causal | prefix)[None, None]
 
 
 def mlp_block(cfg: ArchConfig, x, p):

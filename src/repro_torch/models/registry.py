@@ -1,10 +1,11 @@
 """Uniform model API dispatch: family -> module functions.
 
 Port of ``repro/models/registry.py`` for the families that run on one
-device: ``dense`` (:mod:`~repro_torch.models.transformer`), ``ssm`` and
-``hybrid`` (:mod:`~repro_torch.models.ssm`).  The other families
-(``moe``, ``vlm``, ``encdec``) are ROADMAP.md queue 1 item 13's
-remainder: :func:`model_api` refuses them before any device work.
+device: ``dense`` and ``vlm`` (:mod:`~repro_torch.models.transformer`),
+``ssm`` and ``hybrid`` (:mod:`~repro_torch.models.ssm`), ``encdec``
+(:mod:`~repro_torch.models.encdec`).  The ``moe`` family is ROADMAP.md
+queue 1 item 13's remainder: :func:`model_api` refuses it before any
+device work.
 """
 
 from __future__ import annotations
@@ -12,9 +13,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+from repro_torch.models import encdec as _ed
 from repro_torch.models import ssm as _ssm
 from repro_torch.models import transformer as _tf
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import ArchConfig, not_ported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,6 +26,9 @@ class ModelApi:
     decode_step: Callable         # (cfg) -> f(params, cache, token, pos)
     cache_shapes: Callable        # (cfg, batch, seq)
     init_cache: Callable          # (cfg, batch, seq, device)
+    train_input_specs: Callable   # (cfg, batch, seq) -> {name: (shape, dtype)}
+    # encdec: (cfg, params, frames, batch, seq) -> a cache with its cross K/V
+    prefill_cross_cache: Callable | None = None
 
 
 _TRANSFORMER = ModelApi(
@@ -32,6 +37,7 @@ _TRANSFORMER = ModelApi(
     decode_step=_tf.decode_step,
     cache_shapes=_tf.cache_shapes,
     init_cache=_tf.init_cache,
+    train_input_specs=_tf.train_input_specs,
 )
 
 _SSM = ModelApi(
@@ -40,11 +46,29 @@ _SSM = ModelApi(
     decode_step=_ssm.decode_step,
     cache_shapes=_ssm.cache_shapes,
     init_cache=_ssm.init_cache,
+    train_input_specs=_tf.train_input_specs,  # tokens and labels
 )
+
+_ENCDEC = ModelApi(
+    init_params=_ed.init_params,
+    loss_fn=_ed.loss_fn,
+    decode_step=_ed.decode_step,
+    cache_shapes=_ed.cache_shapes,
+    init_cache=_ed.init_cache,
+    train_input_specs=_ed.train_input_specs,
+    prefill_cross_cache=_ed.prefill_cross_cache,
+)
+
+_BY_FAMILY = {
+    "dense": _TRANSFORMER,
+    "vlm": _TRANSFORMER,
+    "ssm": _SSM,
+    "hybrid": _SSM,
+    "encdec": _ENCDEC,
+}
 
 
 def model_api(cfg: ArchConfig) -> ModelApi:
-    if cfg.family in ("ssm", "hybrid"):
-        return _SSM
-    _tf.check_dense(cfg)
-    return _TRANSFORMER
+    if cfg.family not in _BY_FAMILY:
+        not_ported(f"the {cfg.family} family ({cfg.name})")
+    return _BY_FAMILY[cfg.family]

@@ -1,20 +1,23 @@
-"""Decoder-only transformer, the dense family, on one device.
+"""Decoder-only transformer, the dense and VLM families, on one device.
 
-Port of the dense path of ``repro/models/transformer.py`` (phi3-medium-14b,
-stablelm-1.6b, granite-20b/8b).  The reference stacks each per-layer weight
-as one ``(n_layers, …)`` array and scans over it; the port keeps one
-:class:`DecoderLayer` module a layer in an ``nn.ModuleList`` and loops: a
-stacked parameter indexed per layer makes autograd build a full-size zero
-gradient for every layer it is indexed in.  :func:`params_to_reference` and
-:func:`params_from_reference` convert between the port's module and the
-reference's nested dict of stacked arrays (weights carried across in tests,
-and the checkpoint layout).
+Port of the dense and VLM paths of ``repro/models/transformer.py``
+(phi3-medium-14b, stablelm-1.6b, granite-20b/8b; paligemma-3b, whose
+SigLIP tower is stubbed as precomputed patch embeddings concatenated
+before the tokens under a prefix-LM mask).  The reference stacks each
+per-layer weight as one ``(n_layers, …)`` array and scans over it; the
+port keeps one :class:`DecoderLayer` module a layer in an
+``nn.ModuleList`` and loops: a stacked parameter indexed per layer makes
+autograd build a full-size zero gradient for every layer it is indexed
+in.  :func:`params_to_reference` and :func:`params_from_reference`
+convert between the port's module and the reference's nested dict of
+stacked arrays (weights carried across in tests, and the checkpoint
+layout).
 
-The MoE and VLM branches, the sharded layout (``param_specs``,
-``cache_specs``) and the encdec family are ROADMAP.md queue 1 item 13's
-remainder and raise ``NotImplementedError`` before any device work; the
-ssm and hybrid families are :mod:`repro_torch.models.ssm`'s (this module's
-functions refuse them too).
+The MoE branch and the sharded layout (``param_specs``, ``cache_specs``)
+are ROADMAP.md queue 1 item 13's remainder and raise
+``NotImplementedError`` before any device work; the ssm and hybrid
+families are :mod:`repro_torch.models.ssm`'s and the encdec family
+:mod:`repro_torch.models.encdec`'s (this module's functions refuse them).
 """
 
 from __future__ import annotations
@@ -31,8 +34,8 @@ from repro_torch.models.common import ArchConfig, not_ported
 
 
 def check_dense(cfg: ArchConfig) -> None:
-    """Refuse every family but ``dense`` before any device work."""
-    if cfg.family != "dense":
+    """Refuse every family but ``dense`` and ``vlm`` before any device work."""
+    if cfg.family not in ("dense", "vlm"):
         not_ported(f"the {cfg.family} family ({cfg.name})")
 
 
@@ -105,6 +108,11 @@ class Transformer(_Weights):
         self.layers = nn.ModuleList(DecoderLayer(per_layer, device, dtype) for _ in range(n))
 
 
+#: the reference's stacked per-layer groups (``(n_layers, …)`` arrays), each
+#: an ``nn.ModuleList`` of the same name in the port's modules
+STACKED = ("layers", "enc_layers", "dec_layers")
+
+
 def _flat_shapes(tree, prefix=()):
     """(path, shape) in the reference's flatten order (dict keys sorted)."""
     for key in sorted(tree):
@@ -117,9 +125,10 @@ def _flat_shapes(tree, prefix=()):
 @torch.no_grad()
 def _assign(model: _Weights, path: tuple, value: torch.Tensor) -> None:
     """Copy a value in the reference's stacked layout into ``model``
-    (``("layers", w)`` into every layer, other paths by name)."""
-    if path[0] == "layers":
-        for i, layer in enumerate(model.layers):
+    (``("layers", w)`` into every layer, likewise ``enc_layers`` and
+    ``dec_layers``; other paths by name)."""
+    if path[0] in STACKED:
+        for i, layer in enumerate(model[path[0]]):
             layer[path[1]].copy_(value[i])
     else:
         node = model
@@ -158,23 +167,23 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def stack_named(named: dict[str, torch.Tensor]) -> dict[str, Any]:
     """Tensors by parameter name (``"emb"``, ``"layers.3.wq"``,
-    ``"shared.wq"``) → the reference's nested dict of numpy arrays:
-    per-layer entries stacked to ``(n_layers, …)``, any other dotted name
-    nested (``{"shared": {"wq": …}}``); bfloat16 as float32 (numpy has no
-    bfloat16)."""
+    ``"dec_layers.0.xq"``, ``"shared.wq"``) → the reference's nested dict
+    of numpy arrays: the entries of a :data:`STACKED` group stacked to
+    ``(n_layers, …)``, any other dotted name nested (``{"shared": {"wq":
+    …}}``); bfloat16 as float32 (numpy has no bfloat16)."""
     out, per_layer = {}, {}
     for name, t in named.items():
         parts = name.split(".")
-        if parts[0] == "layers":
-            per_layer.setdefault(parts[2], {})[int(parts[1])] = t
+        if parts[0] in STACKED:
+            per_layer.setdefault(parts[0], {}).setdefault(parts[2], {})[int(parts[1])] = t
         else:
             node = out
             for key in parts[:-1]:
                 node = node.setdefault(key, {})
             node[parts[-1]] = _to_numpy(t)
-    if per_layer:
-        out["layers"] = {k: np.stack([_to_numpy(v[i]) for i in range(len(v))])
-                         for k, v in per_layer.items()}
+    for group, weights in per_layer.items():
+        out[group] = {k: np.stack([_to_numpy(v[i]) for i in range(len(v))])
+                      for k, v in weights.items()}
     return out
 
 
@@ -182,10 +191,10 @@ def unstack_named(tree: dict[str, Any], prefix: str = "") -> dict[str, np.ndarra
     """The inverse of :func:`stack_named`."""
     named = {}
     for key, v in tree.items():
-        if key == "layers" and not prefix:
+        if key in STACKED and not prefix:
             for w, arr in v.items():
                 for i in range(arr.shape[0]):
-                    named[f"layers.{i}.{w}"] = np.asarray(arr[i])
+                    named[f"{key}.{i}.{w}"] = np.asarray(arr[i])
         elif isinstance(v, dict):
             named |= unstack_named(v, f"{prefix}{key}.")
         else:
@@ -229,22 +238,32 @@ def decoder_layer(cfg: ArchConfig, x, p, positions, mask, mask_kind: str = "caus
     return x + L.mlp_block(cfg, h, p)
 
 
-def forward(cfg: ArchConfig, params: Transformer, tokens, positions=None):
-    """Token forward to the final hidden states (B, S, D).  With
+def forward(cfg: ArchConfig, params: Transformer, tokens, positions=None, embeds=None):
+    """Token (and, for the VLM, image-prefix) forward to the final hidden
+    states (B, S, D).  ``embeds`` (B, S_img, D) is concatenated before the
+    tokens; for the ``vlm`` family the mask is then ``prefix:<S_img>``
+    (bidirectional over the prefix, causal after), else causal.  With
     ``cfg.remat`` each layer is recomputed in the backward pass.  As in
     the reference, ``attn_chunk`` drops the S × S mask; a sequence no
     longer than the chunk then runs the plain path unmasked."""
     check_dense(cfg)
     x = params["emb"][tokens].to(cfg.dtype)
+    if embeds is not None:
+        x = torch.cat([embeds.to(cfg.dtype), x], dim=1)
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    mask = None if cfg.attn_chunk else L.causal_mask(s, device=x.device)
+    if cfg.family == "vlm" and embeds is not None:
+        mask_kind = f"prefix:{embeds.shape[1]}"
+        mask = None if cfg.attn_chunk else L.prefix_lm_mask(s, embeds.shape[1], device=x.device)
+    else:
+        mask_kind = "causal"
+        mask = None if cfg.attn_chunk else L.causal_mask(s, device=x.device)
     for layer in params.layers:
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(decoder_layer, cfg, x, layer, positions, mask, use_reentrant=False)
+            x = checkpoint(decoder_layer, cfg, x, layer, positions, mask, mask_kind, use_reentrant=False)
         else:
-            x = decoder_layer(cfg, x, layer, positions, mask)
+            x = decoder_layer(cfg, x, layer, positions, mask, mask_kind)
     return L.rms_norm(x, params["final_ln"], cfg.norm_eps)
 
 
@@ -288,14 +307,28 @@ def lm_loss(cfg: ArchConfig, params: Transformer, x, labels):
 
 
 def loss_fn(cfg: ArchConfig):
-    """``f(params, batch) -> loss`` with batch ``{"tokens", "labels"}``."""
+    """``f(params, batch) -> loss`` with batch ``{"tokens", "labels"}``
+    (the VLM's also ``"patch_embeds"``: the loss is then over the text
+    positions only)."""
     check_dense(cfg)
 
     def f(params, batch):
-        x = forward(cfg, params, batch["tokens"])
+        embeds = batch.get("patch_embeds") if cfg.family == "vlm" else None
+        x = forward(cfg, params, batch["tokens"], embeds=embeds)
+        if embeds is not None:
+            x = x[:, embeds.shape[1]:]  # loss over text positions only
         return lm_loss(cfg, params, x, batch["labels"])
 
     return f
+
+
+def train_input_specs(cfg: ArchConfig, batch: int, seq: int) -> dict[str, tuple]:
+    """The train step's inputs, ``{name: (shape, dtype)}``: tokens and
+    labels, and the VLM's patch embeddings in the config's dtype."""
+    out = {"tokens": ((batch, seq), torch.int32), "labels": ((batch, seq), torch.int32)}
+    if cfg.family == "vlm":
+        out["patch_embeds"] = ((batch, cfg.n_patches, cfg.d_model), cfg.dtype)
+    return out
 
 
 # ------------------------------------------------------------------ decode

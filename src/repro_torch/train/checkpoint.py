@@ -8,7 +8,8 @@ a checkpoint written by either package restores in the other:
 * ``leaves.npz`` holds ``leaf_<i>`` in the reference's flatten order (dict
   keys sorted), with a module's per-layer parameters, and any dict of
   tensors by parameter name (the optimizer moments), stacked back to the
-  reference's ``(n_layers, …)`` arrays and other dotted names nested (the
+  reference's ``(n_layers, …)`` arrays (``layers``; the encoder-decoder's
+  ``enc_layers`` and ``dec_layers``) and other dotted names nested (the
   hybrid's ``shared.<w>`` as ``{"shared": {"<w>": …}}``); ``meta.json``
   holds the step, the leaf count and ``extra``;
 * ``install_preemption_handler`` checkpoints on SIGTERM before exiting.
@@ -28,12 +29,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.models.transformer import _to_numpy, stack_named, unstack_named
+from repro_torch.models.transformer import STACKED, _to_numpy, stack_named, unstack_named
 
 
 def _is_named(d: dict) -> bool:
     """A dict of tensors by parameter name (dotted keys: ``"layers.<i>.<w>"``,
-    ``"shared.<w>"``)."""
+    ``"dec_layers.<i>.<w>"``, ``"shared.<w>"``)."""
     return any(isinstance(k, str) and "." in k for k in d)
 
 
@@ -53,8 +54,8 @@ def _named_keys(names) -> dict:
     keys = {}
     for name in names:
         parts = name.split(".")
-        if parts[0] == "layers":
-            parts = ["layers", parts[2]]
+        if parts[0] in STACKED:
+            parts = [parts[0], parts[2]]
         node = keys
         for key in parts[:-1]:
             node = node.setdefault(key, {})

@@ -5,8 +5,9 @@ labels equal the reference's exactly; they come back as int32 tensors on
 the asked device.  ``batch_at(seed, step)`` is a pure function, so
 resume-after-restart is exact with no dispenser state to checkpoint.  The
 token stream is a mixture of Zipf-distributed ids with short Markov
-repeats.  The reference's ``extra`` inputs (VLM patch embeddings) are
-ROADMAP.md queue 1 item 13's remainder.
+repeats.  ``extra`` inputs (whisper's frames, PaliGemma's patch
+embeddings) are drawn after them from the same generator, as the
+reference's are.
 """
 
 from __future__ import annotations
@@ -15,8 +16,6 @@ import dataclasses
 
 import numpy as np
 import torch
-
-from repro_torch.models.common import not_ported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,9 +35,10 @@ def _zipf_probs(cfg: DataConfig) -> np.ndarray:
 
 
 def batch_at(cfg: DataConfig, step: int, extra: dict | None = None, device="cpu") -> dict:
-    """Batch for a given step (pure function of (cfg, step))."""
-    if extra:
-        not_ported("extra batch inputs (VLM patch embeddings)")
+    """Batch for a given step (pure function of (cfg, step)).  ``extra``
+    is ``{name: (shape, dtype)}`` (a train step's ``input_specs`` beyond
+    tokens and labels): each is drawn in the dict's order as
+    ``standard_normal(shape) · 0.02`` in float64, then cast to ``dtype``."""
     rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, step]))
     probs = _zipf_probs(cfg)
     toks = rng.choice(cfg.vocab, size=(cfg.batch, cfg.seq + 1), p=probs)
@@ -47,5 +47,9 @@ def batch_at(cfg: DataConfig, step: int, extra: dict | None = None, device="cpu"
     for j in range(1, cfg.seq + 1):
         toks[:, j] = np.where(rep[:, j], toks[:, j - 1], toks[:, j])
     toks = torch.from_numpy(toks.astype(np.int32))
-    return {"tokens": toks[:, :-1].contiguous().to(device),
-            "labels": toks[:, 1:].contiguous().to(device)}
+    out = {"tokens": toks[:, :-1].contiguous().to(device),
+           "labels": toks[:, 1:].contiguous().to(device)}
+    for name, (shape, dtype) in (extra or {}).items():
+        draw = rng.standard_normal([int(d) for d in shape]) * 0.02
+        out[name] = torch.from_numpy(draw).to(device=device, dtype=dtype)
+    return out

@@ -23,6 +23,7 @@ from repro_torch.train.optimizer import AdamWConfig, apply_adamw, named_params
 @dataclasses.dataclass(frozen=True)
 class TrainStepBundle:
     step_fn: Callable            # (model, opt_state, batch) -> {loss, grad_norm, lr}; in place
+    input_specs: dict            # the family's batch: {name: (shape, dtype)}
 
 
 def build_train_step(
@@ -38,7 +39,9 @@ def build_train_step(
     l / mb, the gradients averaged in float32, as the reference), applies
     AdamW to ``model`` and ``opt`` in place and returns ``{loss,
     grad_norm, lr}``.  ``batch`` and ``seq`` are the reference's arguments
-    (its jitted step is built for that shape); this step takes any."""
+    (its jitted step is built for that shape; here they shape
+    ``input_specs``, the family's batch keys, from which the trainer draws
+    the inputs beyond tokens and labels); this step takes any."""
     opt_cfg = opt_cfg or AdamWConfig()
     api = model_api(cfg)
     dev = resolve_device(device)
@@ -65,14 +68,17 @@ def build_train_step(
         _, _, stats = apply_adamw(opt_cfg, named, dict(zip(named, grads)), opt_state)
         return {"loss": l, **stats}
 
-    return TrainStepBundle(step_fn=step)
+    return TrainStepBundle(step_fn=step, input_specs=api.train_input_specs(cfg, batch, seq))
 
 
 def build_serve_step(cfg: ArchConfig, batch: int, seq: int, device="cuda"):
     """The one-device decode step for a (``batch``, ``seq``) cache (K/V;
-    for the SSM families the conv and SSM states, and the hybrid's K/V):
+    for the SSM families the conv and SSM states, and the hybrid's K/V;
+    for the encoder-decoder also the cross K/V):
     ``step_fn(params, cache, {"token", "pos"}) -> (logits, cache)`` (the
-    cache written in place), and ``{"cache_shapes", "init_cache"}``."""
+    cache written in place), and ``{"cache_shapes", "init_cache"}``; for
+    the encoder-decoder also ``"prefill"``: ``(params, frames) -> cache``,
+    a fresh cache whose cross K/V come from encoding ``frames``."""
     api = model_api(cfg)
     dev = resolve_device(device)
     f = api.decode_step(cfg)
@@ -80,7 +86,10 @@ def build_serve_step(cfg: ArchConfig, batch: int, seq: int, device="cuda"):
     def step_fn(params, cache, batch_data):
         return f(params, cache, batch_data["token"], batch_data["pos"])
 
-    return step_fn, {
+    info = {
         "cache_shapes": api.cache_shapes(cfg, batch, seq),
         "init_cache": lambda: api.init_cache(cfg, batch, seq, dev),
     }
+    if api.prefill_cross_cache is not None:
+        info["prefill"] = lambda params, frames: api.prefill_cross_cache(cfg, params, frames, batch, seq)
+    return step_fn, info

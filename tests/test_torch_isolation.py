@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``repro_torch``, and neither
-``chip_smoke.py``, ``tools/calibrate_h100.py`` nor
-``tools/profile_torch_lm.py``, imports JAX or the
-reference package ``repro``."""
+``chip_smoke.py``, ``tools/calibrate_h100.py``, ``tools/profile_torch_lm.py``
+nor ``tools/time_block_ell.py``, imports JAX or the reference package
+``repro``."""
 
 import ast
 import os
@@ -19,7 +19,7 @@ def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     assert files, "repro_torch has no modules"
     return files + [ROOT / "chip_smoke.py", ROOT / "tools" / "calibrate_h100.py",
-                    ROOT / "tools" / "profile_torch_lm.py"]
+                    ROOT / "tools" / "profile_torch_lm.py", ROOT / "tools" / "time_block_ell.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -49,7 +49,7 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.kernels, repro_torch.sparse, repro_torch.tune, repro_torch.adaptive, "
         "repro_torch.core.models, repro_torch.serve, repro_torch.observe, "
         "repro_torch.launch.serve, repro_torch.launch.perf, repro_torch.launch.mesh, "
-        "repro_torch.analysis.ecg_bench, repro_torch.launch.train\n"
+        "repro_torch.analysis.ecg_bench, repro_torch.launch.train, repro_torch.models.encdec\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

@@ -88,6 +88,35 @@ def test_csr_arrays_to_block_ell_and_tile_count_equal():
         port_ops.csr_arrays_to_block_ell(*args, nbr=12, kmax=kmax - 1)
 
 
+@pytest.mark.parametrize("tile", [(4, 4), (8, 8), (5, 3), (8, 16), (1, 1)])
+@pytest.mark.parametrize("index_dtype", [np.int32, np.int64])
+def test_csr_arrays_to_block_ell_on_unsorted_rows_and_empty_rows(tile, index_dtype):
+    """The run-based conversion (a row's nonzeros in one tile form a run) on
+    rows whose column ids are shuffled (one tile in several runs), empty
+    rows (the first, the last, and within a block row), a count of rows
+    that is no multiple of the tile, and ``n_rows`` short of the arrays:
+    arrays and tile counts equal to the reference's."""
+    rng = np.random.default_rng(tile[0] * 17 + tile[1])
+    n_rows, n_cols = 45, 50
+    per_row = rng.integers(0, 12, n_rows)
+    per_row[[0, 7, n_rows - 1]] = 0
+    cols = [rng.permutation(n_cols)[:k] for k in per_row]
+    indptr = np.concatenate([[0], np.cumsum(per_row)]).astype(index_dtype)
+    indices = np.concatenate(cols).astype(index_dtype)
+    data = rng.standard_normal(len(indices))
+    br, bc = tile
+    for rows in (n_rows, 40):
+        nbr = -(-rows // br)
+        kmax = ref_ops.count_block_ell_tiles(indptr, indices, rows, n_cols, br, bc)
+        assert port_ops.count_block_ell_tiles(indptr, indices, rows, n_cols, br, bc) == kmax
+        args = (indptr, indices, data, rows, n_cols, br, bc)
+        rb, ri = ref_ops.csr_arrays_to_block_ell(*args, nbr=nbr, kmax=kmax)
+        pb, pi = port_ops.csr_arrays_to_block_ell(*args, nbr=nbr, kmax=kmax)
+        np.testing.assert_array_equal(pb, rb)
+        np.testing.assert_array_equal(pi, ri)
+        assert pi.dtype == np.int32 and pb.dtype == np.float64
+
+
 # -------------------------------------------- plain versions vs Pallas
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("t", WIDTHS)

@@ -31,10 +31,12 @@ reference's own initialiser makes it all ones), through
   1e-5 relative;
 * checkpoints both ways (values exactly equal), ``latest``, and resume
   exactness (bit for bit);
-* the CLI at ``--preset smoke --device cpu``; the refusals (the ``moe``,
-  ``vlm`` and ``encdec`` families everywhere; the ``ssm`` and ``hybrid``
+* the CLI at ``--preset smoke --device cpu``; the refusals (the ``moe``
+  family everywhere; the ``vlm`` family is the transformer's, held in
+  ``tests/test_torch_vlm.py``; the ``encdec``, ``ssm`` and ``hybrid``
   families by the transformer's own functions: ``model_api`` sends them to
-  ``models.ssm``, held in ``tests/test_torch_ssm.py``).
+  ``models.encdec`` and ``models.ssm``, held in ``tests/test_torch_encdec.py``
+  and ``tests/test_torch_ssm.py``).
 """
 
 import dataclasses
@@ -485,14 +487,23 @@ def test_cli_refuses_a_missing_card():
 
 @pytest.mark.parametrize("family", sorted(OTHER))
 def test_other_families_refused(family):
+    """``moe`` is refused everywhere before any device work.  ``vlm`` and
+    ``encdec`` are ported: ``model_api`` takes them, and the transformer's
+    own functions still refuse ``encdec`` (``models.encdec`` runs it)."""
     cfg = configs.get_smoke(OTHER[family])
     assert cfg.family == family
-    for call in (lambda: model_api(cfg), lambda: T.init_params(cfg, torch.Generator()),
-                 lambda: T.loss_fn(cfg), lambda: T.decode_step(cfg),
-                 lambda: build_train_step(cfg, device="cpu"),
-                 lambda: train_cli.main(["--arch", OTHER[family], "--preset", "smoke"])):
+    own = (lambda: T.init_params(cfg, torch.Generator()), lambda: T.loss_fn(cfg),
+           lambda: T.decode_step(cfg))
+    calls = {"moe": own + (lambda: model_api(cfg), lambda: build_train_step(cfg, device="cpu"),
+                           lambda: train_cli.main(["--arch", OTHER[family], "--preset", "smoke"])),
+             "encdec": own, "vlm": ()}[family]
+    for call in calls:
         with pytest.raises(NotImplementedError, match=LM_ITEM):
             call()
+    if family != "moe":
+        home = {"vlm": "repro_torch.models.transformer", "encdec": "repro_torch.models.encdec"}[family]
+        assert model_api(cfg).init_params.__module__ == home
+        assert "tokens" in build_train_step(cfg, device="cpu").input_specs
 
 
 @pytest.mark.parametrize("family", sorted(SSM))
@@ -513,7 +524,6 @@ def test_sharded_layout_refused():
 
     cfg = configs.get_smoke("stablelm_1_6b")
     for call in (make_production_mesh, lambda: T.param_specs(cfg), lambda: T.cache_specs(cfg),
-                 lambda: zero1_specs(None, None, None), lambda: opt_state_specs(None, None, None),
-                 lambda: batch_at(DataConfig(vocab=8, batch=1, seq=2), 0, extra={"patch_embeds": 1})):
+                 lambda: zero1_specs(None, None, None), lambda: opt_state_specs(None, None, None)):
         with pytest.raises(NotImplementedError, match=LM_ITEM):
             call()

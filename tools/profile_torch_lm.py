@@ -10,10 +10,13 @@ on the card.
 repro_torch.launch.train --preset full`` does, warms up one step, times
 ``--steps`` steps of ``build_train_step`` at ``--batch`` × ``--seq`` on
 the host clock around synchronized work, then runs them again under
-``torch.profiler``.  ``decode`` builds the config in its own dtype
-(bfloat16) with a ``--slots`` cache at batch 1 (K/V; for ``mamba2_780m``
-the conv and SSM states, which do not grow with it; for ``zamba2_1_2b``
-both), warms up two tokens,
+``torch.profiler``; the batch's frames (``whisper_medium``) or patch
+embeddings (``paligemma_3b``) are drawn by ``batch_at`` beside the
+tokens, as the trainer draws them.  ``decode`` builds the config in its
+own dtype (bfloat16) with a ``--slots`` cache at batch 1 (K/V; for
+``mamba2_780m`` the conv and SSM states, which do not grow with it; for
+``zamba2_1_2b`` both; for ``whisper_medium`` also the cross K/V, filled by
+``prefill_cross_cache`` from one batch's frames), warms up two tokens,
 times ``--tokens`` tokens of ``build_serve_step``'s step, then profiles
 them.  Each mode prints one JSON line (the card, wall and device-busy ms
 a step or token, the device's idle share, the host's launch calls, peak
@@ -111,13 +114,17 @@ def main(argv=None) -> int:
             api = model_api(cfg)
             model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
             opt = init_opt_state(model)
-            step_fn = build_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=10), batch=args.batch,
-                                       seq=args.seq, device=dev).step_fn
-            data = batch_at(DataConfig(vocab=cfg.vocab, batch=args.batch, seq=args.seq), 0, device=dev)
+            bundle = build_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=10), batch=args.batch,
+                                      seq=args.seq, device=dev)
+            step_fn = bundle.step_fn
+            extra = {k: v for k, v in bundle.input_specs.items() if k not in ("tokens", "labels")}
+            data = batch_at(DataConfig(vocab=cfg.vocab, batch=args.batch, seq=args.seq), 0, extra=extra,
+                            device=dev)
             step_fn(model, opt, data)  # warm-up
             line, rows = profile_fn(torch, lambda: step_fn(model, opt, data), args.steps, args.top, trace)
             line = {"mode": "train", "arch": cfg.name, "dtype": "float32", "batch": args.batch,
                     "seq": args.seq, "steps": args.steps,
+                    "extra": {k: list(v[0]) for k, v in extra.items()},
                     "tokens_per_s": args.batch * args.seq / line["wall_ms"] * 1e3, **line}
             del model, opt
         else:
@@ -125,7 +132,13 @@ def main(argv=None) -> int:
             api = model_api(cfg)
             model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
             serve, info = build_serve_step(cfg, 1, args.slots, device=dev)
-            cache = info["init_cache"]()
+            if "prefill" in info:  # the encoder-decoder: cross K/V from one batch's frames
+                specs = api.train_input_specs(cfg, 1, 1)
+                frames = batch_at(DataConfig(vocab=cfg.vocab, batch=1, seq=1), 0,
+                                  extra={"frames": specs["frames"]}, device=dev)["frames"]
+                cache = info["prefill"](model, frames)
+            else:
+                cache = info["init_cache"]()
             token = torch.zeros((1,), dtype=torch.int32, device=dev)
             pos = torch.zeros((1,), dtype=torch.int32, device=dev)
 
