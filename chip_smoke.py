@@ -430,6 +430,36 @@ counts (and the mesh's counters) set to 0 just before its solve:
     peak memory, every cache leaf and the logits bfloat16 (the reference's
     ``abstract_cache`` and ``jnp`` promotion).  No port kernel runs here.
     The phase prints its seconds.
+53. ``moe`` — the MoE LMs at full width on ``cuda:0``: olmoe-1b-7b (16
+    layers, d = 2048, 64 experts of d_ff 1024, top-8) and then
+    phi3.5-moe-42b (32 layers, d = 4096, GQA 32/8, 16 experts of d_ff
+    6400, top-2), neither of which trains whole on one card: (1) the
+    trainer's CLI at ``--preset tiny`` for 2 steps (their experts and top-k
+    kept: the real routing; loss and gnorm finite; ``--preset full`` would
+    need 111 / 670 GB); (2) the model built as the trainer builds it, in
+    float32, on 8 of olmoe's layers (3 563 096 064 elements, 57.0 GB of
+    training state) and 2 of phi3.5-moe's (2 864 861 184, 45.8 GB):
+    ``param_count()`` plus the padded vocab rows of ``emb`` and ``lm_head``
+    and the norms; ``active_param_count()`` logged; (3) on N(0, 0.02)
+    weights, two trainer steps at batch 1 × seq 4096 (capacity 640 slots an
+    expert): loss, grad_norm, lr and the summed aux loss finite, the
+    dropped (token, expert) picks per layer out of T·k, ms a step,
+    tokens/s, peak memory; (4) f32 decode of 16 tokens from position 0
+    into a 4096-slot cache, with ``capacity_factor = E/k`` (the forward
+    over the 16 tokens then drops nothing, as a one-token step never
+    does), each position's logits within 1e-3 relative of one forward over
+    those tokens (at the config's own factor the forward drops picks and
+    differs by design: logged beside); (5) the card against the CPU at
+    batch 1 × seq 64: olmoe on 2 layers held to phase 50 (5)'s gates
+    (``card_vs_cpu``), phi3.5-moe on 1 layer its loss and gradient norm
+    within 1e-4 relative (its optimizer state on the CPU would be ~25 GB);
+    (6) bf16 decode (the config's own dtype) at batch 1 with a 32768-slot
+    cache, olmoe at its full 16 layers, phi3.5-moe on 16 of its 32 (84 GB
+    of bf16 weights fit no one card): ms a token, the host's launches a
+    token, the expert bank's bytes and the least time to read them once
+    (every slot runs, gate 0 or not, so a token reads every expert), every
+    cache leaf, the weights and the logits bfloat16.  No port kernel runs
+    here.  The phase prints its seconds.
 
 The ``kernels`` line's ``bsr_spmbv``, ``fused_gram``, ``ecg_tail`` and
 ``rank_apply`` rows carry ``widths`` entries for t = 4 and 16 with their
@@ -440,7 +470,7 @@ width), and ``chol_apply`` one for t = 1 with its launches in phase 16.
 Every row also carries ``oneshot_launches``: its launches in each of phases
 45-48, ``process_mesh_launches``: its launches in phase 49's solves on
 the process-group mesh (rank 0's), and ``lm_launches``: its launches in
-phases 50-52.
+phases 50-53.
 
 ``python3 chip_smoke.py --process-mesh-worker DIR RANK WORLD`` is one rank
 of phase 49's world (the script starts these itself).
@@ -1749,6 +1779,244 @@ def encdec_vlm_phases(torch) -> dict:
         torch.cuda.empty_cache()
     launches = kernels.launch_counts()
     log({"phase": "encdec_vlm", "seconds": time.perf_counter() - t_phase, "launches": launches})
+    return launches
+
+
+def moe_phases(torch) -> dict:
+    """Phase 53: olmoe-1b-7b and phi3.5-moe-42b at full width on ``cuda:0``
+    (module docstring).  Returns the kernel launch counts of the phase."""
+    import contextlib
+    import io
+
+    from repro_torch import kernels
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import model_api
+    from repro_torch.train import (
+        AdamWConfig,
+        DataConfig,
+        batch_at,
+        build_serve_step,
+        build_train_step,
+        init_opt_state,
+    )
+
+    dev = torch.device("cuda", 0)
+    gib = 2.0 ** 30
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    resident = torch.cuda.memory_allocated(dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    name_of = lambda d: str(d).removeprefix("torch.")
+
+    def rel(a, b) -> float:
+        return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+    def peak_reset():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def n002(mdl):
+        """Every weight of two dims or more from N(0, 0.02), norms kept: the
+        initialiser's rule saturates attention (as in phase 50) and makes
+        the embedding all ones, so that every token routes alike."""
+        with torch.no_grad():
+            for p_ in mdl.parameters():
+                if p_.dim() >= 2:
+                    p_.normal_(0.0, 0.02, generator=gen)
+
+    def routing(c, mdl, tokens):
+        """The summed aux loss and the dropped (token, expert) picks per
+        layer of one no-grad forward over ``tokens``."""
+        with torch.no_grad(), M.record_dropped() as drops:
+            _, aux = T.forward_with_aux(c, mdl, tokens)
+        return float(aux), [int(n) for n in drops]
+
+    # arch: (training depth in f32, bf16 decode depth, the build's elements:
+    # param_count() at that depth plus the padded vocab rows of emb and
+    # lm_head and the norms); the CPU check's depth (phi3.5: loss and
+    # gradient norm only, its f32 CPU state would be ~25 GB)
+    plan = {"olmoe_1b_7b": (8, 16, 3_563_096_064, 2), "phi35_moe_42b": (2, 16, 2_864_861_184, 1)}
+    for arch, (train_layers, decode_layers, n_elements, cpu_layers) in plan.items():
+        # -------------------------------------- 53.1 the CLI at --preset tiny
+        tiny = train_cli.preset_config(arch, "tiny")
+        argv = ["--arch", arch, "--preset", "tiny", "--steps", "2", "--log-every", "1"]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            train_cli.main(argv)
+        lines = out.getvalue().splitlines()
+        steps = [ln.split() for ln in lines if ln.startswith("step ")]
+        log({"phase": "moe_cli", "argv": argv, "experts": tiny.n_experts, "top_k": tiny.top_k, "lines": lines,
+             "seconds": time.perf_counter() - t0})
+        gate("moe_cli", lines[0] == f"arch={tiny.name} params={tiny.param_count() / 1e6:.1f}M preset=tiny"
+             and lines[-1] == "done" and len(steps) == 2
+             and all(math.isfinite(float(s_[3])) and math.isfinite(float(s_[5])) for s_ in steps),
+             f"printed {lines}")
+        peak_reset()
+
+        # ------------------------------ 53.2 the build at the training depth
+        cfg = train_cli.preset_config(arch, "full").with_(dtype=torch.float32, n_layers=train_layers)
+        api = model_api(cfg)
+        t0 = time.perf_counter()
+        model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        opt = init_opt_state(model)
+        torch.cuda.synchronize()
+        elements = sum(p_.numel() for p_ in model.parameters())
+        gap = {"vocab_padded": 2 * (cfg.vocab_padded - cfg.vocab) * cfg.d_model,
+               "norms": (2 * cfg.n_layers + 1) * cfg.d_model}
+        log({"phase": "moe_build", "arch": cfg.name, "dtype": "float32", "layers": cfg.n_layers,
+             "of_layers": train_cli.preset_config(arch, "full").n_layers, "experts": cfg.n_experts,
+             "top_k": cfg.top_k, "param_elements": elements, "param_count": cfg.param_count(),
+             "active_param_count": cfg.active_param_count(), "gap": gap,
+             "build_s": time.perf_counter() - t0, "resident_before_gib": resident / gib,
+             "params_and_state_gib": (torch.cuda.memory_allocated(dev) - resident) / gib})
+        gate("moe_build", elements == n_elements == cfg.param_count() + sum(gap.values()),
+             f"{elements} elements, want {n_elements} = {cfg.param_count()} + {gap}")
+
+        # ------------------ 53.3 two steps at batch 1 x seq 4096, N(0, 0.02)
+        n002(model)
+        seq_long, n_steps = 4096, 2
+        opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=n_steps)  # the trainer's
+        step_fn = build_train_step(cfg, opt_cfg, batch=1, seq=seq_long, device=dev).step_fn
+        dcfg = DataConfig(vocab=cfg.vocab, batch=1, seq=seq_long)
+        peak_reset()
+        rows = []
+        for step in range(n_steps):
+            data = batch_at(dcfg, step, device=dev)
+            aux, dropped = routing(cfg, model, data["tokens"])  # at the step's parameters
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step_fn(model, opt, data)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rows.append({"step": step + 1, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                         "lr": m["lr"], "aux": aux, "dropped_per_layer": dropped,
+                         "picks_per_layer": seq_long * cfg.top_k, "ms": ms,
+                         "tokens_per_s": seq_long / ms * 1e3})
+        log({"phase": "moe_train_4k", "arch": cfg.name, "layers": cfg.n_layers, "batch": 1, "seq": seq_long,
+             "weights": "N(0, 0.02)", "capacity": M.capacity(cfg, seq_long), "steps": rows,
+             "max_memory_allocated_gib": torch.cuda.max_memory_allocated(dev) / gib})
+        gate("moe_train_4k", all(math.isfinite(r_[k]) for r_ in rows for k in ("loss", "grad_norm", "lr", "aux"))
+             and int(opt["step"]) == n_steps, f"steps {rows}")
+        del opt, step_fn, m, data
+        peak_reset()
+
+        # ------------- 53.4 f32 decode against one forward (16 tokens), cf = E/k
+        # capacity_factor E/k makes the capacity at least T: the forward over
+        # 16 tokens drops nothing, as a one-token decode step never does.  At
+        # the config's own factor (capacity 2) the forward drops picks and
+        # the two differ by design (logged beside).
+        n_tok, slots = 16, 4096
+        nodrop = cfg.with_(capacity_factor=cfg.n_experts / cfg.top_k)
+        toks = torch.randint(0, cfg.vocab, (1, n_tok), generator=gen, device=dev, dtype=torch.int32)
+        serve, info = build_serve_step(nodrop, 1, slots, device=dev)
+        with torch.no_grad(), M.record_dropped() as nodrop_dropped:
+            full = T.logits_from_hidden(nodrop, model, T.forward(nodrop, model, toks))
+        with torch.no_grad(), M.record_dropped() as own_dropped:
+            own = T.logits_from_hidden(cfg, model, T.forward(cfg, model, toks))
+        nodrop_dropped, own_dropped = ([int(n) for n in d_] for d_ in (nodrop_dropped, own_dropped))
+        cache = info["init_cache"]()
+        errs, own_errs = [], []
+        for i in range(n_tok):
+            pos = torch.full((1,), i, dtype=torch.int32, device=dev)
+            with M.record_dropped() as drops:
+                logits, cache = serve(model, cache, {"token": toks[:, i], "pos": pos})
+            gate("moe_decode_f32", sum(int(n) for n in drops) == 0, f"a one-token step dropped {drops}")
+            errs.append(float((logits - full[:, i]).abs().max() / full[:, i].abs().max()))
+            own_errs.append(float((logits - own[:, i]).abs().max() / own[:, i].abs().max()))
+        log({"phase": "moe_decode_f32", "arch": cfg.name, "layers": cfg.n_layers, "tokens": n_tok,
+             "cache_slots": slots, "capacity_factor": nodrop.capacity_factor,
+             "capacity": M.capacity(nodrop, n_tok), "forward_dropped_per_layer": nodrop_dropped,
+             "weights": "N(0, 0.02), after the two steps", "max_rel_err": max(errs), "rel_err": errs,
+             "own_factor": {"capacity_factor": cfg.capacity_factor, "capacity": M.capacity(cfg, n_tok),
+                            "forward_dropped_per_layer": own_dropped, "max_rel_err": max(own_errs)},
+             "max_memory_allocated_gib": torch.cuda.max_memory_allocated(dev) / gib})
+        gate("moe_decode_f32", max(errs) <= 1e-3 and sum(nodrop_dropped) == 0, f"decode against forward: {errs}")
+        del model, cache, full, own
+
+        # ------------- 53.5 the card against the CPU at the full width
+        peak_reset()
+        cfg_c = cfg.with_(n_layers=cpu_layers)
+        gpu = api.init_params(cfg_c, torch.Generator(device=dev).manual_seed(2), dev)
+        n002(gpu)
+        cpu = T.params_from_reference(T.params_to_reference(gpu), device="cpu")
+        data_c = batch_at(DataConfig(vocab=cfg.vocab, batch=1, seq=64), 0)
+        if arch == "olmoe_1b_7b":
+            card_vs_cpu(torch, "moe_card_vs_cpu", cfg_c, gpu, cpu, data_c,
+                        AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=2), weights="N(0, 0.02)",
+                        capacity=M.capacity(cfg_c, 64))
+        else:
+            # loss and the gradients' norm (the trainer's: float32 sum of
+            # squares) on each device, no optimizer state
+            res = {}
+            for name, mdl, d in (("cuda", gpu, dev), ("cpu", cpu, torch.device("cpu"))):
+                t0 = time.perf_counter()
+                loss = T.loss_fn(cfg_c)(mdl, {k: v.to(d) for k, v in data_c.items()})
+                grads = torch.autograd.grad(loss, list(mdl.parameters()))
+                gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+                res[name] = {"loss": float(loss.detach()), "grad_norm": float(gnorm),
+                             "seconds": time.perf_counter() - t0}
+                del loss, grads
+            r_loss, r_gn = (rel(res["cuda"][k], res["cpu"][k]) for k in ("loss", "grad_norm"))
+            log({"phase": "moe_card_vs_cpu", "arch": cfg_c.name, "layers": cfg_c.n_layers, "batch": 1, "seq": 64,
+                 "weights": "N(0, 0.02)", "capacity": M.capacity(cfg_c, 64), "checked": "loss and grad_norm",
+                 **res, "loss_rel_diff": r_loss, "grad_norm_rel_diff": r_gn})
+            gate("moe_card_vs_cpu", r_loss <= 1e-4 and r_gn <= 1e-4, f"card {res['cuda']}, CPU {res['cpu']}")
+        del gpu, cpu, data_c
+
+        # ------------------ 53.6 bf16 decode at batch 1, a 32768-slot cache
+        peak_reset()
+        cfg16 = train_cli.preset_config(arch, "full").with_(n_layers=decode_layers)  # its own bfloat16
+        model = api.init_params(cfg16, torch.Generator(device=dev).manual_seed(3), dev)
+        n002(model)
+        slots, n_warm, n_timed = 32768, 2, 16  # decode_32k's length
+        serve, info = build_serve_step(cfg16, 1, slots, device=dev)
+        cache = info["init_cache"]()
+        before = {k: name_of(v.dtype) for k, v in cache.items()}
+        toks = torch.randint(0, cfg.vocab, (n_warm + n_timed + 2,), generator=gen, device=dev, dtype=torch.int32)
+
+        def decode(i):
+            return serve(model, cache, {"token": toks[i:i + 1],
+                                        "pos": torch.full((1,), i, dtype=torch.int32, device=dev)})[0]
+
+        for i in range(n_warm):
+            decode(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_warm, n_warm + n_timed):
+            logits = decode(i)
+        torch.cuda.synchronize()
+        ms_tok = (time.perf_counter() - t0) * 1e3 / n_timed
+        calls = iteration_calls(torch, lambda: decode(n_warm + n_timed))  # and one to warm up
+        after = {k: name_of(v.dtype) for k, v in cache.items()}
+        weight_dtypes = sorted({name_of(p_.dtype) for p_ in model.parameters()})
+        expert_bytes = sum(layer[w].numel() * layer[w].element_size()
+                           for layer in model.layers for w in ("we_g", "we_u", "we_d"))
+        log({"phase": "moe_decode_bf16", "arch": cfg16.name, "layers": cfg16.n_layers,
+             "of_layers": train_cli.preset_config(arch, "full").n_layers, "cache_slots": slots, "batch": 1,
+             "ms_per_token": ms_tok, "tokens_timed": n_timed, "launches_per_token": calls["launches"],
+             "syncs_per_token": calls["syncs"],
+             "expert_bank_gib": expert_bytes / gib, "expert_read_bound_ms": expert_bytes / HBM_BYTES_PER_S * 1e3,
+             "cache_gib": sum(v.numel() * v.element_size() for v in cache.values()) / gib,
+             "cache_dtypes_before": before, "cache_dtypes_after": after, "weight_dtypes": weight_dtypes,
+             "logits_dtype": name_of(logits.dtype),
+             "weights_gib": sum(p_.numel() * p_.element_size() for p_ in model.parameters()) / gib,
+             "max_memory_allocated_gib": torch.cuda.max_memory_allocated(dev) / gib,
+             "logits_finite": bool(torch.isfinite(logits).all())})
+        # the reference's abstract_cache: every leaf in the config's dtype;
+        # jnp promotion keeps the logits bfloat16; the experts stay bfloat16
+        want_dtypes = {k: "bfloat16" for k in info["cache_shapes"]}
+        gate("moe_decode_bf16", bool(torch.isfinite(logits).all()) and before == after == want_dtypes
+             and name_of(logits.dtype) == "bfloat16" and weight_dtypes == ["bfloat16"],
+             f"logits {name_of(logits.dtype)}, cache {before} -> {after}, weights {weight_dtypes}")
+        del model, cache, logits
+        torch.cuda.empty_cache()
+    launches = kernels.launch_counts()
+    log({"phase": "moe", "seconds": time.perf_counter() - t_phase, "launches": launches})
     return launches
 
 
@@ -3697,6 +3965,9 @@ def main() -> int:
     # ------------------------------- 52. the encoder-decoder and VLM-prefix LMs
     ed_launches = encdec_vlm_phases(torch)
 
+    # ------------------------------------------------------ 53. the MoE LMs
+    moe_launches = moe_phases(torch)
+
     # ------------------------------------------------------------------ result
     sources = {
         "bsr_spmbv": ("src/repro_torch/kernels/csrc/bsr_spmbv.cu", "src/repro/kernels/bsr_spmbv/kernel.py:43"),
@@ -3784,7 +4055,7 @@ def main() -> int:
         row["oneshot_launches"] = {ph: counts[row["name"]] for ph, counts in oneshot.items()}
         row["process_mesh_launches"] = {ph: counts[row["name"]] for ph, counts in process_mesh.items()}
         row["lm_launches"] = (lm_launches[row["name"]] + ssm_launches[row["name"]]
-                              + ed_launches[row["name"]])  # phases 50-52
+                              + ed_launches[row["name"]] + moe_launches[row["name"]])  # phases 50-53
     log({"kernels": rows})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -10,10 +10,10 @@ config; ``tiny``/``100m`` scale a dense config to the requested size;
 ``full`` is the config at its own widths.  Every preset is cast to float32,
 as the reference's driver does, and runs on one device: the reference's
 ``full`` runs on its 16 × 16 production mesh, which is ROADMAP.md queue 1
-item 13's remainder, as is the ``moe`` family (the ``dense``, ``vlm``,
-``ssm``, ``hybrid`` and ``encdec`` families train; the VLM's patch
-embeddings and the encoder-decoder's frames are drawn by ``batch_at``
-beside the tokens, as the reference's trainer draws them).
+item 13's remainder.  Every family trains (the VLM's patch embeddings and
+the encoder-decoder's frames are drawn by ``batch_at`` beside the tokens,
+as the reference's trainer draws them; ``tiny`` and ``100m`` keep a MoE
+config's experts and top-k).
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = preset_config(args.arch, args.preset).with_(dtype=torch.float32)
-    api = model_api(cfg)  # refuses moe before any device work
+    api = model_api(cfg)
     dev = resolve_device(args.device)
     print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M preset={args.preset}")
 

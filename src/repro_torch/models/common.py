@@ -3,14 +3,15 @@
 Port of ``repro/models/common.py``.  One ``ArchConfig`` covers every
 assigned family (dense / moe / ssm / hybrid / encdec / vlm) with the
 reference's fields, defaults and counts; ``dtype`` is a torch dtype.  The
-port runs the dense, vlm, ssm, hybrid and encdec families on one device.
+port runs every family on one device.
 The sharding knobs (``seq_parallel``, ``gqa_shard_fix``, ``attn_seq_shard``,
 ``dense_scatter_combine``, ``moe_scatter_combine``) stay as fields and change
 no value there: the reference's ``constrain`` is a layout hint, and its
-row-parallel ``shard_map`` at model size 1 sums one part.  The 2-D
-FSDP × TP layout (``MeshAxes``, the ``*_specs`` rules, ``constrain``) and the
-moe family are ROADMAP.md queue 1 item 13's remainder (:data:`LM_ITEM`);
-what needs them raises :func:`not_ported`.
+row-parallel ``shard_map`` at model size 1 sums one part, as does the MoE's
+psum combine over one expert shard.  The 2-D FSDP × TP layout (``MeshAxes``,
+the ``*_specs`` rules, ``constrain``, the expert-parallel ``shard_map``) and
+``launch/perf.py``'s transformer half are ROADMAP.md queue 1 item 13's
+remainder (:data:`LM_ITEM`); what needs them raises :func:`not_ported`.
 """
 
 from __future__ import annotations

@@ -1,11 +1,10 @@
 """Uniform model API dispatch: family -> module functions.
 
-Port of ``repro/models/registry.py`` for the families that run on one
-device: ``dense`` and ``vlm`` (:mod:`~repro_torch.models.transformer`),
+Port of ``repro/models/registry.py``, every family on one device:
+``dense``, ``moe`` and ``vlm`` (:mod:`~repro_torch.models.transformer`),
 ``ssm`` and ``hybrid`` (:mod:`~repro_torch.models.ssm`), ``encdec``
-(:mod:`~repro_torch.models.encdec`).  The ``moe`` family is ROADMAP.md
-queue 1 item 13's remainder: :func:`model_api` refuses it before any
-device work.
+(:mod:`~repro_torch.models.encdec`).  An unknown family is refused before
+any device work.
 """
 
 from __future__ import annotations
@@ -61,6 +60,7 @@ _ENCDEC = ModelApi(
 
 _BY_FAMILY = {
     "dense": _TRANSFORMER,
+    "moe": _TRANSFORMER,
     "vlm": _TRANSFORMER,
     "ssm": _SSM,
     "hybrid": _SSM,

@@ -1,9 +1,10 @@
-"""Decoder-only transformer, the dense and VLM families, on one device.
+"""Decoder-only transformer, the dense, MoE and VLM families, on one device.
 
-Port of the dense and VLM paths of ``repro/models/transformer.py``
-(phi3-medium-14b, stablelm-1.6b, granite-20b/8b; paligemma-3b, whose
-SigLIP tower is stubbed as precomputed patch embeddings concatenated
-before the tokens under a prefix-LM mask).  The reference stacks each
+Port of ``repro/models/transformer.py`` (phi3-medium-14b, stablelm-1.6b,
+granite-20b/8b; phi3.5-moe-42b and olmoe-1b-7b, whose FFN is
+:func:`~repro_torch.models.moe.moe_ffn`; paligemma-3b, whose SigLIP tower
+is stubbed as precomputed patch embeddings concatenated before the tokens
+under a prefix-LM mask).  The reference stacks each
 per-layer weight as one ``(n_layers, …)`` array and scans over it; the
 port keeps one :class:`DecoderLayer` module a layer in an
 ``nn.ModuleList`` and loops: a stacked parameter indexed per layer makes
@@ -13,11 +14,11 @@ convert between the port's module and the reference's nested dict of
 stacked arrays (weights carried across in tests, and the checkpoint
 layout).
 
-The MoE branch and the sharded layout (``param_specs``, ``cache_specs``)
-are ROADMAP.md queue 1 item 13's remainder and raise
-``NotImplementedError`` before any device work; the ssm and hybrid
-families are :mod:`repro_torch.models.ssm`'s and the encdec family
-:mod:`repro_torch.models.encdec`'s (this module's functions refuse them).
+The sharded layout (``param_specs``, ``cache_specs``) is ROADMAP.md queue
+1 item 13's remainder and raises ``NotImplementedError`` before any device
+work; the ssm and hybrid families are :mod:`repro_torch.models.ssm`'s and
+the encdec family :mod:`repro_torch.models.encdec`'s (this module's
+functions refuse them).
 """
 
 from __future__ import annotations
@@ -31,17 +32,19 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.common import ArchConfig, not_ported
+from repro_torch.models.moe import moe_ffn
 
 
-def check_dense(cfg: ArchConfig) -> None:
-    """Refuse every family but ``dense`` and ``vlm`` before any device work."""
-    if cfg.family not in ("dense", "vlm"):
+def check_family(cfg: ArchConfig) -> None:
+    """Refuse every family but ``dense``, ``moe`` and ``vlm`` before any
+    device work."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         not_ported(f"the {cfg.family} family ({cfg.name})")
 
 
 # ------------------------------------------------------------------ params
 def layer_shapes(cfg: ArchConfig) -> dict[str, tuple]:
-    check_dense(cfg)
+    check_family(cfg)
     d, f, h, kv, dh, n = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
     shapes = {
         "ln1": (n, d),
@@ -50,12 +53,16 @@ def layer_shapes(cfg: ArchConfig) -> dict[str, tuple]:
         "wv": (n, d, kv, dh),
         "wo": (n, h, dh, d),
         "ln2": (n, d),
-        "wg": (n, d, f),
-        "wu": (n, d, f),
-        "wd": (n, f, d),
     }
+    if cfg.family == "moe":
+        e = cfg.n_experts
+        shapes |= {"router": (n, d, e), "we_g": (n, e, d, f), "we_u": (n, e, d, f), "we_d": (n, e, f, d)}
+        gate = "we_g"
+    else:
+        shapes |= {"wg": (n, d, f), "wu": (n, d, f), "wd": (n, f, d)}
+        gate = "wg"
     if cfg.mlp != "swiglu":
-        shapes.pop("wg")
+        shapes.pop(gate)
     return shapes
 
 
@@ -91,8 +98,9 @@ class _Weights(nn.Module):
 
 
 class DecoderLayer(_Weights):
-    """One layer's ``ln1, wq, wk, wv, wo, ln2, wg, wu, wd`` in the
-    reference's per-layer shapes."""
+    """One layer's ``ln1, wq, wk, wv, wo, ln2`` and its FFN's ``wg, wu, wd``
+    (MoE: ``router, we_g, we_u, we_d``) in the reference's per-layer
+    shapes."""
 
 
 class Transformer(_Weights):
@@ -137,12 +145,15 @@ def _assign(model: _Weights, path: tuple, value: torch.Tensor) -> None:
         node[path[-1]].copy_(value)
 
 
+@torch.no_grad()
 def init_params(cfg: ArchConfig, generator: torch.Generator, device=None) -> Transformer:
     """The reference's rule on the stacked shapes: norms (and every other
     leaf of at most two dims whose last is ``d_model``, ``emb`` among them)
     are ones; other 2-D weights N(0, 0.02); the rest N(0, fan_in^-1/2) with
     fan_in = ``shape[-2]`` of the stacked shape.  Draws on ``generator``'s
-    device, leaf by leaf in the reference's order; the values differ from
+    device, leaf by leaf in the reference's order and a stacked leaf layer
+    by layer (the largest float32 temporary is one layer's leaf: an expert
+    bank of phi3.5-moe is 1.7 GB); the values differ from
     ``jax.random``'s."""
     shapes = param_shapes(cfg)
     device = torch.device(device) if device is not None else generator.device
@@ -150,12 +161,15 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None) -> Tra
     for path, shape in _flat_shapes(shapes):
         fan_in = shape[-2] if len(shape) > 1 else shape[-1]
         if len(shape) <= 2 and shape[-1] == cfg.d_model:  # norms
-            value = torch.ones(shape, device=device, dtype=cfg.dtype)
+            _assign(model, path, torch.ones(shape, device=device, dtype=cfg.dtype))
+            continue
+        scale = 0.02 if len(shape) <= 2 else fan_in ** -0.5
+        if path[0] in STACKED:
+            targets = [layer[path[1]] for layer in model[path[0]]]
         else:
-            value = torch.randn(shape, generator=generator, device=generator.device)
-            value = (value * (0.02 if len(shape) <= 2 else fan_in ** -0.5)).to(device, cfg.dtype)
-        _assign(model, path, value)
-        del value
+            targets = [model[path[-1]]]
+        for w in targets:
+            w.copy_(torch.randn(w.shape, generator=generator, device=generator.device) * scale)
     return model
 
 
@@ -230,23 +244,36 @@ def model_from_reference(cls, tree, device="cpu", dtype=None):
 
 # ----------------------------------------------------------------- forward
 def decoder_layer(cfg: ArchConfig, x, p, positions, mask, mask_kind: str = "causal"):
+    """One layer: ``(x, aux)``, aux the MoE FFN's load-balance loss (0.0
+    for a dense FFN)."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = L.qkv(cfg, h, p, positions)
     o = L.attention(cfg, q, k, v, mask, mask_kind=mask_kind)
     x = x + torch.einsum("bshe,hed->bsd", o, p["wo"])
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp_block(cfg, h, p)
+    if cfg.family == "moe":
+        ff, aux = moe_ffn(cfg, h, p)
+    else:
+        ff, aux = L.mlp_block(cfg, h, p), 0.0
+    return x + ff, aux
 
 
 def forward(cfg: ArchConfig, params: Transformer, tokens, positions=None, embeds=None):
+    """:func:`forward_with_aux`'s hidden states alone."""
+    return forward_with_aux(cfg, params, tokens, positions, embeds)[0]
+
+
+def forward_with_aux(cfg: ArchConfig, params: Transformer, tokens, positions=None, embeds=None):
     """Token (and, for the VLM, image-prefix) forward to the final hidden
-    states (B, S, D).  ``embeds`` (B, S_img, D) is concatenated before the
-    tokens; for the ``vlm`` family the mask is then ``prefix:<S_img>``
-    (bidirectional over the prefix, causal after), else causal.  With
-    ``cfg.remat`` each layer is recomputed in the backward pass.  As in
-    the reference, ``attn_chunk`` drops the S × S mask; a sequence no
-    longer than the chunk then runs the plain path unmasked."""
-    check_dense(cfg)
+    states (B, S, D) and the layers' summed MoE aux loss (0.0 for the
+    other families), the reference's ``forward``.  ``embeds`` (B, S_img,
+    D) is concatenated before the tokens; for the ``vlm`` family the mask
+    is then ``prefix:<S_img>`` (bidirectional over the prefix, causal
+    after), else causal.  With ``cfg.remat`` each layer is recomputed in
+    the backward pass.  As in the reference, ``attn_chunk`` drops the S × S
+    mask; a sequence no longer than the chunk then runs the plain path
+    unmasked."""
+    check_family(cfg)
     x = params["emb"][tokens].to(cfg.dtype)
     if embeds is not None:
         x = torch.cat([embeds.to(cfg.dtype), x], dim=1)
@@ -259,12 +286,14 @@ def forward(cfg: ArchConfig, params: Transformer, tokens, positions=None, embeds
     else:
         mask_kind = "causal"
         mask = None if cfg.attn_chunk else L.causal_mask(s, device=x.device)
+    aux = 0.0
     for layer in params.layers:
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(decoder_layer, cfg, x, layer, positions, mask, mask_kind, use_reentrant=False)
+            x, a = checkpoint(decoder_layer, cfg, x, layer, positions, mask, mask_kind, use_reentrant=False)
         else:
-            x = decoder_layer(cfg, x, layer, positions, mask, mask_kind)
-    return L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+            x, a = decoder_layer(cfg, x, layer, positions, mask, mask_kind)
+        aux = aux + a
+    return L.rms_norm(x, params["final_ln"], cfg.norm_eps), aux
 
 
 def logits_from_hidden(cfg: ArchConfig, params: Transformer, x):
@@ -309,15 +338,16 @@ def lm_loss(cfg: ArchConfig, params: Transformer, x, labels):
 def loss_fn(cfg: ArchConfig):
     """``f(params, batch) -> loss`` with batch ``{"tokens", "labels"}``
     (the VLM's also ``"patch_embeds"``: the loss is then over the text
-    positions only)."""
-    check_dense(cfg)
+    positions only); the MoE's adds 0.01 × its summed aux loss."""
+    check_family(cfg)
 
     def f(params, batch):
         embeds = batch.get("patch_embeds") if cfg.family == "vlm" else None
-        x = forward(cfg, params, batch["tokens"], embeds=embeds)
+        x, aux = forward_with_aux(cfg, params, batch["tokens"], embeds=embeds)
         if embeds is not None:
             x = x[:, embeds.shape[1]:]  # loss over text positions only
-        return lm_loss(cfg, params, x, batch["labels"])
+        loss = lm_loss(cfg, params, x, batch["labels"])
+        return loss + 0.01 * aux if cfg.family == "moe" else loss
 
     return f
 
@@ -351,8 +381,9 @@ def decode_step(cfg: ArchConfig):
     ``pos`` (B,) integer tensors.  Each layer's new K/V row is written into
     ``cache`` in place (the reference blends a one-hot row, which equals
     the write for finite values); attention runs over the whole cache with
-    the mask ``arange(S) <= pos``."""
-    check_dense(cfg)
+    the mask ``arange(S) <= pos``.  The MoE FFN routes the B new tokens
+    together (capacity from T = B) and its aux loss is dropped."""
+    check_family(cfg)
 
     @torch.no_grad()
     def f(params, cache, token, pos):
@@ -369,7 +400,7 @@ def decode_step(cfg: ArchConfig):
             o = L.attention(cfg, q, cache["k"][i], cache["v"][i], mask)
             x = x + torch.einsum("bshe,hed->bsd", o, lp["wo"])
             h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + L.mlp_block(cfg, h, lp)
+            x = x + (moe_ffn(cfg, h, lp)[0] if cfg.family == "moe" else L.mlp_block(cfg, h, lp))
         x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
         return logits_from_hidden(cfg, params, x)[:, 0], cache
 

@@ -32,8 +32,8 @@ kernel launch serves all p ranks:
 
 The device program uses only ``mesh.local_ranks``, ``mesh.ppermute`` and
 ``mesh.device``.  Every process computes the partition and the exchange
-plan whole (they are equal bit for bit everywhere); the host-side build
-then converts and stacks only the ranks the process holds
+plan whole (they are equal bit for bit everywhere); the build then
+converts (on ``mesh.device``) and stacks only the ranks the process holds
 (``mesh.ranks``): all p on a :class:`~repro_torch.launch.mesh.VirtualMesh`,
 its own on a :class:`~repro_torch.launch.mesh.ProcessGroupMesh` (one rank
 per process), whose block vectors are (rmax, t) and whose exchange arrays
@@ -78,9 +78,10 @@ import torch
 
 from repro_torch.core.node_aware import ExchangePlan, build_exchange_plan
 from repro_torch.kernels.bsr_spmbv.ops import (
+    _as_tensor,
+    _block_ell_fill,
     bsr_spmbv,
     count_block_ell_tiles,
-    csr_arrays_to_block_ell,
 )
 from repro_torch.launch.mesh import refuse_unstacked
 from repro_torch.sparse.csr import CSRMatrix, csr_spmbv
@@ -418,14 +419,14 @@ def _stack_gathered_csr(per_rank, n_rows_max, rmax, dtype):
     return rows_ids, indptr, indices, data
 
 
-def _build_split(pm, rebased, rmax, n_cols_full, backend, br, bc, dtype) -> dict:
+def _build_split(pm, rebased, rmax, n_cols_full, backend, br, bc, dtype, device) -> dict:
     """The overlap schedule's interior/boundary arrays in the reference's
     stacked (p, ·) layout (``DistributedSpMBV.split`` there): ``int_rows``/
     ``bnd_rows`` and, for pallas, ``int_blocks``/``int_idx`` over the own
     rows and ``bnd_blocks``/``bnd_idx`` over [own ‖ halo]; for jnp the
     gathered CSR triples ``{int,bnd}_{indptr,indices,data}``.  The pallas
     split classifies whole block rows, so the gathered subsets keep the
-    Block-ELL tiles as built."""
+    Block-ELL tiles as built (converted on ``device``)."""
     io = interior_boundary_split(pm, block_row=br if backend == "pallas" else 1)
     n_int_max = max(len(i) for i, _ in io)
     n_bnd_max = max(len(b_) for _, b_ in io)
@@ -438,9 +439,9 @@ def _build_split(pm, rebased, rmax, n_cols_full, backend, br, bc, dtype) -> dict
     split = {"int_rows": int_ids, "bnd_rows": bnd_ids}
     if backend == "pallas":
         split["int_blocks"], split["int_idx"] = _stack_block_ell(
-            int_per_rank, n_int_max, rmax, br, bc, dtype)
+            int_per_rank, n_int_max, rmax, br, bc, device)
         split["bnd_blocks"], split["bnd_idx"] = _stack_block_ell(
-            bnd_per_rank, n_bnd_max, n_cols_full, br, bc, dtype)
+            bnd_per_rank, n_bnd_max, n_cols_full, br, bc, device)
     else:
         split.update(int_indptr=int_ptr, int_indices=int_ix, int_data=int_dat,
                      bnd_indptr=bnd_ptr, bnd_indices=bnd_ix, bnd_data=bnd_dat)
@@ -460,21 +461,21 @@ def _block_diagonal_gathered_csr(indptr, indices, data, n_cols) -> CSRMatrix:
                      (p * n_rows, p * n_cols))
 
 
-def _stack_block_ell(per_rank, n_rows_max, n_cols, br, bc, dtype):
-    """Convert per-rank CSR triples to one stacked Block-ELL array:
-    blocks (p, nbr, kmax, br, bc), indices (p, nbr, kmax)."""
+def _stack_block_ell(per_rank, n_rows_max, n_cols, br, bc, device):
+    """Convert per-rank CSR triples to one stacked Block-ELL array on
+    ``device``: blocks (p, nbr, kmax, br, bc), indices (p, nbr, kmax).  The
+    tile count and the fill run there, on a copy of the ranks' CSR arrays
+    (the card's for a mesh on it), as the sequential build's conversion
+    does (``csr_arrays_to_block_ell``'s arrays, exactly)."""
     p = len(per_rank)
     nbr = max(1, (n_rows_max + br - 1) // br)
-    kmax = max(
-        [count_block_ell_tiles(g[1], g[2], len(g[0]), n_cols, br, bc) for g in per_rank]
-        + [1]
-    )
-    blocks = np.zeros((p, nbr, kmax, br, bc), dtype)
-    idx = np.zeros((p, nbr, kmax), np.int32)
-    for r, (rows, gptr, gix, gdat) in enumerate(per_rank):
-        blocks[r], idx[r] = csr_arrays_to_block_ell(
-            gptr, gix, gdat, len(rows), n_cols, br, bc, nbr, kmax
-        )
+    ranks = [(len(rows),) + tuple(_as_tensor(a).to(device) for a in (gptr, gix, gdat))
+             for rows, gptr, gix, gdat in per_rank]
+    kmax = max([count_block_ell_tiles(ptr, ix, n, n_cols, br, bc) for n, ptr, ix, _ in ranks] + [1])
+    blocks = torch.zeros((p, nbr, kmax, br, bc), dtype=ranks[0][3].dtype, device=device)
+    idx = torch.zeros((p, nbr, kmax), dtype=torch.int32, device=device)
+    for r, (n, ptr, ix, dat) in enumerate(ranks):
+        blocks[r], idx[r] = _block_ell_fill(ptr, ix, dat, n, n_cols, br, bc, nbr, kmax)
     return blocks, idx
 
 
@@ -547,7 +548,7 @@ def _make_distributed_spmbv(
     """Partition ``a`` over ``mesh`` and build the device-ready operator.
 
     ``backend="pallas"`` converts each rank's local [own ‖ halo] CSR block to
-    Block-ELL here (one-time host cost) with tile ``ell_block`` (an int for
+    Block-ELL here (a one-time cost, on the mesh's device) with tile ``ell_block`` (an int for
     square tiles or a (br, bc) pair); ``col_split`` overrides the
     nodal-optimal wide-halo splitting factor (must divide t; ``None`` = §4.3
     byte model).
@@ -627,7 +628,7 @@ def _make_distributed_spmbv(
     if overlap:
         ell = {}
         split = {k_: torch.as_tensor(v_, device=mesh.device) for k_, v_ in _build_split(
-            pm, rebased, rmax, n_cols_full, backend, br, bc, val_dtype).items()}
+            pm, rebased, rmax, n_cols_full, backend, br, bc, val_dtype, mesh.device).items()}
     elif backend == "pallas" and ell:
         if (ell["m_pad"] != operand_rows or tuple(ell["blocks"].shape[-2:]) != (br, bc)
                 or ell["blocks"].shape[0] != mesh.local_ranks * nbr):
@@ -635,11 +636,11 @@ def _make_distributed_spmbv(
     elif backend == "pallas":
         # the held ranks' tiles, their block-column ids offset by position
         per_rank = [(np.arange(n_local), ptr, ix, dat) for ptr, ix, dat, n_local in rebased]
-        blocks, idx = _stack_block_ell(per_rank, rmax, n_cols_full, br, bc, val_dtype)
-        idx = idx + (np.arange(len(rebased), dtype=np.int32) * nbc_r)[:, None, None]
+        blocks, idx = _stack_block_ell(per_rank, rmax, n_cols_full, br, bc, mesh.device)
+        idx += (torch.arange(len(rebased), dtype=torch.int32, device=mesh.device) * nbc_r)[:, None, None]
         ell = {
-            "blocks": torch.as_tensor(blocks.reshape((-1,) + blocks.shape[2:]), device=mesh.device),
-            "indices": torch.as_tensor(idx.reshape(-1, idx.shape[-1]), device=mesh.device),
+            "blocks": blocks.view((-1,) + blocks.shape[2:]),
+            "indices": idx.view(-1, idx.shape[-1]),
             "m_pad": operand_rows,
         }
     else:

@@ -31,12 +31,13 @@ reference's own initialiser makes it all ones), through
   1e-5 relative;
 * checkpoints both ways (values exactly equal), ``latest``, and resume
   exactness (bit for bit);
-* the CLI at ``--preset smoke --device cpu``; the refusals (the ``moe``
-  family everywhere; the ``vlm`` family is the transformer's, held in
-  ``tests/test_torch_vlm.py``; the ``encdec``, ``ssm`` and ``hybrid``
-  families by the transformer's own functions: ``model_api`` sends them to
-  ``models.encdec`` and ``models.ssm``, held in ``tests/test_torch_encdec.py``
-  and ``tests/test_torch_ssm.py``).
+* the CLI at ``--preset smoke --device cpu``; the dispatch of the other
+  families (``moe`` and ``vlm`` are the transformer's, held in
+  ``tests/test_torch_moe.py`` and ``tests/test_torch_vlm.py``; ``model_api``
+  sends ``encdec``, ``ssm`` and ``hybrid`` to ``models.encdec`` and
+  ``models.ssm``, held in ``tests/test_torch_encdec.py`` and
+  ``tests/test_torch_ssm.py``, and the transformer's own functions refuse
+  them); the refusals of the sharded layout.
 """
 
 import dataclasses
@@ -487,23 +488,27 @@ def test_cli_refuses_a_missing_card():
 
 @pytest.mark.parametrize("family", sorted(OTHER))
 def test_other_families_refused(family):
-    """``moe`` is refused everywhere before any device work.  ``vlm`` and
-    ``encdec`` are ported: ``model_api`` takes them, and the transformer's
-    own functions still refuse ``encdec`` (``models.encdec`` runs it)."""
+    """Every family is ported: ``model_api`` sends ``moe`` and ``vlm`` to the
+    transformer and ``encdec`` to ``models.encdec``, whose family the
+    transformer's own functions still refuse before any device work.  What
+    each family still refuses is the sharded layout (``param_specs``,
+    ``cache_specs``), citing ROADMAP's label."""
     cfg = configs.get_smoke(OTHER[family])
     assert cfg.family == family
     own = (lambda: T.init_params(cfg, torch.Generator()), lambda: T.loss_fn(cfg),
            lambda: T.decode_step(cfg))
-    calls = {"moe": own + (lambda: model_api(cfg), lambda: build_train_step(cfg, device="cpu"),
-                           lambda: train_cli.main(["--arch", OTHER[family], "--preset", "smoke"])),
-             "encdec": own, "vlm": ()}[family]
+    calls = (own if family == "encdec" else ()) + (lambda: T.param_specs(cfg), lambda: T.cache_specs(cfg))
     for call in calls:
         with pytest.raises(NotImplementedError, match=LM_ITEM):
             call()
-    if family != "moe":
-        home = {"vlm": "repro_torch.models.transformer", "encdec": "repro_torch.models.encdec"}[family]
-        assert model_api(cfg).init_params.__module__ == home
-        assert "tokens" in build_train_step(cfg, device="cpu").input_specs
+    home = {"moe": "repro_torch.models.transformer", "vlm": "repro_torch.models.transformer",
+            "encdec": "repro_torch.models.encdec"}[family]
+    assert model_api(cfg).init_params.__module__ == home
+    assert "tokens" in build_train_step(cfg, device="cpu").input_specs
+    if family == "moe":  # the transformer's own functions take it
+        model = T.init_params(cfg, torch.Generator().manual_seed(0))
+        assert {"router", "we_g", "we_u", "we_d"} <= set(dict(model.layers[0].named_parameters()))
+        assert callable(T.loss_fn(cfg)) and callable(T.decode_step(cfg))
 
 
 @pytest.mark.parametrize("family", sorted(SSM))

@@ -3,7 +3,7 @@
 on the card.
 
     PYTHONPATH=src python tools/profile_torch_lm.py [--mode train|decode|both] \
-        [--arch stablelm_1_6b] [--batch 8] [--seq 256] [--steps 3] \
+        [--arch stablelm_1_6b] [--layers N] [--batch 8] [--seq 256] [--steps 3] \
         [--slots 32768] [--tokens 8] [--top 20] [--trace PATH]
 
 ``train`` builds the config at full width in float32 as ``python -m
@@ -18,7 +18,10 @@ own dtype (bfloat16) with a ``--slots`` cache at batch 1 (K/V; for
 ``zamba2_1_2b`` both; for ``whisper_medium`` also the cross K/V, filled by
 ``prefill_cross_cache`` from one batch's frames), warms up two tokens,
 times ``--tokens`` tokens of ``build_serve_step``'s step, then profiles
-them.  Each mode prints one JSON line (the card, wall and device-busy ms
+them.  ``--layers N`` cuts the config to its first N layers at full width
+(a MoE config whose whole depth does not fit one card: olmoe-1b-7b trains
+on 8 of its 16 layers, phi3.5-moe-42b on 2 and decodes on 16 of its 32).
+Each mode prints one JSON line (the card, wall and device-busy ms
 a step or token, the device's idle share, the host's launch calls, peak
 memory) and then one line per kernel name, the ``--top`` by device time.
 It refuses to run without CUDA.
@@ -79,6 +82,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", choices=["train", "decode", "both"], default="both")
     ap.add_argument("--arch", default="stablelm_1_6b")
+    ap.add_argument("--layers", type=int, default=None, help="cut the config to N layers (full width)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--steps", type=int, default=3)
@@ -105,12 +109,13 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     modes = ["train", "decode"] if args.mode == "both" else [args.mode]
+    depth = {} if args.layers is None else {"n_layers": args.layers}
     for mode in modes:
         trace = args.trace and args.trace.replace(".json", f".{mode}.json")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         if mode == "train":
-            cfg = preset_config(args.arch, "full").with_(dtype=torch.float32)
+            cfg = preset_config(args.arch, "full").with_(dtype=torch.float32, **depth)
             api = model_api(cfg)
             model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
             opt = init_opt_state(model)
@@ -122,13 +127,14 @@ def main(argv=None) -> int:
                             device=dev)
             step_fn(model, opt, data)  # warm-up
             line, rows = profile_fn(torch, lambda: step_fn(model, opt, data), args.steps, args.top, trace)
-            line = {"mode": "train", "arch": cfg.name, "dtype": "float32", "batch": args.batch,
+            line = {"mode": "train", "arch": cfg.name, "layers": cfg.n_layers, "dtype": "float32",
+                    "batch": args.batch,
                     "seq": args.seq, "steps": args.steps,
                     "extra": {k: list(v[0]) for k, v in extra.items()},
                     "tokens_per_s": args.batch * args.seq / line["wall_ms"] * 1e3, **line}
             del model, opt
         else:
-            cfg = preset_config(args.arch, "full")
+            cfg = preset_config(args.arch, "full").with_(**depth)
             api = model_api(cfg)
             model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
             serve, info = build_serve_step(cfg, 1, args.slots, device=dev)
@@ -148,7 +154,8 @@ def main(argv=None) -> int:
 
             decode(), decode()  # warm-up
             line, rows = profile_fn(torch, decode, args.tokens, args.top, trace)
-            line = {"mode": "decode", "arch": cfg.name, "dtype": str(cfg.dtype).removeprefix("torch."),
+            line = {"mode": "decode", "arch": cfg.name, "layers": cfg.n_layers,
+                    "dtype": str(cfg.dtype).removeprefix("torch."),
                     "batch": 1, "cache_slots": args.slots, "tokens": args.tokens, **line}
             del model, cache
         line["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated(dev) / gib
