@@ -460,6 +460,30 @@ counts (and the mesh's counters) set to 0 just before its solve:
     (every slot runs, gate 0 or not, so a token reads every expert), every
     cache leaf, the weights and the logits bfloat16.  No port kernel runs
     here.  The phase prints its seconds.
+54. ``lm_mesh`` — the LM half's 2-D FSDP × TP layout over NCCL, in worlds
+    the script starts as phase 49 does (``--lm-mesh-worker``, one process
+    a card).  (i) A world of 1 on ``cuda:0``: the mesh's ``all_gather``,
+    ``reduce_scatter`` and ``psum`` and ``hierarchical_allreduce`` (2-step
+    on a (1, 1, 1) pod mesh, no-pod on (1, 1)) each equal to x, their
+    definition on one process, and the ms of one psum of an 8 × 256 × 2048
+    residual; the trainer's CLI at ``--preset smoke --mesh 1,1`` for 2
+    steps (the CLI's path inside a world; its lines as phase 50's, the
+    smoke config's first line); then stablelm-1.6b at full width and depth
+    and olmoe-1b-7b at full width on 2 of its 16 layers (reduced in depth;
+    capacity factor E/k, so nothing drops), f32, batch 8 × 256, AdamW with
+    eps 1e-3: two sharded steps on the (1, 1) ``LMMesh`` and two
+    one-device steps from the same N(0, 0.02) weights, in turns (sharded,
+    one device, one device, sharded): loss and grad norm within 1e-5
+    relative, the gathered first moments within 1e-4 of their max, the
+    gathered parameters within 1e-5 of max |p|; ms a step of each, the
+    NCCL calls and elements a step by axis (at least one call), peak
+    memory.  (ii) With two cards or more a world of 2 on (1, 2): two
+    stablelm steps, loss and grad norm within 1e-4 relative of rank 0's
+    one-device steps; with four or more a world of 4 on (2, 2): two steps
+    of granite-8b at full depth (132 GB of f32 state); both with the
+    metrics equal on every rank, ms a step by rank and peak memory by
+    rank.  On fewer cards a line says that (ii) did not run and why.  No
+    port kernel runs here.  The phase prints its seconds.
 
 The ``kernels`` line's ``bsr_spmbv``, ``fused_gram``, ``ecg_tail`` and
 ``rank_apply`` rows carry ``widths`` entries for t = 4 and 16 with their
@@ -470,10 +494,11 @@ width), and ``chol_apply`` one for t = 1 with its launches in phase 16.
 Every row also carries ``oneshot_launches``: its launches in each of phases
 45-48, ``process_mesh_launches``: its launches in phase 49's solves on
 the process-group mesh (rank 0's), and ``lm_launches``: its launches in
-phases 50-53.
+phases 50-54.
 
 ``python3 chip_smoke.py --process-mesh-worker DIR RANK WORLD`` is one rank
-of phase 49's world (the script starts these itself).
+of phase 49's world, ``--lm-mesh-worker DIR RANK WORLD`` one of phase 54's
+(the script starts these itself).
 """
 
 from __future__ import annotations
@@ -996,9 +1021,11 @@ def process_mesh_worker(out_dir: Path, rank: int, world: int) -> int:
     return 0
 
 
-def spawn_world(world: int, timeout_s: float) -> list[list[dict]]:
-    """Start ``world`` processes of :func:`process_mesh_worker`, one per
-    card, and return each rank's rows.  A process that fails or outlives
+def spawn_world(world: int, timeout_s: float, flag: str = "--process-mesh-worker",
+                phase: str = "process_mesh") -> list:
+    """Start ``world`` processes of the worker that ``flag`` names
+    (:func:`process_mesh_worker`, :func:`lm_mesh_worker`), one per card, and
+    return each rank's rows.  A process that fails or outlives
     ``timeout_s`` fails the phase; every process is stopped before this
     returns."""
     with tempfile.TemporaryDirectory() as tmp:
@@ -1006,7 +1033,7 @@ def spawn_world(world: int, timeout_s: float) -> list[list[dict]]:
         env = dict(os.environ, NCCL_SOCKET_IFNAME=os.environ.get("NCCL_SOCKET_IFNAME", "lo"))
         logs = [open(d / f"rank{r}.log", "w") for r in range(world)]
         procs = [subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--process-mesh-worker", str(d), str(r),
+            [sys.executable, str(ROOT / "chip_smoke.py"), flag, str(d), str(r),
              str(world)], env=env | {"RANK": str(r), "LOCAL_RANK": str(r), "WORLD_SIZE": str(world)},
             stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
         try:
@@ -1024,7 +1051,7 @@ def spawn_world(world: int, timeout_s: float) -> list[list[dict]]:
                 f.close()
         failed = {r: (p.returncode, (d / f"rank{r}.log").read_text()[-3000:])
                   for r, p in enumerate(procs) if p.returncode != 0}
-        gate("process_mesh", not failed, f"world of {world}: ranks failed or timed out: {failed}")
+        gate(phase, not failed, f"world of {world}: ranks failed or timed out: {failed}")
         return [json.loads((d / f"rank{r}.json").read_text()) for r in range(world)]
 
 
@@ -1096,6 +1123,247 @@ def process_mesh_phases(torch, seq_iters: int) -> dict:
                      f"{k} iterations, VirtualMesh {v['n_iters']}")
             launches[f"{phase}_{row['strategy']}"] = row["launches"]
     return launches
+
+
+def lm_mesh_worker(out_dir: Path, rank: int, world: int) -> int:
+    """One rank of phase 54's NCCL world, on card ``rank`` (module
+    docstring): a world of 1 runs (i), a world of 2 the (1, 2) step of
+    (ii), a world of 4 its (2, 2) granite-8b step.  Writes ``rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels
+    from repro_torch.collectives import hierarchical_allreduce
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import LMMesh
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import gather_named, named_specs
+    from repro_torch.train import AdamWConfig, DataConfig, batch_at, build_train_step, init_opt_state
+
+    torch.cuda.set_device(rank)  # NCCL: the card before the group
+    dev = torch.device("cuda", rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gib = 2.0 ** 30
+    dist.init_process_group("nccl", init_method=f"file://{out_dir / 'rendezvous'}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    opt_cfg = AdamWConfig(lr=1e-3, eps=1e-3, warmup_steps=2, total_steps=10)
+
+    def n002(mdl, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        with torch.no_grad():
+            for p_ in mdl.parameters():
+                if p_.dim() >= 2:
+                    p_.normal_(0.0, 0.02, generator=gen)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def sharded_steps(cfg, shape, batch, seq, full=None, seed=0):
+        """Two sharded steps on ``shape`` from ``full`` (or, without it, the
+        initialiser's weights): the metrics, ms, NCCL calls and elements by
+        axis, launches per step."""
+        names = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+        mesh = LMMesh(shape, names)
+        bundle = build_train_step(cfg, opt_cfg, batch=batch, seq=seq, mesh=mesh)
+        # without full weights every process draws the initialiser's values
+        # and keeps its blocks
+        model = bundle.init(torch.Generator(device=dev).manual_seed(seed)) if full is None \
+            else bundle.shard(full)
+        opt = bundle.init_opt(model)
+        torch.cuda.reset_peak_memory_stats(dev)
+        rows = []
+        for step in range(2):
+            data = batch_at(DataConfig(vocab=cfg.vocab, batch=batch, seq=seq), step, device=dev)
+            mesh.reset_counters()
+            kernels.reset_launch_counts()
+            with M.record_dropped() as drops:
+                m, ms = timed(lambda: bundle.step_fn(model, opt, data))
+            rows.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "lr": m["lr"],
+                         "ms": ms, "nccl_calls": dict(mesh.calls), "nccl_elements": dict(mesh.elements),
+                         "dropped": sum(int(n) for n in drops), "launches": kernels.launch_counts()})
+        return mesh, bundle, model, opt, rows, torch.cuda.max_memory_allocated(dev) / gib
+
+    def against_one_device(arch, n_layers, kw, batch, seq):
+        """(i): two sharded steps on (1, 1) and two one-device steps from the
+        same N(0, 0.02) weights, in turns (sharded, one device, one device,
+        sharded)."""
+        cfg = get_config(arch).with_(dtype=torch.float32, n_layers=n_layers, **kw)
+        full = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        n002(full, 29)
+        mesh = LMMesh((1, 1), ("data", "model"))
+        bundle = build_train_step(cfg, opt_cfg, batch=batch, seq=seq, mesh=mesh)
+        model = bundle.shard(full)
+        opt = bundle.init_opt(model)
+        one_fn = build_train_step(cfg, opt_cfg, batch=batch, seq=seq, device=dev).step_fn
+        one_opt = init_opt_state(full)
+        sharded, one = [], []
+        for step in range(2):
+            data = batch_at(DataConfig(vocab=cfg.vocab, batch=batch, seq=seq), step, device=dev)
+
+            def run_sharded():
+                mesh.reset_counters()
+                kernels.reset_launch_counts()
+                m, ms = timed(lambda: bundle.step_fn(model, opt, data))
+                sharded.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "ms": ms,
+                                "nccl_calls": dict(mesh.calls), "nccl_elements": dict(mesh.elements),
+                                "launches": kernels.launch_counts()})
+
+            def run_one():
+                m, ms = timed(lambda: one_fn(full, one_opt, data))
+                one.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "ms": ms})
+
+            for fn in ((run_sharded, run_one) if step == 0 else (run_one, run_sharded)):
+                fn()
+        spec_of = named_specs(bundle.param_specs)
+        mom_of = named_specs(bundle.opt_specs["mu"])
+        p_max = mu_max = dp = dmu = 0.0
+        full_p = dict(full.named_parameters())
+        for name, p_ in model.named_parameters():  # gathered leaf by leaf
+            g = gather_named({name: p_}, spec_of, mesh)[name]
+            gm = gather_named({name: opt["mu"][name]}, mom_of, mesh)[name]
+            ref_p, ref_mu = full_p[name].detach(), one_opt["mu"][name]
+            p_max, mu_max = max(p_max, float(ref_p.abs().max())), max(mu_max, float(ref_mu.abs().max()))
+            dp, dmu = max(dp, float((g - ref_p).abs().max())), max(dmu, float((gm - ref_mu).abs().max()))
+            del g, gm
+        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+        row = {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch, "seq": seq, "mesh": [1, 1],
+               "kw": kw, "sharded": sharded, "one_device": one,
+               "loss_rel": max(rel(a["loss"], b["loss"]) for a, b in zip(sharded, one)),
+               "grad_norm_rel": max(rel(a["grad_norm"], b["grad_norm"]) for a, b in zip(sharded, one)),
+               "max_dmu_over_max_mu": dmu / mu_max, "max_dp_over_max_p": dp / p_max,
+               "peak_gib": torch.cuda.max_memory_allocated(dev) / gib}
+        del model, opt, full, full_p, one_opt
+        torch.cuda.empty_cache()
+        return row
+
+    out = {}
+    try:
+        if world == 1:
+            # collectives against their definitions (a world of 1: each is x)
+            flat, pod = LMMesh((1, 1), ("data", "model")), LMMesh((1, 1, 1), ("pod", "data", "model"))
+            x = torch.randn(8, 256, 2048, device=dev)
+            checks = {"all_gather": flat.all_gather(x, "data", 1), "reduce_scatter": flat.reduce_scatter(x, "model", 1),
+                      "psum": flat.psum(x, ("data", "model")), "hierarchical_two_step": hierarchical_allreduce(x, pod),
+                      "hierarchical_no_pod": hierarchical_allreduce(x, flat)}
+            _, psum_ms = timed(lambda: [flat.psum(x, "model") for _ in range(50)])
+            out["collectives"] = {"equal": {k: bool(torch.equal(v, x)) for k, v in checks.items()},
+                                  "calls": dict(flat.calls) | {"pod_mesh": dict(pod.calls)},
+                                  "psum_ms_residual_8x256x2048": psum_ms / 50}
+            # the trainer's CLI inside the world on its (1, 1) mesh, at the smoke
+            # preset: the full width runs below, against the one-device step
+            buf = __import__("io").StringIO()
+            t0 = time.perf_counter()
+            with __import__("contextlib").redirect_stdout(buf):
+                train_cli.main(["--arch", "stablelm_1_6b", "--preset", "smoke", "--mesh", "1,1",
+                                "--steps", "2", "--log-every", "1"])
+            out["cli"] = {"lines": buf.getvalue().splitlines(), "seconds": time.perf_counter() - t0}
+            torch.cuda.empty_cache()
+            out["stablelm"] = against_one_device("stablelm_1_6b", 24, {}, 8, 256)
+            # olmoe: 2 of 16 layers; capacity_factor E/k: no pick drops
+            out["olmoe"] = against_one_device("olmoe_1b_7b", 2, {"capacity_factor": 8.0}, 8, 256)
+        elif world == 2:
+            cfg = get_config("stablelm_1_6b").with_(dtype=torch.float32)
+            full = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+            n002(full, 29)
+            *_, rows, peak = sharded_steps(cfg, (1, 2), 8, 256, full=full)
+            out["sharded"] = {"arch": cfg.name, "mesh": [1, 2], "steps": rows, "peak_gib": peak}
+            if rank == 0:  # the same weights and data on one card
+                one_fn = build_train_step(cfg, opt_cfg, batch=8, seq=256, device=dev).step_fn
+                one_opt = init_opt_state(full)
+                one = []
+                for step in range(2):
+                    data = batch_at(DataConfig(vocab=cfg.vocab, batch=8, seq=256), step, device=dev)
+                    m, ms = timed(lambda: one_fn(full, one_opt, data))
+                    one.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "ms": ms})
+                out["one_device"] = one
+        else:  # granite-8b at full depth: 132 GB of f32 state over four cards
+            cfg = get_config("granite_8b").with_(dtype=torch.float32)
+            *_, rows, peak = sharded_steps(cfg, (2, 2), 8, 256, seed=31)
+            out["sharded"] = {"arch": cfg.name, "mesh": [2, 2], "steps": rows, "peak_gib": peak}
+    finally:
+        dist.destroy_process_group()
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def lm_mesh_phases(torch) -> dict:
+    """Phase 54: the LM half's 2-D layout over NCCL (module docstring).
+    Returns rank 0's kernel launches in (i)'s sharded steps (the LM half
+    has no Pallas kernel: all 0)."""
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    out = spawn_world(1, timeout_s=500, flag="--lm-mesh-worker", phase="lm_mesh")[0]
+    col = out["collectives"]
+    log({"phase": "lm_mesh_collectives", "world": 1, **col})
+    gate("lm_mesh_collectives", all(col["equal"].values()), f"a collective differs from x: {col['equal']}")
+    lines = out["cli"]["lines"]
+    steps = [ln.split() for ln in lines if ln.startswith("step ")]
+    log({"phase": "lm_mesh_cli", "world": 1, "mesh": [1, 1], **out["cli"]})
+    gate("lm_mesh_cli", lines[0] == "arch=stablelm-smoke params=0.5M preset=smoke" and lines[-1] == "done"
+         and len(steps) == 2 and all(math.isfinite(float(s_[3])) and math.isfinite(float(s_[5]))
+                                     for s_ in steps), f"printed {lines}")
+    launches = {}
+    for arch in ("stablelm", "olmoe"):
+        row = out[arch]
+        sh, one = row["sharded"], row["one_device"]
+        summary = {"phase": "lm_mesh_world1", "card": smi, "world": 1, **row,
+                   "ms_per_step": [r_["ms"] for r_ in sh], "one_device_ms_per_step": [r_["ms"] for r_ in one],
+                   "nccl_calls_per_step": sh[-1]["nccl_calls"],
+                   "nccl_calls_total_per_step": sum(sh[-1]["nccl_calls"].values())}
+        if arch == "olmoe":
+            summary["reduced"] = "depth: 2 of 16 layers at full width (the f32 state of 16 is 111 GB)"
+        log(summary)
+        gate(f"lm_mesh_world1 {row['arch']}", row["loss_rel"] <= 1e-5 and row["grad_norm_rel"] <= 1e-5
+             and row["max_dmu_over_max_mu"] <= 1e-4 and row["max_dp_over_max_p"] <= 1e-5
+             and all(math.isfinite(r_["loss"]) for r_ in sh) and sum(sh[-1]["nccl_calls"].values()) > 0,
+             f"loss_rel {row['loss_rel']}, grad_norm_rel {row['grad_norm_rel']}, mu "
+             f"{row['max_dmu_over_max_mu']}, p {row['max_dp_over_max_p']}")
+        for r_ in sh:
+            for k, v in r_["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    for world, what in ((2, "(1, 2): stablelm-1.6b"), (4, "(2, 2): granite-8b at full depth")):
+        phase = f"lm_mesh_{'x'.join(map(str, (1, 2) if world == 2 else (2, 2)))}"
+        if count < world:
+            log({"phase": phase, "ran": False, "cards": count,
+                 "why": f"torch.cuda.device_count() is {count}: NCCL puts at most one rank of a "
+                        f"communicator on a card, so the {what} world needs {world} cards; (ii) did "
+                        "not run"})
+            continue
+        t0 = time.perf_counter()
+        per_rank = spawn_world(world, timeout_s=500, flag="--lm-mesh-worker", phase=phase)
+        rows = [r_["sharded"] for r_ in per_rank]
+        summary = {"phase": phase, "ran": True, "world": world, "card": smi, "mesh": rows[0]["mesh"],
+                   "arch": rows[0]["arch"], "steps": rows[0]["steps"],
+                   "ms_per_step_by_rank": [[s_["ms"] for s_ in r_["steps"]] for r_ in rows],
+                   "peak_gib_by_rank": [r_["peak_gib"] for r_ in rows], "seconds": time.perf_counter() - t0}
+        ok = all(math.isfinite(s_["loss"]) and math.isfinite(s_["grad_norm"])
+                 for r_ in rows for s_ in r_["steps"])
+        same = all(abs(s_["loss"] - t_["loss"]) == 0 for r_ in rows for s_, t_ in zip(r_["steps"], rows[0]["steps"]))
+        summary["metrics_equal_on_every_rank"] = same
+        if "one_device" in per_rank[0]:
+            one = per_rank[0]["one_device"]
+            summary["one_device"] = one
+            summary["loss_rel"] = max(abs(s_["loss"] - o["loss"]) / abs(o["loss"])
+                                      for s_, o in zip(rows[0]["steps"], one))
+            summary["grad_norm_rel"] = max(abs(s_["grad_norm"] - o["grad_norm"]) / abs(o["grad_norm"])
+                                           for s_, o in zip(rows[0]["steps"], one))
+            ok = ok and summary["loss_rel"] <= 1e-4 and summary["grad_norm_rel"] <= 1e-4
+        log(summary)
+        gate(phase, ok and same, f"steps {rows[0]['steps']}")
+    log({"phase": "lm_mesh", "seconds": time.perf_counter() - t_phase, "launches": launches})
+    return launches
+
 
 
 def card_vs_cpu(torch, phase, cfg, gpu, cpu, data, opt_cfg, **logged) -> None:
@@ -3968,6 +4236,9 @@ def main() -> int:
     # ------------------------------------------------------ 53. the MoE LMs
     moe_launches = moe_phases(torch)
 
+    # ------------------------------- 54. the LM's 2-D layout over NCCL
+    mesh_launches = lm_mesh_phases(torch)
+
     # ------------------------------------------------------------------ result
     sources = {
         "bsr_spmbv": ("src/repro_torch/kernels/csrc/bsr_spmbv.cu", "src/repro/kernels/bsr_spmbv/kernel.py:43"),
@@ -4055,7 +4326,8 @@ def main() -> int:
         row["oneshot_launches"] = {ph: counts[row["name"]] for ph, counts in oneshot.items()}
         row["process_mesh_launches"] = {ph: counts[row["name"]] for ph, counts in process_mesh.items()}
         row["lm_launches"] = (lm_launches[row["name"]] + ssm_launches[row["name"]]
-                              + ed_launches[row["name"]] + moe_launches[row["name"]])  # phases 50-53
+                              + ed_launches[row["name"]] + moe_launches[row["name"]]
+                              + mesh_launches[row["name"]])  # phases 50-54
     log({"kernels": rows})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
@@ -4065,4 +4337,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--process-mesh-worker"]:
         sys.exit(process_mesh_worker(Path(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])))
+    if sys.argv[1:2] == ["--lm-mesh-worker"]:
+        sys.exit(lm_mesh_worker(Path(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])))
     sys.exit(main())

@@ -15,6 +15,9 @@ handle use only those:
   ``local_ranks == 1``, ``ppermute`` is one batched isend/irecv round with
   the two peers, ``psum`` one ``all_reduce``.
 
+:class:`LMMesh` is the LM half's ("data", "model") mesh over the same
+process groups (:func:`make_production_mesh`, :func:`make_smoke_mesh`).
+
 ``ranks`` names the global ranks whose rows a process holds (all p on a
 ``VirtualMesh``, its own on a ``ProcessGroupMesh``); ``all_gather``, used
 only outside the iteration (``DistributedSpMBV.unshard``), stacks every
@@ -30,6 +33,8 @@ with the same shape rule.
 
 from __future__ import annotations
 
+import contextlib
+import math
 import os
 
 import torch
@@ -313,10 +318,284 @@ def make_solver_mesh(*, multi_pod: bool = False, ppn: int = 16, n_ranks: int | N
     return VirtualMesh(*shape, device="cuda" if device is None else device)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's ("data", "model") 16 × 16 LM training mesh (two pods
-    under ``multi_pod``): the sharded LM layout, not ported yet (the LM
-    half runs on one device)."""
-    from repro_torch.models.common import not_ported
+class LMMesh:
+    """The LM half's ("data", "model") or ("pod", "data", "model") mesh over
+    ``torch.distributed``, one process a position.
 
-    not_ported("the LM production mesh (make_production_mesh) and its 2-D FSDP x TP layout")
+    Process ``r`` of the world sits at the row-major coordinates of ``r``
+    over ``shape``, as ``jax.make_mesh`` lays devices out.  A collective
+    over an axis (or a tuple of axes) runs on the process subgroup that
+    shares every other coordinate; the subgroups of an axis tuple are made
+    on its first use, by every process in the same order (the sharded step
+    is one program on every process).  Inside a subgroup the processes are
+    in the order of their coordinate along the axes, so a tiled gather
+    concatenates the blocks in the reference's order.
+
+    ``torch.distributed`` must be initialised and its world hold
+    ``prod(shape)`` processes; a mesh whose axes all have size 1 may also
+    be made without a world, and its collectives are then identities that
+    make no call (the reference's smoke mesh).  ``device`` is as
+    :class:`ProcessGroupMesh`'s (NCCL on the process's card, gloo on the
+    CPU, no other pairing), or any device without a world.
+
+    Collectives (:meth:`all_gather`, :meth:`reduce_scatter`, :meth:`psum`,
+    :meth:`pmean`) are differentiable: each one's backward is its exact
+    transpose (an all-gather's is a reduce-scatter and back, a psum's a
+    psum), so the gradient a process computes is its share of the gradient
+    of the sum of every process's loss.  Counters: ``calls[key]`` and
+    ``elements[key]`` count this process's calls and the elements it handed
+    in, by axis key (the axis names joined by ``+``); :meth:`reset_counters`
+    clears them.  Inside :meth:`record_calls` each call is also listed as
+    (op, the group's global ranks, payload bytes of its result), which
+    :func:`~repro_torch.collectives.tiered_collective_bytes` reads.
+    """
+
+    def __init__(self, shape, axis_names, device=None):
+        shape, names = tuple(int(s) for s in shape), tuple(axis_names)
+        if len(shape) != len(names) or min(shape, default=0) < 1:
+            raise ValueError(f"mesh shape {shape} does not match axes {names}")
+        if names not in (("data", "model"), ("pod", "data", "model")):
+            raise ValueError(f"an LM mesh has axes ('data', 'model') or ('pod', 'data', 'model'), "
+                             f"got {names}")
+        self.axis_names = names
+        self.shape = dict(zip(names, shape))
+        self.size = math.prod(shape)
+        self.distributed = dist.is_available() and dist.is_initialized()
+        if self.distributed:
+            world = dist.get_world_size()
+            if world != self.size:
+                raise ValueError(f"mesh {shape} needs a world of {self.size} processes, "
+                                 f"torch.distributed has {world}")
+            self.rank = dist.get_rank()
+            self.backend = str(dist.get_backend())
+            self.device = process_device(self.backend, device)
+        else:
+            if self.size != 1:
+                raise ValueError(f"mesh {shape} needs torch.distributed.init_process_group first")
+            self.rank, self.backend = 0, None
+            self.device = resolve_device("cuda" if device is None else device)
+        self.coords = dict(zip(names, _unravel(self.rank, shape)))
+        self._groups: dict[tuple, tuple] = {}
+        self._records: list | None = None
+        if self.distributed:
+            dist.all_reduce(torch.zeros(1, device=self.device))  # every rank joins once
+        self.reset_counters()
+
+    def reset_counters(self) -> None:
+        self.calls: dict[str, int] = {}
+        self.elements: dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def record_calls(self):
+        """Collect each collective made inside as (op, the group's global
+        ranks, payload bytes of its result), in call order."""
+        before, self._records = self._records, []
+        try:
+            yield self._records
+        finally:
+            self._records = before
+
+    # ------------------------------------------------------------ geometry
+    def axes(self, axis) -> tuple[str, ...]:
+        """``axis`` (a name or a tuple of names) as a tuple in mesh order."""
+        want = (axis,) if isinstance(axis, str) else tuple(axis)
+        unknown = set(want) - set(self.axis_names)
+        if unknown or len(set(want)) != len(want):
+            raise ValueError(f"axes {want} are not distinct axes of {self.axis_names}")
+        return tuple(a for a in self.axis_names if a in want)
+
+    def axis_size(self, axis) -> int:
+        return math.prod(self.shape[a] for a in self.axes(axis))
+
+    def axis_index(self, axis) -> int:
+        """This process's coordinate along ``axis`` (row-major over a tuple)."""
+        idx = 0
+        for a in self.axes(axis):
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+    def _group(self, axes: tuple[str, ...]):
+        if axes not in self._groups:
+            names, sizes = self.axis_names, tuple(self.shape.values())
+            by_rest: dict[tuple, list[int]] = {}
+            for r in range(self.size):
+                c = dict(zip(names, _unravel(r, sizes)))
+                by_rest.setdefault(tuple(c[a] for a in names if a not in axes), []).append(r)
+            mine = None
+            for ranks in by_rest.values():  # every process makes every group, in one order
+                g = dist.new_group(ranks) if self.distributed and len(by_rest) > 1 else None
+                if self.rank in ranks:
+                    mine = (g, tuple(ranks))
+            self._groups[axes] = mine
+        return self._groups[axes]
+
+    # --------------------------------------------------------- collectives
+    def all_gather(self, x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
+        """The blocks of ``axis`` concatenated along ``dim`` (tiled)."""
+        return _AllGather.apply(x, self, self.axes(axis), dim)
+
+    def reduce_scatter(self, x: torch.Tensor, axis, dim: int = 0) -> torch.Tensor:
+        """The sum over ``axis``, this process's block of ``dim`` (tiled)."""
+        return _ReduceScatter.apply(x, self, self.axes(axis), dim)
+
+    def psum(self, x: torch.Tensor, axis) -> torch.Tensor:
+        return _Psum.apply(x, self, self.axes(axis))
+
+    def pmean(self, x: torch.Tensor, axis) -> torch.Tensor:
+        return self.psum(x, axis) / self.axis_size(axis)
+
+    def pmax(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """The elementwise max over ``axis`` (no gradient)."""
+        return self._raw("all_reduce", x.detach(), self.axes(axis), reduce_op=dist.ReduceOp.MAX)
+
+    def all_gather_many(self, xs, axis, dims) -> list[torch.Tensor]:
+        """:meth:`all_gather` of several tensors (each along its own dim) in
+        one call: their blocks are packed into one buffer."""
+        return list(_AllGatherMany.apply(self, self.axes(axis), tuple(dims), *xs))
+
+    # -------------------------------------------------------------- calls
+    def _count(self, op: str, axes, x: torch.Tensor, out: torch.Tensor) -> None:
+        key = "+".join(axes)
+        self.calls[key] = self.calls.get(key, 0) + 1
+        self.elements[key] = self.elements.get(key, 0) + x.numel()
+        if self._records is not None:
+            self._records.append((op, self._group(axes)[1], out.numel() * out.element_size()))
+
+    def _raw(self, op: str, x: torch.Tensor, axes, dim: int = 0, reduce_op=None) -> torch.Tensor:
+        """One collective over ``axes`` without autograd: ``all_gather``,
+        ``reduce_scatter`` (tiled along ``dim``) or ``all_reduce``."""
+        if not self.distributed:  # a mesh of one position: nothing to call
+            return x
+        n = self.axis_size(axes)
+        group = self._group(axes)[0]
+        if op == "all_reduce":
+            out = x.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(out, op=reduce_op or dist.ReduceOp.SUM, group=group)
+        else:
+            xm = x.movedim(dim, 0).contiguous()
+            if op == "all_gather":
+                out = xm.new_empty((n * xm.shape[0],) + xm.shape[1:])
+                dist.all_gather_into_tensor(out, xm, group=group)
+            else:
+                if xm.shape[0] % n:
+                    raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not "
+                                     f"divide over {axes} ({n})")
+                out = xm.new_empty((xm.shape[0] // n,) + xm.shape[1:])
+                dist.reduce_scatter_tensor(out, xm, group=group)
+            out = out.movedim(0, dim)
+        self._count(op, axes, x, out)
+        return out
+
+    def __repr__(self) -> str:
+        return (f"LMMesh({self.shape}, rank={self.rank}, backend={self.backend!r}, "
+                f"device={str(self.device)!r})")
+
+
+def _unravel(r: int, sizes) -> tuple[int, ...]:
+    out = []
+    for s in reversed(sizes):
+        r, c = divmod(r, s)
+        out.append(c)
+    return tuple(reversed(out))
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.meta = (mesh, axes, dim)
+        return mesh._raw("all_gather", x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim = ctx.meta
+        return mesh._raw("reduce_scatter", g, axes, dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.meta = (mesh, axes, dim)
+        return mesh._raw("reduce_scatter", x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim = ctx.meta
+        return mesh._raw("all_gather", g, axes, dim), None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.meta = (mesh, axes)
+        return mesh._raw("all_reduce", x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.meta
+        return mesh._raw("all_reduce", g, axes), None, None
+
+
+def _pack(xs, dims):
+    """Each block with its gathered dim moved first, flattened and
+    concatenated: (sum of numels,), and what :func:`_unpack` needs."""
+    moved = [x.movedim(d, 0) for x, d in zip(xs, dims)]
+    return torch.cat([m.reshape(-1) for m in moved]), [tuple(m.shape) for m in moved]
+
+
+def _unpack(flat, n, shapes, dims):
+    """``flat`` (n·total,) of n stacked packs → each tensor with its n
+    blocks concatenated along its dim."""
+    rows = flat.view(n, -1)
+    out, off = [], 0
+    for shape, d in zip(shapes, dims):
+        k = math.prod(shape)
+        blk = rows[:, off:off + k].reshape((n * shape[0],) + shape[1:])
+        out.append(blk.movedim(0, d))
+        off += k
+    return out
+
+
+class _AllGatherMany(torch.autograd.Function):
+    """One all-gather of several blocks packed together; backward one
+    reduce-scatter of their gradients packed the same way."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, dims, *xs):
+        n = mesh.axis_size(axes)
+        flat, shapes = _pack(xs, dims)
+        ctx.meta = (mesh, axes, dims, shapes)
+        return tuple(_unpack(mesh._raw("all_gather", flat, axes), n, shapes, dims))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, axes, dims, shapes = ctx.meta
+        n = mesh.axis_size(axes)
+        # each gradient as n blocks along its dim, rank-major like the gather
+        packs = [g.movedim(d, 0).reshape((n, -1)) for g, d in zip(gs, dims)]
+        flat = torch.cat(packs, dim=1).reshape(-1)
+        parts = mesh._raw("reduce_scatter", flat, axes)
+        out, off = [], 0
+        for shape, d in zip(shapes, dims):
+            k = math.prod(shape)
+            out.append(parts[off:off + k].view(shape).movedim(0, d))
+            off += k
+        return (None, None, None, *out)
+
+
+def make_smoke_mesh(device=None) -> LMMesh:
+    """The reference's 1 × 1 ("data", "model") mesh: no world needed (inside
+    one, a world of 1, whose collectives are then real calls)."""
+    return LMMesh((1, 1), ("data", "model"), device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> LMMesh:
+    """The reference's LM production mesh over the initialised world:
+    ("data", "model") 16 × 16, or ("pod", "data", "model") 2 × 16 × 16 under
+    ``multi_pod``.  A world of another size raises ``ValueError``, as
+    ``jax.make_mesh`` does for another device count."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError("make_production_mesh needs an initialised torch.distributed world "
+                         f"of {math.prod(shape)} processes")
+    return LMMesh(shape, axes, device=device)

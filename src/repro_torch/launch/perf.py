@@ -10,7 +10,7 @@ Port of the ``--ecg`` half of ``repro/launch/perf.py``: the same operator
 eight ranks on ``--device``), the same sweeps and the same printed lines.
 ``--device`` defaults to ``cuda`` (the kernels) and takes ``cpu`` (their
 plain versions).  The reference's other half re-lowers its transformer
-cells; it is not ported (ROADMAP.md queue 1 item 13, remainder).
+cells; it is not ported (ROADMAP.md queue 1 item 13, remainder: part 6).
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ def main(argv=None):
     if not args.ecg:
         raise NotImplementedError(
             "the transformer-cell perf pass is not ported yet (ROADMAP.md queue 1 "
-            "item 13, remainder); run with --ecg"
+            "item 13, remainder: part 6); run with --ecg"
         )
     out_path = Path(args.out or DEFAULT_OUT)
     out_path.parent.mkdir(parents=True, exist_ok=True)

@@ -1,37 +1,50 @@
-"""End-to-end training driver on one device.
+"""End-to-end training driver, on one device or sharded over a world.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm_1_6b \
         --preset full --steps 200 [--device cuda] [--ckpt-dir DIR] [--resume]
 
 Port of ``repro/launch/train.py``: the same flags, presets and printed
 lines, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain CPU
-path and must be asked for).  Presets: ``smoke`` uses the per-arch reduced
-config; ``tiny``/``100m`` scale a dense config to the requested size;
-``full`` is the config at its own widths.  Every preset is cast to float32,
-as the reference's driver does, and runs on one device: the reference's
-``full`` runs on its 16 × 16 production mesh, which is ROADMAP.md queue 1
-item 13's remainder.  Every family trains (the VLM's patch embeddings and
-the encoder-decoder's frames are drawn by ``batch_at`` beside the tokens,
-as the reference's trainer draws them; ``tiny`` and ``100m`` keep a MoE
-config's experts and top-k).
+path and must be asked for) and ``--mesh``.  Presets: ``smoke`` uses the
+per-arch reduced config; ``tiny``/``100m`` scale a dense config to the
+requested size; ``full`` is the config at its own widths.  Every preset is
+cast to float32, as the reference's driver does.  Every family trains (the
+VLM's patch embeddings and the encoder-decoder's frames are drawn by
+``batch_at`` beside the tokens, as the reference's trainer draws them;
+``tiny`` and ``100m`` keep a MoE config's experts and top-k).
+
+Without a ``torch.distributed`` world the step runs on one device.
+Inside a world (one the caller initialised, or ``torch.distributed.run``'s:
+``WORLD_SIZE`` set; NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device
+cpu``) it runs sharded on an LM mesh, as the reference runs ``full`` on
+its production mesh: ``--preset full`` on ``make_production_mesh()`` (16 ×
+16: a world of 256), any preset on ``--mesh D,M`` or ``--mesh P,D,M``
+(("data", "model") or ("pod", "data", "model")); only rank 0 prints.  The
+transformer families train sharded; the others, and checkpoints under the
+layout, are ROADMAP.md queue 1 item 13 part 5b and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import datetime
+import io
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.kernels.dispatch import resolve_device
-from repro_torch.models.registry import model_api
+from repro_torch.models.common import not_ported
 from repro_torch.train import (
     AdamWConfig,
     DataConfig,
     batch_at,
     build_train_step,
-    init_opt_state,
     install_preemption_handler,
     latest_step,
     restore_checkpoint,
@@ -68,20 +81,57 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default=None,
+                    help="inside a world: D,M or P,D,M (default: the production mesh for "
+                         "--preset full, else 1,1)")
     args = ap.parse_args(argv)
+    in_world = dist.is_available() and (dist.is_initialized() or "WORLD_SIZE" in os.environ)
+    if not in_world:
+        if args.mesh:
+            raise ValueError("--mesh needs a torch.distributed world")
+        return _train(args)
+    own_group = not dist.is_initialized()
+    if own_group:
+        cuda = args.device != "cpu"
+        if cuda:  # NCCL: the card before the group
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl" if cuda else "gloo", timeout=datetime.timedelta(seconds=120))
+    try:
+        from repro_torch.launch.mesh import LMMesh, make_production_mesh, make_smoke_mesh
+
+        device = None if args.device == "cuda" else args.device  # None: the process's card
+        if args.mesh:
+            shape = tuple(int(n) for n in args.mesh.split(","))
+            names = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+            mesh = LMMesh(shape, names, device=device)
+        elif args.preset == "full":
+            mesh = make_production_mesh(device=device)
+        else:
+            mesh = make_smoke_mesh(device=device)
+        quiet = contextlib.redirect_stdout(io.StringIO()) if dist.get_rank() else contextlib.nullcontext()
+        with quiet:
+            _train(args, mesh)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _train(args, mesh=None):
 
     cfg = preset_config(args.arch, args.preset).with_(dtype=torch.float32)
-    api = model_api(cfg)
-    dev = resolve_device(args.device)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
+    if mesh is not None and args.ckpt_dir:
+        not_ported("checkpoints under the sharded layout (part 5b)")
     print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M preset={args.preset}")
 
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(10, args.steps // 20), total_steps=args.steps)
-    bundle = build_train_step(cfg, opt_cfg, batch=args.batch, seq=args.seq, device=dev)
+    bundle = build_train_step(cfg, opt_cfg, batch=args.batch, seq=args.seq, device=dev, mesh=mesh)
     dcfg = DataConfig(vocab=cfg.vocab, batch=args.batch, seq=args.seq)
     extra = {k: v for k, v in bundle.input_specs.items() if k not in ("tokens", "labels")}
 
-    params = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    opt = init_opt_state(params)
+    # on a mesh every process draws the same values and keeps its blocks
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    opt = bundle.init_opt(params)
     start = 0
     if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
         state, meta = restore_checkpoint(args.ckpt_dir, {"params": params, "opt": opt})

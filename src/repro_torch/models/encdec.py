@@ -12,12 +12,15 @@ module in an ``nn.ModuleList`` (``enc_layers``, ``dec_layers``), and
 :func:`params_to_reference` and :func:`params_from_reference` convert to
 and from the reference's nested dict of stacked arrays.  ``attn_chunk``
 must divide every key length it chunks (the 1500 frames among them): the
-reference asserts, the port raises ``ValueError``.  The sharded layout is
-ROADMAP.md queue 1 item 13's remainder.
+reference asserts, the port raises ``ValueError``.  The sharded layout's
+specs (``param_specs``, ``cache_specs``) are the reference's; sharded
+execution is ROADMAP.md queue 1 item 13 part 5b
+(:data:`~repro_torch.models.common.LM_ITEM`).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -25,7 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import P, ArchConfig, MeshAxes, not_ported
 from repro_torch.models.transformer import (
     _Weights,
     _assign,
@@ -86,6 +89,43 @@ class EncDec(_Weights):
             per_layer = {k: s[1:] for k, s in shapes[key].items()}
             n = next(iter(shapes[key].values()))[0]
             setattr(self, key, nn.ModuleList(cls(per_layer, device, dtype) for _ in range(n)))
+
+
+def _specs_attn(cfg: ArchConfig, axes: MeshAxes, pre=("wq", "wk", "wv", "wo")) -> dict[str, P]:
+    d, h, kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    fs, tp = axes.fs, axes.tp
+    q, k, v, o = pre
+    return {
+        q: P(None, fs(d), tp(h), None),
+        k: P(None, fs(d), tp(kv), None),
+        v: P(None, fs(d), tp(kv), None),
+        o: P(None, tp(h), None, fs(d)),
+    }
+
+
+def param_specs(cfg: ArchConfig, axes: MeshAxes) -> dict[str, Any]:
+    """The reference's 2-D FSDP x TP partition specs of the stacked leaves."""
+    d, f = cfg.d_model, cfg.d_ff
+    fs, tp = axes.fs, axes.tp
+    mlp = {"wu": P(None, fs(d), tp(f)), "wd": P(None, tp(f), fs(d))}
+    enc = {"ln1": P(None, None), "ln2": P(None, None)} | mlp | _specs_attn(cfg, axes)
+    dec = (
+        {"ln1": P(None, None), "lnx": P(None, None), "ln2": P(None, None)}
+        | mlp
+        | _specs_attn(cfg, axes)
+        | _specs_attn(cfg, axes, pre=("xq", "xk", "xv", "xo"))
+    )
+    specs = {
+        "enc_pos": P(None, None),
+        "enc_layers": enc,
+        "enc_final_ln": P(None),
+        "emb": P(tp(cfg.vocab_padded), fs(d)),
+        "dec_layers": dec,
+        "final_ln": P(None),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(fs(d), tp(cfg.vocab_padded))
+    return specs
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, device=None) -> EncDec:
@@ -168,9 +208,11 @@ def decode_train(cfg: ArchConfig, params: EncDec, tokens, enc_out):
     return L.rms_norm(x, params["final_ln"], cfg.norm_eps)
 
 
-def loss_fn(cfg: ArchConfig):
+def loss_fn(cfg: ArchConfig, mesh=None):
     """``f(params, batch) -> loss`` with batch ``{"frames", "tokens",
-    "labels"}``."""
+    "labels"}``.  On a ``mesh`` it is ROADMAP.md queue 1 item 13 part 5b."""
+    if mesh is not None:
+        not_ported(f"sharded execution of the encdec family ({cfg.name}; part 5b)")
 
     def f(params, batch):
         enc_out = encode(cfg, params, batch["frames"])
@@ -200,6 +242,15 @@ def cache_shapes(cfg: ArchConfig, batch: int, seq: int):
         "xv": (nd, batch, cfg.enc_ctx, kv, dh),
     }
 
+
+
+def cache_specs(cfg: ArchConfig, axes: MeshAxes, batch: int, seq: int) -> dict:
+    """Self and cross K/V sharded over "model" by heads where they divide,
+    the batch over the batch axes where it divides them (the reference's)."""
+    kv_tp = axes.tp(cfg.n_kv_heads)
+    batch_ax = axes.batch if batch % math.prod(axes.size(a) for a in axes.batch) == 0 else None
+    spec = P(None, batch_ax, None, kv_tp, None)
+    return {"k": spec, "v": spec, "xk": spec, "xv": spec}
 
 def init_cache(cfg: ArchConfig, batch: int, seq: int, device=None):
     return {k: torch.zeros(s, dtype=cfg.dtype, device=device)

@@ -1,22 +1,37 @@
 """Core transformer building blocks.
 
-Port of ``repro/models/layers.py`` on one device: the same math in the
-same order, without the reference's sharding constraints.  ``p`` is any
-mapping of the layer's weights (a dict of tensors, or a module of
+Port of ``repro/models/layers.py``: the same math in the same order.  ``p``
+is any mapping of the layer's weights (a dict of tensors, or a module of
 :class:`~repro_torch.models.transformer._Weights`).  Contractions go
 through :func:`einsum`, which promotes mixed dtypes as ``jnp.einsum``
 does (zamba2's bfloat16 decode attends over a float32 K/V cache).
+
+On an LM mesh the same functions run on one process's blocks, and
+:class:`Shard` holds what the reference leaves to GSPMD (a Shard without a
+mesh, the one-device case, does none of it): the FSDP gather
+of a layer's weights over "data" just before use (one packed all-gather a
+layer, whose backward is one reduce-scatter), the residual's sequence
+sharded over "model" under ``seq_parallel`` (gathered before the
+column-parallel projections), and the combine of the row-parallel
+products over "model" (an all-reduce, or a reduce-scatter into the
+sequence-sharded residual under ``dense_scatter_combine``).  Attention
+runs on the process's query heads (:func:`attention`'s ``h0``): K/V sharded
+with them where "model" divides the K/V heads, else the replicated K/V
+heads sliced to the local query heads' groups.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import re
+from typing import Any
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import ArchConfig, MeshAxes, constrain
 
 
 def einsum(eq: str, *ops):
@@ -50,15 +65,22 @@ def rope(q, positions, theta, dtype=None):
     return out.to(dtype or q.dtype)
 
 
-def attention(cfg: ArchConfig, q, k, v, mask, mask_kind: str | None = None):
+def attention(cfg: ArchConfig, q, k, v, mask, mask_kind: str | None = None, h0: int = 0):
     """GQA attention.  q (B, Sq, H, dh), k and v (B, Sk, KV, dh); ``mask``
     broadcastable to (B, H, Sq, Sk) bool, or None; ``mask_kind``
     ("causal", "prefix:<n>" or None) lets the chunked path mask from
-    positions."""
+    positions.  On a mesh ``q`` holds the query heads ``h0`` onward and
+    ``k``/``v`` either their K/V heads (sharded alike) or all K/V heads,
+    which are repeated and sliced to the query heads' groups."""
     rep = cfg.n_heads // cfg.n_kv_heads
+    hl, kl = q.shape[2], k.shape[2]
     if rep > 1:
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
+    if k.shape[2] != hl:
+        k0 = 0 if kl == cfg.n_kv_heads else h0 // rep  # the first K/V head held
+        k = k.narrow(2, h0 - k0 * rep, hl)
+        v = v.narrow(2, h0 - k0 * rep, hl)
     if cfg.attn_chunk and q.shape[1] > 1 and k.shape[1] > cfg.attn_chunk:
         return _chunked_attention(cfg, q, k, v, mask_kind or "full")
     scale = cfg.head_dim ** -0.5
@@ -160,3 +182,78 @@ def qkv(cfg: ArchConfig, x, p, positions):
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+@dataclasses.dataclass
+class Shard:
+    """One process's place in a step on an LM ``mesh`` for a sequence of
+    ``seq`` positions (module docstring): ``specs`` maps each weight's name
+    (``wq``, ``emb``, …) to its per-layer :class:`P`.  Without a mesh (one
+    device, ``Shard(cfg)``) every method is an identity and makes no
+    call."""
+
+    cfg: ArchConfig
+    mesh: Any = None
+    specs: dict = dataclasses.field(default_factory=dict)
+    seq: int = 0
+
+    def __post_init__(self):
+        self.axes = (MeshAxes(batch=(), fsdp=None, model=None, sizes={}) if self.mesh is None
+                     else MeshAxes.from_mesh(self.mesh))
+        model = self.axes.model
+        self.n_model = self.axes.size(model)
+        self.model_index = self.mesh.axis_index(model) if model else 0
+        # the residual's sequence sharded over "model" (the reference's _residual_spec)
+        self.sp = bool(model and self.cfg.seq_parallel and self.seq % self.n_model == 0)
+        self.heads_sharded = self.axes.tp(self.cfg.n_heads) is not None
+        self.h0 = self.model_index * self.cfg.n_heads // self.n_model if self.heads_sharded else 0
+        self.vocab_parallel = self.axes.tp(self.cfg.vocab_padded) is not None
+
+    def gather_weights(self, p, names) -> dict:
+        """``{name: weight}`` of ``p``'s weights ``names``, every one sharded
+        over "data" gathered along its data dim, all in one all-gather."""
+        fsdp = self.axes.fsdp
+        out = {n: p[n] for n in names}
+        dims = {n: next((i for i in range(len(self.specs[n])) if fsdp in self.specs[n].axes_of(i)), None)
+                for n in names if n in self.specs} if fsdp else {}
+        sharded = [n for n in names if dims.get(n) is not None]
+        if sharded:
+            full = self.mesh.all_gather_many([out[n] for n in sharded], fsdp, [dims[n] for n in sharded])
+            out |= dict(zip(sharded, full))
+        return out
+
+    def gather_seq(self, x):
+        """The residual's sequence blocks gathered over "model" (dim 1)."""
+        return self.mesh.all_gather(x, self.axes.model, 1) if self.sp else x
+
+    def seq_block(self, x):
+        """This process's sequence block of a replicated (B, S, …)."""
+        if not self.sp:
+            return x
+        c = x.shape[1] // self.n_model
+        return x.narrow(1, self.model_index * c, c)
+
+    def residual(self, x):
+        """Check that ``x`` is the residual's block (batch over the batch
+        axes, the sequence over "model" under ``seq_parallel``) and return
+        it."""
+        if self.mesh is None:
+            return x
+        n_batch = math.prod(self.axes.size(a) for a in self.axes.batch)
+        return constrain(x, self.mesh, self.axes.batch, self.axes.model if self.sp else None, None,
+                         full=(x.shape[0] * n_batch, self.seq, x.shape[2]))
+
+    def combine(self, y, partial: bool, scatter: bool = False):
+        """A (B, S, D) product into the residual's layout: summed over
+        "model" when each process holds a part (an all-reduce, or a
+        reduce-scatter along the sequence when ``scatter`` and the residual
+        is sequence-sharded), then cut to this process's sequence block."""
+        if partial:
+            if scatter and self.sp:
+                return self.mesh.reduce_scatter(y, self.axes.model, 1)
+            y = self.mesh.psum(y, self.axes.model)
+        return self.seq_block(y)
+
+    def batch_mean(self, x):
+        """The mean of ``x`` over the batch shards."""
+        return x if self.mesh is None else self.mesh.pmean(x, self.axes.batch)

@@ -1,9 +1,18 @@
-"""Mixture-of-Experts FFN on one device.
+"""Mixture-of-Experts FFN, on one device or expert-parallel over "model".
 
-Port of ``repro/models/moe.py``.  :func:`moe_ffn` is the one-device body of
-the reference's ``_moe_local`` with one expert shard (every expert here, no
-collective); its ``shard_map`` over "model", the expert-parallel layout, is
-ROADMAP.md queue 1 item 13's remainder.
+Port of ``repro/models/moe.py``.  :func:`moe_ffn` is the body of the
+reference's ``_moe_local``.  On one device it holds every expert and makes
+no collective.  On an LM mesh (its ``shard``) the experts are sharded over
+"model": process m runs experts e0 = m·E/|model| onward on every token of
+its batch shard (the input is gathered over the sequence, so each expert
+shard already holds the tokens it may need and the dispatch is a local
+capacity-gather), and one collective combines the shards' outputs, a psum
+over "model", or a reduce-scatter into the sequence-sharded residual under
+``moe_scatter_combine``.  The capacity counts the local tokens, T_loc =
+(B/|batch axes|)·S, so drops depend on the tokens of one shard, and the aux
+loss is the pmean over the batch axes of each shard's aux, not the aux of
+all tokens.  An expert count that "model" does not divide is refused, as
+the reference's assert refuses it.
 
 Routing is top-k over a float32 softmax, ties to the lower expert id, the k
 gates renormalised to sum 1.  Each expert has capacity
@@ -64,9 +73,11 @@ def route(cfg: ArchConfig, xf, router):
     return probs, top_ids, top_vals / top_vals.sum(-1, keepdim=True)
 
 
-def _dispatch_plan(top_ids, n_experts: int, c: int):
+def _dispatch_plan(top_ids, n_experts: int, c: int, e0: int = 0, n_local: int | None = None):
     """The slot of every pick and the pick of every slot, for ``c`` slots
-    an expert (slot e·c + r holds expert e's r-th kept token).
+    an expert over the ``n_local`` experts from ``e0`` (default all; slot
+    (e - e0)·c + r holds expert e's r-th kept token, and a pick of another
+    expert is dropped here).
 
     Returns ``member`` (T, E) int64 (1 where a token picked the expert),
     ``order`` (T, k) (each token's picks permuted to ascending expert id),
@@ -76,11 +87,13 @@ def _dispatch_plan(top_ids, n_experts: int, c: int):
     picks in that order; T·k for an empty one)."""
     t, k = top_ids.shape
     dev = top_ids.device
+    n_local = n_experts if n_local is None else n_local
     ids, order = torch.sort(top_ids, dim=-1)
     member = torch.zeros((t, n_experts), dtype=torch.int64, device=dev).scatter_(1, top_ids, 1)
     rank = (member.cumsum(0) - 1).gather(1, ids)  # a member's place in its expert's queue
-    n = n_experts * c
-    pick_slot = torch.where(rank < c, ids * c + rank, n)
+    n = n_local * c
+    kept = (rank < c) & (ids >= e0) & (ids < e0 + n_local)
+    pick_slot = torch.where(kept, (ids - e0) * c + rank, n)
     flat = pick_slot.view(-1)
     picks = torch.arange(t * k, device=dev)
     # the dropped picks all write the extra last entry, which is cut off
@@ -133,28 +146,51 @@ def _expert_ffn(cfg: ArchConfig, xs, p):
     return torch.matmul(h, p["we_d"])
 
 
-def moe_ffn(cfg: ArchConfig, x, p):
+def check_experts(cfg: ArchConfig, n_model: int) -> None:
+    """Refuse an expert count that the "model" axis does not divide."""
+    if cfg.n_experts % n_model:
+        raise ValueError(f"{cfg.name}: {cfg.n_experts} experts do not divide over a "
+                         f"'model' axis of {n_model} (experts must divide model axis)")
+
+
+def moe_ffn(cfg: ArchConfig, x, p, shard=None):
     """x: (B, S, D); p: ``router`` (D, E), ``we_g``/``we_u`` (E, D, F),
     ``we_d`` (E, F, D) (no ``we_g`` for gelu).  Returns the (B, S, D) output
     and the Switch load-balance loss E·Σ_e density_e·mean_prob_e in float32
-    (density counts every pick, dropped ones too)."""
+    (density counts every pick, dropped ones too).
+
+    With a :class:`~repro_torch.models.layers.Shard` on a mesh, ``x`` is
+    the batch shard's tokens (their whole sequence), ``p``'s expert banks
+    hold this process's E/|model| experts, the output comes back combined
+    into the residual's layout and the aux loss pmean'd over the batch
+    axes (module docstring); a Shard without a mesh is one device."""
     b, s, d = x.shape
     t, e, k = b * s, cfg.n_experts, cfg.top_k
+    e0, n_local = 0, e
+    if shard is not None:
+        check_experts(cfg, shard.n_model)
+        n_local = e // shard.n_model
+        e0 = shard.model_index * n_local
     c = min(capacity(cfg, t), t)  # a queue never holds more than the T tokens
     xf = x.reshape(t, d)
     probs, top_ids, top_vals = route(cfg, xf, p["router"])
-    member, order, pick_slot, slot_token, slot_pick = _dispatch_plan(top_ids, e, c)
+    member, order, pick_slot, slot_token, slot_pick = _dispatch_plan(top_ids, e, c, e0, n_local)
     if _dropped is not None:
-        _dropped.append((pick_slot == e * c).sum())
-    xs = _Gather.apply(xf, slot_token, pick_slot).view(e, c, d)
+        _dropped.append((member.sum(0) - c).clamp(min=0).sum())
+    n = n_local * c
+    xs = _Gather.apply(xf, slot_token, pick_slot).view(n_local, c, d)
     ye = _expert_ffn(cfg, xs, p)
-    rows = _Gather.apply(ye.view(e * c, d), pick_slot, slot_pick[:, None])  # (T, k, d)
-    gate = torch.where(pick_slot < e * c, top_vals.gather(1, order), 0.0).to(x.dtype)
+    rows = _Gather.apply(ye.view(n, d), pick_slot, slot_pick[:, None])  # (T, k, d)
+    gate = torch.where(pick_slot < n, top_vals.gather(1, order), 0.0).to(x.dtype)
     out = rows[:, 0] * gate[:, :1]
     for j in range(1, k):
         out = out + rows[:, j] * gate[:, j : j + 1]
     aux = e * torch.sum(member.float().mean(0) * probs.mean(0))
-    return out.view(b, s, d), aux
+    out = out.view(b, s, d)
+    if shard is not None:  # one collective combines the expert shards
+        out = shard.combine(out, partial=shard.axes.tp(e) is not None, scatter=cfg.moe_scatter_combine)
+        aux = shard.batch_mean(aux)
+    return out, aux
 
 
 def moe_ffn_reference(cfg: ArchConfig, x, p):

@@ -1,9 +1,10 @@
 """Uniform model API dispatch: family -> module functions.
 
-Port of ``repro/models/registry.py``, every family on one device:
+Port of ``repro/models/registry.py``, every family:
 ``dense``, ``moe`` and ``vlm`` (:mod:`~repro_torch.models.transformer`),
 ``ssm`` and ``hybrid`` (:mod:`~repro_torch.models.ssm`), ``encdec``
-(:mod:`~repro_torch.models.encdec`).  An unknown family is refused before
+(:mod:`~repro_torch.models.encdec`), each with the reference's
+``param_specs`` and ``cache_specs``.  An unknown family is refused before
 any device work.
 """
 
@@ -20,14 +21,20 @@ from repro_torch.models.common import ArchConfig, not_ported
 
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
-    init_params: Callable         # (cfg, generator, device) -> module
-    loss_fn: Callable             # (cfg) -> f(params, batch) -> loss
+    init_params: Callable         # (cfg, generator, device[, mesh, specs]) -> module
+    loss_fn: Callable             # (cfg, mesh=None) -> f(params, batch) -> loss
     decode_step: Callable         # (cfg) -> f(params, cache, token, pos)
     cache_shapes: Callable        # (cfg, batch, seq)
     init_cache: Callable          # (cfg, batch, seq, device)
     train_input_specs: Callable   # (cfg, batch, seq) -> {name: (shape, dtype)}
+    param_shapes: Callable        # (cfg) -> the stacked shapes tree
+    param_specs: Callable         # (cfg, axes) -> nested dict of P
+    cache_specs: Callable         # (cfg, axes, batch, seq)
     # encdec: (cfg, params, frames, batch, seq) -> a cache with its cross K/V
     prefill_cross_cache: Callable | None = None
+    # (full params, stacked specs, mesh, dtype) -> one process's blocks; the
+    # families whose loss_fn runs on a mesh
+    shard_params: Callable | None = None
 
 
 _TRANSFORMER = ModelApi(
@@ -37,6 +44,10 @@ _TRANSFORMER = ModelApi(
     cache_shapes=_tf.cache_shapes,
     init_cache=_tf.init_cache,
     train_input_specs=_tf.train_input_specs,
+    param_shapes=_tf.param_shapes,
+    param_specs=_tf.param_specs,
+    cache_specs=_tf.cache_specs,
+    shard_params=_tf.shard_params,
 )
 
 _SSM = ModelApi(
@@ -46,6 +57,9 @@ _SSM = ModelApi(
     cache_shapes=_ssm.cache_shapes,
     init_cache=_ssm.init_cache,
     train_input_specs=_tf.train_input_specs,  # tokens and labels
+    param_shapes=_ssm.param_shapes,
+    param_specs=_ssm.param_specs,
+    cache_specs=_ssm.cache_specs,
 )
 
 _ENCDEC = ModelApi(
@@ -55,6 +69,9 @@ _ENCDEC = ModelApi(
     cache_shapes=_ed.cache_shapes,
     init_cache=_ed.init_cache,
     train_input_specs=_ed.train_input_specs,
+    param_shapes=_ed.param_shapes,
+    param_specs=_ed.param_specs,
+    cache_specs=_ed.cache_specs,
     prefill_cross_cache=_ed.prefill_cross_cache,
 )
 

@@ -17,8 +17,9 @@ and ``jnp.concatenate`` promote mixed dtypes where ``torch`` refuses them
 or would not: the port casts at those points, so zamba2's bfloat16 decode
 (whose K/V cache is float32 by the reference's cache rule) returns float32
 logits and a float32 ``conv`` state, as the reference's does.  The sharded
-layout (``param_specs``, ``cache_specs``) is ROADMAP.md queue 1 item 13's
-remainder.
+layout's specs (``param_specs``, ``ssm_layer_specs``, ``cache_specs``) are
+the reference's; sharded execution of these families is ROADMAP.md queue 1
+item 13 part 5b (:data:`~repro_torch.models.common.LM_ITEM`).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
-from repro_torch.models.common import ArchConfig, not_ported
+from repro_torch.models.common import P, ArchConfig, MeshAxes, not_ported
 from repro_torch.models.transformer import (
     _Weights,
     _assign,
@@ -82,12 +83,69 @@ def param_shapes(cfg: ArchConfig) -> dict[str, Any]:
     return shapes
 
 
-def param_specs(cfg: ArchConfig, axes=None):
-    not_ported("the 2-D FSDP x TP parameter layout (param_specs)")
+def ssm_layer_specs(cfg: ArchConfig, axes: MeshAxes, n_dim: bool = True) -> dict[str, P]:
+    """One Mamba2 layer's partition specs (with the stacked layer dim
+    unless ``n_dim`` is false), the reference's rule."""
+    d, di, nst, h = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.n_ssm_heads
+    fs = axes.fs
+    lead = (None,) if n_dim else ()
+    return {
+        "ln": P(*lead, None),
+        "in_proj": P(*lead, fs(d), axes.tp(2 * di + 2 * nst + h)),
+        "conv_w": P(*lead, None, None),
+        "conv_b": P(*lead, None),
+        "A_log": P(*lead, axes.tp(h)),
+        "D_skip": P(*lead, axes.tp(h)),
+        "dt_bias": P(*lead, axes.tp(h)),
+        "out_ln": P(*lead, None),
+        "out_proj": P(*lead, axes.tp(di), fs(d)),
+    }
 
 
-def cache_specs(cfg: ArchConfig, axes=None, batch: int = 0, seq: int = 0):
-    not_ported("the sharded conv/SSM/KV-cache layout (cache_specs)")
+def param_specs(cfg: ArchConfig, axes: MeshAxes) -> dict[str, Any]:
+    """The reference's partition specs (the hybrid's shared block
+    included).  Sharded execution of these families is ROADMAP.md queue 1
+    item 13 part 5b."""
+    specs = {
+        "emb": P(axes.tp(cfg.vocab_padded), axes.fs(cfg.d_model)),
+        "final_ln": P(None),
+        "layers": ssm_layer_specs(cfg, axes),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(axes.fs(cfg.d_model), axes.tp(cfg.vocab_padded))
+    if cfg.family == "hybrid":
+        d, f, h, kv = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads
+        fs, tp = axes.fs, axes.tp
+        specs["shared"] = {
+            "ln1": P(None), "ln2": P(None),
+            "wq": P(fs(d), tp(h), None), "wk": P(fs(d), tp(kv), None),
+            "wv": P(fs(d), tp(kv), None), "wo": P(tp(h), None, fs(d)),
+            "wg": P(fs(d), tp(f)), "wu": P(fs(d), tp(f)), "wd": P(tp(f), fs(d)),
+        }
+    return specs
+
+
+def cache_specs(cfg: ArchConfig, axes: MeshAxes, batch: int, seq: int) -> dict:
+    """The conv, SSM and (hybrid) K/V cache specs, the reference's rule: a
+    long-context hybrid cache shards its sequence over "data" when the
+    batch cannot occupy it."""
+    h = cfg.n_ssm_heads
+    bsz = math.prod(axes.size(a) for a in axes.batch)
+    batch_ax = axes.batch if batch % bsz == 0 else None
+    specs = {
+        "conv": P(None, batch_ax, None, None),
+        "ssm": P(None, batch_ax, axes.tp(h), None, None),
+    }
+    if cfg.family == "hybrid" and cfg.attn_period:
+        kv_tp = axes.tp(cfg.n_kv_heads)
+        seq_data = None
+        if batch_ax is None and axes.fsdp and seq % axes.sizes[axes.fsdp] == 0:
+            seq_data = axes.fsdp
+        specs |= {
+            "k": P(None, batch_ax, seq_data, kv_tp, None),
+            "v": P(None, batch_ax, seq_data, kv_tp, None),
+        }
+    return specs
 
 
 class SSMLayer(_Weights):
@@ -327,8 +385,11 @@ def forward(cfg: ArchConfig, params: SSMModel, tokens):
     return L.rms_norm(x, params["final_ln"], cfg.norm_eps)
 
 
-def loss_fn(cfg: ArchConfig):
-    """``f(params, batch) -> loss`` with batch ``{"tokens", "labels"}``."""
+def loss_fn(cfg: ArchConfig, mesh=None):
+    """``f(params, batch) -> loss`` with batch ``{"tokens", "labels"}``.
+    On a ``mesh`` it is ROADMAP.md queue 1 item 13 part 5b."""
+    if mesh is not None:
+        not_ported(f"sharded execution of the {cfg.family} family ({cfg.name}; part 5b)")
 
     def f(params, batch):
         x = forward(cfg, params, batch["tokens"])

@@ -1,4 +1,5 @@
-"""Decoder-only transformer, the dense, MoE and VLM families, on one device.
+"""Decoder-only transformer, the dense, MoE and VLM families, on one device
+or sharded over an LM mesh.
 
 Port of ``repro/models/transformer.py`` (phi3-medium-14b, stablelm-1.6b,
 granite-20b/8b; phi3.5-moe-42b and olmoe-1b-7b, whose FFN is
@@ -14,15 +15,25 @@ convert between the port's module and the reference's nested dict of
 stacked arrays (weights carried across in tests, and the checkpoint
 layout).
 
-The sharded layout (``param_specs``, ``cache_specs``) is ROADMAP.md queue
-1 item 13's remainder and raises ``NotImplementedError`` before any device
-work; the ssm and hybrid families are :mod:`repro_torch.models.ssm`'s and
-the encdec family :mod:`repro_torch.models.encdec`'s (this module's
-functions refuse them).
+The 2-D FSDP("data") × TP("model") layout: ``param_specs`` and
+``cache_specs`` are the reference's rules; :func:`shard_params` and
+:func:`init_params` on a mesh hold one process's block of every leaf (the
+layer dim never sharded), and :func:`loss_fn` on a mesh runs the same
+forward and loss on the blocks through a
+:class:`~repro_torch.models.layers.Shard` (on one device a Shard without
+a mesh, every method of which is an identity): the embedding and the
+output head vocab-parallel over "model" (the pad ids masked to -inf
+across the shards), the residual's sequence sharded over "model" under
+``seq_parallel``, each layer's weights gathered over "data" just before
+use.  The sharded decode step is ROADMAP.md queue 1 item 13 part 5b.  The
+ssm and hybrid families are :mod:`repro_torch.models.ssm`'s and the
+encdec family :mod:`repro_torch.models.encdec`'s (this module's functions
+refuse them).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import numpy as np
@@ -31,8 +42,17 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
-from repro_torch.models.common import ArchConfig, not_ported
-from repro_torch.models.moe import moe_ffn
+from repro_torch.models.common import (
+    STACKED,
+    ArchConfig,
+    MeshAxes,
+    P,
+    block_of,
+    local_shapes,
+    named_specs,
+    not_ported,
+)
+from repro_torch.models.moe import check_experts, moe_ffn
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -77,12 +97,58 @@ def param_shapes(cfg: ArchConfig) -> dict[str, Any]:
     return shapes
 
 
-def param_specs(cfg: ArchConfig, axes=None):
-    not_ported("the 2-D FSDP x TP parameter layout (param_specs)")
+def param_specs(cfg: ArchConfig, axes: MeshAxes) -> dict[str, Any]:
+    """2-D FSDP x TP partition specs of the stacked leaves (divisibility-aware),
+    the reference's rule."""
+    check_family(cfg)
+    d, f, h, kv, dh = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    vp = cfg.vocab_padded
+    fs, tp = axes.fs, axes.tp
+    specs = {
+        "emb": P(tp(vp), fs(d)),
+        "final_ln": P(None),
+        "layers": {
+            "ln1": P(None, None),
+            "ln2": P(None, None),
+            "wq": P(None, fs(d), tp(h), None),
+            "wk": P(None, fs(d), tp(kv), None),
+            "wv": P(None, fs(d), tp(kv), None),
+            "wo": P(None, tp(h), None, fs(d)),
+        },
+    }
+    if cfg.family == "moe":
+        e = cfg.n_experts
+        specs["layers"] |= {
+            "router": P(None, fs(d), None),
+            "we_g": P(None, tp(e), fs(d), None),
+            "we_u": P(None, tp(e), fs(d), None),
+            "we_d": P(None, tp(e), None, fs(d)),
+        }
+        gate = "we_g"
+    else:
+        specs["layers"] |= {
+            "wg": P(None, fs(d), tp(f)),
+            "wu": P(None, fs(d), tp(f)),
+            "wd": P(None, tp(f), fs(d)),
+        }
+        gate = "wg"
+    if cfg.mlp != "swiglu":
+        specs["layers"].pop(gate)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(fs(d), tp(vp))
+    return specs
 
 
-def cache_specs(cfg: ArchConfig, axes=None, batch: int = 0, seq: int = 0):
-    not_ported("the sharded KV-cache layout (cache_specs)")
+def cache_specs(cfg: ArchConfig, axes: MeshAxes, batch: int, seq: int) -> dict:
+    """KV sharded over "model" when divisible, else the *sequence* dim is
+    sharded over "model"; the batch over the batch axes when it divides
+    them (the reference's rule)."""
+    check_family(cfg)
+    kv_tp = axes.tp(cfg.n_kv_heads)
+    seq_tp = None if kv_tp else axes.tp(seq)
+    batch_ax = axes.batch if batch % math.prod(axes.size(a) for a in axes.batch) == 0 else None
+    spec = P(None, batch_ax, seq_tp, kv_tp, None)
+    return {"k": spec, "v": spec}
 
 
 class _Weights(nn.Module):
@@ -95,6 +161,9 @@ class _Weights(nn.Module):
 
     def __getitem__(self, name: str) -> torch.Tensor:
         return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters
 
 
 class DecoderLayer(_Weights):
@@ -114,11 +183,6 @@ class Transformer(_Weights):
         per_layer = {k: s[1:] for k, s in shapes["layers"].items()}
         n = next(iter(shapes["layers"].values()))[0]
         self.layers = nn.ModuleList(DecoderLayer(per_layer, device, dtype) for _ in range(n))
-
-
-#: the reference's stacked per-layer groups (``(n_layers, …)`` arrays), each
-#: an ``nn.ModuleList`` of the same name in the port's modules
-STACKED = ("layers", "enc_layers", "dec_layers")
 
 
 def _flat_shapes(tree, prefix=()):
@@ -146,7 +210,8 @@ def _assign(model: _Weights, path: tuple, value: torch.Tensor) -> None:
 
 
 @torch.no_grad()
-def init_params(cfg: ArchConfig, generator: torch.Generator, device=None) -> Transformer:
+def init_params(cfg: ArchConfig, generator: torch.Generator, device=None, mesh=None,
+                specs=None) -> Transformer:
     """The reference's rule on the stacked shapes: norms (and every other
     leaf of at most two dims whose last is ``d_model``, ``emb`` among them)
     are ones; other 2-D weights N(0, 0.02); the rest N(0, fan_in^-1/2) with
@@ -154,23 +219,69 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None) -> Tra
     device, leaf by leaf in the reference's order and a stacked leaf layer
     by layer (the largest float32 temporary is one layer's leaf: an expert
     bank of phi3.5-moe is 1.7 GB); the values differ from
-    ``jax.random``'s."""
+    ``jax.random``'s.  On an LM ``mesh`` with the stacked ``specs``
+    (:func:`param_specs`) every process draws the same values and keeps its
+    block of each (the model holds the blocks only; ``device`` defaults to
+    the mesh's)."""
     shapes = param_shapes(cfg)
+    if mesh is not None:
+        device = mesh.device if device is None else device
+        spec_of = named_specs(specs)
     device = torch.device(device) if device is not None else generator.device
-    model = Transformer(shapes, device=device, dtype=cfg.dtype)
+    model = Transformer(shapes if mesh is None else local_shapes(shapes, specs, mesh),
+                        device=device, dtype=cfg.dtype)
     for path, shape in _flat_shapes(shapes):
         fan_in = shape[-2] if len(shape) > 1 else shape[-1]
-        if len(shape) <= 2 and shape[-1] == cfg.d_model:  # norms
-            _assign(model, path, torch.ones(shape, device=device, dtype=cfg.dtype))
-            continue
-        scale = 0.02 if len(shape) <= 2 else fan_in ** -0.5
         if path[0] in STACKED:
-            targets = [layer[path[1]] for layer in model[path[0]]]
+            targets = [(f"{path[0]}.{i}.{path[1]}", layer[path[1]], shape[1:])
+                       for i, layer in enumerate(model[path[0]])]
         else:
-            targets = [model[path[-1]]]
-        for w in targets:
-            w.copy_(torch.randn(w.shape, generator=generator, device=generator.device) * scale)
+            targets = [(path[-1], model[path[-1]], shape)]
+        for name, w, full in targets:
+            if len(shape) <= 2 and shape[-1] == cfg.d_model:  # norms
+                w.fill_(1.0)
+                continue
+            scale = 0.02 if len(shape) <= 2 else fan_in ** -0.5
+            val = torch.randn(full, generator=generator, device=generator.device) * scale
+            w.copy_(val if mesh is None else block_of(val, spec_of(name), mesh))
     return model
+
+
+# ------------------------------------------------- one process's blocks
+@torch.no_grad()
+def shard_params(full, specs: dict, mesh, dtype=None) -> Transformer:
+    """One process's blocks of full parameters: ``full`` is a
+    :class:`Transformer` (any device) or the reference's params tree
+    (numpy or JAX arrays, stacked); the blocks land on the mesh's device."""
+    if isinstance(full, nn.Module):
+        named = {n: p.detach() for n, p in full.named_parameters()}
+        shapes = stack_shapes(named)
+        dtype = dtype or next(iter(named.values())).dtype
+    else:
+        named = unstack_named(full)
+        shapes = {k: ({n: tuple(np.shape(a)) for n, a in v.items()} if isinstance(v, dict)
+                      else tuple(np.shape(v))) for k, v in full.items()}
+        dtype = dtype or torch.from_numpy(np.asarray(full["final_ln"])[:1].copy()).dtype
+    spec_of = named_specs(specs)
+    model = Transformer(local_shapes(shapes, specs, mesh), device=mesh.device, dtype=dtype)
+    for name, p in model.named_parameters():
+        blk = block_of(named[name], spec_of(name), mesh)
+        p.copy_(blk if isinstance(blk, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(blk)))
+    return model
+
+
+def stack_shapes(named: dict) -> dict:
+    """The stacked shapes tree of tensors by parameter name."""
+    out: dict = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] in STACKED:
+            grp = out.setdefault(parts[0], {})
+            n = max(int(parts[1]) + 1, grp.get(parts[2], (0,))[0])
+            grp[parts[2]] = (n,) + tuple(t.shape)
+        else:
+            out[name] = tuple(t.shape)
+    return out
 
 
 # -------------------------------------------- the reference's stacked layout
@@ -243,18 +354,30 @@ def model_from_reference(cls, tree, device="cpu", dtype=None):
 
 
 # ----------------------------------------------------------------- forward
-def decoder_layer(cfg: ArchConfig, x, p, positions, mask, mask_kind: str = "causal"):
+#: a layer's weights, in the order the FSDP gather packs those sharded over "data"
+LAYER_WEIGHTS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "wg", "wu", "wd", "router", "we_g", "we_u", "we_d")
+
+
+def decoder_layer(cfg: ArchConfig, x, p, positions, mask, mask_kind: str = "causal", shard=None):
     """One layer: ``(x, aux)``, aux the MoE FFN's load-balance loss (0.0
-    for a dense FFN)."""
-    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    for a dense FFN).  On a mesh (``shard``, a
+    :class:`~repro_torch.models.layers.Shard`) ``x`` is the residual's
+    block (its sequence sharded over "model" under ``seq_parallel``) and
+    ``p`` the layer's blocks, gathered over "data" here (inside the remat
+    region, so one layer's weights at a time)."""
+    shard = shard or L.Shard(cfg)
+    p = shard.gather_weights(p, [n for n in LAYER_WEIGHTS if n in p])
+    h = shard.gather_seq(L.rms_norm(x, p["ln1"], cfg.norm_eps))
     q, k, v = L.qkv(cfg, h, p, positions)
-    o = L.attention(cfg, q, k, v, mask, mask_kind=mask_kind)
-    x = x + torch.einsum("bshe,hed->bsd", o, p["wo"])
-    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    o = L.attention(cfg, q, k, v, mask, mask_kind=mask_kind, h0=shard.h0)
+    x = x + shard.combine(torch.einsum("bshe,hed->bsd", o, p["wo"]), partial=shard.heads_sharded)
+    h = shard.gather_seq(L.rms_norm(x, p["ln2"], cfg.norm_eps))
     if cfg.family == "moe":
-        ff, aux = moe_ffn(cfg, h, p)
+        ff, aux = moe_ffn(cfg, h, p, shard)
     else:
-        ff, aux = L.mlp_block(cfg, h, p), 0.0
+        ff = shard.combine(L.mlp_block(cfg, h, p), partial=shard.axes.tp(cfg.d_ff) is not None,
+                           scatter=cfg.dense_scatter_combine)
+        aux = 0.0
     return x + ff, aux
 
 
@@ -263,7 +386,8 @@ def forward(cfg: ArchConfig, params: Transformer, tokens, positions=None, embeds
     return forward_with_aux(cfg, params, tokens, positions, embeds)[0]
 
 
-def forward_with_aux(cfg: ArchConfig, params: Transformer, tokens, positions=None, embeds=None):
+def forward_with_aux(cfg: ArchConfig, params: Transformer, tokens, positions=None, embeds=None,
+                     shard=None):
     """Token (and, for the VLM, image-prefix) forward to the final hidden
     states (B, S, D) and the layers' summed MoE aux loss (0.0 for the
     other families), the reference's ``forward``.  ``embeds`` (B, S_img,
@@ -272,9 +396,12 @@ def forward_with_aux(cfg: ArchConfig, params: Transformer, tokens, positions=Non
     after), else causal.  With ``cfg.remat`` each layer is recomputed in
     the backward pass.  As in the reference, ``attn_chunk`` drops the S × S
     mask; a sequence no longer than the chunk then runs the plain path
-    unmasked."""
+    unmasked.  On a mesh (``shard``) ``params`` are this process's blocks
+    and ``tokens`` its rows; the embedding is vocab-parallel over "model"
+    and the hidden states come back whole over the sequence."""
     check_family(cfg)
-    x = params["emb"][tokens].to(cfg.dtype)
+    shard = shard or L.Shard(cfg)
+    x = _embed(cfg, shard, shard.gather_weights(params, ["emb"])["emb"], tokens).to(cfg.dtype)
     if embeds is not None:
         x = torch.cat([embeds.to(cfg.dtype), x], dim=1)
     s = x.shape[1]
@@ -286,46 +413,89 @@ def forward_with_aux(cfg: ArchConfig, params: Transformer, tokens, positions=Non
     else:
         mask_kind = "causal"
         mask = None if cfg.attn_chunk else L.causal_mask(s, device=x.device)
+    x = shard.residual(shard.seq_block(x))
     aux = 0.0
     for layer in params.layers:
+        args = (cfg, x, layer, positions, mask, mask_kind, shard)
         if cfg.remat and torch.is_grad_enabled():
-            x, a = checkpoint(decoder_layer, cfg, x, layer, positions, mask, mask_kind, use_reentrant=False)
+            x, a = checkpoint(decoder_layer, *args, use_reentrant=False)
         else:
-            x, a = decoder_layer(cfg, x, layer, positions, mask, mask_kind)
+            x, a = decoder_layer(*args)
+        x = shard.residual(x)
         aux = aux + a
-    return L.rms_norm(x, params["final_ln"], cfg.norm_eps), aux
+    return shard.gather_seq(L.rms_norm(x, params["final_ln"], cfg.norm_eps)), aux
+
+
+def _embed(cfg: ArchConfig, shard: L.Shard, emb, tokens):
+    """The rows of ``tokens``; from a vocab-parallel ``emb`` block (this
+    process's rows, every column) summed over "model": (B, S, D),
+    replicated over "model"."""
+    if not shard.vocab_parallel:
+        return emb[tokens]
+    vl = emb.shape[0]
+    loc = tokens.long() - shard.model_index * vl
+    inside = (loc >= 0) & (loc < vl)
+    x = emb[loc.clamp(0, vl - 1)] * inside[..., None].to(emb.dtype)
+    return shard.mesh.psum(x, shard.axes.model)
+
+
+def _head(cfg: ArchConfig, params, shard=None):
+    """The output head (D, V); on a mesh (``shard``) this process's vocab
+    block, gathered over "data"."""
+    name = "emb" if cfg.tie_embeddings else "lm_head"
+    w = params[name] if shard is None else shard.gather_weights(params, [name])[name]
+    return w.T if cfg.tie_embeddings else w
 
 
 def logits_from_hidden(cfg: ArchConfig, params: Transformer, x):
-    head = params["emb"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
+    return torch.einsum("bsd,dv->bsv", x, _head(cfg, params).to(x.dtype))
 
 
-def cross_entropy(cfg: ArchConfig, logits, labels, mask=None):
-    """Stable CE over the padded vocab (pad ids masked to -inf)."""
-    vp = logits.shape[-1]
-    valid = (torch.arange(vp, device=logits.device) < cfg.vocab)[None, None, :]
+def cross_entropy(cfg: ArchConfig, logits, labels, mask=None, shard=None):
+    """Stable CE over the padded vocab (pad ids masked to -inf).  On a mesh
+    whose "model" axis divides the padded vocab, ``logits`` are this
+    process's (B, S, V/|model|) block: the log-sum-exp and the picked logit
+    are summed over "model" (the max taken over "model" first, without a
+    gradient)."""
+    vl = logits.shape[-1]
+    vp = shard is not None and shard.vocab_parallel
+    v0 = shard.model_index * vl if vp else 0
+    valid = (v0 + torch.arange(vl, device=logits.device) < cfg.vocab)[None, None, :]
     logits = torch.where(valid, logits.float(), float("-inf"))
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - picked
+    if vp:
+        mesh, model = shard.mesh, shard.axes.model
+        mx = mesh.pmax(logits.amax(dim=-1), model)
+        loc = labels.long() - v0
+        inside = (loc >= 0) & (loc < vl)
+        mine = torch.gather(logits, -1, loc.clamp(0, vl - 1)[..., None])[..., 0]
+        # the sum of exponentials and the picked logit in one psum
+        sums = mesh.psum(torch.stack([torch.exp(logits - mx[..., None]).sum(-1),
+                                      torch.where(inside, mine, 0.0)]), model)
+        nll = torch.log(sums[0]) + mx - sums[1]
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        nll = lse - picked
     if mask is not None:
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1)
     return nll.mean()
 
 
-def lm_loss(cfg: ArchConfig, params: Transformer, x, labels):
+def lm_loss(cfg: ArchConfig, params: Transformer, x, labels, shard=None):
     """Projection + CE, optionally over ``loss_chunk``-long sequence
     chunks; under autograd each chunk's logits are recomputed in the
-    backward pass, so the fp32 (B, S, V) logits never exist at once."""
-    if not cfg.loss_chunk or x.shape[1] % cfg.loss_chunk:
-        return cross_entropy(cfg, logits_from_hidden(cfg, params, x), labels)
-    c = cfg.loss_chunk
+    backward pass, so the fp32 (B, S, V) logits never exist at once.  On a
+    mesh (``shard``) the head is vocab-parallel, gathered once."""
+    shard = shard or L.Shard(cfg)
+    head = _head(cfg, params, shard)
 
     def chunk_ce(xc, lc):
-        return cross_entropy(cfg, logits_from_hidden(cfg, params, xc), lc)
+        return cross_entropy(cfg, torch.einsum("bsd,dv->bsv", xc, head.to(xc.dtype)), lc, shard=shard)
 
+    if not cfg.loss_chunk or x.shape[1] % cfg.loss_chunk:
+        return chunk_ce(x, labels)
+    c = cfg.loss_chunk
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(x.shape[1] // c):
         xc, lc = x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
@@ -335,18 +505,32 @@ def lm_loss(cfg: ArchConfig, params: Transformer, x, labels):
     return tot / labels.numel()
 
 
-def loss_fn(cfg: ArchConfig):
+def loss_fn(cfg: ArchConfig, mesh=None):
     """``f(params, batch) -> loss`` with batch ``{"tokens", "labels"}``
     (the VLM's also ``"patch_embeds"``: the loss is then over the text
-    positions only); the MoE's adds 0.01 × its summed aux loss."""
+    positions only); the MoE's adds 0.01 × its summed aux loss.  On an LM
+    ``mesh`` ``params`` are this process's blocks (:func:`shard_params`)
+    and ``batch`` its rows of the global batch; the loss is the global one
+    (the batch shards' losses pmean'd over the batch axes), the same on
+    every process."""
     check_family(cfg)
+    specs = {}
+    if mesh is not None:
+        axes = MeshAxes.from_mesh(mesh)
+        if cfg.family == "moe":
+            check_experts(cfg, axes.size(axes.model))
+        stacked = param_specs(cfg, axes)
+        specs = {n: P(*sp[1:]) for n, sp in stacked["layers"].items()}
+        specs |= {n: stacked[n] for n in ("emb", "lm_head") if n in stacked}
 
     def f(params, batch):
         embeds = batch.get("patch_embeds") if cfg.family == "vlm" else None
-        x, aux = forward_with_aux(cfg, params, batch["tokens"], embeds=embeds)
+        s = batch["tokens"].shape[1] + (0 if embeds is None else embeds.shape[1])
+        shard = L.Shard(cfg, mesh, specs, s)
+        x, aux = forward_with_aux(cfg, params, batch["tokens"], embeds=embeds, shard=shard)
         if embeds is not None:
             x = x[:, embeds.shape[1]:]  # loss over text positions only
-        loss = lm_loss(cfg, params, x, batch["labels"])
+        loss = shard.batch_mean(lm_loss(cfg, params, x, batch["labels"], shard))
         return loss + 0.01 * aux if cfg.family == "moe" else loss
 
     return f

@@ -1,4 +1,5 @@
-"""Training/serving substrate (port of ``repro/train``) on one device."""
+"""Training/serving substrate (port of ``repro/train``): one device, or the
+transformer families' sharded step on an LM mesh."""
 
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state, apply_adamw
 from repro_torch.train.train_step import build_train_step, build_serve_step

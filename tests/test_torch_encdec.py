@@ -366,13 +366,15 @@ def test_model_api_dispatch():
         E.prefill_cross_cache)
     vlm = model_api(configs.get_smoke("paligemma_3b"))
     assert (vlm.init_params, vlm.loss_fn, vlm.prefill_cross_cache) == (T.init_params, T.loss_fn, None)
-    # the moe family is the transformer's too (tests/test_torch_moe.py);
-    # only the sharded layout is refused
+    # the moe family is the transformer's too (tests/test_torch_moe.py),
+    # its specs included; the sharded execution of encdec is part 5b
     moe = configs.get_smoke("olmoe_1b_7b")
     assert model_api(moe).init_params is T.init_params
+    assert model_api(moe).param_specs is T.param_specs
     assert sum(p.numel() for p in T.init_params(moe, torch.Generator()).parameters()) > moe.param_count()
+    assert api.param_specs is E.param_specs and api.cache_specs is E.cache_specs
     with pytest.raises(NotImplementedError, match=LM_ITEM):
-        T.param_specs(moe)
+        T.param_specs(configs.get_smoke(ARCH), None)
 
 
 def _fields(cfg):

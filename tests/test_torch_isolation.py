@@ -49,7 +49,8 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.kernels, repro_torch.sparse, repro_torch.tune, repro_torch.adaptive, "
         "repro_torch.core.models, repro_torch.serve, repro_torch.observe, "
         "repro_torch.launch.serve, repro_torch.launch.perf, repro_torch.launch.mesh, "
-        "repro_torch.analysis.ecg_bench, repro_torch.launch.train, repro_torch.models.encdec\n"
+        "repro_torch.analysis.ecg_bench, repro_torch.launch.train, repro_torch.models.encdec, "
+        "repro_torch.collectives\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

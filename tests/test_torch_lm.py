@@ -72,6 +72,7 @@ from repro_torch.launch import train as train_cli
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.common import LM_ITEM
+from repro_torch.models.common import MeshAxes as PortMeshAxes
 from repro_torch.models.registry import model_api
 from repro_torch.train import (
     AdamWConfig,
@@ -490,25 +491,37 @@ def test_cli_refuses_a_missing_card():
 def test_other_families_refused(family):
     """Every family is ported: ``model_api`` sends ``moe`` and ``vlm`` to the
     transformer and ``encdec`` to ``models.encdec``, whose family the
-    transformer's own functions still refuse before any device work.  What
-    each family still refuses is the sharded layout (``param_specs``,
-    ``cache_specs``), citing ROADMAP's label."""
+    transformer's own functions still refuse before any device work (its
+    ``param_specs`` and ``cache_specs`` among them).  The sharded layout's
+    specs of each family are the reference's (``tests/test_torch_lm_specs.py``);
+    the sharded *execution* of ``encdec`` is refused, citing ROADMAP's
+    label."""
     cfg = configs.get_smoke(OTHER[family])
     assert cfg.family == family
     own = (lambda: T.init_params(cfg, torch.Generator()), lambda: T.loss_fn(cfg),
-           lambda: T.decode_step(cfg))
-    calls = (own if family == "encdec" else ()) + (lambda: T.param_specs(cfg), lambda: T.cache_specs(cfg))
-    for call in calls:
+           lambda: T.decode_step(cfg), lambda: T.param_specs(cfg, _AXES), lambda: T.cache_specs(cfg, _AXES, 1, 16))
+    for call in (own if family == "encdec" else ()):
         with pytest.raises(NotImplementedError, match=LM_ITEM):
             call()
     home = {"moe": "repro_torch.models.transformer", "vlm": "repro_torch.models.transformer",
             "encdec": "repro_torch.models.encdec"}[family]
     assert model_api(cfg).init_params.__module__ == home
+    assert model_api(cfg).param_specs.__module__ == home
     assert "tokens" in build_train_step(cfg, device="cpu").input_specs
-    if family == "moe":  # the transformer's own functions take it
+    if family == "encdec":
+        from repro_torch.launch.mesh import make_smoke_mesh
+
+        with pytest.raises(NotImplementedError, match=LM_ITEM):
+            build_train_step(cfg, mesh=make_smoke_mesh(device="cpu"))
+    else:  # the transformer's own functions take it
+        assert T.param_specs(cfg, _AXES)["emb"] == ("model", "data")
         model = T.init_params(cfg, torch.Generator().manual_seed(0))
-        assert {"router", "we_g", "we_u", "we_d"} <= set(dict(model.layers[0].named_parameters()))
+        layer = set(dict(model.layers[0].named_parameters()))
+        assert ({"router", "we_g", "we_u", "we_d"} if family == "moe" else {"wg", "wu", "wd"}) <= layer
         assert callable(T.loss_fn(cfg)) and callable(T.decode_step(cfg))
+
+
+_AXES = PortMeshAxes(batch=("data",), fsdp="data", model="model", sizes={"data": 2, "model": 2})
 
 
 @pytest.mark.parametrize("family", sorted(SSM))
@@ -524,11 +537,20 @@ def test_transformer_refuses_the_ssm_families(family):
 
 
 def test_sharded_layout_refused():
-    from repro_torch.launch.mesh import make_production_mesh
-    from repro_torch.train.optimizer import opt_state_specs, zero1_specs
+    """The 2-D layout runs for the transformer families (``tests/
+    test_torch_lm_sharded.py``); what part 5b brings is refused before any
+    device work, citing ROADMAP's label: the sharded ssm and hybrid
+    families, the sharded decode step, and checkpoints under the layout.
+    The production mesh needs a world of 256 processes."""
+    from repro_torch.launch.mesh import make_production_mesh, make_smoke_mesh
 
     cfg = configs.get_smoke("stablelm_1_6b")
-    for call in (make_production_mesh, lambda: T.param_specs(cfg), lambda: T.cache_specs(cfg),
-                 lambda: zero1_specs(None, None, None), lambda: opt_state_specs(None, None, None)):
+    mesh = make_smoke_mesh(device="cpu")
+    calls = [lambda: build_serve_step(cfg, 1, 16, device="cpu", mesh=mesh)]
+    calls += [lambda a=a: build_train_step(configs.get_smoke(a), mesh=mesh) for a in SSM.values()]
+    for call in calls:
         with pytest.raises(NotImplementedError, match=LM_ITEM):
             call()
+    with pytest.raises(ValueError, match="initialised torch.distributed world of 256"):
+        make_production_mesh()
+    assert tuple(T.param_specs(cfg, _AXES)["layers"]["wq"]) == (None, "data", "model", None)

@@ -137,6 +137,47 @@ def test_extract_and_factor_blocks_equal_reference(matrix, block):
     assert np.array_equal(port_bj.factor_blocks(got), ref_bj.factor_blocks(want))
 
 
+def _extract_blocks_numpy(a, row_of_slot, block):
+    """The host build of the diagonal blocks (the port's before the
+    extraction moved to the CSR's device): numpy over the nonzeros."""
+    indptr, indices, data = a.numpy()
+    nb = row_of_slot.shape[0] // block
+    out = np.zeros((nb, block, block), dtype=data.dtype)
+    live = np.flatnonzero(row_of_slot >= 0)
+    slot_of_row = np.full(a.shape[0], -1, np.int64)
+    slot_of_row[row_of_slot[live]] = live
+    sr = np.repeat(slot_of_row, np.diff(indptr.astype(np.int64)))
+    sc = slot_of_row[indices.astype(np.int64)]
+    keep = (sr >= 0) & (sc >= 0) & (sr // block == sc // block)
+    sr, sc = sr[keep], sc[keep]
+    out[sr // block, sr % block, sc % block] = data[keep]
+    pad = np.flatnonzero(row_of_slot < 0)
+    out[pad // block, pad % block, pad % block] = 1.0
+    return out
+
+
+@pytest.mark.parametrize("block", [4, 7, 16])
+@pytest.mark.parametrize("matrix", sorted(MATRICES))
+def test_device_extraction_equals_the_numpy_one(matrix, block):
+    """The blocks built on the CSR's device equal the host build exactly,
+    on the sequential slot layout and on a rank layout with padding slots
+    in every rank."""
+    ra = MATRICES[matrix]()
+    pa = _port(ra)
+    n = ra.shape[0]
+    ros, _ = port_bj.slot_layout(n, block)
+    p = 3
+    rmax = -(-n // p) + 2
+    true_row = np.full(p * rmax, -1, np.int64)
+    starts = np.linspace(0, n, p + 1).astype(int)
+    for r in range(p):
+        true_row[r * rmax : r * rmax + starts[r + 1] - starts[r]] = np.arange(starts[r], starts[r + 1])
+    for layout in (ros, port_bj.rank_slot_layout(true_row, p, block)):
+        got = port_bj.extract_blocks(pa, layout, block)
+        want = _extract_blocks_numpy(pa, layout, block)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
 def test_rank_slot_layout_and_blocks_equal_reference():
     ra = ref_sparse.fd_laplace_2d(13)  # 169 rows: ranks of 22 (or 21) rows
     p, rmax = 8, 22

@@ -4,7 +4,7 @@ on the card.
 
     PYTHONPATH=src python tools/profile_torch_lm.py [--mode train|decode|both] \
         [--arch stablelm_1_6b] [--layers N] [--batch 8] [--seq 256] [--steps 3] \
-        [--slots 32768] [--tokens 8] [--top 20] [--trace PATH]
+        [--slots 32768] [--tokens 8] [--top 20] [--trace PATH] [--mesh D,M]
 
 ``train`` builds the config at full width in float32 as ``python -m
 repro_torch.launch.train --preset full`` does, warms up one step, times
@@ -21,6 +21,11 @@ times ``--tokens`` tokens of ``build_serve_step``'s step, then profiles
 them.  ``--layers N`` cuts the config to its first N layers at full width
 (a MoE config whose whole depth does not fit one card: olmoe-1b-7b trains
 on 8 of its 16 layers, phi3.5-moe-42b on 2 and decodes on 16 of its 32).
+``--mesh D,M`` (train) then profiles the same step sharded on a
+("data", "model") ``LMMesh`` over NCCL, from the same initial values: inside
+a ``torch.distributed.run`` world of D·M processes, or, run alone, in a
+world of 1 that the tool starts (every collective a real NCCL call of size
+1); its line adds the NCCL calls a step by axis, and only rank 0 prints.
 Each mode prints one JSON line (the card, wall and device-busy ms
 a step or token, the device's idle share, the host's launch calls, peak
 memory) and then one line per kernel name, the ``--top`` by device time.
@@ -30,8 +35,11 @@ It refuses to run without CUDA.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
+import tempfile
 import sys
 import time
 from pathlib import Path
@@ -90,6 +98,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tokens", type=int, default=8)
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--trace", default=None, help="also write the Chrome trace(s) to PATH")
+    ap.add_argument("--mesh", default=None, help="train: also the sharded step on a D,M LMMesh")
     args = ap.parse_args(argv)
 
     import torch
@@ -98,42 +107,77 @@ def main(argv=None) -> int:
         print("profile_torch_lm: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    rank = int(os.environ.get("RANK", 0))
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    torch.cuda.set_device(dev)
+    gib = 2.0 ** 30
+    out = print if rank == 0 else (lambda *a, **k: None)
+    out(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                       capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    with contextlib.ExitStack() as stack:
+        mesh = _lm_mesh(torch, args.mesh, stack) if args.mesh else None
+        _profile(torch, args, dev, gib, out, mesh)
+    return 0
+
+
+def _lm_mesh(torch, shape: str, stack):
+    """An LMMesh over the torch.distributed.run world, or over a NCCL world
+    of 1 started here (file rendezvous in a temporary directory)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import LMMesh
+
+    if "WORLD_SIZE" in os.environ:
+        dist.init_process_group("nccl")
+    else:
+        tmp = stack.enter_context(tempfile.TemporaryDirectory())
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=0, world_size=1)
+    stack.callback(dist.destroy_process_group)
+    return LMMesh(tuple(int(n) for n in shape.split(",")), ("data", "model"))
+
+
+def _profile(torch, args, dev, gib, out, mesh) -> None:
     from repro_torch.launch.train import preset_config
     from repro_torch.models.registry import model_api
-    from repro_torch.train import (AdamWConfig, DataConfig, batch_at, build_serve_step,
-                                   build_train_step, init_opt_state)
+    from repro_torch.train import AdamWConfig, DataConfig, batch_at, build_serve_step, build_train_step
 
-    dev = torch.device("cuda", 0)
-    torch.cuda.init()
-    gib = 2.0 ** 30
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     modes = ["train", "decode"] if args.mode == "both" else [args.mode]
     depth = {} if args.layers is None else {"n_layers": args.layers}
     for mode in modes:
         trace = args.trace and args.trace.replace(".json", f".{mode}.json")
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
         if mode == "train":
             cfg = preset_config(args.arch, "full").with_(dtype=torch.float32, **depth)
-            api = model_api(cfg)
-            model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-            opt = init_opt_state(model)
-            bundle = build_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=10), batch=args.batch,
-                                      seq=args.seq, device=dev)
-            step_fn = bundle.step_fn
-            extra = {k: v for k, v in bundle.input_specs.items() if k not in ("tokens", "labels")}
-            data = batch_at(DataConfig(vocab=cfg.vocab, batch=args.batch, seq=args.seq), 0, extra=extra,
-                            device=dev)
-            step_fn(model, opt, data)  # warm-up
-            line, rows = profile_fn(torch, lambda: step_fn(model, opt, data), args.steps, args.top, trace)
-            line = {"mode": "train", "arch": cfg.name, "layers": cfg.n_layers, "dtype": "float32",
-                    "batch": args.batch,
-                    "seq": args.seq, "steps": args.steps,
-                    "extra": {k: list(v[0]) for k, v in extra.items()},
-                    "tokens_per_s": args.batch * args.seq / line["wall_ms"] * 1e3, **line}
-            del model, opt
+            for on in [None] + ([mesh] if mesh is not None else []):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                bundle = build_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=10), batch=args.batch,
+                                          seq=args.seq, device=dev, mesh=on)
+                model = bundle.init(torch.Generator(device=dev).manual_seed(0))
+                opt = bundle.init_opt(model)
+                step_fn = bundle.step_fn
+                extra = {k: v for k, v in bundle.input_specs.items() if k not in ("tokens", "labels")}
+                data = batch_at(DataConfig(vocab=cfg.vocab, batch=args.batch, seq=args.seq), 0,
+                                extra=extra, device=dev)
+                step_fn(model, opt, data)  # warm-up
+                if on is not None:
+                    on.reset_counters()
+                line, rows = profile_fn(torch, lambda: step_fn(model, opt, data), args.steps, args.top,
+                                        trace and trace.replace(".json", ".mesh.json") if on else trace)
+                line = {"mode": "train", "arch": cfg.name, "layers": cfg.n_layers, "dtype": "float32",
+                        "batch": args.batch, "seq": args.seq, "steps": args.steps,
+                        "extra": {k: list(v[0]) for k, v in extra.items()},
+                        "tokens_per_s": args.batch * args.seq / line["wall_ms"] * 1e3, **line}
+                if on is not None:  # two timed passes of args.steps steps each
+                    line |= {"mesh": list(on.shape.values()), "world": on.size,
+                             "nccl_calls_per_step": {k: v / (2 * args.steps) for k, v in on.calls.items()}}
+                del model, opt
+                line["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated(dev) / gib
+                out(json.dumps(line), flush=True)
+                for r in rows:
+                    out(json.dumps({"mode": "train", "mesh": line.get("mesh"), **r}), flush=True)
         else:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
             cfg = preset_config(args.arch, "full").with_(**depth)
             api = model_api(cfg)
             model = api.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
@@ -158,11 +202,10 @@ def main(argv=None) -> int:
                     "dtype": str(cfg.dtype).removeprefix("torch."),
                     "batch": 1, "cache_slots": args.slots, "tokens": args.tokens, **line}
             del model, cache
-        line["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated(dev) / gib
-        print(json.dumps(line), flush=True)
-        for r in rows:
-            print(json.dumps({"mode": mode, **r}), flush=True)
-    return 0
+            line["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated(dev) / gib
+            out(json.dumps(line), flush=True)
+            for r in rows:
+                out(json.dumps({"mode": mode, **r}), flush=True)
 
 
 if __name__ == "__main__":
