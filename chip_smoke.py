@@ -466,24 +466,45 @@ counts (and the mesh's counters) set to 0 just before its solve:
     ``reduce_scatter`` and ``psum`` and ``hierarchical_allreduce`` (2-step
     on a (1, 1, 1) pod mesh, no-pod on (1, 1)) each equal to x, their
     definition on one process, and the ms of one psum of an 8 × 256 × 2048
-    residual; the trainer's CLI at ``--preset smoke --mesh 1,1`` for 2
-    steps (the CLI's path inside a world; its lines as phase 50's, the
-    smoke config's first line); then stablelm-1.6b at full width and depth
-    and olmoe-1b-7b at full width on 2 of its 16 layers (reduced in depth;
-    capacity factor E/k, so nothing drops), f32, batch 8 × 256, AdamW with
-    eps 1e-3: two sharded steps on the (1, 1) ``LMMesh`` and two
-    one-device steps from the same N(0, 0.02) weights, in turns (sharded,
-    one device, one device, sharded): loss and grad norm within 1e-5
-    relative, the gathered first moments within 1e-4 of their max, the
-    gathered parameters within 1e-5 of max |p|; ms a step of each, the
-    NCCL calls and elements a step by axis (at least one call), peak
-    memory.  (ii) With two cards or more a world of 2 on (1, 2): two
-    stablelm steps, loss and grad norm within 1e-4 relative of rank 0's
-    one-device steps; with four or more a world of 4 on (2, 2): two steps
-    of granite-8b at full depth (132 GB of f32 state); both with the
-    metrics equal on every rank, ms a step by rank and peak memory by
-    rank.  On fewer cards a line says that (ii) did not run and why.  No
-    port kernel runs here.  The phase prints its seconds.
+    residual; the trainer's CLI at ``--preset smoke --mesh 1,1``: 2 steps
+    with ``--ckpt-dir`` (its lines as phase 50's, the smoke config's first
+    line), ``--resume`` to 4, and 4 uninterrupted steps, the resumed loss
+    lines equal to the uninterrupted run's; then stablelm-1.6b,
+    mamba2-780m, zamba2-1.2b and whisper-medium at full width and depth
+    (whisper's 8 × 1500 frames beside its tokens) and olmoe-1b-7b at full
+    width on 2 of its 16 layers (reduced in depth; capacity factor E/k, so
+    nothing drops), f32, batch 8 × 256, AdamW with eps 1e-3: two sharded
+    steps on the (1, 1) ``LMMesh`` and two one-device steps from the same
+    N(0, 0.02) weights, in turns (sharded, one device, one device,
+    sharded): loss and grad norm within 1e-5 relative, the gathered first
+    moments within 1e-4 of their max, the gathered parameters within 1e-5
+    of max |p|; ms a step of each, the NCCL calls and elements a step by
+    axis (at least one call), peak memory.  Then the sharded decode step
+    (``build_serve_step(mesh=…)``) of stablelm-1.6b, mamba2-780m,
+    zamba2-1.2b, whisper-medium (after ``prefill``) and olmoe-1b-7b (16 of
+    16 layers) in bf16 at batch 1 with a 32768-slot cache: 8 greedy tokens
+    against 8 through the one-device step on the same N(0, 0.02) weights,
+    the tokens equal and the logits within ``DECODE_GATE`` of the largest
+    |logit|; ms a token of each (the median from the third token), the
+    NCCL calls of a token.  (ii) With two cards or more a world of 2 on
+    (1, 2): two steps of stablelm-1.6b and of mamba2-780m, loss and grad
+    norm within 1e-4 relative of rank 0's one-device steps; with four or
+    more a world of 4 on (2, 2): two steps of granite-8b at full depth
+    (132 GB of f32 state) and of zamba2-1.2b at full depth (against rank
+    0's one-device steps), and phi3-medium-14b's decode on (1, 4) at full
+    width on 10 of its 40 layers (reduced in depth: rank 0 holds the f32
+    model beside its block) with a 32768-slot cache (its 10 K/V heads do
+    not divide 4, so the cache's slots are sharded over "model" and each
+    token's attention is combined across the cards): 8 greedy f32 tokens
+    against rank 0's one-device f32 decode, the tokens equal and the
+    logits within ``F32_DECODE_GATE`` of the largest |logit|; then both
+    paths in bf16 on the same weights rounded, fed the f32 tokens, the
+    sharded logits' largest error against the f32 one-device logits at
+    most ``BF16_ACROSS_CARDS`` times the one-device bf16 logits'; all with
+    the metrics and tokens equal on every rank, ms by rank and peak memory
+    by rank.  On fewer cards a
+    line says that (ii) did not run and why.  No port kernel runs here.
+    The phase prints its seconds.
 
 The ``kernels`` line's ``bsr_spmbv``, ``fused_gram``, ``ecg_tail`` and
 ``rank_apply`` rows carry ``widths`` entries for t = 4 and 16 with their
@@ -526,6 +547,17 @@ WIDE = (T_WIDE, 32)  # and the kernels' widest, checked in phases 3 and 12
 MAX_ITERS = 5000
 REPS, BATCHES = 10, 5
 SLOW_MS, SLOW_REPS, SLOW_BATCHES = 2.0, 2, 3
+# phase 54 (i)'s bf16 decode on a world of 1: sharded against one-device
+# logits within this share of the largest |logit| (two bfloat16 roundings
+# at 2^-8 each)
+DECODE_GATE = 2 * 2.0 ** -8
+# (ii)'s decode across four cards: in f32 the sharded logits within this share
+# of the largest |logit| of the one-device decode's; in bf16 the sharded
+# logits' error against the f32 one-device logits at most this many times the
+# one-device bf16 decode's (each card's row-parallel partial product is
+# rounded to bf16 before the sum: one rounding more a product)
+F32_DECODE_GATE = 1e-4
+BF16_ACROSS_CARDS = 4.0
 
 
 def gate(phase, ok, what) -> None:
@@ -1141,9 +1173,10 @@ def lm_mesh_worker(out_dir: Path, rank: int, world: int) -> int:
     from repro_torch.launch import train as train_cli
     from repro_torch.launch.mesh import LMMesh
     from repro_torch.models import moe as M
-    from repro_torch.models import transformer as T
-    from repro_torch.models.common import gather_named, named_specs
-    from repro_torch.train import AdamWConfig, DataConfig, batch_at, build_train_step, init_opt_state
+    from repro_torch.models.common import gather_named
+    from repro_torch.models.registry import model_api
+    from repro_torch.train import (AdamWConfig, DataConfig, batch_at, build_serve_step, build_train_step,
+                                   init_opt_state)
 
     torch.cuda.set_device(rank)  # NCCL: the card before the group
     dev = torch.device("cuda", rank)
@@ -1167,6 +1200,19 @@ def lm_mesh_worker(out_dir: Path, rank: int, world: int) -> int:
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
+    def full_n002(arch, dtype, seed=0, **kw):
+        """The config at full width (``kw`` its cuts) and its model on the
+        card, every weight of two dims or more from N(0, 0.02) (the
+        initialiser's rule saturates attention, as in phase 50)."""
+        cfg = get_config(arch).with_(dtype=dtype, **kw)
+        full = model_api(cfg).init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        n002(full, 29)
+        return cfg, full
+
+    def batch_of(cfg, bundle, batch, seq, step):
+        extra = {k: v for k, v in bundle.input_specs.items() if k not in ("tokens", "labels")}
+        return batch_at(DataConfig(vocab=cfg.vocab, batch=batch, seq=seq), step, extra=extra, device=dev)
+
     def sharded_steps(cfg, shape, batch, seq, full=None, seed=0):
         """Two sharded steps on ``shape`` from ``full`` (or, without it, the
         initialiser's weights): the metrics, ms, NCCL calls and elements by
@@ -1182,7 +1228,7 @@ def lm_mesh_worker(out_dir: Path, rank: int, world: int) -> int:
         torch.cuda.reset_peak_memory_stats(dev)
         rows = []
         for step in range(2):
-            data = batch_at(DataConfig(vocab=cfg.vocab, batch=batch, seq=seq), step, device=dev)
+            data = batch_of(cfg, bundle, batch, seq, step)
             mesh.reset_counters()
             kernels.reset_launch_counts()
             with M.record_dropped() as drops:
@@ -1192,13 +1238,12 @@ def lm_mesh_worker(out_dir: Path, rank: int, world: int) -> int:
                          "dropped": sum(int(n) for n in drops), "launches": kernels.launch_counts()})
         return mesh, bundle, model, opt, rows, torch.cuda.max_memory_allocated(dev) / gib
 
-    def against_one_device(arch, n_layers, kw, batch, seq):
+    def against_one_device(arch, kw, batch, seq):
         """(i): two sharded steps on (1, 1) and two one-device steps from the
         same N(0, 0.02) weights, in turns (sharded, one device, one device,
         sharded)."""
-        cfg = get_config(arch).with_(dtype=torch.float32, n_layers=n_layers, **kw)
-        full = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-        n002(full, 29)
+        cfg, full = full_n002(arch, torch.float32, **kw)
+        torch.cuda.reset_peak_memory_stats(dev)
         mesh = LMMesh((1, 1), ("data", "model"))
         bundle = build_train_step(cfg, opt_cfg, batch=batch, seq=seq, mesh=mesh)
         model = bundle.shard(full)
@@ -1207,7 +1252,7 @@ def lm_mesh_worker(out_dir: Path, rank: int, world: int) -> int:
         one_opt = init_opt_state(full)
         sharded, one = [], []
         for step in range(2):
-            data = batch_at(DataConfig(vocab=cfg.vocab, batch=batch, seq=seq), step, device=dev)
+            data = batch_of(cfg, bundle, batch, seq, step)
 
             def run_sharded():
                 mesh.reset_counters()
@@ -1223,8 +1268,8 @@ def lm_mesh_worker(out_dir: Path, rank: int, world: int) -> int:
 
             for fn in ((run_sharded, run_one) if step == 0 else (run_one, run_sharded)):
                 fn()
-        spec_of = named_specs(bundle.param_specs)
-        mom_of = named_specs(bundle.opt_specs["mu"])
+        spec_of = bundle.state_specs["params"]
+        mom_of = bundle.state_specs["opt"]["mu"]
         p_max = mu_max = dp = dmu = 0.0
         full_p = dict(full.named_parameters())
         for name, p_ in model.named_parameters():  # gathered leaf by leaf
@@ -1236,7 +1281,9 @@ def lm_mesh_worker(out_dir: Path, rank: int, world: int) -> int:
             del g, gm
         rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
         row = {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch, "seq": seq, "mesh": [1, 1],
-               "kw": kw, "sharded": sharded, "one_device": one,
+               "kw": kw, "extra_inputs": {k: list(v[0]) for k, v in bundle.input_specs.items()
+                                          if k not in ("tokens", "labels")},
+               "sharded": sharded, "one_device": one,
                "loss_rel": max(rel(a["loss"], b["loss"]) for a, b in zip(sharded, one)),
                "grad_norm_rel": max(rel(a["grad_norm"], b["grad_norm"]) for a, b in zip(sharded, one)),
                "max_dmu_over_max_mu": dmu / mu_max, "max_dp_over_max_p": dp / p_max,
@@ -1244,6 +1291,119 @@ def lm_mesh_worker(out_dir: Path, rank: int, world: int) -> int:
         del model, opt, full, full_p, one_opt
         torch.cuda.empty_cache()
         return row
+
+    def greedy(cfg, step_fn, info, params, frames, slots, n_tokens, mesh=None, feed=None):
+        """``n_tokens`` greedy tokens at batch 1 from token 1 at slot 0 (the
+        encoder-decoder after ``prefill`` of ``frames``): the tokens, the
+        logits (float32, gathered on a mesh), ms of each token, NCCL calls
+        of the last token.  With ``feed`` the step after token t is fed
+        ``feed[t]`` in place of the token it picked."""
+        cache = info["prefill"](params, frames) if "prefill" in info else info["init_cache"]()
+        tok = torch.ones(1, dtype=torch.int32, device=dev)
+        toks, logits, ms, calls = [], [], [], {}
+        for t in range(n_tokens):
+            if mesh is not None:
+                mesh.reset_counters()
+            lg, ms_t = timed(lambda: step_fn(params, cache, {
+                "token": tok, "pos": torch.full((1,), t, dtype=torch.int32, device=dev)})[0])
+            if mesh is not None:
+                calls = dict(mesh.calls)
+                lg = info["gather_logits"](lg)
+            logits.append(lg.float())
+            tok = lg[:, :cfg.vocab].argmax(dim=-1).to(torch.int32)
+            toks.append(int(tok))
+            if feed is not None:
+                tok = torch.full((1,), feed[t], dtype=torch.int32, device=dev)
+            ms.append(ms_t)
+        del cache
+        return toks, torch.stack(logits), ms, calls
+
+    def decode_against_one_device(arch, slots, n_tokens=8, **kw):
+        """(i): ``n_tokens`` greedy bf16 tokens through
+        ``build_serve_step(mesh=…)`` on (1, 1) and through the one-device
+        step on the same N(0, 0.02) weights, batch 1, ``slots`` cache
+        slots."""
+        cfg, full = full_n002(arch, get_config(arch).dtype, seed=3, **kw)
+        frames = None
+        if cfg.family == "encdec":
+            frames = (torch.randn((1, cfg.enc_ctx, cfg.d_model), generator=torch.Generator(device=dev)
+                                  .manual_seed(5), device=dev) * 0.02).to(cfg.dtype)
+        torch.cuda.reset_peak_memory_stats(dev)
+        mesh = LMMesh((1, 1), ("data", "model"))
+        step_s, info_s = build_serve_step(cfg, 1, slots, mesh=mesh)
+        params = info_s["shard"](full)
+        kernels.reset_launch_counts()
+        s_toks, s_logits, s_ms, calls = greedy(cfg, step_s, info_s, params, frames, slots, n_tokens, mesh)
+        row = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": str(cfg.dtype).removeprefix("torch."),
+               "batch": 1, "cache_slots": slots, "mesh": [1, 1], "tokens": n_tokens,
+               "cache_specs": {k: list(v) for k, v in info_s["cache_specs"].items()},
+               "tokens_sharded": s_toks, "ms_per_token": statistics.median(s_ms[2:]),
+               "ms_first_token": s_ms[0], "nccl_calls_per_token": calls,
+               "launches": kernels.launch_counts(),
+               "logits_finite": bool(torch.isfinite(s_logits).all())}
+        del params
+        torch.cuda.empty_cache()
+        step_1, info_1 = build_serve_step(cfg, 1, slots, device=dev)
+        o_toks, o_logits, o_ms, _ = greedy(cfg, step_1, info_1, full, frames, slots, n_tokens)
+        row |= {"tokens_one_device": o_toks, "tokens_equal": s_toks == o_toks,
+                "one_device_ms_per_token": statistics.median(o_ms[2:]),
+                "max_abs_dlogit": float((s_logits - o_logits).abs().max()),
+                "max_abs_logit": float(o_logits.abs().max())}
+        row["peak_gib"] = torch.cuda.max_memory_allocated(dev) / gib
+        full = None
+        torch.cuda.empty_cache()
+        return row
+
+    def decode_across_cards(arch, slots, shape, n_layers, n_tokens=8):
+        """(ii): the slot-sharded decode on ``shape`` at full width on
+        ``n_layers`` layers, batch 1, against rank 0's one-device decode on
+        the same N(0, 0.02) weights: in f32 the greedy tokens and logits;
+        then in bf16 (the same weights rounded) both paths fed the f32
+        sharded run's tokens, each path's logits against the f32 one-device
+        logits."""
+        cfg, full = full_n002(arch, torch.float32, seed=3, n_layers=n_layers)
+        torch.cuda.reset_peak_memory_stats(dev)
+        mesh = LMMesh(shape, ("data", "model"))
+        row = {"arch": cfg.name, "layers": cfg.n_layers, "of_layers": get_config(arch).n_layers, "batch": 1,
+               "cache_slots": slots, "mesh": list(shape), "tokens": n_tokens}
+        ref = feed = None
+        for dtype in (torch.float32, torch.bfloat16):
+            c, tag = cfg.with_(dtype=dtype), str(dtype).removeprefix("torch.")
+            full = full.to(dtype)
+            step_s, info_s = build_serve_step(c, 1, slots, mesh=mesh)
+            params = info_s["shard"](full)
+            s_toks, s_logits, s_ms, calls = greedy(c, step_s, info_s, params, None, slots, n_tokens, mesh, feed)
+            del params
+            torch.cuda.empty_cache()
+            row[tag] = {"fed": feed is not None, "tokens_sharded": s_toks,
+                        "ms_per_token": statistics.median(s_ms[2:]), "ms_first_token": s_ms[0],
+                        "nccl_calls_per_token": calls, "logits_finite": bool(torch.isfinite(s_logits).all())}
+            if rank == 0:
+                step_1, info_1 = build_serve_step(c, 1, slots, device=dev)
+                o_toks, o_logits, o_ms, _ = greedy(c, step_1, info_1, full, None, slots, n_tokens, feed=feed)
+                ref = o_logits if ref is None else ref
+                row[tag] |= {"tokens_one_device": o_toks, "one_device_ms_per_token": statistics.median(o_ms[2:]),
+                             "max_abs_dlogit": float((s_logits - o_logits).abs().max()),
+                             "max_abs_logit": float(o_logits.abs().max()),
+                             "sharded_err_vs_f32": float((s_logits - ref).abs().max()),
+                             "one_device_err_vs_f32": float((o_logits - ref).abs().max())}
+                torch.cuda.empty_cache()
+            feed = s_toks if feed is None else feed
+        row["peak_gib"] = torch.cuda.max_memory_allocated(dev) / gib
+        del full
+        torch.cuda.empty_cache()
+        return row
+
+    def one_device_steps(cfg, full, batch, seq):
+        """Rank 0's two one-device steps on the sharded run's weights and
+        data, for (ii)'s comparison."""
+        bundle = build_train_step(cfg, opt_cfg, batch=batch, seq=seq, device=dev)
+        one_opt = init_opt_state(full)
+        one = []
+        for step in range(2):
+            m, ms = timed(lambda: bundle.step_fn(full, one_opt, batch_of(cfg, bundle, batch, seq, step)))
+            one.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "ms": ms})
+        return one
 
     out = {}
     try:
@@ -1259,36 +1419,57 @@ def lm_mesh_worker(out_dir: Path, rank: int, world: int) -> int:
                                   "calls": dict(flat.calls) | {"pod_mesh": dict(pod.calls)},
                                   "psum_ms_residual_8x256x2048": psum_ms / 50}
             # the trainer's CLI inside the world on its (1, 1) mesh, at the smoke
-            # preset: the full width runs below, against the one-device step
-            buf = __import__("io").StringIO()
-            t0 = time.perf_counter()
-            with __import__("contextlib").redirect_stdout(buf):
-                train_cli.main(["--arch", "stablelm_1_6b", "--preset", "smoke", "--mesh", "1,1",
-                                "--steps", "2", "--log-every", "1"])
-            out["cli"] = {"lines": buf.getvalue().splitlines(), "seconds": time.perf_counter() - t0}
+            # preset (the full width runs below, against the one-device step):
+            # 2 steps with checkpoints, resumed to 4, and 4 uninterrupted
+            ckpt = out_dir / "cli_ckpt"
+            for tag, extra in (("cli", ["--steps", "2", "--ckpt-dir", str(ckpt)]),
+                               ("cli_resumed", ["--steps", "4", "--ckpt-dir", str(ckpt), "--resume"]),
+                               ("cli_uninterrupted", ["--steps", "4"])):
+                buf = __import__("io").StringIO()
+                t0 = time.perf_counter()
+                with __import__("contextlib").redirect_stdout(buf):
+                    train_cli.main(["--arch", "stablelm_1_6b", "--preset", "smoke", "--mesh", "1,1",
+                                    "--log-every", "1"] + extra)
+                out[tag] = {"lines": buf.getvalue().splitlines(), "seconds": time.perf_counter() - t0}
             torch.cuda.empty_cache()
-            out["stablelm"] = against_one_device("stablelm_1_6b", 24, {}, 8, 256)
+            out["stablelm"] = against_one_device("stablelm_1_6b", {}, 8, 256)
             # olmoe: 2 of 16 layers; capacity_factor E/k: no pick drops
-            out["olmoe"] = against_one_device("olmoe_1b_7b", 2, {"capacity_factor": 8.0}, 8, 256)
-        elif world == 2:
-            cfg = get_config("stablelm_1_6b").with_(dtype=torch.float32)
-            full = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-            n002(full, 29)
-            *_, rows, peak = sharded_steps(cfg, (1, 2), 8, 256, full=full)
-            out["sharded"] = {"arch": cfg.name, "mesh": [1, 2], "steps": rows, "peak_gib": peak}
-            if rank == 0:  # the same weights and data on one card
-                one_fn = build_train_step(cfg, opt_cfg, batch=8, seq=256, device=dev).step_fn
-                one_opt = init_opt_state(full)
-                one = []
-                for step in range(2):
-                    data = batch_at(DataConfig(vocab=cfg.vocab, batch=8, seq=256), step, device=dev)
-                    m, ms = timed(lambda: one_fn(full, one_opt, data))
-                    one.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "ms": ms})
-                out["one_device"] = one
-        else:  # granite-8b at full depth: 132 GB of f32 state over four cards
+            out["olmoe"] = against_one_device("olmoe_1b_7b", {"n_layers": 2, "capacity_factor": 8.0}, 8, 256)
+            # the ssm, hybrid and encdec families at full width and depth
+            # (whisper's 8 x 1500 frames beside its 8 x 256 tokens)
+            for arch in ("mamba2_780m", "zamba2_1_2b", "whisper_medium"):
+                out[arch] = against_one_device(arch, {}, 8, 256)
+            # the sharded decode step of every family, bf16, 32768 slots
+            out["decode"] = [decode_against_one_device(arch, 32768) for arch in
+                             ("stablelm_1_6b", "mamba2_780m", "zamba2_1_2b", "whisper_medium", "olmoe_1b_7b")]
+        elif world == 2:  # stablelm and mamba2 on (1, 2), each against rank 0's one-device steps
+            for arch in ("stablelm_1_6b", "mamba2_780m"):
+                cfg, full = full_n002(arch, torch.float32)
+                *_, rows, peak = sharded_steps(cfg, (1, 2), 8, 256, full=full)
+                out[arch] = {"arch": cfg.name, "mesh": [1, 2], "steps": rows, "peak_gib": peak}
+                if rank == 0:  # the same weights and data on one card
+                    out[arch]["one_device"] = one_device_steps(cfg, full, 8, 256)
+                del full
+                torch.cuda.empty_cache()
+        else:
+            # granite-8b at full depth: 132 GB of f32 state over four cards
             cfg = get_config("granite_8b").with_(dtype=torch.float32)
             *_, rows, peak = sharded_steps(cfg, (2, 2), 8, 256, seed=31)
-            out["sharded"] = {"arch": cfg.name, "mesh": [2, 2], "steps": rows, "peak_gib": peak}
+            out["granite_8b"] = {"arch": cfg.name, "mesh": [2, 2], "steps": rows, "peak_gib": peak}
+            torch.cuda.empty_cache()
+            # zamba2 at full depth on (2, 2), against rank 0's one-device steps
+            cfg, full = full_n002("zamba2_1_2b", torch.float32)
+            *_, rows, peak = sharded_steps(cfg, (2, 2), 8, 256, full=full)
+            out["zamba2_1_2b"] = {"arch": cfg.name, "mesh": [2, 2], "steps": rows, "peak_gib": peak}
+            if rank == 0:
+                out["zamba2_1_2b"]["one_device"] = one_device_steps(cfg, full, 8, 256)
+            del full
+            torch.cuda.empty_cache()
+            # phi3-medium's 10 K/V heads do not divide 4: the cache's slots
+            # go over "model", and each token's attention is combined across
+            # the cards; rank 0 also decodes on one card, in f32 on 10 of
+            # the 40 layers (it then holds the f32 model beside its block)
+            out["decode"] = decode_across_cards("phi3_medium_14b", 32768, (1, 4), 10)
     finally:
         dist.destroy_process_group()
     (out_dir / f"rank{rank}.json").write_text(json.dumps(out))
@@ -1303,7 +1484,7 @@ def lm_mesh_phases(torch) -> dict:
     count = torch.cuda.device_count()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
-    out = spawn_world(1, timeout_s=500, flag="--lm-mesh-worker", phase="lm_mesh")[0]
+    out = spawn_world(1, timeout_s=700, flag="--lm-mesh-worker", phase="lm_mesh")[0]
     col = out["collectives"]
     log({"phase": "lm_mesh_collectives", "world": 1, **col})
     gate("lm_mesh_collectives", all(col["equal"].values()), f"a collective differs from x: {col['equal']}")
@@ -1313,16 +1494,26 @@ def lm_mesh_phases(torch) -> dict:
     gate("lm_mesh_cli", lines[0] == "arch=stablelm-smoke params=0.5M preset=smoke" and lines[-1] == "done"
          and len(steps) == 2 and all(math.isfinite(float(s_[3])) and math.isfinite(float(s_[5]))
                                      for s_ in steps), f"printed {lines}")
+    # the CLI stopped after 2 steps with --ckpt-dir, resumed to 4: the loss
+    # lines (without the ms) equal the uninterrupted 4-step run's
+    fields = lambda ls: [ln.split()[:8] for ln in ls if ln.startswith("step ")]
+    resumed, whole = out["cli_resumed"]["lines"], out["cli_uninterrupted"]["lines"]
+    log({"phase": "lm_mesh_checkpoint", "world": 1, "mesh": [1, 1], "first": lines, "resumed": resumed,
+         "uninterrupted": whole, "seconds": out["cli_resumed"]["seconds"]})
+    gate("lm_mesh_checkpoint", "resumed from step 2" in resumed and len(fields(whole)) == 4
+         and fields(lines) == fields(whole)[:2] and fields(resumed) == fields(whole)[2:],
+         f"first {lines}, resumed {resumed}, uninterrupted {whole}")
     launches = {}
-    for arch in ("stablelm", "olmoe"):
+    reduced = {"olmoe": "depth: 2 of 16 layers at full width (the f32 state of 16 is 111 GB)"}
+    for arch in ("stablelm", "olmoe", "mamba2_780m", "zamba2_1_2b", "whisper_medium"):
         row = out[arch]
         sh, one = row["sharded"], row["one_device"]
         summary = {"phase": "lm_mesh_world1", "card": smi, "world": 1, **row,
                    "ms_per_step": [r_["ms"] for r_ in sh], "one_device_ms_per_step": [r_["ms"] for r_ in one],
                    "nccl_calls_per_step": sh[-1]["nccl_calls"],
                    "nccl_calls_total_per_step": sum(sh[-1]["nccl_calls"].values())}
-        if arch == "olmoe":
-            summary["reduced"] = "depth: 2 of 16 layers at full width (the f32 state of 16 is 111 GB)"
+        if arch in reduced:
+            summary["reduced"] = reduced[arch]
         log(summary)
         gate(f"lm_mesh_world1 {row['arch']}", row["loss_rel"] <= 1e-5 and row["grad_norm_rel"] <= 1e-5
              and row["max_dmu_over_max_mu"] <= 1e-4 and row["max_dp_over_max_p"] <= 1e-5
@@ -1332,7 +1523,17 @@ def lm_mesh_phases(torch) -> dict:
         for r_ in sh:
             for k, v in r_["launches"].items():
                 launches[k] = launches.get(k, 0) + v
-    for world, what in ((2, "(1, 2): stablelm-1.6b"), (4, "(2, 2): granite-8b at full depth")):
+    for row in out["decode"]:
+        log({"phase": "lm_mesh_decode_world1", "card": smi, "world": 1, **row})
+        gate(f"lm_mesh_decode_world1 {row['arch']}", row["tokens_equal"] and row["logits_finite"]
+             and row["max_abs_dlogit"] <= DECODE_GATE * row["max_abs_logit"],
+             f"tokens {row['tokens_sharded']} against {row['tokens_one_device']}, max |dlogit| "
+             f"{row['max_abs_dlogit']} of {row['max_abs_logit']}")
+        for k, v in row["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    worlds = ((2, "(1, 2): stablelm-1.6b and mamba2-780m"),
+              (4, "(2, 2): granite-8b and zamba2-1.2b at full depth; (1, 4): phi3-medium-14b decode"))
+    for world, what in worlds:
         phase = f"lm_mesh_{'x'.join(map(str, (1, 2) if world == 2 else (2, 2)))}"
         if count < world:
             log({"phase": phase, "ran": False, "cards": count,
@@ -1341,26 +1542,53 @@ def lm_mesh_phases(torch) -> dict:
                         "not run"})
             continue
         t0 = time.perf_counter()
-        per_rank = spawn_world(world, timeout_s=500, flag="--lm-mesh-worker", phase=phase)
-        rows = [r_["sharded"] for r_ in per_rank]
-        summary = {"phase": phase, "ran": True, "world": world, "card": smi, "mesh": rows[0]["mesh"],
-                   "arch": rows[0]["arch"], "steps": rows[0]["steps"],
-                   "ms_per_step_by_rank": [[s_["ms"] for s_ in r_["steps"]] for r_ in rows],
-                   "peak_gib_by_rank": [r_["peak_gib"] for r_ in rows], "seconds": time.perf_counter() - t0}
-        ok = all(math.isfinite(s_["loss"]) and math.isfinite(s_["grad_norm"])
-                 for r_ in rows for s_ in r_["steps"])
-        same = all(abs(s_["loss"] - t_["loss"]) == 0 for r_ in rows for s_, t_ in zip(r_["steps"], rows[0]["steps"]))
-        summary["metrics_equal_on_every_rank"] = same
-        if "one_device" in per_rank[0]:
-            one = per_rank[0]["one_device"]
-            summary["one_device"] = one
-            summary["loss_rel"] = max(abs(s_["loss"] - o["loss"]) / abs(o["loss"])
-                                      for s_, o in zip(rows[0]["steps"], one))
-            summary["grad_norm_rel"] = max(abs(s_["grad_norm"] - o["grad_norm"]) / abs(o["grad_norm"])
-                                           for s_, o in zip(rows[0]["steps"], one))
-            ok = ok and summary["loss_rel"] <= 1e-4 and summary["grad_norm_rel"] <= 1e-4
-        log(summary)
-        gate(phase, ok and same, f"steps {rows[0]['steps']}")
+        per_rank = spawn_world(world, timeout_s=700, flag="--lm-mesh-worker", phase=phase)
+        for arch in ("stablelm_1_6b", "mamba2_780m") if world == 2 else ("granite_8b", "zamba2_1_2b"):
+            rows = [r_[arch] for r_ in per_rank]
+            summary = {"phase": phase, "ran": True, "world": world, "card": smi, "mesh": rows[0]["mesh"],
+                       "arch": rows[0]["arch"], "steps": rows[0]["steps"],
+                       "ms_per_step_by_rank": [[s_["ms"] for s_ in r_["steps"]] for r_ in rows],
+                       "peak_gib_by_rank": [r_["peak_gib"] for r_ in rows],
+                       "seconds": time.perf_counter() - t0}
+            ok = all(math.isfinite(s_["loss"]) and math.isfinite(s_["grad_norm"])
+                     for r_ in rows for s_ in r_["steps"])
+            same = all(abs(s_["loss"] - t_["loss"]) == 0
+                       for r_ in rows for s_, t_ in zip(r_["steps"], rows[0]["steps"]))
+            summary["metrics_equal_on_every_rank"] = same
+            if "one_device" in rows[0]:
+                one = rows[0]["one_device"]
+                summary["one_device"] = one
+                summary["loss_rel"] = max(abs(s_["loss"] - o["loss"]) / abs(o["loss"])
+                                          for s_, o in zip(rows[0]["steps"], one))
+                summary["grad_norm_rel"] = max(abs(s_["grad_norm"] - o["grad_norm"]) / abs(o["grad_norm"])
+                                               for s_, o in zip(rows[0]["steps"], one))
+                ok = ok and summary["loss_rel"] <= 1e-4 and summary["grad_norm_rel"] <= 1e-4
+            log(summary)
+            gate(f"{phase} {arch}", ok and same, f"steps {rows[0]['steps']}")
+        if world == 4:
+            rows = [r_["decode"] for r_ in per_rank]
+            row, f32, b16 = rows[0], rows[0]["float32"], rows[0]["bfloat16"]
+            log({"phase": "lm_mesh_decode_1x4", "ran": True, "world": 4, "card": smi, **row,
+                 "reduced": f"depth: {row['layers']} of {row['of_layers']} layers at full width (rank 0 "
+                            "holds the f32 model beside its block)",
+                 "ms_per_token_by_rank": {t: [r_[t]["ms_per_token"] for r_ in rows]
+                                          for t in ("float32", "bfloat16")},
+                 "peak_gib_by_rank": [r_["peak_gib"] for r_ in rows]})
+            same = all(r_[t]["tokens_sharded"] == row[t]["tokens_sharded"]
+                       for r_ in rows for t in ("float32", "bfloat16"))
+            # f32: the combine across cards against one card, the tokens equal
+            # and the logits within F32_DECODE_GATE of the largest; bf16 (both
+            # paths fed the f32 tokens): the sharded path's error against the
+            # f32 one-device logits at most BF16_ACROSS_CARDS times the
+            # one-device bf16 path's
+            gate("lm_mesh_decode_1x4", same and f32["tokens_sharded"] == f32["tokens_one_device"]
+                 and f32["logits_finite"] and b16["logits_finite"]
+                 and f32["max_abs_dlogit"] <= F32_DECODE_GATE * f32["max_abs_logit"]
+                 and b16["sharded_err_vs_f32"] <= BF16_ACROSS_CARDS * b16["one_device_err_vs_f32"],
+                 f"tokens by rank {[r_['float32']['tokens_sharded'] for r_ in rows]} against "
+                 f"{f32['tokens_one_device']}; f32 max |dlogit| {f32['max_abs_dlogit']} of "
+                 f"{f32['max_abs_logit']}; bf16 error against f32: sharded {b16['sharded_err_vs_f32']}, "
+                 f"one device {b16['one_device_err_vs_f32']}")
     log({"phase": "lm_mesh", "seconds": time.perf_counter() - t_phase, "launches": launches})
     return launches
 

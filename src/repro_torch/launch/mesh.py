@@ -395,6 +395,11 @@ class LMMesh:
         finally:
             self._records = before
 
+    def barrier(self) -> None:
+        """Wait for every process of the world (nothing without one)."""
+        if self.distributed:
+            dist.barrier(device_ids=[self.device.index] if self.backend == "nccl" else None)
+
     # ------------------------------------------------------------ geometry
     def axes(self, axis) -> tuple[str, ...]:
         """``axis`` (a name or a tuple of names) as a tuple in mesh order."""
@@ -463,32 +468,51 @@ class LMMesh:
 
     def _raw(self, op: str, x: torch.Tensor, axes, dim: int = 0, reduce_op=None) -> torch.Tensor:
         """One collective over ``axes`` without autograd: ``all_gather``,
-        ``reduce_scatter`` (tiled along ``dim``) or ``all_reduce``."""
+        ``reduce_scatter`` (tiled along ``dim``) or ``all_reduce``.  The
+        result is contiguous in ``x``'s layout: the blocks travel stacked
+        on a new leading axis and one copy merges that axis into ``dim``
+        (none where ``dim`` is 0 or the axis has one process)."""
         if not self.distributed:  # a mesh of one position: nothing to call
             return x
         n = self.axis_size(axes)
         group = self._group(axes)[0]
+        dim = dim % max(x.dim(), 1)
         if op == "all_reduce":
             out = x.clone(memory_format=torch.contiguous_format)
             dist.all_reduce(out, op=reduce_op or dist.ReduceOp.SUM, group=group)
+        elif op == "all_gather":
+            xc = x.contiguous()
+            out = xc.new_empty((n * xc.shape[0],) + xc.shape[1:])
+            dist.all_gather_into_tensor(out, xc, group=group)
+            out = _merge(out.view((n,) + xc.shape), dim)
         else:
-            xm = x.movedim(dim, 0).contiguous()
-            if op == "all_gather":
-                out = xm.new_empty((n * xm.shape[0],) + xm.shape[1:])
-                dist.all_gather_into_tensor(out, xm, group=group)
-            else:
-                if xm.shape[0] % n:
-                    raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not "
-                                     f"divide over {axes} ({n})")
-                out = xm.new_empty((xm.shape[0] // n,) + xm.shape[1:])
-                dist.reduce_scatter_tensor(out, xm, group=group)
-            out = out.movedim(0, dim)
+            if x.shape[dim] % n:
+                raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not "
+                                 f"divide over {axes} ({n})")
+            xs = _split(x, n, dim).contiguous()  # (n, block)
+            out = xs.new_empty(xs.shape[1:])
+            dist.reduce_scatter_tensor(out, xs.view((n * xs.shape[1],) + xs.shape[2:]), group=group)
         self._count(op, axes, x, out)
         return out
 
     def __repr__(self) -> str:
         return (f"LMMesh({self.shape}, rank={self.rank}, backend={self.backend!r}, "
                 f"device={str(self.device)!r})")
+
+
+def _merge(stacked: torch.Tensor, dim: int) -> torch.Tensor:
+    """(n, *block) blocks → one tensor, the blocks concatenated along
+    ``dim``: contiguous (a view where ``dim`` is 0 or n is 1)."""
+    n, shape = stacked.shape[0], stacked.shape[1:]
+    full = shape[:dim] + (n * shape[dim],) + shape[dim + 1:]
+    return stacked.movedim(0, dim).reshape(full)
+
+
+def _split(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+    """``x`` cut into ``n`` blocks along ``dim``, stacked: (n, *block) (a
+    view; the inverse of :func:`_merge`)."""
+    shape = x.shape
+    return x.reshape(shape[:dim] + (n, shape[dim] // n) + shape[dim + 1:]).movedim(dim, 0)
 
 
 def _unravel(r: int, sizes) -> tuple[int, ...]:
@@ -535,22 +559,20 @@ class _Psum(torch.autograd.Function):
         return mesh._raw("all_reduce", g, axes), None, None
 
 
-def _pack(xs, dims):
-    """Each block with its gathered dim moved first, flattened and
-    concatenated: (sum of numels,), and what :func:`_unpack` needs."""
-    moved = [x.movedim(d, 0) for x, d in zip(xs, dims)]
-    return torch.cat([m.reshape(-1) for m in moved]), [tuple(m.shape) for m in moved]
+def _pack(xs):
+    """The blocks flattened and concatenated: (sum of numels,), and their
+    shapes."""
+    return torch.cat([x.reshape(-1) for x in xs]), [tuple(x.shape) for x in xs]
 
 
 def _unpack(flat, n, shapes, dims):
     """``flat`` (n·total,) of n stacked packs → each tensor with its n
-    blocks concatenated along its dim."""
+    blocks concatenated along its dim, contiguous (:func:`_merge`)."""
     rows = flat.view(n, -1)
     out, off = [], 0
     for shape, d in zip(shapes, dims):
         k = math.prod(shape)
-        blk = rows[:, off:off + k].reshape((n * shape[0],) + shape[1:])
-        out.append(blk.movedim(0, d))
+        out.append(_merge(rows[:, off:off + k].view((n,) + shape), d))
         off += k
     return out
 
@@ -562,7 +584,7 @@ class _AllGatherMany(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mesh, axes, dims, *xs):
         n = mesh.axis_size(axes)
-        flat, shapes = _pack(xs, dims)
+        flat, shapes = _pack(xs)
         ctx.meta = (mesh, axes, dims, shapes)
         return tuple(_unpack(mesh._raw("all_gather", flat, axes), n, shapes, dims))
 
@@ -571,13 +593,13 @@ class _AllGatherMany(torch.autograd.Function):
         mesh, axes, dims, shapes = ctx.meta
         n = mesh.axis_size(axes)
         # each gradient as n blocks along its dim, rank-major like the gather
-        packs = [g.movedim(d, 0).reshape((n, -1)) for g, d in zip(gs, dims)]
+        packs = [_split(g, n, d).reshape((n, -1)) for g, d in zip(gs, dims)]
         flat = torch.cat(packs, dim=1).reshape(-1)
         parts = mesh._raw("reduce_scatter", flat, axes)
         out, off = [], 0
-        for shape, d in zip(shapes, dims):
+        for shape in shapes:
             k = math.prod(shape)
-            out.append(parts[off:off + k].view(shape).movedim(0, d))
+            out.append(parts[off:off + k].view(shape))
             off += k
         return (None, None, None, *out)
 

@@ -19,10 +19,13 @@ Inside a world (one the caller initialised, or ``torch.distributed.run``'s:
 cpu``) it runs sharded on an LM mesh, as the reference runs ``full`` on
 its production mesh: ``--preset full`` on ``make_production_mesh()`` (16 ×
 16: a world of 256), any preset on ``--mesh D,M`` or ``--mesh P,D,M``
-(("data", "model") or ("pod", "data", "model")); only rank 0 prints.  The
-transformer families train sharded; the others, and checkpoints under the
-layout, are ROADMAP.md queue 1 item 13 part 5b and raise
-``NotImplementedError``.
+(("data", "model") or ("pod", "data", "model")); only rank 0 prints.
+Every family trains sharded.  ``--ckpt-dir``, ``--ckpt-every`` and
+``--resume`` work inside a world too: the checkpoint holds full values
+(each leaf gathered by its spec, rank 0 writes), so it resumes onto any
+mesh shape or onto one device; a SIGTERM makes every process save at the
+next step boundary (:func:`~repro_torch.train.install_preemption_handler`).
+The checkpoint directory must be one every process sees.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import contextlib
 import datetime
 import io
 import os
+import signal
 import time
 
 import torch
@@ -39,7 +43,6 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.kernels.dispatch import resolve_device
-from repro_torch.models.common import not_ported
 from repro_torch.train import (
     AdamWConfig,
     DataConfig,
@@ -120,8 +123,6 @@ def _train(args, mesh=None):
 
     cfg = preset_config(args.arch, args.preset).with_(dtype=torch.float32)
     dev = resolve_device(args.device) if mesh is None else mesh.device
-    if mesh is not None and args.ckpt_dir:
-        not_ported("checkpoints under the sharded layout (part 5b)")
     print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M preset={args.preset}")
 
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(10, args.steps // 20), total_steps=args.steps)
@@ -132,34 +133,42 @@ def _train(args, mesh=None):
     # on a mesh every process draws the same values and keeps its blocks
     params = bundle.init(torch.Generator(device=dev).manual_seed(0))
     opt = bundle.init_opt(params)
+    # on a mesh checkpoints gather and cut each leaf by the state's layout
+    layout = {} if mesh is None else {"mesh": mesh, "specs": bundle.state_specs}
     start = 0
     if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
-        state, meta = restore_checkpoint(args.ckpt_dir, {"params": params, "opt": opt})
+        state, meta = restore_checkpoint(args.ckpt_dir, {"params": params, "opt": opt}, **layout)
         params, opt, start = state["params"], state["opt"], meta["step"]
         print(f"resumed from step {start}")
 
     cur = {"step": start}
-    if args.ckpt_dir:
-        install_preemption_handler(
-            lambda: save_checkpoint(args.ckpt_dir, cur["step"], {"params": params, "opt": opt})
-        )
 
+    def save(step):
+        save_checkpoint(args.ckpt_dir, step, {"params": params, "opt": opt}, **layout)
+
+    before = signal.getsignal(signal.SIGTERM)
+    poll = install_preemption_handler(lambda: save(cur["step"]), mesh) if args.ckpt_dir else None
     t0 = time.time()
-    for step in range(start, args.steps):
-        batch = batch_at(dcfg, step, extra=extra, device=dev)
-        metrics = bundle.step_fn(params, opt, batch)
-        cur["step"] = step + 1
-        if (step + 1) % args.log_every == 0:
-            print(
-                f"step {step+1:5d} loss {float(metrics['loss']):.4f} "
-                f"gnorm {float(metrics['grad_norm']):.3f} lr {float(metrics['lr']):.2e} "
-                f"({(time.time()-t0)/(step-start+1)*1e3:.0f} ms/step)",
-                flush=True,
-            )
-        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            save_checkpoint(args.ckpt_dir, step + 1, {"params": params, "opt": opt})
-    if args.ckpt_dir:
-        save_checkpoint(args.ckpt_dir, args.steps, {"params": params, "opt": opt})
+    try:
+        for step in range(start, args.steps):
+            batch = batch_at(dcfg, step, extra=extra, device=dev)
+            metrics = bundle.step_fn(params, opt, batch)
+            cur["step"] = step + 1
+            if (step + 1) % args.log_every == 0:
+                print(
+                    f"step {step+1:5d} loss {float(metrics['loss']):.4f} "
+                    f"gnorm {float(metrics['grad_norm']):.3f} lr {float(metrics['lr']):.2e} "
+                    f"({(time.time()-t0)/(step-start+1)*1e3:.0f} ms/step)",
+                    flush=True,
+                )
+            if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+                save(step + 1)
+            if poll:
+                poll()
+        if args.ckpt_dir:
+            save(args.steps)
+    finally:
+        signal.signal(signal.SIGTERM, before)
     print("done")
 
 

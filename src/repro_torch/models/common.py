@@ -223,6 +223,16 @@ def local_shape(shape, spec: P, sizes: dict[str, int]) -> tuple[int, ...]:
     return tuple(out)
 
 
+def cache_blocks(shapes: dict, specs_fn, cfg: "ArchConfig", batch: int, seq: int, mesh) -> dict:
+    """A decode cache's leaf shapes cut to one process's blocks on ``mesh``
+    by the family's ``specs_fn`` (its ``cache_specs``); ``shapes`` as they
+    are without a mesh."""
+    if mesh is None:
+        return shapes
+    specs, sizes = specs_fn(cfg, MeshAxes.from_mesh(mesh), batch, seq), dict(mesh.shape)
+    return {k: local_shape(s, specs[k], sizes) for k, s in shapes.items()}
+
+
 def constrain(x: torch.Tensor, mesh, *spec, full=None) -> torch.Tensor:
     """Check that ``x`` is one process's block under ``spec`` on ``mesh`` and
     return it.  The reference's ``constrain`` asks GSPMD for a layout; here
@@ -245,16 +255,24 @@ def constrain(x: torch.Tensor, mesh, *spec, full=None) -> torch.Tensor:
 STACKED = ("layers", "enc_layers", "dec_layers")
 
 
-def named_specs(specs: dict):
+def named_specs(specs: dict, moments: bool = False):
     """``name -> P`` for the port's parameter names from the reference's
     stacked ``specs``: a layer's weight (``layers.3.wq``) takes its stacked
-    spec without the layer entry."""
+    spec without the layer entry.
+
+    With ``moments`` (the ZeRO-1 moments' specs) a stacked spec that shards
+    the layer dim over "data" (the reference's rule picks that dim where it
+    is the largest one free, as for the SSM's (n_layers, heads) leaves
+    ``A_log``, ``D_skip`` and ``dt_bias``) leaves each layer's moment whole
+    over "data": the port keeps one tensor a layer, and these leaves are
+    n_layers × heads values.  Their values, gathered, are the reference's.
+    Without it such a spec is refused."""
 
     def spec_of(name: str) -> P:
         parts = name.split(".")
         if parts[0] in STACKED:
             spec = specs[parts[0]][parts[2]]
-            if spec and spec[0] is not None:
+            if spec and spec[0] is not None and not moments:
                 not_ported(f"a layout sharded over the layer dim ({name}: {spec}; no rule makes "
                            "one for these configs)")
             return P(*spec[1:])

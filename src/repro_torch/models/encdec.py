@@ -1,4 +1,5 @@
-"""Whisper-style encoder-decoder backbone, on one device.
+"""Whisper-style encoder-decoder backbone, on one device or sharded over an
+LM mesh.
 
 Port of ``repro/models/encdec.py`` (whisper-medium).  As in the
 reference, the conv/mel frontend is a stub: the batch carries precomputed
@@ -12,10 +13,19 @@ module in an ``nn.ModuleList`` (``enc_layers``, ``dec_layers``), and
 :func:`params_to_reference` and :func:`params_from_reference` convert to
 and from the reference's nested dict of stacked arrays.  ``attn_chunk``
 must divide every key length it chunks (the 1500 frames among them): the
-reference asserts, the port raises ``ValueError``.  The sharded layout's
-specs (``param_specs``, ``cache_specs``) are the reference's; sharded
-execution is ROADMAP.md queue 1 item 13 part 5b
-(:data:`~repro_torch.models.common.LM_ITEM`).
+reference asserts, the port raises ``ValueError``.
+
+On an LM mesh (a :class:`~repro_torch.models.layers.Shard`; the specs
+``param_specs`` and ``cache_specs`` are the reference's) the residuals of
+both stacks stay whole over "model" (the reference's ``(batch, None,
+None)``): the encoder layer is the transformer's decoder layer without
+rope or mask, head-sharded and combined over "model"; the decoder layer
+adds head-sharded cross-attention, whose ``xk``/``xv`` project the
+replicated encoder output onto the local K/V heads; the tied loss is the
+transformer's vocab-parallel :func:`~repro_torch.models.transformer.lm_loss`.
+Decode holds the self and cross K/V over heads, and
+:func:`prefill_cross_cache` encodes sharded and fills each process's
+cross-cache block.
 """
 
 from __future__ import annotations
@@ -28,7 +38,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
-from repro_torch.models.common import P, ArchConfig, MeshAxes, not_ported
+from repro_torch.models import transformer as T
+from repro_torch.models.common import P, ArchConfig, MeshAxes, cache_blocks, local_shapes, named_specs
 from repro_torch.models.transformer import (
     _Weights,
     _assign,
@@ -128,15 +139,24 @@ def param_specs(cfg: ArchConfig, axes: MeshAxes) -> dict[str, Any]:
     return specs
 
 
-def init_params(cfg: ArchConfig, generator: torch.Generator, device=None) -> EncDec:
+@torch.no_grad()
+def init_params(cfg: ArchConfig, generator: torch.Generator, device=None, mesh=None,
+                specs=None) -> EncDec:
     """The reference's rule on the stacked shapes: every leaf whose name
     holds ``ln`` is ones; every other leaf (``emb`` and ``enc_pos`` among
     them) N(0, fan_in^-1/2) with fan_in = ``shape[-2]`` of the stacked
     shape.  Draws on ``generator``'s device, leaf by leaf in the
-    reference's order; the values differ from ``jax.random``'s."""
+    reference's order; the values differ from ``jax.random``'s.  On an LM
+    ``mesh`` with the stacked ``specs`` every process draws the same values
+    and keeps its block of each (``device`` defaults to the mesh's)."""
     shapes = param_shapes(cfg)
+    spec_of = None
+    if mesh is not None:
+        device = mesh.device if device is None else device
+        spec_of = named_specs(specs)
     device = torch.device(device) if device is not None else generator.device
-    model = EncDec(shapes, device=device, dtype=cfg.dtype)
+    model = EncDec(shapes if mesh is None else local_shapes(shapes, specs, mesh), device=device,
+                   dtype=cfg.dtype)
     for path, shape in _flat_shapes(shapes):
         if "ln" in path[-1]:
             value = torch.ones(shape, device=device, dtype=cfg.dtype)
@@ -144,9 +164,15 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None) -> Enc
             fan_in = shape[-2] if len(shape) > 1 else shape[-1]
             value = torch.randn(shape, generator=generator, device=generator.device)
             value = (value * fan_in ** -0.5).to(device, cfg.dtype)
-        _assign(model, path, value)
+        _assign(model, path, value, mesh, spec_of)
         del value
     return model
+
+
+def shard_params(full, specs: dict, mesh, dtype=None) -> EncDec:
+    """One process's blocks of full parameters (an :class:`EncDec` or the
+    reference's params tree), :func:`~repro_torch.models.transformer.shard_params`."""
+    return T.shard_params(full, specs, mesh, dtype, cls=EncDec)
 
 
 def params_from_reference(tree, device="cpu", dtype=None) -> EncDec:
@@ -164,60 +190,70 @@ def _run(cfg: ArchConfig, fn, *args):
     return fn(cfg, *args)
 
 
-def encoder_layer(cfg: ArchConfig, x, p):
-    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = L.qkv(cfg, h, p, None)  # no rope: learned encoder positions
-    o = L.attention(cfg, q, k, v, None)  # bidirectional
-    x = x + L.einsum("bshe,hed->bsd", o, p["wo"])
-    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp_block(cfg, h, p)
+#: a decoder layer's weights, in the order the FSDP gather packs those sharded over "data"
+DEC_WEIGHTS = ("ln1", "wq", "wk", "wv", "wo", "lnx", "xq", "xk", "xv", "xo", "ln2", "wu", "wd")
 
 
-def encode(cfg: ArchConfig, params: EncDec, frames):
-    """frames: (B, enc_ctx, D) stub embeddings → the encoder's states."""
+def encode(cfg: ArchConfig, params: EncDec, frames, shard=None):
+    """frames: (B, enc_ctx, D) stub embeddings → the encoder's states.
+    Each layer is the transformer's decoder layer without rope or mask (on
+    a mesh head-sharded, its weights gathered over "data")."""
     x = frames.to(cfg.dtype) + params["enc_pos"][None].to(cfg.dtype)
     for layer in params.enc_layers:
-        x = _run(cfg, encoder_layer, x, layer)
+        x = _run(cfg, _encoder_layer, x, layer, shard)
     return L.rms_norm(x, params["enc_final_ln"], cfg.norm_eps)
 
 
-def decoder_layer(cfg: ArchConfig, x, p, positions, mask, enc_out):
-    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = L.qkv(cfg, h, p, positions)
-    o = L.attention(cfg, q, k, v, mask, mask_kind="causal")
-    x = x + L.einsum("bshe,hed->bsd", o, p["wo"])
+def _encoder_layer(cfg: ArchConfig, x, p, shard):
+    return T.decoder_layer(cfg, x, p, None, None, None, shard)[0]  # bidirectional
+
+
+def cross_attention(cfg: ArchConfig, x, p, xk, xv, shard):
+    """``x`` plus the cross-attention block over ``xk``/``xv`` (the encoder
+    output's K/V: this process's K/V heads on a mesh where they divide)."""
     h = L.rms_norm(x, p["lnx"], cfg.norm_eps)
     xq = L.einsum("bsd,dhe->bshe", h, p["xq"])
+    o = L.attention(cfg, xq, xk, xv, None, h0=shard.h0)
+    return x + shard.combine(L.einsum("bshe,hed->bsd", o, p["xo"]), partial=shard.heads_sharded)
+
+
+def decoder_layer(cfg: ArchConfig, x, p, positions, mask, enc_out, shard=None):
+    shard = shard or L.Shard(cfg)
+    p = shard.gather_weights(p, DEC_WEIGHTS)
+    x = T.self_attention(cfg, x, p, positions, mask, "causal", shard)
     xk = L.einsum("bsd,dhe->bshe", enc_out, p["xk"])
     xv = L.einsum("bsd,dhe->bshe", enc_out, p["xv"])
-    o = L.attention(cfg, xq, xk, xv, None)
-    x = x + L.einsum("bshe,hed->bsd", o, p["xo"])
-    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.mlp_block(cfg, h, p)
+    x = cross_attention(cfg, x, p, xk, xv, shard)
+    return T.ffn(cfg, x, p, shard)[0]
 
 
-def decode_train(cfg: ArchConfig, params: EncDec, tokens, enc_out):
+def decode_train(cfg: ArchConfig, params: EncDec, tokens, enc_out, shard=None):
     """Teacher-forced decoder over ``tokens`` (B, S) against ``enc_out``
-    → the final hidden states (B, S, D)."""
-    x = params["emb"][tokens].to(cfg.dtype)
+    → the final hidden states (B, S, D); on a mesh the embedding is
+    vocab-parallel over "model"."""
+    shard = shard or L.Shard(cfg)
+    x = T._embed(cfg, shard, shard.gather_weights(params, ["emb"])["emb"], tokens).to(cfg.dtype)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     mask = None if cfg.attn_chunk else L.causal_mask(s, device=x.device)
+    x = shard.residual(x)
     for layer in params.dec_layers:
-        x = _run(cfg, decoder_layer, x, layer, positions, mask, enc_out)
+        x = shard.residual(_run(cfg, decoder_layer, x, layer, positions, mask, enc_out, shard))
     return L.rms_norm(x, params["final_ln"], cfg.norm_eps)
 
 
 def loss_fn(cfg: ArchConfig, mesh=None):
     """``f(params, batch) -> loss`` with batch ``{"frames", "tokens",
-    "labels"}``.  On a ``mesh`` it is ROADMAP.md queue 1 item 13 part 5b."""
-    if mesh is not None:
-        not_ported(f"sharded execution of the encdec family ({cfg.name}; part 5b)")
+    "labels"}``.  On an LM ``mesh`` ``params`` are this process's blocks
+    and ``batch`` its rows; the loss is the global one (pmean'd over the
+    batch axes)."""
+    specs = T.mesh_specs(cfg, mesh, param_specs)
 
     def f(params, batch):
-        enc_out = encode(cfg, params, batch["frames"])
-        x = decode_train(cfg, params, batch["tokens"], enc_out)
-        return lm_loss(cfg, params, x, batch["labels"])
+        shard = L.Shard(cfg, mesh, specs, batch["tokens"].shape[1], seq_parallel=False)
+        enc_out = encode(cfg, params, batch["frames"], shard)
+        x = decode_train(cfg, params, batch["tokens"], enc_out, shard)
+        return shard.batch_mean(lm_loss(cfg, params, x, batch["labels"], shard))
 
     return f
 
@@ -252,52 +288,51 @@ def cache_specs(cfg: ArchConfig, axes: MeshAxes, batch: int, seq: int) -> dict:
     spec = P(None, batch_ax, None, kv_tp, None)
     return {"k": spec, "v": spec, "xk": spec, "xv": spec}
 
-def init_cache(cfg: ArchConfig, batch: int, seq: int, device=None):
-    return {k: torch.zeros(s, dtype=cfg.dtype, device=device)
-            for k, s in cache_shapes(cfg, batch, seq).items()}
+def init_cache(cfg: ArchConfig, batch: int, seq: int, device=None, mesh=None):
+    """Zeros of :func:`cache_shapes`; on a ``mesh`` this process's blocks
+    (:func:`cache_specs`)."""
+    shapes = cache_blocks(cache_shapes(cfg, batch, seq), cache_specs, cfg, batch, seq, mesh)
+    return {k: torch.zeros(s, dtype=cfg.dtype, device=device) for k, s in shapes.items()}
 
 
 @torch.no_grad()
-def prefill_cross_cache(cfg: ArchConfig, params: EncDec, frames, batch: int, seq: int):
+def prefill_cross_cache(cfg: ArchConfig, params: EncDec, frames, batch: int, seq: int, mesh=None):
     """Encode ``frames`` once and return a fresh (``batch``, ``seq``)
     cache whose cross-attention K/V (``xk``, ``xv``) hold each decoder
-    layer's projections of the encoder's output."""
-    enc_out = encode(cfg, params, frames)
-    cache = init_cache(cfg, batch, seq, device=frames.device)
+    layer's projections of the encoder's output.  On an LM ``mesh``
+    ``params`` are this process's blocks, ``frames`` its rows: the encoder
+    runs sharded and the cache is this process's blocks."""
+    shard = T.decode_shard(cfg, mesh, T.mesh_specs(cfg, mesh, param_specs))
+    enc_out = encode(cfg, params, frames, shard)
+    cache = init_cache(cfg, batch, seq, frames.device, mesh)
     for i, lp in enumerate(params.dec_layers):
-        cache["xk"][i].copy_(L.einsum("bsd,dhe->bshe", enc_out, lp["xk"]))
-        cache["xv"][i].copy_(L.einsum("bsd,dhe->bshe", enc_out, lp["xv"]))
+        w = shard.gather_weights(lp, ["xk", "xv"])
+        cache["xk"][i].copy_(L.einsum("bsd,dhe->bshe", enc_out, w["xk"]))
+        cache["xv"][i].copy_(L.einsum("bsd,dhe->bshe", enc_out, w["xv"]))
     return cache
 
 
-def decode_step(cfg: ArchConfig):
+def decode_step(cfg: ArchConfig, mesh=None, cache_specs=None):
     """One-token decoder step: ``f(params, cache, token, pos) -> (logits,
     cache)`` with ``token`` and ``pos`` (B,) integer tensors.  Each layer's
     new self-attention K/V row is written into ``cache`` in place (as the
     dense decode does); cross-attention reads ``xk``/``xv``
-    (:func:`prefill_cross_cache`)."""
+    (:func:`prefill_cross_cache`).  On an LM ``mesh`` (with the cache's
+    ``cache_specs``) ``params`` and ``cache`` are this process's blocks,
+    ``token``/``pos`` its rows and the logits its block."""
+    specs = T.mesh_specs(cfg, mesh, param_specs)
 
     @torch.no_grad()
     def f(params, cache, token, pos):
-        b = token.shape[0]
-        x = params["emb"][token][:, None].to(cfg.dtype)  # (B, 1, D)
-        s_cache = cache["k"].shape[2]
-        rows = torch.arange(b, device=x.device)
-        mask = torch.arange(s_cache, device=x.device)[None, None, None, :] <= pos[:, None, None, None]
+        shard = T.decode_shard(cfg, mesh, specs, cache_specs and cache_specs["k"])
+        slots = L.decode_slots(pos, cache["k"].shape[2], shard)
+        x = T._embed(cfg, shard, shard.gather_weights(params, ["emb"])["emb"], token[:, None]).to(cfg.dtype)
         for i, lp in enumerate(params.dec_layers):
-            h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-            q, k, v = L.qkv(cfg, h, lp, pos[:, None])
-            cache["k"][i][rows, pos] = k[:, 0]
-            cache["v"][i][rows, pos] = v[:, 0]
-            o = L.attention(cfg, q, cache["k"][i], cache["v"][i], mask)
-            x = x + L.einsum("bshe,hed->bsd", o, lp["wo"])
-            h = L.rms_norm(x, lp["lnx"], cfg.norm_eps)
-            xq = L.einsum("bsd,dhe->bshe", h, lp["xq"])
-            o = L.attention(cfg, xq, cache["xk"][i], cache["xv"][i], None)
-            x = x + L.einsum("bshe,hed->bsd", o, lp["xo"])
-            h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + L.mlp_block(cfg, h, lp)
+            lp = shard.gather_weights(lp, DEC_WEIGHTS)
+            x = T.decode_self_attention(cfg, x, lp, cache["k"][i], cache["v"][i], slots, shard)
+            x = cross_attention(cfg, x, lp, cache["xk"][i], cache["xv"][i], shard)
+            x = T.ffn(cfg, x, lp, shard)[0]
         x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
-        return logits_from_hidden(cfg, params, x)[:, 0], cache
+        return logits_from_hidden(cfg, params, x, shard)[:, 0], cache
 
     return f

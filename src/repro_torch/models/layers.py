@@ -11,13 +11,18 @@ On an LM mesh the same functions run on one process's blocks, and
 mesh, the one-device case, does none of it): the FSDP gather
 of a layer's weights over "data" just before use (one packed all-gather a
 layer, whose backward is one reduce-scatter), the residual's sequence
-sharded over "model" under ``seq_parallel`` (gathered before the
+sharded over "model" under ``seq_parallel`` (the transformer's training
+forward only: the ssm, hybrid and encdec families and every decode step
+keep the residual whole, as the reference's specs do; gathered before the
 column-parallel projections), and the combine of the row-parallel
 products over "model" (an all-reduce, or a reduce-scatter into the
 sequence-sharded residual under ``dense_scatter_combine``).  Attention
 runs on the process's query heads (:func:`attention`'s ``h0``): K/V sharded
 with them where "model" divides the K/V heads, else the replicated K/V
-heads sliced to the local query heads' groups.
+heads sliced to the local query heads' groups.  A decode step's cache may
+instead hold a block of the sequence's slots (:func:`decode_attention`):
+each process attends its own slots and the partial softmaxes are combined
+by the log-sum-exp rule, in float32.
 """
 
 from __future__ import annotations
@@ -72,15 +77,7 @@ def attention(cfg: ArchConfig, q, k, v, mask, mask_kind: str | None = None, h0: 
     positions.  On a mesh ``q`` holds the query heads ``h0`` onward and
     ``k``/``v`` either their K/V heads (sharded alike) or all K/V heads,
     which are repeated and sliced to the query heads' groups."""
-    rep = cfg.n_heads // cfg.n_kv_heads
-    hl, kl = q.shape[2], k.shape[2]
-    if rep > 1:
-        k = torch.repeat_interleave(k, rep, dim=2)
-        v = torch.repeat_interleave(v, rep, dim=2)
-    if k.shape[2] != hl:
-        k0 = 0 if kl == cfg.n_kv_heads else h0 // rep  # the first K/V head held
-        k = k.narrow(2, h0 - k0 * rep, hl)
-        v = v.narrow(2, h0 - k0 * rep, hl)
+    k, v = _kv_for_queries(cfg, q, k, v, h0)
     if cfg.attn_chunk and q.shape[1] > 1 and k.shape[1] > cfg.attn_chunk:
         return _chunked_attention(cfg, q, k, v, mask_kind or "full")
     scale = cfg.head_dim ** -0.5
@@ -91,6 +88,91 @@ def attention(cfg: ArchConfig, q, k, v, mask, mask_kind: str | None = None, h0: 
         logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return einsum("bhqk,bkhe->bqhe", probs, v)
+
+
+def _kv_for_queries(cfg: ArchConfig, q, k, v, h0: int):
+    """K/V repeated to the query heads (GQA) and cut to ``q``'s heads
+    ``h0`` onward (:func:`attention`)."""
+    rep = cfg.n_heads // cfg.n_kv_heads
+    hl, kl = q.shape[2], k.shape[2]
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    if k.shape[2] != hl:
+        k0 = 0 if kl == cfg.n_kv_heads else h0 // rep  # the first K/V head held
+        k = k.narrow(2, h0 - k0 * rep, hl)
+        v = v.narrow(2, h0 - k0 * rep, hl)
+    return k, v
+
+
+@dataclasses.dataclass
+class DecodeSlots:
+    """Where one decode step's new token sits in a K/V cache, built once a
+    step by :func:`decode_slots` and shared by every attention layer: the
+    positions ``pos`` (B,), the batch rows, the mask ``slot <= pos`` over
+    this process's slots (B, 1, 1, S_loc), the slot each row writes (its
+    local index, clamped into the block) and, where the cache holds a block
+    of the slots, whether this process owns that slot (else None)."""
+
+    pos: torch.Tensor
+    rows: torch.Tensor
+    mask: torch.Tensor
+    loc: torch.Tensor
+    inside: torch.Tensor | None
+
+
+def decode_slots(pos, s_loc: int, shard=None) -> DecodeSlots:
+    """:class:`DecodeSlots` of a cache of ``s_loc`` slots a process: this
+    process's block along ``shard.cache_seq`` (all of them without one)."""
+    axis = shard.cache_seq if shard is not None else ()
+    s0 = shard.mesh.axis_index(axis) * s_loc if axis else 0
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    mask = torch.arange(s0, s0 + s_loc, device=pos.device)[None, None, None, :] <= pos[:, None, None, None]
+    if not axis:
+        return DecodeSlots(pos, rows, mask, pos, None)
+    loc = pos - s0
+    inside = (loc >= 0) & (loc < s_loc)
+    return DecodeSlots(pos, rows, mask, loc.clamp(0, s_loc - 1), inside)
+
+
+def decode_attention(cfg: ArchConfig, q, k, v, slots: DecodeSlots, shard=None, h0: int = 0):
+    """One new token's attention over a K/V cache, masked by ``slots``: q
+    (B, 1, H, dh), k and v (B, S, KV, dh).  Without a sequence-sharded
+    cache (``shard.cache_seq`` empty) it is :func:`attention`.  Otherwise
+    ``k``/``v`` hold this process's block of the slots along
+    ``shard.cache_seq`` and every process of that axis holds the same query
+    heads (``h0`` onward): each attends its own slots, and the partial
+    softmaxes are combined in float32 (the row max by ``pmax``, the
+    exponent sums and the weighted values in one ``psum``).  A process
+    whose slots are all masked adds zero: the global max is finite, slot 0
+    being unmasked on the first."""
+    axis = shard.cache_seq if shard is not None else ()
+    if not axis:
+        return attention(cfg, q, k, v, slots.mask, h0=h0)
+    k, v = _kv_for_queries(cfg, q, k, v, h0)
+    s = einsum("bqhe,bkhe->bhqk", q, k) * cfg.head_dim ** -0.5
+    s = torch.where(slots.mask, s.float(), float("-inf"))
+    mesh = shard.mesh
+    m = mesh.pmax(s.amax(dim=-1), axis)  # (B, H, 1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = einsum("bhqk,bkhe->bqhe", p, v.float())
+    both = mesh.psum(torch.cat([l.reshape(-1), acc.reshape(-1)]), axis)
+    l, acc = both[:l.numel()].view(l.shape), both[l.numel():].view(acc.shape)
+    return (acc / l.transpose(1, 2)[..., None]).to(torch.promote_types(q.dtype, v.dtype))
+
+
+def write_cache_row(cache, new, slots: DecodeSlots) -> None:
+    """``cache`` (B, S, …)'s slot of each row set to ``new`` (B, …), in
+    place.  Where the cache holds a block of the slots (``slots.inside``),
+    only the process whose block holds the slot writes it (the others
+    write back what they hold): no host sync."""
+    new = new.to(cache.dtype)
+    if slots.inside is None:
+        cache[slots.rows, slots.loc] = new
+        return
+    keep = slots.inside.view((-1,) + (1,) * (new.dim() - 1))
+    cache[slots.rows, slots.loc] = torch.where(keep, new, cache[slots.rows, slots.loc])
 
 
 def _chunk_mask(mask_kind: str, q_pos, k_pos):
@@ -196,6 +278,12 @@ class Shard:
     mesh: Any = None
     specs: dict = dataclasses.field(default_factory=dict)
     seq: int = 0
+    #: whether the family shards the residual's sequence (the transformer's
+    #: training forward; the others and every decode step keep it whole)
+    seq_parallel: bool = True
+    #: a decode cache's sequence dim: the mesh axes its slots are sharded
+    #: over (:func:`decode_attention`), () where each process holds every slot
+    cache_seq: tuple = ()
 
     def __post_init__(self):
         self.axes = (MeshAxes(batch=(), fsdp=None, model=None, sizes={}) if self.mesh is None
@@ -204,7 +292,8 @@ class Shard:
         self.n_model = self.axes.size(model)
         self.model_index = self.mesh.axis_index(model) if model else 0
         # the residual's sequence sharded over "model" (the reference's _residual_spec)
-        self.sp = bool(model and self.cfg.seq_parallel and self.seq % self.n_model == 0)
+        self.sp = bool(model and self.seq_parallel and self.cfg.seq_parallel
+                       and self.seq % self.n_model == 0)
         self.heads_sharded = self.axes.tp(self.cfg.n_heads) is not None
         self.h0 = self.model_index * self.cfg.n_heads // self.n_model if self.heads_sharded else 0
         self.vocab_parallel = self.axes.tp(self.cfg.vocab_padded) is not None

@@ -4,8 +4,9 @@ Port of ``repro/models/registry.py``, every family:
 ``dense``, ``moe`` and ``vlm`` (:mod:`~repro_torch.models.transformer`),
 ``ssm`` and ``hybrid`` (:mod:`~repro_torch.models.ssm`), ``encdec``
 (:mod:`~repro_torch.models.encdec`), each with the reference's
-``param_specs`` and ``cache_specs``.  An unknown family is refused before
-any device work.
+``param_specs`` and ``cache_specs``, each running on one device or on an
+LM mesh.  :func:`serve_input_specs` is the reference's decode-step input
+layout.  An unknown family is refused before any device work.
 """
 
 from __future__ import annotations
@@ -13,28 +14,31 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import math
+
+import torch
+
 from repro_torch.models import encdec as _ed
 from repro_torch.models import ssm as _ssm
 from repro_torch.models import transformer as _tf
-from repro_torch.models.common import ArchConfig, not_ported
+from repro_torch.models.common import ArchConfig, MeshAxes, P, not_ported
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
     init_params: Callable         # (cfg, generator, device[, mesh, specs]) -> module
     loss_fn: Callable             # (cfg, mesh=None) -> f(params, batch) -> loss
-    decode_step: Callable         # (cfg) -> f(params, cache, token, pos)
+    decode_step: Callable         # (cfg[, mesh, cache_specs]) -> f(params, cache, token, pos)
     cache_shapes: Callable        # (cfg, batch, seq)
-    init_cache: Callable          # (cfg, batch, seq, device)
+    init_cache: Callable          # (cfg, batch, seq, device[, mesh]) -> (blocks of) the cache
     train_input_specs: Callable   # (cfg, batch, seq) -> {name: (shape, dtype)}
     param_shapes: Callable        # (cfg) -> the stacked shapes tree
     param_specs: Callable         # (cfg, axes) -> nested dict of P
     cache_specs: Callable         # (cfg, axes, batch, seq)
-    # encdec: (cfg, params, frames, batch, seq) -> a cache with its cross K/V
+    # (full params, stacked specs, mesh, dtype) -> one process's blocks
+    shard_params: Callable
+    # encdec: (cfg, params, frames, batch, seq[, mesh]) -> a cache with its cross K/V
     prefill_cross_cache: Callable | None = None
-    # (full params, stacked specs, mesh, dtype) -> one process's blocks; the
-    # families whose loss_fn runs on a mesh
-    shard_params: Callable | None = None
 
 
 _TRANSFORMER = ModelApi(
@@ -60,6 +64,7 @@ _SSM = ModelApi(
     param_shapes=_ssm.param_shapes,
     param_specs=_ssm.param_specs,
     cache_specs=_ssm.cache_specs,
+    shard_params=_ssm.shard_params,
 )
 
 _ENCDEC = ModelApi(
@@ -72,6 +77,7 @@ _ENCDEC = ModelApi(
     param_shapes=_ed.param_shapes,
     param_specs=_ed.param_specs,
     cache_specs=_ed.cache_specs,
+    shard_params=_ed.shard_params,
     prefill_cross_cache=_ed.prefill_cross_cache,
 )
 
@@ -89,3 +95,13 @@ def model_api(cfg: ArchConfig) -> ModelApi:
     if cfg.family not in _BY_FAMILY:
         not_ported(f"the {cfg.family} family ({cfg.name})")
     return _BY_FAMILY[cfg.family]
+
+
+def serve_input_specs(cfg: ArchConfig, mesh, batch: int) -> dict[str, tuple]:
+    """The decode step's inputs, ``{name: (shape, dtype, spec)}``: one
+    token and one position a sequence, their rows sharded over the batch
+    axes where the batch divides them, else replicated (the reference's)."""
+    axes = MeshAxes.from_mesh(mesh)
+    bsz = math.prod(axes.size(a) for a in axes.batch)
+    bspec = P(axes.batch) if batch % bsz == 0 else P()
+    return {"token": ((batch,), torch.int32, bspec), "pos": ((batch,), torch.int32, bspec)}

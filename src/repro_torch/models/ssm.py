@@ -1,4 +1,5 @@
-"""Mamba2 (SSD, state-space duality) and the Zamba2 hybrid, on one device.
+"""Mamba2 (SSD, state-space duality) and the Zamba2 hybrid, on one device
+or sharded over an LM mesh.
 
 Port of ``repro/models/ssm.py``.  Training runs the chunked matmul form of
 SSD (the intra-chunk quadratic term and the inter-chunk state recurrence,
@@ -16,10 +17,34 @@ and from the reference's nested dict of stacked arrays.  ``jnp.einsum``
 and ``jnp.concatenate`` promote mixed dtypes where ``torch`` refuses them
 or would not: the port casts at those points, so zamba2's bfloat16 decode
 (whose K/V cache is float32 by the reference's cache rule) returns float32
-logits and a float32 ``conv`` state, as the reference's does.  The sharded
-layout's specs (``param_specs``, ``ssm_layer_specs``, ``cache_specs``) are
-the reference's; sharded execution of these families is ROADMAP.md queue 1
-item 13 part 5b (:data:`~repro_torch.models.common.LM_ITEM`).
+logits and a float32 ``conv`` state, as the reference's does.
+
+On an LM mesh (a :class:`~repro_torch.models.layers.Shard`; the specs
+``param_specs``, ``ssm_layer_specs`` and ``cache_specs`` are the
+reference's) the residual stays whole over "model" (the reference's
+``(batch, None, None)``: no sequence parallelism) and each process runs
+the SSD heads ``h0 … h0 + h/|model|`` where "model" divides the heads,
+every head otherwise.  ``in_proj``'s spec splits its packed ``[z | x | B |
+C | dt]`` columns into |model| contiguous blocks that do not follow the
+heads, so each process multiplies its own column block and all-gathers
+the (B, S, K) product over "model" (:func:`_in_proj`), then keeps its
+heads' ``z``, ``x`` and ``dt`` and the whole of ``B`` and ``C``.  Gathering
+the product, not the weight, keeps the stored block's matmul local, and
+costs B·S·K values where the weight is d·K: of a size in training, and a
+decode token's 6448 values against mamba2's 9.9M.  It also hands every
+process the full conv input, which the decode cache's ``conv`` state
+(replicated over "model") needs.  ``out_ln``'s gated RMSNorm takes its
+variance over all of ``d_inner`` (a ``psum`` of the local sums of squares
+over "model"), and ``out_proj`` is row-parallel over ``tp(d_inner)``: its
+rows line up with the local heads, or cut the replicated activation where
+the heads are not sharded, and the product is combined over "model".  The
+hybrid's shared block is the transformer's decoder layer
+(:func:`~repro_torch.models.transformer.decoder_layer`), its weights
+gathered at each of its applications.  Decode shards the SSM state over
+the heads and keeps ``conv`` whole over "model"; the hybrid's K/V is over
+the heads, or its slots over "data" where the batch does not divide the
+batch axes (the long-context case), combined by
+:func:`~repro_torch.models.layers.decode_attention`.
 """
 
 from __future__ import annotations
@@ -33,7 +58,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
-from repro_torch.models.common import P, ArchConfig, MeshAxes, not_ported
+from repro_torch.models import transformer as T
+from repro_torch.models.common import P, ArchConfig, MeshAxes, cache_blocks, local_shapes, named_specs
 from repro_torch.models.transformer import (
     _Weights,
     _assign,
@@ -104,8 +130,7 @@ def ssm_layer_specs(cfg: ArchConfig, axes: MeshAxes, n_dim: bool = True) -> dict
 
 def param_specs(cfg: ArchConfig, axes: MeshAxes) -> dict[str, Any]:
     """The reference's partition specs (the hybrid's shared block
-    included).  Sharded execution of these families is ROADMAP.md queue 1
-    item 13 part 5b."""
+    included)."""
     specs = {
         "emb": P(axes.tp(cfg.vocab_padded), axes.fs(cfg.d_model)),
         "final_ln": P(None),
@@ -174,16 +199,25 @@ class SSMModel(_Weights):
         self.shared = SharedBlock(shapes["shared"], device, dtype) if "shared" in shapes else None
 
 
-def init_params(cfg: ArchConfig, generator: torch.Generator, device=None) -> SSMModel:
+@torch.no_grad()
+def init_params(cfg: ArchConfig, generator: torch.Generator, device=None, mesh=None,
+                specs=None) -> SSMModel:
     """The reference's rule on the stacked shapes: ones for the norms,
     ``conv_b`` and ``D_skip``; ``A_log = log(1 … h)``; ``dt_bias = -1``;
     every other leaf (``emb`` among them) N(0, fan_in^-1/2) with fan_in =
     ``shape[-2]`` of the stacked shape.  Draws on ``generator``'s device,
     leaf by leaf in the reference's order; the values differ from
-    ``jax.random``'s."""
+    ``jax.random``'s.  On an LM ``mesh`` with the stacked ``specs`` every
+    process draws the same values and keeps its block of each (``device``
+    defaults to the mesh's)."""
     shapes = param_shapes(cfg)
+    spec_of = None
+    if mesh is not None:
+        device = mesh.device if device is None else device
+        spec_of = named_specs(specs)
     device = torch.device(device) if device is not None else generator.device
-    model = SSMModel(shapes, device=device, dtype=cfg.dtype)
+    model = SSMModel(shapes if mesh is None else local_shapes(shapes, specs, mesh), device=device,
+                     dtype=cfg.dtype)
     for path, shape in _flat_shapes(shapes):
         name = path[-1]
         if name in _ONES:
@@ -197,9 +231,15 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None) -> SSM
             fan_in = shape[-2] if len(shape) > 1 else shape[-1]
             value = torch.randn(shape, generator=generator, device=generator.device)
             value = (value * fan_in ** -0.5).to(device, cfg.dtype)
-        _assign(model, path, value)
+        _assign(model, path, value, mesh, spec_of)
         del value
     return model
+
+
+def shard_params(full, specs: dict, mesh, dtype=None) -> SSMModel:
+    """One process's blocks of full parameters (an :class:`SSMModel` or the
+    reference's params tree), :func:`~repro_torch.models.transformer.shard_params`."""
+    return T.shard_params(full, specs, mesh, dtype, cls=SSMModel)
 
 
 def params_from_reference(tree, device="cpu", dtype=None) -> SSMModel:
@@ -286,48 +326,127 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     return y, state
 
 
-def ssm_layer(cfg: ArchConfig, x, p, chunk: int = 128):
+#: an SSM layer's weights, in the order the FSDP gather packs those sharded over "data"
+SSM_WEIGHTS = ("ln", "in_proj", "conv_w", "conv_b", "A_log", "D_skip", "dt_bias", "out_ln", "out_proj")
+
+
+def _heads(cfg: ArchConfig, shard) -> tuple[int, int]:
+    """(first, count) of the SSD heads this process runs: its block where
+    "model" divides the heads, all of them otherwise."""
+    h = cfg.n_ssm_heads
+    if shard.axes.tp(h) is None:
+        return 0, h
+    hl = h // shard.n_model
+    return shard.model_index * hl, hl
+
+
+def _in_proj(cfg: ArchConfig, xn, w, shard):
+    """``xn @ in_proj`` whole over its K = 2·d_inner + 2·d_state + h
+    columns: where "model" shards the columns, this process's column block
+    all-gathered over "model" (module docstring)."""
+    out = L.einsum("bsd,dk->bsk", xn, w)
+    k = 2 * cfg.d_inner + 2 * cfg.d_state + cfg.n_ssm_heads
+    if shard.axes.tp(k) is not None:
+        out = shard.mesh.all_gather(out, shard.axes.model, out.dim() - 1)
+    return out
+
+
+def _split(cfg: ArchConfig, zxbcdt, h0: int, hl: int):
+    """``z`` and ``dt`` of heads ``h0 … h0 + hl`` and the whole ``[x | B |
+    C]`` from the packed projection."""
+    di, nst, hd = cfg.d_inner, cfg.d_state, cfg.ssm_head_dim
+    z = zxbcdt[..., h0 * hd:(h0 + hl) * hd]
+    xbc = zxbcdt[..., di:2 * di + 2 * nst]
+    dt = zxbcdt[..., 2 * di + 2 * nst + h0:2 * di + 2 * nst + h0 + hl]
+    return z, xbc, dt
+
+
+def _channels(cfg: ArchConfig, t, h0: int, hl: int):
+    """The channels of an ``[x | B | C]`` last dim that heads ``h0 … h0 +
+    hl`` read: their ``x`` and all of ``B`` and ``C``."""
+    di, hd = cfg.d_inner, cfg.ssm_head_dim
+    if hl * hd == di:
+        return t
+    return torch.cat([t[..., h0 * hd:(h0 + hl) * hd], t[..., di:]], dim=-1)
+
+
+def _gated_norm(cfg: ArchConfig, y, scale, shard, h0: int):
+    """``out_ln``'s RMSNorm over all of ``d_inner`` of a block of heads'
+    channels: the local sums of squares psum'd over "model"."""
+    di, c = cfg.d_inner, y.shape[-1]
+    if c == di:
+        return L.rms_norm(y, scale, cfg.norm_eps)
+    ssq = y.to(torch.promote_types(y.dtype, torch.float32)).square().sum(dim=-1, keepdim=True)
+    var = shard.mesh.psum(ssq, shard.axes.model) / di
+    c0 = h0 * cfg.ssm_head_dim
+    return (y * torch.rsqrt(var + cfg.norm_eps).to(y.dtype)) * scale[c0:c0 + c]
+
+
+def _out_proj(cfg: ArchConfig, y, w, shard):
+    """``y @ out_proj``: row-parallel over "model" where it divides
+    ``d_inner`` (the rows of ``w``'s block line up with the local heads'
+    channels, or cut the whole ``y`` where the heads are not sharded),
+    combined over "model"."""
+    rows = w.shape[0]
+    if rows == y.shape[-1] and rows == cfg.d_inner:
+        return L.einsum("bsk,kd->bsd", y, w)
+    if rows != y.shape[-1]:
+        y = y.narrow(-1, shard.model_index * rows, rows)
+    return shard.combine(L.einsum("bsk,kd->bsd", y, w), partial=True)
+
+
+def ssm_layer(cfg: ArchConfig, x, p, chunk: int = 128, shard=None):
     """One Mamba2 block (training path).  x: (B, S, D).  The chunk is
     ``min(chunk, S)`` and must divide S (the reference's reshape fails
-    otherwise)."""
+    otherwise).  On a mesh (``shard``) ``p`` holds the layer's blocks,
+    gathered over "data" here, and the layer runs this process's heads
+    (module docstring)."""
+    shard = shard or L.Shard(cfg)
     b, s, d = x.shape
-    di, nst, h, hd = cfg.d_inner, cfg.d_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    hd = cfg.ssm_head_dim
     q = min(chunk, s)
     if s % q:
         raise ValueError(f"the SSD chunk {q} must divide the sequence length {s}")
     sd = _state_dtype(x.dtype)
+    p = shard.gather_weights(p, SSM_WEIGHTS)
+    h0, hl = _heads(cfg, shard)
     res = x
     xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    zxbcdt = L.einsum("bsd,dk->bsk", xn, p["in_proj"])
-    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * nst, h], dim=-1)
-    xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
-    xs, B, C = torch.split(xbc, [di, nst, nst], dim=-1)
-    xs = xs.reshape(b, s, h, hd)
+    z, xbc, dt = _split(cfg, _in_proj(cfg, xn, p["in_proj"], shard), h0, hl)
+    xbc = F.silu(_causal_conv(_channels(cfg, xbc, h0, hl), _channels(cfg, p["conv_w"], h0, hl),
+                              _channels(cfg, p["conv_b"], h0, hl)))
+    xs, B, C = torch.split(xbc, [hl * hd, cfg.d_state, cfg.d_state], dim=-1)
+    xs = xs.reshape(b, s, hl, hd)
     dt = _softplus(dt.to(sd) + p["dt_bias"].to(sd))
     A = -torch.exp(p["A_log"].to(sd))
     y, _ = ssd_chunked(xs, dt, A, B.to(sd), C.to(sd), chunk=q)
     y = y.to(x.dtype) + xs * p["D_skip"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(b, s, di) * F.silu(z)
-    y = L.rms_norm(y, p["out_ln"], cfg.norm_eps)
-    return res + L.einsum("bsk,kd->bsd", y, p["out_proj"])
+    y = y.reshape(b, s, hl * hd) * F.silu(z)
+    y = _gated_norm(cfg, y, p["out_ln"], shard, h0)
+    return res + _out_proj(cfg, y, p["out_proj"], shard)
 
 
-def ssm_decode_layer(cfg: ArchConfig, x, p, state):
+def ssm_decode_layer(cfg: ArchConfig, x, p, state, shard=None):
     """One-token decode.  x: (B, 1, D); ``state`` {conv: (B, W-1, convdim),
-    ssm: (B, H, P, N)} → (y, new_state), the new state in new tensors."""
+    ssm: (B, H, P, N)} → (y, new_state), the new state in new tensors.  On
+    a mesh (``shard``) ``ssm`` holds this process's heads and ``conv`` every
+    channel (the whole projection is gathered, module docstring)."""
+    shard = shard or L.Shard(cfg)
     b = x.shape[0]
-    di, nst, h, hd = cfg.d_inner, cfg.d_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    hd = cfg.ssm_head_dim
     sd = _state_dtype(x.dtype)
+    p = shard.gather_weights(p, SSM_WEIGHTS)
+    h0, hl = _heads(cfg, shard)
     res = x
     xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
-    zxbcdt = L.einsum("bsd,dk->bsk", xn, p["in_proj"])[:, 0]
-    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * nst, h], dim=-1)
+    z, xbc, dt = _split(cfg, _in_proj(cfg, xn, p["in_proj"], shard)[:, 0], h0, hl)
     wdt = torch.promote_types(state["conv"].dtype, xbc.dtype)  # jnp.concatenate promotes
     window = torch.cat([state["conv"].to(wdt), xbc[:, None].to(wdt)], dim=1)  # (B, W, convdim)
-    xbc = F.silu(L.einsum("bwc,wc->bc", window, p["conv_w"]) + p["conv_b"])
+    xbc = F.silu(L.einsum("bwc,wc->bc", _channels(cfg, window, h0, hl), _channels(cfg, p["conv_w"], h0, hl))
+                 + _channels(cfg, p["conv_b"], h0, hl))
     new_conv = window[:, 1:]
-    xs, B, C = torch.split(xbc, [di, nst, nst], dim=-1)
-    xs = xs.reshape(b, h, hd)
+    xs, B, C = torch.split(xbc, [hl * hd, cfg.d_state, cfg.d_state], dim=-1)
+    xs = xs.reshape(b, hl, hd)
     dt = _softplus(dt.to(sd) + p["dt_bias"].to(sd))
     A = -torch.exp(p["A_log"].to(sd))
     da = torch.exp(dt * A)  # (B, H)
@@ -336,21 +455,19 @@ def ssm_decode_layer(cfg: ArchConfig, x, p, state):
         "bhp,bn,bh->bhpn", xs.to(sd), B.to(sd), dt).to(ssm.dtype)
     y = L.einsum("bn,bhpn->bhp", C.to(s_new.dtype), s_new).to(x.dtype) \
         + xs * p["D_skip"].to(x.dtype)[None, :, None]
-    y = y.reshape(b, di) * F.silu(z)
-    y = L.rms_norm(y, p["out_ln"], cfg.norm_eps)
-    out = res + L.einsum("bk,kd->bd", y, p["out_proj"])[:, None].to(res.dtype)
+    y = y.reshape(b, 1, hl * hd) * F.silu(z)[:, None]
+    y = _gated_norm(cfg, y, p["out_ln"], shard, h0)
+    out = res + _out_proj(cfg, y, p["out_proj"], shard).to(res.dtype)
     return out, {"conv": new_conv.to(res.dtype), "ssm": s_new}
 
 
 # ---------------------------------------------------------------- forwards
-def _shared_attn_block(cfg: ArchConfig, x, sp, positions):
-    h = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
-    q, k, v = L.qkv(cfg, h, sp, positions)
+def _shared_attn_block(cfg: ArchConfig, x, sp, positions, shard=None):
+    """The hybrid's shared attention + MLP block: the transformer's decoder
+    layer (head-sharded and combined over "model" on a mesh, its weights
+    gathered over "data" at each application)."""
     mask = None if cfg.attn_chunk else L.causal_mask(x.shape[1], device=x.device)
-    o = L.attention(cfg, q, k, v, mask, mask_kind="causal")
-    x = x + L.einsum("bshe,hed->bsd", o, sp["wo"])
-    h = L.rms_norm(x, sp["ln2"], cfg.norm_eps)
-    return x + L.mlp_block(cfg, h, sp)
+    return T.decoder_layer(cfg, x, sp, positions, mask, "causal", shard)[0]
 
 
 def _segments(cfg: ArchConfig):
@@ -366,11 +483,15 @@ def _hybrid(cfg: ArchConfig) -> bool:
     return cfg.family == "hybrid" and bool(cfg.attn_period)
 
 
-def forward(cfg: ArchConfig, params: SSMModel, tokens):
+def forward(cfg: ArchConfig, params: SSMModel, tokens, shard=None):
     """Token forward to the final hidden states (B, S, D).  With
     ``cfg.remat`` each layer, and each application of the shared block, is
-    recomputed in the backward pass."""
-    x = params["emb"][tokens].to(cfg.dtype)
+    recomputed in the backward pass.  On a mesh (``shard``) ``params`` are
+    this process's blocks and ``tokens`` its rows; the embedding is
+    vocab-parallel over "model"."""
+    shard = shard or L.Shard(cfg)
+    x = T._embed(cfg, shard, shard.gather_weights(params, ["emb"])["emb"], tokens).to(cfg.dtype)
+    x = shard.residual(x)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     remat = cfg.remat and torch.is_grad_enabled()
 
@@ -379,21 +500,22 @@ def forward(cfg: ArchConfig, params: SSMModel, tokens):
 
     for s0, e0 in _segments(cfg):
         if _hybrid(cfg):
-            x = run(_shared_attn_block, x, params.shared, positions)
+            x = shard.residual(run(_shared_attn_block, x, params.shared, positions, shard))
         for layer in params.layers[s0:e0]:
-            x = run(ssm_layer, x, layer)
+            x = shard.residual(run(ssm_layer, x, layer, 128, shard))
     return L.rms_norm(x, params["final_ln"], cfg.norm_eps)
 
 
 def loss_fn(cfg: ArchConfig, mesh=None):
     """``f(params, batch) -> loss`` with batch ``{"tokens", "labels"}``.
-    On a ``mesh`` it is ROADMAP.md queue 1 item 13 part 5b."""
-    if mesh is not None:
-        not_ported(f"sharded execution of the {cfg.family} family ({cfg.name}; part 5b)")
+    On an LM ``mesh`` ``params`` are this process's blocks and ``batch``
+    its rows; the loss is the global one (pmean'd over the batch axes)."""
+    specs = T.mesh_specs(cfg, mesh, param_specs)
 
     def f(params, batch):
-        x = forward(cfg, params, batch["tokens"])
-        return lm_loss(cfg, params, x, batch["labels"])
+        shard = L.Shard(cfg, mesh, specs, batch["tokens"].shape[1], seq_parallel=False)
+        x = forward(cfg, params, batch["tokens"], shard)
+        return shard.batch_mean(lm_loss(cfg, params, x, batch["labels"], shard))
 
     return f
 
@@ -423,12 +545,14 @@ def cache_dtype(cfg: ArchConfig, shape: tuple) -> torch.dtype:
     return torch.float32 if len(shape) == 5 and shape[-1] == cfg.d_state else cfg.dtype
 
 
-def init_cache(cfg: ArchConfig, batch: int, seq: int, device=None):
-    return {k: torch.zeros(s, dtype=cache_dtype(cfg, s), device=device)
-            for k, s in cache_shapes(cfg, batch, seq).items()}
+def init_cache(cfg: ArchConfig, batch: int, seq: int, device=None, mesh=None):
+    """Zeros of :func:`cache_shapes` in :func:`cache_dtype`; on a ``mesh``
+    this process's blocks (:func:`cache_specs`)."""
+    shapes = cache_blocks(cache_shapes(cfg, batch, seq), cache_specs, cfg, batch, seq, mesh)
+    return {k: torch.zeros(s, dtype=cache_dtype(cfg, s), device=device) for k, s in shapes.items()}
 
 
-def decode_step(cfg: ArchConfig):
+def decode_step(cfg: ArchConfig, mesh=None, cache_specs=None):
     """One-token decode: ``f(params, cache, token, pos) -> (logits, cache)``
     with ``token`` and ``pos`` (B,) integer tensors.  Each layer's conv
     window and SSM state, and each shared application's K/V row, are
@@ -436,35 +560,27 @@ def decode_step(cfg: ArchConfig):
     the ``conv`` cache's (zamba2 in bfloat16, whose float32 K/V make the
     hidden state float32 from the first shared block on), ``cache["conv"]``
     is first replaced by a copy in that dtype, as the reference's step
-    returns it."""
+    returns it.  On an LM ``mesh`` (with the cache's ``cache_specs``)
+    ``params`` and ``cache`` are this process's blocks, ``token``/``pos``
+    its rows and the logits its block (module docstring)."""
+    specs = T.mesh_specs(cfg, mesh, param_specs)
 
     @torch.no_grad()
     def f(params, cache, token, pos):
-        b = token.shape[0]
-        x = params["emb"][token][:, None].to(cfg.dtype)  # (B, 1, D)
-        rows = torch.arange(b, device=x.device)
-        if _hybrid(cfg):
-            s_cache = cache["k"].shape[2]
-            mask = torch.arange(s_cache, device=x.device)[None, None, None, :] <= pos[:, None, None, None]
+        shard = T.decode_shard(cfg, mesh, specs, cache_specs.get("k") if cache_specs else None)
+        slots = L.decode_slots(pos, cache["k"].shape[2], shard) if _hybrid(cfg) else None
+        x = T._embed(cfg, shard, shard.gather_weights(params, ["emb"])["emb"], token[:, None]).to(cfg.dtype)
         for app, (s0, e0) in enumerate(_segments(cfg)):
             if _hybrid(cfg):
-                sp = params.shared
-                h = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
-                q, k, v = L.qkv(cfg, h, sp, pos[:, None])
-                cache["k"][app][rows, pos] = k[:, 0].to(cache["k"].dtype)
-                cache["v"][app][rows, pos] = v[:, 0].to(cache["v"].dtype)
-                o = L.attention(cfg, q, cache["k"][app], cache["v"][app], mask)
-                x = x + L.einsum("bshe,hed->bsd", o, sp["wo"])
-                h = L.rms_norm(x, sp["ln2"], cfg.norm_eps)
-                x = x + L.mlp_block(cfg, h, sp)
+                x = T.decode_layer(cfg, x, params.shared, cache["k"][app], cache["v"][app], slots, shard)
             for i in range(s0, e0):
                 x, ns = ssm_decode_layer(cfg, x, params.layers[i],
-                                         {"conv": cache["conv"][i], "ssm": cache["ssm"][i]})
+                                         {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}, shard)
                 if cache["conv"].dtype != ns["conv"].dtype:
                     cache["conv"] = cache["conv"].to(ns["conv"].dtype)
                 cache["conv"][i].copy_(ns["conv"])
                 cache["ssm"][i].copy_(ns["ssm"])
         x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
-        return logits_from_hidden(cfg, params, x)[:, 0], cache
+        return logits_from_hidden(cfg, params, x, shard)[:, 0], cache
 
     return f

@@ -25,10 +25,17 @@ a mesh, every method of which is an identity): the embedding and the
 output head vocab-parallel over "model" (the pad ids masked to -inf
 across the shards), the residual's sequence sharded over "model" under
 ``seq_parallel``, each layer's weights gathered over "data" just before
-use.  The sharded decode step is ROADMAP.md queue 1 item 13 part 5b.  The
-ssm and hybrid families are :mod:`repro_torch.models.ssm`'s and the
-encdec family :mod:`repro_torch.models.encdec`'s (this module's functions
-refuse them).
+use.  :func:`decode_step` on a mesh runs the same layers on the cache's
+blocks (:func:`cache_specs`): K/V over heads, or the sequence's slots over
+"model" where "model" does not divide the K/V heads (each process attends
+its own slots, combined by
+:func:`~repro_torch.models.layers.decode_attention`), the batch over the
+batch axes where it divides them, and the vocab-parallel head returning
+this process's block of the logits.  :func:`self_attention`,
+:func:`ffn` and :func:`decode_layer` are the pieces the other families
+reuse: the ssm and hybrid families are :mod:`repro_torch.models.ssm`'s and
+the encdec family :mod:`repro_torch.models.encdec`'s (this module's
+family functions refuse them).
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from repro_torch.models.common import (
     MeshAxes,
     P,
     block_of,
+    cache_blocks,
     local_shapes,
     named_specs,
     not_ported,
@@ -195,18 +203,21 @@ def _flat_shapes(tree, prefix=()):
 
 
 @torch.no_grad()
-def _assign(model: _Weights, path: tuple, value: torch.Tensor) -> None:
+def _assign(model: _Weights, path: tuple, value: torch.Tensor, mesh=None, spec_of=None) -> None:
     """Copy a value in the reference's stacked layout into ``model``
     (``("layers", w)`` into every layer, likewise ``enc_layers`` and
-    ``dec_layers``; other paths by name)."""
+    ``dec_layers``; other paths by name); on a ``mesh`` this process's
+    block of each (``spec_of``: :func:`~repro_torch.models.common.named_specs`)."""
     if path[0] in STACKED:
-        for i, layer in enumerate(model[path[0]]):
-            layer[path[1]].copy_(value[i])
+        targets = [(f"{path[0]}.{i}.{path[1]}", layer[path[1]], value[i])
+                   for i, layer in enumerate(model[path[0]])]
     else:
         node = model
         for key in path[:-1]:
             node = node[key]
-        node[path[-1]].copy_(value)
+        targets = [(".".join(path), node[path[-1]], value)]
+    for name, w, v in targets:
+        w.copy_(v if mesh is None else block_of(v, spec_of(name), mesh))
 
 
 @torch.no_grad()
@@ -249,10 +260,12 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None, mesh=N
 
 # ------------------------------------------------- one process's blocks
 @torch.no_grad()
-def shard_params(full, specs: dict, mesh, dtype=None) -> Transformer:
-    """One process's blocks of full parameters: ``full`` is a
-    :class:`Transformer` (any device) or the reference's params tree
-    (numpy or JAX arrays, stacked); the blocks land on the mesh's device."""
+def shard_params(full, specs: dict, mesh, dtype=None, cls=None) -> Transformer:
+    """One process's blocks of full parameters: ``full`` is a module of
+    ``cls`` (default :class:`Transformer`; any device) or the reference's
+    params tree (numpy or JAX arrays, stacked); the blocks land on the
+    mesh's device in a new ``cls``."""
+    cls = cls or Transformer
     if isinstance(full, nn.Module):
         named = {n: p.detach() for n, p in full.named_parameters()}
         shapes = stack_shapes(named)
@@ -263,7 +276,7 @@ def shard_params(full, specs: dict, mesh, dtype=None) -> Transformer:
                       else tuple(np.shape(v))) for k, v in full.items()}
         dtype = dtype or torch.from_numpy(np.asarray(full["final_ln"])[:1].copy()).dtype
     spec_of = named_specs(specs)
-    model = Transformer(local_shapes(shapes, specs, mesh), device=mesh.device, dtype=dtype)
+    model = cls(local_shapes(shapes, specs, mesh), device=mesh.device, dtype=dtype)
     for name, p in model.named_parameters():
         blk = block_of(named[name], spec_of(name), mesh)
         p.copy_(blk if isinstance(blk, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(blk)))
@@ -271,7 +284,8 @@ def shard_params(full, specs: dict, mesh, dtype=None) -> Transformer:
 
 
 def stack_shapes(named: dict) -> dict:
-    """The stacked shapes tree of tensors by parameter name."""
+    """The stacked shapes tree of tensors by parameter name (other dotted
+    names nested, as :func:`stack_named`)."""
     out: dict = {}
     for name, t in named.items():
         parts = name.split(".")
@@ -280,8 +294,20 @@ def stack_shapes(named: dict) -> dict:
             n = max(int(parts[1]) + 1, grp.get(parts[2], (0,))[0])
             grp[parts[2]] = (n,) + tuple(t.shape)
         else:
-            out[name] = tuple(t.shape)
+            node = out
+            for key in parts[:-1]:
+                node = node.setdefault(key, {})
+            node[parts[-1]] = tuple(t.shape)
     return out
+
+
+def shard_specs(stacked: dict) -> dict:
+    """A :class:`~repro_torch.models.layers.Shard`'s ``specs`` from a
+    family's stacked ``param_specs``: each per-layer weight's spec without
+    the layer entry (the groups of :data:`STACKED` give a name one spec),
+    the hybrid's ``shared`` block's, ``emb`` and ``lm_head``."""
+    specs = {n: P(*sp[1:]) for g in STACKED if g in stacked for n, sp in stacked[g].items()}
+    return specs | stacked.get("shared", {}) | {n: stacked[n] for n in ("emb", "lm_head") if n in stacked}
 
 
 # -------------------------------------------- the reference's stacked layout
@@ -358,19 +384,31 @@ def model_from_reference(cls, tree, device="cpu", dtype=None):
 LAYER_WEIGHTS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "wg", "wu", "wd", "router", "we_g", "we_u", "we_d")
 
 
-def decoder_layer(cfg: ArchConfig, x, p, positions, mask, mask_kind: str = "causal", shard=None):
+def decoder_layer(cfg: ArchConfig, x, p, positions, mask, mask_kind: str | None = "causal", shard=None):
     """One layer: ``(x, aux)``, aux the MoE FFN's load-balance loss (0.0
     for a dense FFN).  On a mesh (``shard``, a
     :class:`~repro_torch.models.layers.Shard`) ``x`` is the residual's
     block (its sequence sharded over "model" under ``seq_parallel``) and
     ``p`` the layer's blocks, gathered over "data" here (inside the remat
-    region, so one layer's weights at a time)."""
+    region, so one layer's weights at a time).  The hybrid's shared block
+    and whisper's encoder layer are this layer too."""
     shard = shard or L.Shard(cfg)
     p = shard.gather_weights(p, [n for n in LAYER_WEIGHTS if n in p])
+    return ffn(cfg, self_attention(cfg, x, p, positions, mask, mask_kind, shard), p, shard)
+
+
+def self_attention(cfg: ArchConfig, x, p, positions, mask, mask_kind, shard):
+    """``x`` plus the attention block over ``x`` (``ln1``, ``wq``, ``wk``,
+    ``wv``, ``wo``; head-sharded on a mesh, combined over "model")."""
     h = shard.gather_seq(L.rms_norm(x, p["ln1"], cfg.norm_eps))
     q, k, v = L.qkv(cfg, h, p, positions)
     o = L.attention(cfg, q, k, v, mask, mask_kind=mask_kind, h0=shard.h0)
-    x = x + shard.combine(torch.einsum("bshe,hed->bsd", o, p["wo"]), partial=shard.heads_sharded)
+    return x + shard.combine(L.einsum("bshe,hed->bsd", o, p["wo"]), partial=shard.heads_sharded)
+
+
+def ffn(cfg: ArchConfig, x, p, shard):
+    """``(x + FFN(ln2(x)), aux)``: the MoE's expert FFN (expert-parallel on
+    a mesh) or the MLP (column/row-parallel, combined over "model")."""
     h = shard.gather_seq(L.rms_norm(x, p["ln2"], cfg.norm_eps))
     if cfg.family == "moe":
         ff, aux = moe_ffn(cfg, h, p, shard)
@@ -447,8 +485,10 @@ def _head(cfg: ArchConfig, params, shard=None):
     return w.T if cfg.tie_embeddings else w
 
 
-def logits_from_hidden(cfg: ArchConfig, params: Transformer, x):
-    return torch.einsum("bsd,dv->bsv", x, _head(cfg, params).to(x.dtype))
+def logits_from_hidden(cfg: ArchConfig, params: Transformer, x, shard=None):
+    """The logits (B, S, V) over the padded vocab; on a mesh (``shard``)
+    this process's vocab block where "model" divides it."""
+    return torch.einsum("bsd,dv->bsv", x, _head(cfg, params, shard).to(x.dtype))
 
 
 def cross_entropy(cfg: ArchConfig, logits, labels, mask=None, shard=None):
@@ -514,14 +554,7 @@ def loss_fn(cfg: ArchConfig, mesh=None):
     (the batch shards' losses pmean'd over the batch axes), the same on
     every process."""
     check_family(cfg)
-    specs = {}
-    if mesh is not None:
-        axes = MeshAxes.from_mesh(mesh)
-        if cfg.family == "moe":
-            check_experts(cfg, axes.size(axes.model))
-        stacked = param_specs(cfg, axes)
-        specs = {n: P(*sp[1:]) for n, sp in stacked["layers"].items()}
-        specs |= {n: stacked[n] for n in ("emb", "lm_head") if n in stacked}
+    specs = mesh_specs(cfg, mesh)
 
     def f(params, batch):
         embeds = batch.get("patch_embeds") if cfg.family == "vlm" else None
@@ -534,6 +567,18 @@ def loss_fn(cfg: ArchConfig, mesh=None):
         return loss + 0.01 * aux if cfg.family == "moe" else loss
 
     return f
+
+
+def mesh_specs(cfg: ArchConfig, mesh, spec_fn=None) -> dict:
+    """The Shard specs on ``mesh`` ({} without one) from the family's
+    ``param_specs`` (``spec_fn``, this module's by default); an expert
+    count that "model" does not divide is refused."""
+    if mesh is None:
+        return {}
+    axes = MeshAxes.from_mesh(mesh)
+    if cfg.family == "moe":
+        check_experts(cfg, axes.size(axes.model))
+    return shard_specs((spec_fn or param_specs)(cfg, axes))
 
 
 def train_input_specs(cfg: ArchConfig, batch: int, seq: int) -> dict[str, tuple]:
@@ -554,38 +599,72 @@ def cache_shapes(cfg: ArchConfig, batch: int, seq: int):
     }
 
 
-def init_cache(cfg: ArchConfig, batch: int, seq: int, device=None):
-    return {k: torch.zeros(s, dtype=cfg.dtype, device=device)
-            for k, s in cache_shapes(cfg, batch, seq).items()}
+def init_cache(cfg: ArchConfig, batch: int, seq: int, device=None, mesh=None):
+    """Zeros of :func:`cache_shapes`; on a ``mesh`` this process's blocks
+    (:func:`cache_specs`)."""
+    shapes = cache_blocks(cache_shapes(cfg, batch, seq), cache_specs, cfg, batch, seq, mesh)
+    return {k: torch.zeros(s, dtype=cfg.dtype, device=device) for k, s in shapes.items()}
 
 
-def decode_step(cfg: ArchConfig):
+def decode_shard(cfg: ArchConfig, mesh, specs: dict, cache_spec: P | None = None) -> L.Shard:
+    """A decode step's :class:`~repro_torch.models.layers.Shard`: no
+    sequence parallelism, and the axes that shard the K/V cache's slots
+    (``cache_spec``'s dim 2)."""
+    seq_axes = cache_spec.axes_of(2) if mesh is not None and cache_spec is not None else ()
+    return L.Shard(cfg, mesh, specs, 1, seq_parallel=False, cache_seq=seq_axes)
+
+
+def decode_self_attention(cfg: ArchConfig, x, p, kc, vc, slots: L.DecodeSlots, shard):
+    """One new token's attention block: its K/V row written into ``kc``/
+    ``vc`` (this process's cache blocks, in place) at ``slots``, its query
+    attending the cache.  Where "model" shards the cache's slots, the query heads are
+    gathered over "model" first (every process of the combine attends every
+    head over its own slots) and the output cut back to this process's
+    heads before ``wo``."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v = L.qkv(cfg, h, p, slots.pos[:, None])
+    L.write_cache_row(kc, k[:, 0], slots)
+    L.write_cache_row(vc, v[:, 0], slots)
+    gather = shard.heads_sharded and shard.axes.model in shard.cache_seq
+    hl = q.shape[2]
+    if gather:
+        q = shard.mesh.all_gather(q, shard.axes.model, 2)
+    o = L.decode_attention(cfg, q, kc, vc, slots, shard, h0=0 if gather else shard.h0)
+    if gather:
+        o = o.narrow(2, shard.h0, hl)
+    return x + shard.combine(L.einsum("bshe,hed->bsd", o, p["wo"]), partial=shard.heads_sharded)
+
+
+def decode_layer(cfg: ArchConfig, x, p, kc, vc, slots: L.DecodeSlots, shard):
+    """One decoder layer on one new token (the hybrid's shared block too):
+    the weights gathered over "data", :func:`decode_self_attention`, the
+    FFN (the MoE's over the B new tokens together, its aux dropped)."""
+    p = shard.gather_weights(p, [n for n in LAYER_WEIGHTS if n in p])
+    return ffn(cfg, decode_self_attention(cfg, x, p, kc, vc, slots, shard), p, shard)[0]
+
+
+def decode_step(cfg: ArchConfig, mesh=None, cache_specs=None):
     """One-token decode against a (B, S_cache) KV cache:
     ``f(params, cache, token, pos) -> (logits, cache)`` with ``token`` and
     ``pos`` (B,) integer tensors.  Each layer's new K/V row is written into
     ``cache`` in place (the reference blends a one-hot row, which equals
     the write for finite values); attention runs over the whole cache with
     the mask ``arange(S) <= pos``.  The MoE FFN routes the B new tokens
-    together (capacity from T = B) and its aux loss is dropped."""
+    together (capacity from T = B) and its aux loss is dropped.  On an LM
+    ``mesh`` (with the cache's ``cache_specs``) ``params`` and ``cache``
+    are this process's blocks, ``token``/``pos`` its rows, and the logits
+    its block (module docstring)."""
     check_family(cfg)
+    specs = mesh_specs(cfg, mesh)
 
     @torch.no_grad()
     def f(params, cache, token, pos):
-        b = token.shape[0]
-        x = params["emb"][token][:, None].to(cfg.dtype)  # (B, 1, D)
-        s_cache = cache["k"].shape[2]
-        rows = torch.arange(b, device=x.device)
-        mask = torch.arange(s_cache, device=x.device)[None, None, None, :] <= pos[:, None, None, None]
+        shard = decode_shard(cfg, mesh, specs, cache_specs and cache_specs["k"])
+        slots = L.decode_slots(pos, cache["k"].shape[2], shard)
+        x = _embed(cfg, shard, shard.gather_weights(params, ["emb"])["emb"], token[:, None]).to(cfg.dtype)
         for i, lp in enumerate(params.layers):
-            h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-            q, k, v = L.qkv(cfg, h, lp, pos[:, None])
-            cache["k"][i][rows, pos] = k[:, 0]
-            cache["v"][i][rows, pos] = v[:, 0]
-            o = L.attention(cfg, q, cache["k"][i], cache["v"][i], mask)
-            x = x + torch.einsum("bshe,hed->bsd", o, lp["wo"])
-            h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + (moe_ffn(cfg, h, lp)[0] if cfg.family == "moe" else L.mlp_block(cfg, h, lp))
+            x = decode_layer(cfg, x, lp, cache["k"][i], cache["v"][i], slots, shard)
         x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
-        return logits_from_hidden(cfg, params, x)[:, 0], cache
+        return logits_from_hidden(cfg, params, x, shard)[:, 0], cache
 
     return f

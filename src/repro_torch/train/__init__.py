@@ -1,5 +1,6 @@
-"""Training/serving substrate (port of ``repro/train``): one device, or the
-transformer families' sharded step on an LM mesh."""
+"""Training/serving substrate (port of ``repro/train``): the train and
+decode steps of every family on one device or sharded on an LM mesh, and
+checkpoints that restore onto any mesh."""
 
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state, apply_adamw
 from repro_torch.train.train_step import build_train_step, build_serve_step

@@ -1,4 +1,4 @@
-"""Checkpointing: atomic, step-tagged, preemption-safe.
+"""Checkpointing: atomic, step-tagged, mesh-agnostic, preemption-safe.
 
 Port of ``repro/train/checkpoint.py`` on the reference's on-disk layout, so
 a checkpoint written by either package restores in the other:
@@ -12,9 +12,22 @@ a checkpoint written by either package restores in the other:
   ``enc_layers`` and ``dec_layers``) and other dotted names nested (the
   hybrid's ``shared.<w>`` as ``{"shared": {"<w>": …}}``); ``meta.json``
   holds the step, the leaf count and ``extra``;
+* arrays are saved *logically* (full values), so a checkpoint written on
+  one LM mesh restores onto another mesh shape or onto one device;
 * ``install_preemption_handler`` checkpoints on SIGTERM before exiting.
 
 A tree is nested dicts whose leaves are modules, tensors or numpy values.
+The leaves are written one at a time into the archive (``np.savez``'s
+format, streamed), so the host holds one stacked leaf at a time.
+
+On an LM mesh (``mesh``, with ``specs`` mirroring the tree: a module's or
+a named dict's entry is a ``name -> P`` function, a tensor's a ``P``; a
+train bundle's ``state_specs``) each process holds blocks.
+:func:`save_checkpoint` is then collective: every process gathers each
+leaf by its spec (the parameters by theirs, the moments by their ZeRO-1
+specs), one per-layer leaf at a time; rank 0 alone copies them to the
+host and writes, and the others wait at a barrier.  :func:`restore_checkpoint` reads the file on every process
+and keeps its own blocks.  The directory must be one every process sees.
 """
 
 from __future__ import annotations
@@ -23,13 +36,15 @@ import json
 import os
 import shutil
 import signal
+import zipfile
 from pathlib import Path
 
 import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.models.transformer import STACKED, _to_numpy, stack_named, unstack_named
+from repro_torch.models.common import block_of, gather_named
+from repro_torch.models.transformer import STACKED, _to_numpy
 
 
 def _is_named(d: dict) -> bool:
@@ -38,92 +53,89 @@ def _is_named(d: dict) -> bool:
     return any(isinstance(k, str) and "." in k for k in d)
 
 
-def _to_reference(obj):
-    """A tree → the reference's nested dict of numpy arrays."""
+def _sources(obj, spec=None, prefix=()) -> dict:
+    """The reference layout's leaves of a tree: ``path -> [(layer, value,
+    spec)]``, a stacked leaf's entries one a layer (``layer`` its index;
+    None for a leaf that is not stacked)."""
     if isinstance(obj, nn.Module):
-        return stack_named(dict(obj.named_parameters()))
-    if isinstance(obj, dict):
-        return stack_named(obj) if _is_named(obj) else {k: _to_reference(v) for k, v in obj.items()}
-    if isinstance(obj, torch.Tensor):
-        return _to_numpy(obj)
-    return np.asarray(obj)
+        obj = dict(obj.named_parameters())
+    out: dict = {}
+    if isinstance(obj, dict) and _is_named(obj):
+        for name, t in obj.items():
+            parts, sp = name.split("."), spec(name) if spec else None
+            if parts[0] in STACKED:
+                out.setdefault(prefix + (parts[0], parts[2]), []).append((int(parts[1]), t, sp))
+            else:
+                out[prefix + tuple(parts)] = [(None, t, sp)]
+        for entries in out.values():
+            entries.sort(key=lambda e: -1 if e[0] is None else e[0])
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            out |= _sources(v, spec[k] if spec else None, prefix + (k,))
+    else:
+        out[prefix] = [(None, obj, spec)]
+    return out
 
 
-def _named_keys(names) -> dict:
-    """:func:`stack_named`'s keys for parameter names (leaves None)."""
-    keys = {}
-    for name in names:
-        parts = name.split(".")
-        if parts[0] in STACKED:
-            parts = [parts[0], parts[2]]
-        node = keys
-        for key in parts[:-1]:
-            node = node.setdefault(key, {})
-        node[parts[-1]] = None
-    return keys
+def _leaves(tree, specs) -> list:
+    """:func:`_sources` in the reference's flatten order (keys sorted at
+    every level: the paths in lexicographic order)."""
+    return sorted(_sources(tree, specs).items(), key=lambda kv: kv[0])
 
 
-def _reference_keys(obj):
-    """The reference layout's keys of a tree (leaves None), without copying
-    any value."""
-    if isinstance(obj, nn.Module):
-        return _named_keys(n for n, _ in obj.named_parameters())
-    if isinstance(obj, dict):
-        return _named_keys(obj) if _is_named(obj) else {k: _reference_keys(v) for k, v in obj.items()}
-    return None
+def _full(value, spec, mesh, writer: bool) -> np.ndarray | None:
+    """A leaf's full value on the host for the ``writer`` (gathered by
+    ``spec`` on a mesh); the other processes only join the gather and
+    get None."""
+    if not isinstance(value, torch.Tensor):
+        return np.asarray(value) if writer else None
+    if mesh is not None and spec is not None:
+        value = gather_named({"x": value}, lambda _: spec, mesh)["x"]
+    return _to_numpy(value) if writer else None
 
 
-def _flatten(tree, prefix=()):
-    """(path, leaf) in the reference's order: dict keys sorted."""
-    if not isinstance(tree, dict):
-        yield prefix, tree
-        return
-    for k in sorted(tree):
-        yield from _flatten(tree[k], prefix + (k,))
-
-
-def _from_reference(like, ref):
-    """Values in the reference layout → ``like``'s structure: a module's
-    parameters are copied in place (the module is returned), tensors come
-    back on ``like``'s device in its dtype."""
-    as_tensor = lambda a, t: torch.from_numpy(np.array(a)).to(t.device, t.dtype)
-    if isinstance(like, nn.Module):
-        named = unstack_named(ref)
-        with torch.no_grad():
-            for name, p in like.named_parameters():
-                p.copy_(as_tensor(named[name], p))
-        return like
-    if isinstance(like, dict):
-        if _is_named(like):
-            named = unstack_named(ref)
-            return {n: as_tensor(named[n], t) for n, t in like.items()}
-        return {k: _from_reference(v, ref[k]) for k, v in like.items()}
-    if isinstance(like, torch.Tensor):
-        return as_tensor(ref, like)
-    return np.asarray(ref).astype(np.asarray(like).dtype)
-
-
-def save_checkpoint(ckpt_dir: str | os.PathLike, step: int, tree, extra: dict | None = None):
+def save_checkpoint(ckpt_dir: str | os.PathLike, step: int, tree, extra: dict | None = None,
+                    mesh=None, specs=None):
+    """Write ``tree`` as checkpoint ``step`` (module docstring); on a
+    ``mesh`` every process calls it with its blocks and ``specs``."""
     ckpt_dir = Path(ckpt_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
-    tmp = ckpt_dir / f"tmp.{step}"
-    if tmp.exists():
-        shutil.rmtree(tmp)
-    tmp.mkdir()
-    leaves = [leaf for _, leaf in _flatten(_to_reference(tree))]
-    np.savez(tmp / "leaves.npz", **{f"leaf_{i}": x for i, x in enumerate(leaves)})
-    meta = {"step": step, "n_leaves": len(leaves), "extra": extra or {}}
-    (tmp / "meta.json").write_text(json.dumps(meta))
+    writer = mesh is None or mesh.rank == 0
     final = ckpt_dir / f"step_{step:08d}"
-    if final.exists():
-        shutil.rmtree(final)
-    tmp.rename(final)  # atomic
-    latest = ckpt_dir / "latest"
-    tmp_link = ckpt_dir / ".latest.tmp"
-    if tmp_link.is_symlink() or tmp_link.exists():
-        tmp_link.unlink()
-    tmp_link.symlink_to(final.name)
-    tmp_link.rename(latest)  # atomic flip
+    leaves = _leaves(tree, specs)
+    if writer:
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+        tmp = ckpt_dir / f"tmp.{step}"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir()
+        archive = zipfile.ZipFile(tmp / "leaves.npz", "w", zipfile.ZIP_STORED, allowZip64=True)
+    try:
+        for i, (_, entries) in enumerate(leaves):
+            # gathered layer by layer; the writer stacks them on the host
+            parts = [_full(v, sp, mesh, writer) for _, v, sp in entries]
+            if writer:
+                arr = parts[0] if entries[0][0] is None else np.stack(parts)
+                with archive.open(f"leaf_{i}.npy", "w", force_zip64=True) as f:
+                    np.lib.format.write_array(f, arr, allow_pickle=False)
+                del arr
+            del parts
+    finally:
+        if writer:
+            archive.close()
+    if writer:
+        meta = {"step": step, "n_leaves": len(leaves), "extra": extra or {}}
+        (tmp / "meta.json").write_text(json.dumps(meta))
+        if final.exists():
+            shutil.rmtree(final)
+        tmp.rename(final)  # atomic
+        latest = ckpt_dir / "latest"
+        tmp_link = ckpt_dir / ".latest.tmp"
+        if tmp_link.is_symlink() or tmp_link.exists():
+            tmp_link.unlink()
+        tmp_link.symlink_to(final.name)
+        tmp_link.rename(latest)  # atomic flip
+    if mesh is not None:
+        mesh.barrier()  # the checkpoint exists for every process
     return final
 
 
@@ -134,30 +146,72 @@ def latest_step(ckpt_dir: str | os.PathLike) -> int | None:
     return json.loads((latest / "meta.json").read_text())["step"]
 
 
-def restore_checkpoint(ckpt_dir: str | os.PathLike, like_tree, step: int | None = None):
-    """Restore into ``like_tree``'s structure, devices and dtypes (modules
-    in place).  Returns ``(tree, meta)``."""
+@torch.no_grad()
+def restore_checkpoint(ckpt_dir: str | os.PathLike, like_tree, step: int | None = None, mesh=None,
+                       specs=None):
+    """Restore into ``like_tree``'s structure, devices and dtypes (its
+    tensors and modules in place; numpy leaves come back new).  On a
+    ``mesh`` (with ``specs``) every process reads the file and keeps its
+    own blocks, whatever mesh wrote it.  Returns ``(tree, meta)``."""
     ckpt_dir = Path(ckpt_dir)
     src = ckpt_dir / ("latest" if step is None else f"step_{step:08d}")
     meta = json.loads((src / "meta.json").read_text())
-    paths = [path for path, _ in _flatten(_reference_keys(like_tree))]
-    if meta["n_leaves"] != len(paths):
+    leaves = _leaves(like_tree, specs)
+    if meta["n_leaves"] != len(leaves):
         raise ValueError(f"checkpoint/model structure mismatch: {meta['n_leaves']} leaves "
-                         f"against {len(paths)}")
-    ref: dict = {}
+                         f"against {len(leaves)}")
+    got = {}
     with np.load(src / "leaves.npz") as data:
-        for i, path in enumerate(paths):
-            node = ref
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            node[path[-1]] = data[f"leaf_{i}"]
-    return _from_reference(like_tree, ref), meta
+        for i, (path, entries) in enumerate(leaves):
+            arr = data[f"leaf_{i}"]
+            for layer, t, sp in entries:
+                a = arr if layer is None else arr[layer]
+                if not isinstance(t, torch.Tensor):
+                    got[path] = np.asarray(a).astype(np.asarray(t).dtype)
+                    continue
+                if mesh is not None and sp is not None:
+                    a = block_of(a, sp, mesh)
+                t.copy_(torch.from_numpy(np.array(a)).to(t.device, t.dtype))  # 0-d stays 0-d
+    return _restored(like_tree, got), meta
 
 
-def install_preemption_handler(save_fn):
-    """Checkpoint on SIGTERM (preemption) before exiting."""
+def _restored(like, got, prefix=()):
+    """``like`` with its numpy leaves replaced by the values read."""
+    if isinstance(like, dict) and not _is_named(like):
+        return {k: _restored(v, got, prefix + (k,)) for k, v in like.items()}
+    return got.get(prefix, like)
+
+
+def install_preemption_handler(save_fn, mesh=None):
+    """Checkpoint on SIGTERM (preemption) before exiting with 143.  Returns
+    ``poll``, which the training loop calls after each step.
+
+    Without a ``mesh`` (one process) the handler saves and exits at once,
+    and ``poll`` does nothing.  On a mesh the save is collective (every
+    process joins its gathers), and a handler that ran it could meet its
+    peers inside a training step's collectives, or peers that got no
+    signal at all (a SIGTERM that reaches only some processes): there the
+    handler only records the signal.  ``poll``, called by every process at
+    the same step boundary, takes the flag's max over the world (one
+    all-reduce), so a process that got no signal learns of it, and then
+    every process runs ``save_fn`` together and exits with 143."""
+    got = {"signal": False}
+
     def handler(signum, frame):
+        if mesh is not None:
+            got["signal"] = True
+            return
         save_fn()
         raise SystemExit(143)
 
     signal.signal(signal.SIGTERM, handler)
+
+    def poll() -> None:
+        if mesh is None:
+            return
+        flag = torch.tensor([1.0 if got["signal"] else 0.0], device=mesh.device)
+        if float(mesh.pmax(flag, mesh.axis_names)[0]) > 0:
+            save_fn()
+            raise SystemExit(143)
+
+    return poll

@@ -4,24 +4,26 @@ and the decode step.
 Port of ``repro/train/train_step.py``.  Autograd carries the backward
 pass; the reference's donation has no counterpart.  Without a mesh the
 step runs on one device.  On an LM mesh
-(:class:`~repro_torch.launch.mesh.LMMesh`) the transformer families
-(dense, VLM prefix, MoE) train in the reference's 2-D FSDP("data") ×
-TP("model") layout: every process holds its block of each parameter and of
-each ZeRO-1 moment, by the reference's specs, and the collectives that
-GSPMD derives from the reference's hints are written out
-(:mod:`repro_torch.models.layers`, :mod:`repro_torch.models.moe`).  Each
+(:class:`~repro_torch.launch.mesh.LMMesh`) every family trains in the
+reference's 2-D FSDP("data") × TP("model") layout: every process holds its
+block of each parameter and of each ZeRO-1 moment, by the reference's
+specs, and the collectives that GSPMD derives from the reference's hints
+are written out (:mod:`repro_torch.models.layers`,
+:mod:`repro_torch.models.moe`, :mod:`repro_torch.models.ssm`).  Each
 process differentiates its share of the global loss (the loss over the
 world size: every collective's backward is its exact transpose, so the
 shares sum to the loss's gradient), then sums each leaf's gradient over
 the axes the leaf is replicated on, one packed collective per set of axes
 (over ("pod", "data") by :func:`~repro_torch.collectives.
-hierarchical_allreduce`, the paper's node-aware 2-step scheme).
+hierarchical_allreduce`, the paper's node-aware 2-step scheme).  Every
+"model" process of a batch shard holds the same loss, and its share
+``li / world`` still sums to the loss: the "model" copies of a replicated
+leaf's gradient are summed like the "data" copies.
 
-What the layout does not run yet is ROADMAP.md queue 1 item 13 part 5b
-and raises ``NotImplementedError`` citing
-:data:`~repro_torch.models.common.LM_ITEM` before any device work: sharded
-execution of the ssm, hybrid and encdec families, the sharded decode step
-and checkpoints under the layout.
+:func:`build_serve_step` on a mesh is the reference's sharded decode step:
+the cache's blocks by the family's ``cache_specs``, the token and position
+rows by :func:`~repro_torch.models.registry.serve_input_specs`, this
+process's block of the logits.
 """
 
 from __future__ import annotations
@@ -37,13 +39,13 @@ from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models.common import (
     ArchConfig,
     MeshAxes,
+    P,
     gather_named,
     local_shape,
     named_shapes,
     named_specs,
-    not_ported,
 )
-from repro_torch.models.registry import model_api
+from repro_torch.models.registry import model_api, serve_input_specs
 from repro_torch.train.optimizer import (
     AdamWConfig,
     apply_adamw,
@@ -66,6 +68,9 @@ class TrainStepBundle:
     opt_specs: Any = None
     shard: Callable | None = None      # full params (module or reference tree) -> blocks
     unshard: Callable | None = None    # blocks -> {name: full tensor}
+    # {"params": name -> P, "opt": {"mu": …, "nu": …, "step": P()}}: the
+    # layout of the trainer's state, which checkpoints gather and cut by
+    state_specs: dict | None = None
 
 
 def build_train_step(
@@ -94,7 +99,7 @@ def build_train_step(
     batch lays them out, and the metrics are the global ones."""
     opt_cfg = opt_cfg or AdamWConfig()
     api = model_api(cfg)
-    loss = api.loss_fn(cfg, mesh)  # refuses a mesh where the family does not run sharded yet
+    loss = api.loss_fn(cfg, mesh)  # refuses an expert count that "model" does not divide
     bundle = {"input_specs": api.train_input_specs(cfg, batch, seq)}
     if mesh is None:
         dev, world, n_batch, j = resolve_device(device), 1, 1, 0
@@ -112,7 +117,7 @@ def build_train_step(
         shapes = api.param_shapes(cfg)
         pspecs = api.param_specs(cfg, axes)
         ospecs = opt_state_specs(pspecs, axes, shapes)
-        spec_of, mom_of = named_specs(pspecs), named_specs(ospecs["mu"])
+        spec_of, mom_of = named_specs(pspecs), named_specs(ospecs["mu"], moments=True)
         full_shape = named_shapes(shapes)
 
         def init_opt(model) -> dict:
@@ -128,6 +133,7 @@ def build_train_step(
             "mesh": mesh, "param_specs": pspecs, "opt_specs": ospecs,
             "shard": lambda full: api.shard_params(full, pspecs, mesh, dtype=cfg.dtype),
             "unshard": lambda model: gather_named(dict(model.named_parameters()), spec_of, mesh),
+            "state_specs": {"params": spec_of, "opt": {"mu": mom_of, "nu": mom_of, "step": P()}},
         }
 
     def step(model, opt_state, batch_data) -> dict[str, Any]:
@@ -162,30 +168,60 @@ def build_train_step(
 
 
 def build_serve_step(cfg: ArchConfig, batch: int, seq: int, device="cuda", mesh=None):
-    """The one-device decode step for a (``batch``, ``seq``) cache (K/V;
-    for the SSM families the conv and SSM states, and the hybrid's K/V;
-    for the encoder-decoder also the cross K/V):
+    """The decode step for a (``batch``, ``seq``) cache (K/V; for the SSM
+    families the conv and SSM states, and the hybrid's K/V; for the
+    encoder-decoder also the cross K/V):
     ``step_fn(params, cache, {"token", "pos"}) -> (logits, cache)`` (the
-    cache written in place), and ``{"cache_shapes", "init_cache"}``; for
-    the encoder-decoder also ``"prefill"``: ``(params, frames) -> cache``,
-    a fresh cache whose cross K/V come from encoding ``frames``.  The
-    sharded decode step (on a ``mesh``, with ``cache_specs``) is ROADMAP.md
-    queue 1 item 13 part 5b."""
-    if mesh is not None:
-        not_ported("the sharded decode step (build_serve_step on a mesh; part 5b)")
+    cache written in place), and ``info`` with ``"cache_shapes"`` and
+    ``"init_cache"``; for the encoder-decoder also ``"prefill"``:
+    ``(params, frames) -> cache``, a fresh cache whose cross K/V come from
+    encoding ``frames``.
+
+    With ``mesh`` (an LM mesh; ``device`` is then the mesh's) the step is
+    the reference's sharded decode step: ``params`` and ``cache`` are this
+    process's blocks, ``token``/``pos`` (and ``prefill``'s ``frames``) the
+    global batch, of which it keeps its rows, and the logits its block
+    under ``info["logit_spec"]`` (``P(batch axes or None,
+    tp(vocab_padded))``).  ``info`` adds ``"cache_specs"``, ``"shard"``
+    (full params → blocks, the train bundle's), ``"init_cache"`` (zeros of
+    the blocks), ``"unshard_cache"`` and ``"gather_logits"`` (full values
+    on every process)."""
     api = model_api(cfg)
-    dev = resolve_device(device)
-    f = api.decode_step(cfg)
+    dev, rows, cspecs = resolve_device(device) if mesh is None else mesh.device, slice(None), None
+    if mesh is not None:
+        axes = MeshAxes.from_mesh(mesh)
+        cspecs = api.cache_specs(cfg, axes, batch, seq)
+        pspecs = api.param_specs(cfg, axes)
+        bspec = serve_input_specs(cfg, mesh, batch)["token"][2]
+        if bspec.axes_of(0):  # this process's rows of the batch
+            n = batch // mesh.axis_size(bspec.axes_of(0))
+            j = mesh.axis_index(bspec.axes_of(0))
+            rows = slice(j * n, (j + 1) * n)
+    f = api.decode_step(cfg, mesh, cspecs)
 
     def step_fn(params, cache, batch_data):
-        return f(params, cache, batch_data["token"], batch_data["pos"])
+        return f(params, cache, batch_data["token"][rows], batch_data["pos"][rows])
 
     info = {
         "cache_shapes": api.cache_shapes(cfg, batch, seq),
-        "init_cache": lambda: api.init_cache(cfg, batch, seq, dev),
+        "init_cache": lambda: api.init_cache(cfg, batch, seq, dev, mesh),
     }
     if api.prefill_cross_cache is not None:
-        info["prefill"] = lambda params, frames: api.prefill_cross_cache(cfg, params, frames, batch, seq)
+        info["prefill"] = lambda params, frames: api.prefill_cross_cache(
+            cfg, params, frames[rows], batch, seq, mesh)
+    if mesh is not None:
+        logit_spec = P(bspec.axes_of(0) or None, axes.tp(cfg.vocab_padded))
+
+        def gather(tree: dict, spec_of) -> dict:  # leaf by leaf, each in its own dtype
+            return {n: gather_named({n: t}, spec_of, mesh)[n] for n, t in tree.items()}
+
+        info |= {
+            "cache_specs": cspecs,
+            "logit_spec": logit_spec,
+            "shard": lambda full: api.shard_params(full, pspecs, mesh, dtype=cfg.dtype),
+            "unshard_cache": lambda cache: gather(cache, cspecs.__getitem__),
+            "gather_logits": lambda logits: gather({"logits": logits}, lambda _: logit_spec)["logits"],
+        }
     return step_fn, info
 
 

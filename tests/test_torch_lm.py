@@ -493,9 +493,9 @@ def test_other_families_refused(family):
     transformer and ``encdec`` to ``models.encdec``, whose family the
     transformer's own functions still refuse before any device work (its
     ``param_specs`` and ``cache_specs`` among them).  The sharded layout's
-    specs of each family are the reference's (``tests/test_torch_lm_specs.py``);
-    the sharded *execution* of ``encdec`` is refused, citing ROADMAP's
-    label."""
+    specs of each family are the reference's (``tests/test_torch_lm_specs.py``),
+    and ``encdec``'s step builds on a mesh too (its sharded execution:
+    ``tests/test_torch_lm_sharded_families.py``)."""
     cfg = configs.get_smoke(OTHER[family])
     assert cfg.family == family
     own = (lambda: T.init_params(cfg, torch.Generator()), lambda: T.loss_fn(cfg),
@@ -511,8 +511,7 @@ def test_other_families_refused(family):
     if family == "encdec":
         from repro_torch.launch.mesh import make_smoke_mesh
 
-        with pytest.raises(NotImplementedError, match=LM_ITEM):
-            build_train_step(cfg, mesh=make_smoke_mesh(device="cpu"))
+        assert build_train_step(cfg, mesh=make_smoke_mesh(device="cpu")).state_specs is not None
     else:  # the transformer's own functions take it
         assert T.param_specs(cfg, _AXES)["emb"] == ("model", "data")
         model = T.init_params(cfg, torch.Generator().manual_seed(0))
@@ -537,20 +536,23 @@ def test_transformer_refuses_the_ssm_families(family):
 
 
 def test_sharded_layout_refused():
-    """The 2-D layout runs for the transformer families (``tests/
-    test_torch_lm_sharded.py``); what part 5b brings is refused before any
-    device work, citing ROADMAP's label: the sharded ssm and hybrid
-    families, the sharded decode step, and checkpoints under the layout.
-    The production mesh needs a world of 256 processes."""
+    """The 2-D layout runs for every family and the decode step
+    (``tests/test_torch_lm_sharded*.py``): the sharded ssm and hybrid steps
+    and the sharded serve step build on the smoke mesh.  What part 6
+    brings is refused before any device work, citing ROADMAP's label: the
+    perf CLI without ``--ecg``.  The production mesh needs a world of 256
+    processes."""
+    from repro_torch.launch import perf as perf_cli
     from repro_torch.launch.mesh import make_production_mesh, make_smoke_mesh
 
     cfg = configs.get_smoke("stablelm_1_6b")
     mesh = make_smoke_mesh(device="cpu")
-    calls = [lambda: build_serve_step(cfg, 1, 16, device="cpu", mesh=mesh)]
-    calls += [lambda a=a: build_train_step(configs.get_smoke(a), mesh=mesh) for a in SSM.values()]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match=LM_ITEM):
-            call()
+    assert build_serve_step(cfg, 1, 16, device="cpu", mesh=mesh)[1]["cache_specs"]["k"] == (
+        None, "data", None, "model", None)
+    for a in SSM.values():
+        assert build_train_step(configs.get_smoke(a), mesh=mesh).mesh is mesh
+    with pytest.raises(NotImplementedError, match=LM_ITEM):
+        perf_cli.main([])
     with pytest.raises(ValueError, match="initialised torch.distributed world of 256"):
         make_production_mesh()
     assert tuple(T.param_specs(cfg, _AXES)["layers"]["wq"]) == (None, "data", "model", None)

@@ -42,10 +42,12 @@ with eps 1e-3, as ``tests/test_torch_lm.py`` says why).
     to the reference's on HLO lines written for the same calls; the pod
     step against the one-device step as (c).
 (e) ``make_production_mesh()`` in a world of 4 raises ``ValueError``; an
-    expert count that "model" does not divide is refused; the sharded ssm,
-    hybrid and encdec families, the sharded decode step and checkpoints
-    under the layout raise ``NotImplementedError`` citing ROADMAP's label;
-    the trainer's CLI trains on ``--mesh 2,2`` (rank 0 prints).
+    expert count that "model" does not divide is refused; what part 6
+    brings, the perf CLI without ``--ecg``, raises ``NotImplementedError``
+    citing ROADMAP's label; the trainer's CLI trains on ``--mesh 2,2``
+    (rank 0 prints).  (The other families, the sharded decode step and
+    checkpoints under the layout: ``tests/test_torch_lm_sharded_families.py``
+    and ``tests/test_torch_lm_sharded_decode.py``.)
 """
 
 import contextlib
@@ -234,10 +236,11 @@ def hier_input(rows):
 
 
 def _refusals() -> dict:
+    from repro_torch.launch import perf as perf_cli
     from repro_torch.launch import train as train_cli
     from repro_torch.launch.mesh import LMMesh, make_production_mesh
     from repro_torch.models.common import LM_ITEM
-    from repro_torch.train import AdamWConfig, build_serve_step, build_train_step
+    from repro_torch.train import build_train_step
 
     mesh = LMMesh((1, 4), ("data", "model"), device="cpu")
     got = {}
@@ -253,14 +256,8 @@ def _refusals() -> dict:
     refused("production_mesh_multi_pod", ValueError, lambda: make_production_mesh(multi_pod=True), "512")
     refused("experts", ValueError, lambda: build_train_step(
         port_cfg("olmoe_1b_7b", {"n_experts": 6}), batch=B, seq=S, mesh=mesh), "divide")
-    for arch in ("mamba2_780m", "zamba2_1_2b", "whisper_medium"):
-        refused(arch, NotImplementedError,
-                lambda: build_train_step(port_cfg(arch, {}), batch=B, seq=S, mesh=mesh), LM_ITEM)
-    refused("serve", NotImplementedError,
-            lambda: build_serve_step(port_cfg("stablelm_1_6b", {}), 1, 16, device="cpu", mesh=mesh), LM_ITEM)
-    refused("checkpoints", NotImplementedError, lambda: train_cli.main(
-        ["--preset", "smoke", "--device", "cpu", "--mesh", "2,2", "--steps", "1", "--ckpt-dir", "x"]),
-        LM_ITEM)
+    refused("perf_without_ecg", NotImplementedError, lambda: perf_cli.main([]), "part 6")
+    refused("perf_without_ecg_label", NotImplementedError, lambda: perf_cli.main([]), LM_ITEM)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         train_cli.main(["--preset", "smoke", "--device", "cpu", "--mesh", "2,2", "--steps", "2",
