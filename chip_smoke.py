@@ -204,8 +204,10 @@ on the card, at the same full scale:
 29. ``calibrate`` — ``tools/calibrate_h100.py``'s measurements (latencies
     and rates of a ``VirtualMesh(2, 4)`` rotation, the streaming copy, the
     f64 matmul rate, the per-dispatch cost of a captured halo chain) beside
-    the committed ``repro_torch.core.machines.H100`` constants, one JSON
-    line; every value must be finite and positive.
+    the committed ``repro_torch.core.machines.H100`` constants, and the
+    bf16 / f32 / TF32 matmul rates beside ``H100_ROOFLINE``'s, one JSON
+    line; every value must be finite and positive.  (The link rate is
+    ``calibrate_h100.py --link``'s, not run here.)
 30. ``bsr_spmbv_tiles`` — ``bsr_spmbv`` at every tile of the tuner's
     ``DEFAULT_TILES`` (sequential Block-ELL, f64, t = 8), in phase 3's
     format: the path (mma/fma), the error against the plain version and
@@ -505,6 +507,24 @@ counts (and the mesh's counters) set to 0 just before its solve:
     by rank.  On fewer cards a
     line says that (ii) did not run and why.  No port kernel runs here.
     The phase prints its seconds.
+55. ``dryrun`` — the LM dry-run (``repro_torch.launch.dryrun``), which
+    traces a step under ``FakeTensorMode`` and launches nothing.  (a) A
+    process of its own (``--dryrun-worker``; its fake worlds never meet
+    phase 54's NCCL ones) traces stablelm-1.6b's train_4k (256 × 4096) and
+    decode_32k as rank 0 of a fake 16 × 16 world and its decode_32k as rank
+    0 of a fake 2 × 16 × 16 world (the multi-pod compile matrix, no costs),
+    on fake CUDA tensors, priced with ``H100_ROOFLINE``: train_4k must make
+    ``DRYRUN_TRAIN_CALLS`` collective calls on rank 0 (the NCCL calls of
+    the same step on phase 54's world of 1); the records are printed.  (b)
+    Meanwhile stablelm-1.6b's f32 step at 8 × 256 (phase 50's) is traced
+    on one device at full depth and then run on the card from a fresh
+    model: the ``FlopCounterMode`` total of the card's step must equal the
+    trace's exactly, and the traced memory peak (``MemTracker``, the
+    parameters, moments and batch registered) must be within
+    ``DRYRUN_PEAK_GATE`` of ``max_memory_allocated`` over what was
+    resident before the model; a second step's time against the H100
+    bound (f32 matmul peak, TF32 off) is printed, a reading and not a
+    gate.  No port kernel runs here.  The phase prints its seconds.
 
 The ``kernels`` line's ``bsr_spmbv``, ``fused_gram``, ``ecg_tail`` and
 ``rank_apply`` rows carry ``widths`` entries for t = 4 and 16 with their
@@ -515,11 +535,12 @@ width), and ``chol_apply`` one for t = 1 with its launches in phase 16.
 Every row also carries ``oneshot_launches``: its launches in each of phases
 45-48, ``process_mesh_launches``: its launches in phase 49's solves on
 the process-group mesh (rank 0's), and ``lm_launches``: its launches in
-phases 50-54.
+phases 50-55.
 
 ``python3 chip_smoke.py --process-mesh-worker DIR RANK WORLD`` is one rank
-of phase 49's world, ``--lm-mesh-worker DIR RANK WORLD`` one of phase 54's
-(the script starts these itself).
+of phase 49's world, ``--lm-mesh-worker DIR RANK WORLD`` one of phase 54's,
+``--dryrun-worker OUT`` phase 55 (a)'s process (the script starts these
+itself).
 """
 
 from __future__ import annotations
@@ -558,6 +579,15 @@ DECODE_GATE = 2 * 2.0 ** -8
 # rounded to bf16 before the sum: one rounding more a product)
 F32_DECODE_GATE = 1e-4
 BF16_ACROSS_CARDS = 4.0
+# phase 55: the cells the dry-run worker traces (a), the collective calls
+# stablelm's train_4k makes on rank 0 (the card's NCCL calls a step on a
+# world of 1, phase 54), the share by which the traced memory peak may miss
+# the card's (b), and how long (a) may take
+DRYRUN_SINGLE = (("stablelm_1_6b", "train_4k"), ("stablelm_1_6b", "decode_32k"))
+DRYRUN_MULTI = (("stablelm_1_6b", "decode_32k"),)
+DRYRUN_TRAIN_CALLS = 352
+DRYRUN_PEAK_GATE = 0.03  # the parameters alone are ~22% of the peak
+DRYRUN_WORKER_TIMEOUT_S = 300
 
 
 def gate(phase, ok, what) -> None:
@@ -2516,6 +2546,125 @@ def moe_phases(torch) -> dict:
     return launches
 
 
+def dryrun_worker(out_path: Path) -> int:
+    """Phase 55 (a)'s process (``--dryrun-worker OUT``): production cells
+    traced by ``repro_torch.launch.dryrun.run_cell`` on fake CUDA tensors
+    and priced with the H100's constants: stablelm-1.6b's train_4k and
+    decode_32k as rank 0 of a fake 16 × 16 world, its decode_32k as rank 0
+    of a fake 2 × 16 × 16 world (the multi-pod compile matrix: no costs).
+    Writes the records to ``out_path``; nothing is launched on the card."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.dryrun import fake_world, run_cell
+
+    recs = []
+    for size, multi, cells in ((256, False, DRYRUN_SINGLE), (512, True, DRYRUN_MULTI)):
+        with fake_world(size):
+            for arch, shape in cells:
+                t0 = time.perf_counter()
+                rec = run_cell(arch, shape, multi, costs=not multi, device="cuda", machine="h100")
+                recs.append(rec | {"seconds": time.perf_counter() - t0})
+    out_path.write_text(json.dumps(recs))
+    return 0
+
+
+def dryrun_phases(torch) -> dict:
+    """Phase 55: the dry-run's traces, in production and against the card
+    (module docstring).  Returns the kernel launch counts of the phase."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import kernels
+    from repro_torch.analysis.roofline import cost_from_trace, model_flops, roofline_from_cost
+    from repro_torch.core.machines import H100_ROOFLINE
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.dryrun import _trace_cell
+    from repro_torch.models.registry import model_api
+    from repro_torch.train import AdamWConfig, DataConfig, batch_at, build_train_step, init_opt_state
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    # (a) runs in its own process beside (b): its fake world never meets
+    # phase 54's NCCL worlds
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_")
+    out_path, log_path = Path(tmp.name) / "cells.json", Path(tmp.name) / "worker.log"
+    log_file = open(log_path, "w")
+    worker = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-worker",
+                               str(out_path)], stdout=log_file, stderr=subprocess.STDOUT)
+    try:
+        # (b) stablelm's f32 step at 8 x 256 on one device: traced, then run
+        cfg = train_cli.preset_config("stablelm_1_6b", "full").with_(dtype=torch.float32)
+        batch, seq = 8, 256
+        opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=3)  # phase 50's
+        t0 = time.perf_counter()
+        tr = _trace_cell(cfg, None, "train", seq, batch, device=dev)
+        trace_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated(dev)
+        model = model_api(cfg).init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        opt = init_opt_state(model)
+        step_fn = build_train_step(cfg, opt_cfg, batch=batch, seq=seq, device=dev).step_fn
+        data = [batch_at(DataConfig(vocab=cfg.vocab, batch=batch, seq=seq), s, device=dev)
+                for s in range(2)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with FlopCounterMode(display=False) as counter:
+            step_fn(model, opt, data[0])
+        torch.cuda.synchronize()
+        card_peak = torch.cuda.max_memory_allocated(dev) - resident
+        t0 = time.perf_counter()
+        m = step_fn(model, opt, data[1])
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        card_flops = counter.get_total_flops()
+        cost = cost_from_trace(tr.flops, tr.hbm_bytes, tr.records)
+        rl = roofline_from_cost(cost, 1, model_flops(cfg, "train", seq, batch), machine=H100_ROOFLINE,
+                                dtype="float32")
+        ideal_s = rl.model_flops_global / rl.peak_flops
+        peak_rel = abs(tr.peak_bytes - card_peak) / card_peak
+        log({"phase": "dryrun_vs_card", "arch": cfg.name, "dtype": "float32", "batch": batch,
+             "seq": seq, "trace_s": trace_s, "trace_flops": tr.flops, "card_flops": card_flops,
+             "trace_peak_bytes": tr.peak_bytes, "card_peak_bytes": card_peak,
+             "trace_argument_bytes": tr.argument_bytes,
+             "peak_rel_diff": peak_rel, "step_s": step_s, "loss": float(m["loss"]),
+             "roofline": rl.as_dict(), "bound_s": rl.bound_s,
+             "measured_roofline_fraction": ideal_s / step_s, "bound_over_measured": rl.bound_s / step_s})
+        gate("dryrun_vs_card", card_flops == tr.flops and card_flops > 0,
+             f"traced {tr.flops} FLOPs, the card's step {card_flops}")
+        gate("dryrun_vs_card", peak_rel <= DRYRUN_PEAK_GATE,
+             f"traced peak {tr.peak_bytes} B against the card's {card_peak} B")
+        del model, opt, data, m
+        torch.cuda.empty_cache()
+
+        # (a) the production cells
+        try:
+            worker.wait(timeout=DRYRUN_WORKER_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            pass
+    finally:
+        if worker.poll() is None:
+            worker.kill()
+            worker.wait()
+        log_file.close()
+    try:
+        gate("dryrun_cells", worker.returncode == 0,
+             f"the worker exited {worker.returncode}: {log_path.read_text()[-3000:]}")
+        recs = json.loads(out_path.read_text())
+    finally:
+        tmp.cleanup()
+    for rec in recs:
+        log({"phase": "dryrun_cell", **rec})
+    train = recs[0]
+    n_calls = sum(train["collective_calls_by_axis"].values())
+    gate("dryrun_cells", n_calls == DRYRUN_TRAIN_CALLS and train["roofline"]["machine"] == "H100"
+         and all(math.isfinite(rec["memory"]["temp_bytes_per_dev"]) for rec in recs)
+         and all(rec["roofline"]["compute_s"] > 0 for rec in recs if "roofline" in rec),
+         f"{n_calls} collective calls (want {DRYRUN_TRAIN_CALLS}): {recs}")
+    launches = kernels.launch_counts()
+    log({"phase": "dryrun", "seconds": time.perf_counter() - t_phase, "launches": launches})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3912,18 +4061,23 @@ def main() -> int:
 
     # ---------------------------------------------------------- 29. calibrate
     from calibrate_h100 import measure as calibrate
-    from repro_torch.core.machines import H100
+    from repro_torch.core.machines import H100, H100_ROOFLINE
 
     t0 = time.perf_counter()
     cal = calibrate(torch)
     keys = ("alpha", "alpha_l", "R_N", "R_b", "R_bl", "gamma", "eager_cutoff", "R_mem",
             "dispatch_overhead")
     committed = {k: getattr(H100, k) for k in keys}
+    matmul = H100_ROOFLINE.matmul_flops  # the roofline's rates (phase 55)
     log({"phase": "calibrate", "seconds": time.perf_counter() - t0, "card": cal["card"],
          "measured": {k: cal[k] for k in keys}, "committed": committed,
-         "measured_over_committed": {k: cal[k] / committed[k] for k in keys}})
-    gate("calibrate", all(math.isfinite(v) and v > 0 for v in [cal[k] for k in keys] + list(committed.values())),
-         f"a constant is not finite and positive: {cal} / {committed}")
+         "measured_over_committed": {k: cal[k] / committed[k] for k in keys},
+         "matmul_flops": cal["matmul_flops"], "matmul_flops_committed": matmul,
+         "matmul_measured_over_committed": {k: cal["matmul_flops"][k] / matmul[k] for k in matmul},
+         "cards": cal["cards"]})
+    gate("calibrate", all(math.isfinite(v) and v > 0 for v in [cal[k] for k in keys] + list(committed.values())
+                          + list(cal["matmul_flops"].values()) + list(matmul.values())),
+         f"a constant is not finite and positive: {cal} / {committed} / {matmul}")
 
     # ------------------------------- 30. bsr_spmbv at every tile the tuner weighs
     from repro_torch.tune import DEFAULT_TILES, TunedConfig, tile_stats, tune
@@ -4467,6 +4621,9 @@ def main() -> int:
     # ------------------------------- 54. the LM's 2-D layout over NCCL
     mesh_launches = lm_mesh_phases(torch)
 
+    # ------------------------------- 55. the dry-run, traced and on the card
+    dryrun_launches = dryrun_phases(torch)
+
     # ------------------------------------------------------------------ result
     sources = {
         "bsr_spmbv": ("src/repro_torch/kernels/csrc/bsr_spmbv.cu", "src/repro/kernels/bsr_spmbv/kernel.py:43"),
@@ -4555,7 +4712,8 @@ def main() -> int:
         row["process_mesh_launches"] = {ph: counts[row["name"]] for ph, counts in process_mesh.items()}
         row["lm_launches"] = (lm_launches[row["name"]] + ssm_launches[row["name"]]
                               + ed_launches[row["name"]] + moe_launches[row["name"]]
-                              + mesh_launches[row["name"]])  # phases 50-54
+                              + mesh_launches[row["name"]]
+                              + dryrun_launches[row["name"]])  # phases 50-55
     log({"kernels": rows})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
@@ -4567,4 +4725,6 @@ if __name__ == "__main__":
         sys.exit(process_mesh_worker(Path(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])))
     if sys.argv[1:2] == ["--lm-mesh-worker"]:
         sys.exit(lm_mesh_worker(Path(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])))
+    if sys.argv[1:2] == ["--dryrun-worker"]:
+        sys.exit(dryrun_worker(Path(sys.argv[2])))
     sys.exit(main())

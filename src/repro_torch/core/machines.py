@@ -11,6 +11,12 @@ here because the nodal-optimal exchange plan's byte model
 so plans equal the reference's only if these values do.  :data:`H100` holds
 the card's own constants, measured by ``tools/calibrate_h100.py``; the
 tuner defaults to it.  All rates in bytes/second, latencies in seconds.
+
+The roofline's constants (:mod:`repro_torch.analysis.roofline`): the
+reference's ``V5E_*`` (TPU v5e targets, copied so that the port can price
+a cell the reference's way) and :data:`H100_ROOFLINE`, the card's dense
+matmul rates by dtype, its memory rate and its link rate, each measured by
+``tools/calibrate_h100.py``.
 """
 
 from __future__ import annotations
@@ -128,3 +134,59 @@ H100 = MachineParams(
     dispatch_overhead=1.52e-6,  # measure_dispatch_overhead: per-op slope of a captured chain
 )
 
+
+#: The H100's dense-matmul rates (FLOP/s) of an 8192² ``torch.matmul`` in
+#: bfloat16, in float32 with TF32 off and with it on, measured by
+#: ``tools/calibrate_h100.py`` (``matmul_flops``) on the card of
+#: :data:`H100`'s note.
+H100_BF16_FLOPS = 7.754e+14
+H100_F32_FLOPS = 5.137e+13
+H100_TF32_FLOPS = 4.02e+14
+#: The NCCL all-reduce bus bandwidth between cards (``link_bw``): not measured
+#: (one card has no link).
+H100_LINK_BW = None
+
+# Roofline hardware constants (per chip): the reference's TPU v5e targets.
+V5E_PEAK_FLOPS = 197e12       # bf16 FLOP/s
+V5E_HBM_BW = 819e9            # B/s
+V5E_ICI_BW = 5.0e10           # B/s per link
+
+
+@dataclasses.dataclass(frozen=True)
+class RooflineMachine:
+    """One chip's roofline constants: the dense-matmul peak in FLOP/s by
+    the dtype the matmuls run in (``"bfloat16"``, ``"float32"`` with TF32
+    off, ``"tfloat32"``), the memory rate (bytes read + written a second)
+    and the link rate (B/s; None where it is not measured)."""
+
+    name: str
+    matmul_flops: dict
+    hbm_bw: float
+    link_bw: float | None
+
+    def peak_flops(self, dtype: str = "bfloat16") -> float:
+        if dtype not in self.matmul_flops:
+            raise ValueError(f"{self.name} has no measured matmul rate for {dtype!r} "
+                             f"(has {sorted(self.matmul_flops)})")
+        return self.matmul_flops[dtype]
+
+
+#: The reference's roofline machine: one peak (bf16), the v5e's HBM and
+#: ICI rates.
+V5E_ROOFLINE = RooflineMachine("v5e", {"bfloat16": V5E_PEAK_FLOPS}, V5E_HBM_BW, V5E_ICI_BW)
+
+#: The H100's roofline constants, measured by ``tools/calibrate_h100.py``
+#: (an 8192² ``torch.matmul`` in each dtype, replayed in a CUDA graph;
+#: ``R_mem`` is :data:`H100`'s 1 GiB copy) on an "NVIDIA H100 80GB HBM3,
+#: 700.00 W" card.  The link rate is an NCCL all-reduce's bus bandwidth,
+#: which needs two cards or more; None until such a machine measures it.
+H100_ROOFLINE = RooflineMachine(
+    name="H100",
+    matmul_flops={
+        "bfloat16": H100_BF16_FLOPS,
+        "float32": H100_F32_FLOPS,
+        "tfloat32": H100_TF32_FLOPS,
+    },
+    hbm_bw=H100.R_mem,
+    link_bw=H100_LINK_BW,
+)

@@ -255,7 +255,16 @@ class ProcessGroupMesh:
 def process_device(backend: str, device=None) -> torch.device:
     """The device a process-group rank computes on: ``cuda:<LOCAL_RANK>``
     under NCCL (by default; the card ``torch.cuda.set_device`` chose), the
-    CPU under gloo.  Any other pairing raises."""
+    CPU under gloo, and under ``fake`` (the dry-run's traced world,
+    :mod:`torch.testing._internal.distributed.fake_pg`, whose collectives
+    move nothing) the device the caller names (default ``cuda``), which the
+    traced step's fake tensors are placed on: no card is needed.  Any other
+    pairing raises."""
+    if backend == "fake":
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(f"device must be a CUDA device or 'cpu', got {device!r}")
+        return dev
     if backend == "nccl":
         dev = resolve_device(f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}" if device is None
                              else device)
@@ -272,7 +281,8 @@ def process_device(backend: str, device=None) -> torch.device:
         if dev.type != "cpu":
             raise ValueError(f"a gloo process group computes on the CPU, got {dev}")
         return dev
-    raise ValueError(f"a ProcessGroupMesh runs over NCCL or gloo, got backend {backend!r}")
+    raise ValueError(f"a ProcessGroupMesh runs over NCCL or gloo (an LMMesh also in the dry-run's "
+                     f"fake world), got backend {backend!r}")
 
 
 def refuse_unstacked(mesh, what: str) -> None:
@@ -336,7 +346,10 @@ class LMMesh:
     be made without a world, and its collectives are then identities that
     make no call (the reference's smoke mesh).  ``device`` is as
     :class:`ProcessGroupMesh`'s (NCCL on the process's card, gloo on the
-    CPU, no other pairing), or any device without a world.
+    CPU, no other pairing), or any device without a world.  In a ``fake``
+    world (:func:`process_device`; the dry-run traces rank 0 of the
+    production mesh in one process) the mesh makes no joining call and its
+    collectives move nothing: their results have the right shapes only.
 
     Collectives (:meth:`all_gather`, :meth:`reduce_scatter`, :meth:`psum`,
     :meth:`pmean`) are differentiable: each one's backward is its exact
@@ -377,7 +390,7 @@ class LMMesh:
         self.coords = dict(zip(names, _unravel(self.rank, shape)))
         self._groups: dict[tuple, tuple] = {}
         self._records: list | None = None
-        if self.distributed:
+        if self.distributed and self.backend != "fake":  # a fake world moves nothing
             dist.all_reduce(torch.zeros(1, device=self.device))  # every rank joins once
         self.reset_counters()
 

@@ -169,6 +169,12 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None, mesh=N
     return model
 
 
+def abstract_params(cfg: ArchConfig, device=None, mesh=None, specs=None) -> EncDec:
+    """:func:`init_params`'s model with no value drawn (:func:`~repro_torch.
+    models.transformer.abstract_params`)."""
+    return T.abstract_model(EncDec, param_shapes(cfg), cfg, device, mesh, specs)
+
+
 def shard_params(full, specs: dict, mesh, dtype=None) -> EncDec:
     """One process's blocks of full parameters (an :class:`EncDec` or the
     reference's params tree), :func:`~repro_torch.models.transformer.shard_params`."""

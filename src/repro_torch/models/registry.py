@@ -27,6 +27,7 @@ from repro_torch.models.common import ArchConfig, MeshAxes, P, not_ported
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
     init_params: Callable         # (cfg, generator, device[, mesh, specs]) -> module
+    abstract_params: Callable     # (cfg, device[, mesh, specs]) -> module, no value drawn
     loss_fn: Callable             # (cfg, mesh=None) -> f(params, batch) -> loss
     decode_step: Callable         # (cfg[, mesh, cache_specs]) -> f(params, cache, token, pos)
     cache_shapes: Callable        # (cfg, batch, seq)
@@ -43,6 +44,7 @@ class ModelApi:
 
 _TRANSFORMER = ModelApi(
     init_params=_tf.init_params,
+    abstract_params=_tf.abstract_params,
     loss_fn=_tf.loss_fn,
     decode_step=_tf.decode_step,
     cache_shapes=_tf.cache_shapes,
@@ -56,6 +58,7 @@ _TRANSFORMER = ModelApi(
 
 _SSM = ModelApi(
     init_params=_ssm.init_params,
+    abstract_params=_ssm.abstract_params,
     loss_fn=_ssm.loss_fn,
     decode_step=_ssm.decode_step,
     cache_shapes=_ssm.cache_shapes,
@@ -69,6 +72,7 @@ _SSM = ModelApi(
 
 _ENCDEC = ModelApi(
     init_params=_ed.init_params,
+    abstract_params=_ed.abstract_params,
     loss_fn=_ed.loss_fn,
     decode_step=_ed.decode_step,
     cache_shapes=_ed.cache_shapes,

@@ -258,6 +258,24 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None, mesh=N
     return model
 
 
+def abstract_params(cfg: ArchConfig, device=None, mesh=None, specs=None) -> Transformer:
+    """:func:`init_params`'s model with no value drawn (the reference's
+    ``abstract_params``): uninitialised tensors of the right shapes and
+    dtype, under ``FakeTensorMode`` fake ones (the dry-run's state); on an
+    LM ``mesh`` with the stacked ``specs`` this process's blocks."""
+    return abstract_model(Transformer, param_shapes(cfg), cfg, device, mesh, specs)
+
+
+def abstract_model(cls, shapes: dict, cfg: ArchConfig, device=None, mesh=None, specs=None):
+    """A ``cls`` module of the stacked ``shapes`` (one process's blocks on
+    ``mesh`` under ``specs``; ``device`` defaults to the mesh's), in
+    ``cfg.dtype``, its values uninitialised."""
+    if mesh is not None:
+        device = mesh.device if device is None else device
+        shapes = local_shapes(shapes, specs, mesh)
+    return cls(shapes, device=device, dtype=cfg.dtype)
+
+
 # ------------------------------------------------- one process's blocks
 @torch.no_grad()
 def shard_params(full, specs: dict, mesh, dtype=None, cls=None) -> Transformer:

@@ -56,15 +56,38 @@ def named_params(params) -> dict[str, torch.Tensor]:
 
 
 def init_opt_state(params) -> dict:
-    """mu and nu: float32 zeros by parameter name; step: an int32 scalar."""
+    """mu and nu: float32 zeros by parameter name; step: an int32 scalar
+    (:func:`step_counter`)."""
     named = named_params(params)
     zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     device = next(iter(named.values())).device
     return {
         "mu": {n: zeros(p) for n, p in named.items()},
         "nu": {n: zeros(p) for n, p in named.items()},
-        "step": torch.zeros((), dtype=torch.int32, device=device),
+        "step": step_counter(device),
     }
+
+
+def step_counter(device) -> torch.Tensor:
+    """The optimizer's step count, an int32 zero on ``device``, with its
+    host copy (:func:`advance_step`)."""
+    step = torch.zeros((), dtype=torch.int32, device=device)
+    step._host_count = (step._version, 0)
+    return step
+
+
+def advance_step(step: torch.Tensor) -> int:
+    """Add one to the step count in place and return the new count, read
+    from the host copy kept on the tensor beside its version counter: no
+    device-to-host read (a sync a step on the card; data-dependent under
+    ``FakeTensorMode``).  A count written since its copy was taken (a
+    checkpoint restored in place) or made without one is read from the
+    device once."""
+    host = getattr(step, "_host_count", None)
+    count = host[1] if host is not None and host[0] == step._version else int(step)
+    step += 1
+    step._host_count = (step._version, count + 1)
+    return count + 1
 
 
 def zero1_specs(param_specs, axes: MeshAxes, param_shapes) -> Any:
@@ -118,8 +141,7 @@ def apply_adamw(cfg: AdamWConfig, params, grads, state, mesh=None, spec_of=None,
     slice of dim k, then one all-gather over "data" (every such leaf
     packed into it) restores the block."""
     named = named_params(params)
-    state["step"] += 1
-    step = int(state["step"])
+    step = advance_step(state["step"])
     gsq = 0.0
     for name, g in grads.items():
         sq = g.float().square().sum()

@@ -52,6 +52,7 @@ from repro_torch.train.optimizer import (
     init_opt_state,
     named_params,
     opt_state_specs,
+    step_counter,
 )
 
 
@@ -125,7 +126,7 @@ def build_train_step(
                                     dtype=torch.float32, device=dev)
                      for n, _ in model.named_parameters()}
             return {"mu": zeros, "nu": {n: torch.zeros_like(z) for n, z in zeros.items()},
-                    "step": torch.zeros((), dtype=torch.int32, device=dev)}
+                    "step": step_counter(dev)}
 
         bundle |= {
             "init": lambda generator: api.init_params(cfg, generator, mesh=mesh, specs=pspecs),

@@ -50,7 +50,8 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.core.models, repro_torch.serve, repro_torch.observe, "
         "repro_torch.launch.serve, repro_torch.launch.perf, repro_torch.launch.mesh, "
         "repro_torch.analysis.ecg_bench, repro_torch.launch.train, repro_torch.models.encdec, "
-        "repro_torch.collectives\n"
+        "repro_torch.collectives, repro_torch.launch.dryrun, repro_torch.analysis.roofline, "
+        "repro_torch.analysis.report\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

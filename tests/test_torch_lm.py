@@ -535,13 +535,14 @@ def test_transformer_refuses_the_ssm_families(family):
             call()
 
 
-def test_sharded_layout_refused():
+def test_sharded_layout_refused(tmp_path, capsys):
     """The 2-D layout runs for every family and the decode step
     (``tests/test_torch_lm_sharded*.py``): the sharded ssm and hybrid steps
-    and the sharded serve step build on the smoke mesh.  What part 6
-    brings is refused before any device work, citing ROADMAP's label: the
-    perf CLI without ``--ecg``.  The production mesh needs a world of 256
-    processes."""
+    and the sharded serve step build on the smoke mesh.  The perf CLI
+    without ``--ecg`` (part 6) runs its cells on a fake world of 256 (here
+    none: ``--only`` matches no row; the rows are traced in
+    ``tests/test_torch_dryrun.py``).  The production mesh needs a world of
+    256 processes."""
     from repro_torch.launch import perf as perf_cli
     from repro_torch.launch.mesh import make_production_mesh, make_smoke_mesh
 
@@ -551,8 +552,8 @@ def test_sharded_layout_refused():
         None, "data", None, "model", None)
     for a in SSM.values():
         assert build_train_step(configs.get_smoke(a), mesh=mesh).mesh is mesh
-    with pytest.raises(NotImplementedError, match=LM_ITEM):
-        perf_cli.main([])
+    perf_cli.main(["--device", "cpu", "--out", str(tmp_path / "perf.json"), "--only", "no such row"])
+    assert capsys.readouterr().out.splitlines()[-1] == "perf pass done"
     with pytest.raises(ValueError, match="initialised torch.distributed world of 256"):
         make_production_mesh()
     assert tuple(T.param_specs(cfg, _AXES)["layers"]["wq"]) == (None, "data", "model", None)

@@ -40,12 +40,13 @@ with eps 1e-3, as ``tests/test_torch_lm.py`` says why).
     (the reference's n·x, held to the reference's output);
     ``tiered_collective_bytes`` of a pod train step's recorded calls equal
     to the reference's on HLO lines written for the same calls; the pod
-    step against the one-device step as (c).
+    step against the one-device step as (c).  The dry-run's fake-world
+    trace of the stablelm, olmoe and pod steps makes rank 0's calls.
 (e) ``make_production_mesh()`` in a world of 4 raises ``ValueError``; an
-    expert count that "model" does not divide is refused; what part 6
-    brings, the perf CLI without ``--ecg``, raises ``NotImplementedError``
-    citing ROADMAP's label; the trainer's CLI trains on ``--mesh 2,2``
-    (rank 0 prints).  (The other families, the sharded decode step and
+    expert count that "model" does not divide is refused; the trainer's CLI
+    trains on ``--mesh 2,2`` (rank 0 prints).  (The perf CLI without
+    ``--ecg`` traces its cells on a fake world:
+    ``tests/test_torch_dryrun.py``.)  (The other families, the sharded decode step and
     checkpoints under the layout: ``tests/test_torch_lm_sharded_families.py``
     and ``tests/test_torch_lm_sharded_decode.py``.)
 """
@@ -236,10 +237,8 @@ def hier_input(rows):
 
 
 def _refusals() -> dict:
-    from repro_torch.launch import perf as perf_cli
     from repro_torch.launch import train as train_cli
     from repro_torch.launch.mesh import LMMesh, make_production_mesh
-    from repro_torch.models.common import LM_ITEM
     from repro_torch.train import build_train_step
 
     mesh = LMMesh((1, 4), ("data", "model"), device="cpu")
@@ -256,8 +255,6 @@ def _refusals() -> dict:
     refused("production_mesh_multi_pod", ValueError, lambda: make_production_mesh(multi_pod=True), "512")
     refused("experts", ValueError, lambda: build_train_step(
         port_cfg("olmoe_1b_7b", {"n_experts": 6}), batch=B, seq=S, mesh=mesh), "divide")
-    refused("perf_without_ecg", NotImplementedError, lambda: perf_cli.main([]), "part 6")
-    refused("perf_without_ecg_label", NotImplementedError, lambda: perf_cli.main([]), LM_ITEM)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         train_cli.main(["--preset", "smoke", "--device", "cpu", "--mesh", "2,2", "--steps", "2",
@@ -479,6 +476,61 @@ def test_tiered_collective_bytes_equals_the_reference(runs):
     got = tiered_collective_bytes(records, pod_size)
     assert got == ref_tiered(hlo, pod_size)
     assert got["cross_pod"] > 0 and got["intra_pod"] > 0
+
+
+@pytest.mark.parametrize("mesh_kind", ["one_device", "world_of_one"])
+def test_step_count_kept_on_the_host_changes_no_bit(mesh_kind):
+    """The optimizer reads its step count from the host copy kept on the
+    count (no device read a step): three steps give parameters, moments
+    and metrics bit-identical to steps that read the count from the tensor
+    each time (the copy dropped before every step); a count restored in
+    place (a checkpoint's ``copy_``) is read from the tensor once."""
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train import AdamWConfig, DataConfig, batch_at, build_train_step, init_opt_state
+    from repro_torch.train.optimizer import lr_at
+
+    cfg = port_cfg("stablelm_1_6b", {})
+    opt_cfg = AdamWConfig(**OPT)
+    mesh = make_smoke_mesh(device="cpu") if mesh_kind == "world_of_one" else None
+    bundle = build_train_step(cfg, opt_cfg, batch=B, seq=S, device="cpu", mesh=mesh)
+    data = [batch_at(DataConfig(vocab=cfg.vocab, batch=B, seq=S), s) for s in range(3)]
+    runs = []
+    for read_device in (False, True):
+        model = T.params_from_reference(carried(cfg, seed=3))
+        opt = bundle.init_opt(model) if mesh is not None else init_opt_state(model)
+        metrics = []
+        for d in data:
+            if read_device:  # the parent's behaviour: int(state["step"]) every step
+                del opt["step"]._host_count
+            m = bundle.step_fn(model, opt, d)
+            metrics.append((m["loss"].item(), m["grad_norm"].item(), m["lr"]))
+        runs.append((metrics, {n: p.detach().clone() for n, p in model.named_parameters()},
+                     {n: t.clone() for n, t in opt["mu"].items()}, {n: t.clone() for n, t in opt["nu"].items()}))
+    (m0, p0, mu0, nu0), (m1, p1, mu1, nu1) = runs
+    assert m0 == m1 and int(opt["step"]) == 3
+    for a, b in ((p0, p1), (mu0, mu1), (nu0, nu1)):
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    with torch.no_grad():
+        opt["step"].copy_(torch.tensor(7, dtype=torch.int32))  # as restore_checkpoint writes it
+    assert bundle.step_fn(model, opt, data[0])["lr"] == lr_at(opt_cfg, 8) and int(opt["step"]) == 8
+    assert opt["step"]._host_count == (opt["step"]._version, 8)
+
+
+@pytest.mark.parametrize("name", ["stablelm", "olmoe", "pod"])
+def test_fake_trace_makes_the_worlds_calls(runs, name):
+    """The dry-run's trace of the same step as rank 0 of a ``fake`` world
+    (``repro_torch.launch.dryrun``: no process, nothing moved) makes the
+    calls rank 0 of the gloo world made, axis by axis."""
+    from repro_torch.launch.dryrun import _trace_cell, fake_world
+    from repro_torch.launch.mesh import LMMesh
+
+    ranks, _, _ = runs
+    shape, arch, kw = CASES[name]
+    with fake_world(int(np.prod(shape))):
+        tr = _trace_cell(port_cfg(arch, kw), LMMesh(shape, mesh_names(shape), device="cpu"), "train", S, B)
+    want = json.loads(str(ranks[0][f"{name}/calls"]))[0]
+    assert tr.calls == want and len(tr.records) == sum(want.values())
 
 
 def test_refusals_and_the_cli(runs):

@@ -436,6 +436,27 @@ def test_mesh_refuses_a_world_of_another_size_and_a_mismatched_device(world):
         ProcessGroupMesh(2, 4)  # the test process has no world
 
 
+@pytest.mark.parametrize("backend", ["mpi", "ucc", "xccl", "undefined", "NCCL"])
+def test_process_device_refuses_other_backends_and_takes_the_fake_world(backend):
+    """Only NCCL, gloo and the dry-run's ``fake`` world are taken; NCCL on
+    the CPU and gloo off it are refused; a fake world computes on the
+    device it is given (no card needed: nothing runs there)."""
+    from repro_torch.launch.mesh import process_device
+
+    with pytest.raises(ValueError, match="NCCL or gloo"):
+        process_device(backend)
+    with pytest.raises(ValueError, match="NCCL process group computes on a CUDA device"):
+        process_device("nccl", "cpu")
+    with pytest.raises(ValueError, match="device must be a CUDA device or 'cpu'"):
+        process_device("gloo", "meta")
+    with pytest.raises(ValueError, match="device must be a CUDA device or 'cpu'"):
+        process_device("fake", "meta")
+    assert process_device("gloo") == torch.device("cpu")
+    assert process_device("fake") == torch.device("cuda")
+    assert process_device("fake", "cpu") == torch.device("cpu")
+    assert process_device("fake", "cuda:3") == torch.device("cuda", 3)
+
+
 @pytest.mark.parametrize("i", range(len(MESH_SHAPES)))
 def test_make_solver_mesh_in_a_world_follows_reference_rule(world, monkeypatch, i):
     import repro.launch.mesh as ref_mesh
